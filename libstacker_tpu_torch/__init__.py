@@ -4,9 +4,11 @@ A second package beside ``libstacker_tpu`` (the JAX reference, which it
 never imports): the same public surface, written as plain PyTorch
 functions on tensors, with the TPU's Pallas kernels rewritten by hand in
 CUDA for Hopper (``csrc/``, built on first use by
-``utils/cuda_build.py``).  This slice ports the ECC-homography
-align-and-stack path (``ecc_match`` / ``ecc_match_arrays``, mean stack);
-ROADMAP.md lists what follows.
+``utils/cuda_build.py``).  Two paths are ported: the ECC-homography
+align-and-stack path (``ecc_match`` / ``ecc_match_arrays``) and the
+ORB-keypoint path (``keypoint_match`` / ``keypoint_match_arrays``:
+ORB, Hamming 2-NN, RANSAC), both with the mean stack; ROADMAP.md lists
+what follows.
 """
 
 from . import constants  # noqa: F401
@@ -23,6 +25,11 @@ from .params import (  # noqa: F401
     MotionType,
 )
 from .models.ecc import ecc_match, ecc_match_arrays, ecc_match_stream  # noqa: F401
+from .models.keypoint import (  # noqa: F401
+    keypoint_match,
+    keypoint_match_arrays,
+    keypoint_match_stream,
+)
 from .utils.io import load_frames  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,0 +1,277 @@
+"""``keypoint_match`` pipeline — ORB/RANSAC-aligned burst stacking.
+
+Counterpart of ``libstacker_tpu/models/keypoint.py`` (``_adjust_h_for_scale``
+:39, ``_match_and_estimate`` :181, ``_warp_and_accumulate`` :295,
+``keypoint_match_arrays`` :466, ``keypoint_match`` :674), itself the
+counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
+146-601).  Stages, all on one device:
+
+1. grey (``ops/color``), INTER_AREA-scaled on the scaled path;
+2. ORB on every frame in one batched call per pyramid level
+   (``ops/orb``, kernels B8 and B3);
+3. Hamming 2-NN matching against frame 0, ratio / sort / keep filter and
+   RANSAC homographies (``ops/matcher``, ``ops/ransac``), all frames at
+   once;
+4. frame 0 plus the masked sum of the aligned frames 1..N-1
+   (``ops/warp_batch``, kernel B2), divided by the kept count.
+
+Drop bookkeeping follows the JAX package (SURVEY.md §3.1): frames with
+fewer than 5 kept matches, a failed estimate or |det H| < 1e-6 are
+dropped, contribute nothing, and the divisor is ``1 + kept``.  The JAX
+package's detection chunk budget and speculative warp exist for the
+TPU and have no counterpart.  Options this slice does not port raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import constants
+from ..errors import InvalidParamsError, NotEnoughFilesError
+from ..params import KeyPointMatchParameters
+from ..ops import color, matcher, orb, ransac, resize
+from ..ops.ecc import _phase
+from ..ops.warp_batch import warp_accumulate_rgb
+from ..utils import io
+from ..utils.device import resolve_device
+from ..utils.tracing import PhaseTimer, PipelineStats
+from .ecc import _f32, _single_frame_out
+
+# frames per chunk of the grey conversion (bounds its int32 transients)
+_GREY_CHUNK = 16
+
+
+def _adjust_h_for_scale(h: torch.Tensor, small_hw, full_hw) -> torch.Tensor:
+    """Rescale homographies estimated on scaled frames to full
+    resolution (ref src/utils.rs:218-248)."""
+    sx = _f32(full_hw[1] / small_hw[1])
+    sy = _f32(full_hw[0] / small_hw[0])
+    h = h.clone()
+    h[..., 0, 2] *= sx
+    h[..., 1, 2] *= sy
+    h[..., 2, 0] /= sx
+    h[..., 2, 1] /= sy
+    return h
+
+
+def _grey(frames: torch.Tensor, scale_hw=None) -> torch.Tensor:
+    """Stage 1: uint8 grey of every frame (uint16 bursts detect on their
+    high byte), INTER_AREA-scaled on the scaled path."""
+    out = []
+    for s in range(0, frames.shape[0], _GREY_CHUNK):
+        grey = color.rgb_to_gray_u8(frames[s : s + _GREY_CHUNK])
+        if scale_hw is not None:
+            grey = resize.resize(grey, scale_hw, constants.INTER_AREA)
+        out.append(grey)
+    return torch.cat(out)
+
+
+def _match_and_estimate(
+    feats: orb.OrbFeatures,
+    generator: torch.Generator,
+    method: int,
+    ransac_reproj_threshold: float,
+    match_keep_ratio: float,
+    match_ratio: float,
+    max_iters: int = 2000,
+    confidence: float = 0.995,
+):
+    """Stage 3: frames 1..N-1 matched against frame 0 and their
+    homographies (frame-i -> frame-0) estimated, all at once.
+
+    Returns (hs [N-1,3,3], oks [N-1], match_counts, inlier_counts)."""
+    knn = matcher.knn_match2(feats.descriptors[0], feats.descriptors[1:],
+                             feats.valid[0], feats.valid[1:])
+    filt = matcher.ratio_filter_sort_keep(knn, match_ratio, match_keep_ratio)
+    src = feats.xy[0][filt.query_idx]  # frame-0 points (match.query)
+    dst = torch.gather(feats.xy[1:], 1,
+                       filt.train_idx[..., None].expand(-1, -1, 2))
+    enough = filt.count >= 5  # ref src/lib.rs:240-242
+    # find_homography(dst_pts, src_pts): H maps frame-i -> frame-0
+    res = ransac.find_homography(
+        dst, src, filt.keep, generator, method=method,
+        reproj_threshold=ransac_reproj_threshold, max_iters=max_iters,
+        confidence=confidence,
+    )
+    det = torch.linalg.det(res.h)
+    ok = enough & res.ok & (torch.abs(det) >= 1e-6)  # ref src/lib.rs:279-287
+    return res.h, ok, filt.count, res.num_inliers
+
+
+def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None):
+    """Stage 4: frame 0 plus the masked sum of the aligned frames 1..N-1
+    (BORDER_CONSTANT; BORDER_TRANSPARENT over the zero base is a zero
+    border)."""
+    h, w = frames.shape[1], frames.shape[2]
+    if scale_hw is not None:
+        hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
+    # dropped frames contribute nothing, but their (possibly wild or
+    # non-finite) matrices must not reach the warp: NaN * 0 == NaN
+    eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
+    hs = torch.where(oks[:, None, None], hs, eye)
+    return color.to_unit_f32(frames[0]) + warp_accumulate_rgb(
+        frames[1:], hs, oks, perspective=True, border_value=border_value,
+    )
+
+
+def _check_ported(params: KeyPointMatchParameters, mask, mesh) -> None:
+    """Raise for the options this slice does not port."""
+    border = constants.border_mode_name(params.border_mode)
+    unported = [
+        (mask is not None, "mask=", "ROADMAP.md Queue A item 13"),
+        (border not in ("constant", "transparent"),
+         f"border_mode={border!r}", "ROADMAP.md Queue A item 13"),
+        (params.stacking != "mean", f"stacking={params.stacking!r}",
+         "ROADMAP.md Queue A item 13"),
+        (params.output_scale != 1, f"output_scale={params.output_scale}",
+         "ROADMAP.md Queue A item 14"),
+        (mesh is not None, "mesh=", "ROADMAP.md Queue A item 16"),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to libstacker_tpu_torch yet ({item})"
+            )
+
+
+def keypoint_match_arrays(
+    frames,
+    params: KeyPointMatchParameters = KeyPointMatchParameters(),
+    scale_down_width: Optional[float] = None,
+    seed: int = 0,
+    return_stats: bool = False,
+    mask: Optional[np.ndarray] = None,
+    mesh=None,
+    device_output: bool = False,
+    device="cuda",
+):
+    """Array-based ``keypoint_match``: ``frames`` is ``[N,H,W,3]`` uint8
+    (or uint16) RGB, numpy or a tensor.  A numpy burst is copied to
+    ``device`` once ("cuda" by default; asking for CUDA without a card
+    raises — pass ``device="cpu"`` for the plain CPU path); a tensor
+    runs on its own device.  RANSAC draws from a ``torch.Generator``
+    seeded with ``seed``.
+
+    Returns ``(dropped_count, stacked)`` like the reference returns
+    ``(i32, Mat)`` (src/lib.rs:129-144): the ``[H,W,3]`` float32 RGB
+    stack in [0,1] on frame 0's grid, as numpy, or as a tensor on the
+    device with ``device_output=True``; ``return_stats`` adds a
+    ``PipelineStats`` (match and inlier counts per frame, stage times in
+    ``phase_ms``, each ending in a device synchronise)."""
+    params.validate()
+    _check_ported(params, mask, mesh)
+    if isinstance(frames, torch.Tensor):
+        dev = resolve_device(frames.device)
+        dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
+    else:
+        frames = np.asarray(frames)
+        dev = resolve_device(device)
+        dtype_ok = frames.dtype in (np.uint8, np.uint16)
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise InvalidParamsError(
+            f"frames must be [N,H,W,3] uint8/uint16, got {tuple(frames.shape)}"
+        )
+    if not dtype_ok:
+        raise InvalidParamsError(
+            f"frames must be uint8 or uint16, got {frames.dtype}"
+        )
+    n, h, w = frames.shape[:3]
+    if n == 0:
+        raise NotEnoughFilesError()
+
+    scale_hw = None
+    if scale_down_width is not None:
+        # the keypoint path has no minimum-width guard (src/lib.rs:377)
+        if scale_down_width >= w:
+            raise InvalidParamsError(
+                "scale_down_to was larger (or equal) to the full image "
+                f"width: full_size:{w}, scale_down_to:{scale_down_width}"
+            )
+        scale_hw = resize.scale_image_size(h, w, scale_down_width)
+
+    if n == 1:
+        # the single-frame stack is frame 0 itself (src/lib.rs:306-343)
+        out = _single_frame_out(frames[0])
+        if return_stats:
+            return 0, out, PipelineStats(frames_total=1, frames_kept=1,
+                                         frames_dropped=0)
+        return 0, out
+
+    if isinstance(frames, torch.Tensor):
+        frames_t = frames.contiguous()
+    else:
+        frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+    timer = PhaseTimer(dev) if return_stats else None
+    with _phase(timer, "grey"):
+        grey = _grey(frames_t, scale_hw)
+    with _phase(timer, "detect"):
+        feats = orb.orb_detect_and_compute(grey)
+    del grey
+    with _phase(timer, "match+ransac"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        hs, oks, mcounts, icounts = _match_and_estimate(
+            feats, gen, method=params.method,
+            ransac_reproj_threshold=params.ransac_reproj_threshold,
+            match_keep_ratio=params.match_keep_ratio,
+            match_ratio=params.match_ratio,
+            max_iters=params.max_iters, confidence=params.confidence,
+        )
+    border = constants.border_mode_name(params.border_mode)
+    bv = [0.0] * 3 if border == "transparent" else list(params.border_value[:3])
+    with _phase(timer, "stack"):
+        stacked_sum = _warp_and_accumulate(frames_t, hs, oks, bv, scale_hw)
+    ok = oks.cpu().numpy()
+    kept = 1 + int(ok.sum())
+    dropped = int((~ok).sum())
+    fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
+    out = fetch(stacked_sum) / kept
+    if return_stats:
+        stats = PipelineStats(
+            frames_total=n,
+            frames_kept=kept,
+            frames_dropped=dropped,
+            match_counts=mcounts.cpu().tolist(),
+            inlier_counts=icounts.cpu().tolist(),
+            phase_ms=timer.ms(),
+        )
+        return dropped, out, stats
+    return dropped, out
+
+
+def keypoint_match(
+    files: Sequence,
+    params: KeyPointMatchParameters = KeyPointMatchParameters(),
+    scale_down_width: Optional[float] = None,
+    seed: int = 0,
+    return_stats: bool = False,
+    mask: Optional[np.ndarray] = None,
+    preserve_depth: bool = False,
+    mesh=None,
+    device="cuda",
+):
+    """Align and stack image files by ORB keypoint matching
+    (ref src/lib.rs:129-144): decode on the host (PIL), then
+    :func:`keypoint_match_arrays` on ``device``."""
+    if preserve_depth:
+        raise NotImplementedError(
+            "preserve_depth (16-bit decode) is not ported to "
+            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 13)"
+        )
+    frames = io.load_frames(files)
+    return keypoint_match_arrays(
+        frames, params, scale_down_width, seed, return_stats, mask=mask,
+        mesh=mesh, device=device,
+    )
+
+
+def keypoint_match_stream(*args, **kwargs):
+    """Streaming ``keypoint_match`` — not ported yet."""
+    raise NotImplementedError(
+        "keypoint_match_stream is not ported to libstacker_tpu_torch yet "
+        "(ROADMAP.md Queue A item 14)"
+    )

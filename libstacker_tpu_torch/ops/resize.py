@@ -1,12 +1,30 @@
-"""INTER_AREA resize as two float32 matmuls, plus the octave fast path.
+"""INTER_AREA / INTER_LINEAR / INTER_NEAREST resize, plus the octave
+fast path.
 
 Counterpart of ``libstacker_tpu/ops/resize.py`` (``_area_weights`` :35,
-``resize`` :142, ``scale_image_size`` :206) and of the 2x box-mean
-octave reduction in ``libstacker_tpu/ops/ecc.py:1019-1037``.  The
-per-axis weight matrices are the reference's exact ``_area_weights``;
-they are applied with ``torch.matmul`` in full float32 (TF32 off, see
-``utils/device.py``).  INTER_LINEAR and INTER_NEAREST wait for the
-keypoint slice (ROADMAP.md Queue A item 12).
+``_linear_weights`` :55, ``_banded_weights`` :79, ``_nearest_index``
+:136, ``resize`` :142, ``scale_image_size`` :206) and of the 2x box-mean octave reduction in
+``libstacker_tpu/ops/ecc.py:1019-1037``.  The per-axis weights are the
+reference's, and ``resize`` makes the reference's choice per axis (rows
+first, then columns) between the dense ``[dst, src]`` product and the
+block-banded one (``L < src and dst > _BLOCK // 2``), whose layout
+decides the order of the sums (below); neither product is formed.
+
+The sums follow the order the JAX package's forms take on the CPU, as
+far as it could be measured, so that uint8 results (``floor(x + 0.5)``)
+agree bit for bit where possible (the ORB pyramid feeds FAST, which
+compares integer pixels): each tap's product is rounded to float32, tap
+``k`` goes to lane ``(k - base) % _LANES`` (``base`` is the band's
+source origin on the banded form, 0 on the dense one), and the lanes are
+summed as a tree of adjacent pairs.  An empty lane adds an exact 0.0,
+so only a row's nonzero taps are gathered: the outputs are grouped by
+the shape of their tree, and an output costs its few taps instead of a
+product over the whole source axis.
+
+XLA:CPU's own order also depends on the array's shape: for some
+3- and 4-tap INTER_AREA rows, and for 2-D arrays, it uses fused
+multiply-add chains instead.  The residual this leaves is measured and
+pinned in ``tests/test_torch_resize.py`` (ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -20,6 +38,9 @@ import torch
 
 from .. import constants
 from ..errors import InvalidParamsError
+
+_BLOCK = 128  # output rows/cols per banded block
+_LANES = 16  # lanes of the dense form's tree (it must cover a row's taps)
 
 
 @functools.lru_cache(maxsize=256)
@@ -42,27 +63,165 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _linear_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] float32 bilinear weights with OpenCV coordinate mapping."""
+    scale = src / dst
+    w = np.zeros((dst, src), dtype=np.float64)
+    for x in range(dst):
+        fx = (x + 0.5) * scale - 0.5
+        sx = int(math.floor(fx))
+        frac = fx - sx
+        if sx < 0:
+            sx, frac = 0, 0.0
+        if sx >= src - 1:
+            sx, frac = src - 2, 1.0
+        if src == 1:
+            w[x, 0] = 1.0
+        else:
+            w[x, sx] += 1.0 - frac
+            w[x, sx + 1] += frac
+    return w.astype(np.float32)
+
+
+def _full_weights(src: int, dst: int, interpolation: int) -> np.ndarray:
+    if interpolation == constants.INTER_AREA:
+        return _area_weights(src, dst)
+    return _linear_weights(src, dst)
+
+
+@functools.lru_cache(maxsize=256)
+def _band(src: int, dst: int, interpolation: int):
+    """The reference's block-banded layout of the [dst, src] weights
+    (``_banded_weights`` :79): ``(bases, L)``, block ``g`` of ``_BLOCK``
+    outputs reading source window ``[bases[g], bases[g] + L)``."""
+    full = _full_weights(src, dst, interpolation)
+    spans = []
+    for g in range(-(-dst // _BLOCK)):
+        cols = np.nonzero(full[g * _BLOCK : (g + 1) * _BLOCK].any(axis=0))[0]
+        spans.append((int(cols[0]), int(cols[-1]) + 1))
+    L = max(hi - lo for lo, hi in spans)
+    return tuple(min(lo, src - L) for lo, _ in spans), L
+
+
+def _is_banded(src: int, dst: int, interpolation: int) -> bool:
+    """The reference's per-axis choice (``resize`` :188-190)."""
+    _, L = _band(src, dst, interpolation)
+    return L < src and dst > _BLOCK // 2
+
+
+def _lane_tree(taps, lanes: int):
+    """The adjacent-pairs tree over ``lanes`` lanes holding ``taps``
+    (``(lane, tap)`` pairs) as a nested tuple of tap numbers; empty
+    lanes drop out, and the two children of a node are put in a fixed
+    order (float addition is commutative, so this only merges equal
+    sums)."""
+    nodes = [None] * lanes
+    for lane, tap in taps:
+        nodes[lane] = tap
+    while len(nodes) > 1:
+        nxt = []
+        for a, b in zip(nodes[0::2], nodes[1::2]):
+            nxt.append(a if b is None else b if a is None
+                       else tuple(sorted((a, b), key=repr)))
+        nodes = nxt
+    return nodes[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _tap_plan(src: int, dst: int, interpolation: int):
+    """Gather plan of one axis: ``[(tree, rows, idx, wt)]``, one entry per
+    distinct summation tree; ``rows`` [G] are the outputs that use it,
+    ``idx`` / ``wt`` [G, T] their taps' source indices and weights in
+    ascending source order, and ``tree`` a nested tuple over 0..T-1."""
+    full = _full_weights(src, dst, interpolation)
+    bases, _ = _band(src, dst, interpolation)
+    banded = _is_banded(src, dst, interpolation)
+    nz = [np.nonzero(full[a])[0] for a in range(dst)]
+    span = max(int(k[-1] - k[0]) + 1 for k in nz)
+    lanes = max(_LANES, 1 << (span - 1).bit_length())
+    groups = {}
+    for a, ks in enumerate(nz):
+        base = bases[a // _BLOCK] if banded else 0
+        tree = _lane_tree(
+            [((int(k) - base) % lanes, j) for j, k in enumerate(ks)], lanes)
+        groups.setdefault(tree, []).append(a)
+    plan = []
+    for tree, rows in groups.items():
+        idx = np.stack([nz[a] for a in rows]).astype(np.int64)
+        wt = np.stack([full[a, nz[a]] for a in rows]).astype(np.float32)
+        plan.append((tree, np.asarray(rows, np.int64), idx, wt))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _tap_plan_on(src: int, dst: int, interpolation: int, device: torch.device):
+    """:func:`_tap_plan` with ``rows`` and each tap's indices and weights
+    as tensors on ``device``, copied once: a copy from pageable host
+    memory synchronises the device's stream."""
+    plan = []
+    for tree, rows, idx, wt in _tap_plan(src, dst, interpolation):
+        plan.append((
+            tree, torch.from_numpy(rows).to(device),
+            [torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in idx.T],
+            [torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in wt.T],
+        ))
+    return plan
+
+
+def _resize_axis(x: torch.Tensor, axis: int, dst: int,
+                 interpolation: int) -> torch.Tensor:
+    """Resize float32 ``x`` along ``axis`` (-2 or -1), summing in the
+    order of the module docstring."""
+    axis = axis % x.ndim
+    plan = _tap_plan_on(x.shape[axis], dst, interpolation, x.device)
+    shape = list(x.shape)
+    shape[axis] = dst
+    out = None if len(plan) == 1 else torch.empty(shape, dtype=torch.float32,
+                                                  device=x.device)
+    for tree, rows, idx, wt in plan:
+        wshape = [1] * x.ndim
+        wshape[axis] = len(rows)
+        prods = [x.index_select(axis, i) * w.reshape(wshape)
+                 for i, w in zip(idx, wt)]
+
+        def total(node):
+            if isinstance(node, tuple):
+                return total(node[0]) + total(node[1])
+            return prods[node]
+
+        if out is None:  # one group: every output, in order
+            return total(tree)
+        out.index_copy_(axis, rows, total(tree))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    scale = src / dst
+    return np.minimum(np.floor(np.arange(dst) * scale), src - 1).astype(np.int64)
+
+
 def resize(
     img: torch.Tensor,
     dsize: Tuple[int, int],
     interpolation: int = constants.INTER_AREA,
 ) -> torch.Tensor:
-    """Resize the trailing two axes of ``[..., H, W]`` to ``dsize=(h, w)``
-    with INTER_AREA.  Float inputs stay float32; uint8 inputs are
-    computed in float32 and rounded back (``floor(x + 0.5)``)."""
-    if interpolation != constants.INTER_AREA:
-        raise NotImplementedError(
-            f"interpolation {interpolation} is not ported (only INTER_AREA; "
-            "ROADMAP.md Queue A item 12)"
-        )
+    """Resize the trailing two axes of ``[..., H, W]`` to ``dsize=(h, w)``.
+    Float inputs stay float32; uint8 inputs are computed in float32 and
+    rounded back (``floor(x + 0.5)``, clamped)."""
     dh, dw = int(dsize[0]), int(dsize[1])
     if dh <= 0 or dw <= 0:
         raise InvalidParamsError(f"invalid dsize {dsize}")
     sh, sw = img.shape[-2], img.shape[-1]
-    wy = torch.from_numpy(_area_weights(sh, dh)).to(img.device)
-    wx = torch.from_numpy(_area_weights(sw, dw)).to(img.device)
-    out = torch.matmul(wy, img.to(torch.float32))
-    out = torch.matmul(out, wx.T)
+    if interpolation == constants.INTER_NEAREST:
+        yi = torch.from_numpy(_nearest_index(sh, dh)).to(img.device)
+        xi = torch.from_numpy(_nearest_index(sw, dw)).to(img.device)
+        return img.index_select(-2, yi).index_select(-1, xi)
+    if interpolation not in (constants.INTER_AREA, constants.INTER_LINEAR):
+        raise InvalidParamsError(f"unsupported interpolation {interpolation}")
+    out = _resize_axis(img.to(torch.float32), -2, dh, interpolation)
+    out = _resize_axis(out, -1, dw, interpolation)
     if img.dtype == torch.uint8:
         return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
     return out

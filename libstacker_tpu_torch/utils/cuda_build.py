@@ -55,31 +55,44 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}_{digest[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its hashed build is missing, then
-    load it.  The compiler's ``-Xptxas -v`` report (registers, spills)
-    is kept beside the library as ``<lib>.ptxas.txt``."""
-    out = library_path(name)
-    if not out.exists():
+def build(*names: str) -> None:
+    """Compile every ``csrc/<name>.cu`` whose hashed build is missing,
+    one ``nvcc`` per source, all started together.  The compiler's
+    ``-Xptxas -v`` report (registers, spills) is kept beside each
+    library as ``<lib>.ptxas.txt``."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
         BUILD.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu:\n{proc.stderr}"
-                )
-            out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode == 0:
+            out.with_suffix(".ptxas.txt").write_text(err)
             os.replace(tmp, out)  # atomic: concurrent builders agree
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return ctypes.CDLL(str(out))
+        else:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{err}")
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its hashed build is missing, then
+    load it."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def ptxas_report(name: str) -> str:

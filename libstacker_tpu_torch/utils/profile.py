@@ -1,0 +1,118 @@
+"""Device-time profile of one warm run of the keypoint slice on a CUDA
+card.
+
+    python -m libstacker_tpu_torch.utils.profile [--scale-down-width 800]
+
+Builds the keypoint bench's burst on the card (``utils/synth.py``: 20
+textured 2160x3840 frames), runs ``keypoint_match_arrays`` with the
+default parameters once cold and once warm, then once more under
+``torch.profiler``.  Prints the card's name and power limit, the
+warm wall time, the device busy time and idle share over the traced
+span, and the device time by kernel name, largest first; writes the
+chrome trace to ``chiprun_out/``.  Needs a card; exits non-zero without
+one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+OUT = Path(__file__).resolve().parents[2] / "chiprun_out"
+
+
+def _device_events(prof):
+    """(name, start_us, duration_us) of every device-side event."""
+    out = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((ev.name, ev.time_range.start, ev.time_range.elapsed_us()))
+    return out
+
+
+def _busy_us(events) -> float:
+    """Union of the device intervals (overlapping kernels count once)."""
+    spans = sorted((s, s + d) for _, s, d in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale-down-width", type=float, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_arrays
+    from libstacker_tpu_torch.utils.device import resolve_device
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    n = 20
+    frames, _ = make_textured_burst(n, 2160, 3840, seed=0, device=dev)
+
+    def run():
+        return keypoint_match_arrays(
+            frames, KeyPointMatchParameters(),
+            scale_down_width=args.scale_down_width, device_output=True)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    OUT.mkdir(exist_ok=True)
+    tag = "keypoint" + (f"_sdw{int(args.scale_down_width)}"
+                        if args.scale_down_width else "")
+    trace = OUT / f"profile_{tag}.json"
+    prof.export_chrome_trace(str(trace))
+    print(smi)
+    print(f"keypoint slice, {n}x2160x3840, scale_down_width="
+          f"{args.scale_down_width}: warm wall {warm_ms:.1f} ms")
+    if not events:
+        print("no device events in the trace")
+        return 1
+    span = max(s + d for _, s, d in events) - min(s for _, s, _ in events)
+    busy = _busy_us(events)
+    print(f"device span {span / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, "
+          f"idle {100.0 * (1.0 - busy / span):.1f} %, kernels {len(events)}")
+    by_name = defaultdict(lambda: [0.0, 0])
+    for name, _, d in events:
+        by_name[name][0] += d
+        by_name[name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+    print(f"{'device ms':>10} {'share':>6} {'count':>6}  kernel")
+    for name, (d, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"{d / 1e3:10.3f} {100.0 * d / total:5.1f}% {c:6d}  {name[:110]}")
+    print(f"trace: {trace}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -56,3 +56,88 @@ def burst(seed, n_frames, h, w, **kw):
 
     frames, truth = make_burst(n_frames, h, w, seed=seed, **kw)
     return frames.cpu().numpy(), truth
+
+
+def measure_resize(seeds=20) -> None:
+    """uint8 resize residual of the port against the JAX package: pixels
+    1 LSB apart over ``seeds`` random inputs per case (ROADMAP.md Queue
+    C), and the first levels of a 1080x1920 ORB pyramid chain."""
+    import jax
+    import jax.numpy as jnp
+    from libstacker_tpu.ops import resize as jresize
+    from libstacker_tpu_torch import constants as C
+    from libstacker_tpu_torch.ops import resize
+
+    def off(a, b):
+        return int((n(a).astype(int) != n(b).astype(int)).sum())
+
+    for src, dst in (((100, 140), (64, 89)), ((540, 960), (200, 355))):
+        bad = total = 0
+        for seed in range(seeds):
+            x = np.random.default_rng(seed).integers(
+                0, 256, (2,) + src).astype(np.uint8)
+            got = resize.resize(t(x), dst, C.INTER_AREA)
+            bad += off(got, jresize.resize(jnp.asarray(x), dst, C.INTER_AREA))
+            total += got.numel()
+        print(f"INTER_AREA {src} -> {dst}, seeds 0..{seeds - 1}: {bad} of "
+              f"{total} pixels 1 LSB apart")
+    x = np.random.default_rng(9).integers(0, 256, (2, 1080, 1920)).astype(np.uint8)
+    got, want = t(x), jnp.asarray(x)
+    for level in range(1, 4):
+        d = (round(1080 / 1.2 ** level), round(1920 / 1.2 ** level))
+        got = resize.resize(got, d, C.INTER_LINEAR)
+        want = jax.vmap(lambda g, d=d: jresize.resize(g, d, C.INTER_LINEAR))(want)
+        print(f"INTER_LINEAR 1080x1920 chain, level {level} {d}: "
+              f"{off(got, want)} of {got.numel()} pixels 1 LSB apart")
+
+
+def measure_keypoint_accuracy(n_frames=6, h=1080, w=1920, width=400.0) -> None:
+    """Largest distance between the image corners mapped by each
+    estimated homography and by the true warp, for the JAX package and
+    the port (seed 0, default parameters), at full resolution and with
+    detection on the ``scale_down_width=width`` grid."""
+    import jax
+    import jax.numpy as jnp
+    from libstacker_tpu.models import keypoint as jkp
+    from libstacker_tpu_torch import KeyPointMatchParameters
+    from libstacker_tpu_torch.models import keypoint as pkp
+    from libstacker_tpu_torch.ops import orb, resize
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, truth = make_textured_burst(n_frames, h, w, seed=0)
+    p = KeyPointMatchParameters()
+    args = (p.method, p.ransac_reproj_threshold, p.match_keep_ratio,
+            p.match_ratio, p.max_iters, p.confidence)
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                        [w - 1, h - 1, 1.0]])
+
+    def err(hs):
+        a = corners @ np.swapaxes(np.asarray(hs, np.float64), -1, -2)
+        b = corners @ np.swapaxes(truth[1:], -1, -2)
+        return float(np.abs(a[..., :2] / a[..., 2:] - b[..., :2] / b[..., 2:]).max())
+
+    for sdw in (None, width):
+        shw = resize.scale_image_size(h, w, sdw) if sdw else None
+        feats = orb.orb_detect_and_compute(pkp._grey(frames, shw))
+        hs = pkp._match_and_estimate(
+            feats, torch.Generator().manual_seed(0), *args)[0]
+        jfeats = jkp._grey_and_detect(jnp.asarray(frames.numpy()), shw)
+        jhs = jkp._match_and_estimate(jfeats, jax.random.PRNGKey(0), *args)[0]
+        if shw:
+            hs = pkp._adjust_h_for_scale(hs, shw, (h, w))
+            jhs = jkp._adjust_h_for_scale(jhs, shw, (h, w))
+        print(f"{n_frames}x{h}x{w}, detection on {shw or (h, w)}: corners "
+              f"within {err(hs):.3f} px of the truth (port), "
+              f"{err(jhs):.3f} px (JAX package)")
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/_torch_parity.py {resize|keypoint}
+    # (from the repo root; CPU, both packages)
+    import sys
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    {"resize": measure_resize,
+     "keypoint": measure_keypoint_accuracy}[sys.argv[1]]()

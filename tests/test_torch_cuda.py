@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Phases 2-4 of chip_smoke.py at small sizes.  Every test needs CUDA and
+Phases 2-4 and 6-8 of chip_smoke.py at small sizes.  Every test needs CUDA and
 the ``nvcc`` toolchain, is marked ``cuda`` and skips without a card.
 This file imports no JAX, so on a machine with the card run it without
 the suite's JAX-configuring conftest:
@@ -11,7 +11,10 @@ Bars: moments per group norm-relative < 1e-4 (the kernel sums in float32
 partials then double, the plain version in double, and both bin every
 coordinate identically: the kernels are built with --fmad=false);
 warp-accumulate max abs < 1e-3 and u8 source == f32 source bitwise;
-slice: equal ok flags, warps within 0.03, stacked interior within 0.02.
+slice: equal ok flags, warps within 0.03, stacked interior within 0.02;
+FAST (B8) and patch extraction (B3) bitwise equal to their plain
+versions; keypoint slice: equal ``dropped``, homographies mapping the
+image corners within 0.5 px, stacked interior within 0.02.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ pytest.importorskip("scipy")
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
-    color, ecc, ecc_cuda, warp, warp_accum_cuda,
+    color, ecc, ecc_cuda, fast_cuda, orb_cuda, warp, warp_accum_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -32,7 +35,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (kernels B1/B2 have no CPU mode)")
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -107,3 +110,62 @@ def test_slice_cuda_matches_cpu(dev):
     assert st_cpu.frames_kept == st_gpu.frames_kept == 4
     np.testing.assert_allclose(st_gpu.ecc_rho, st_cpu.ecc_rho, atol=1e-3)
     assert np.abs(gpu[8:-8, 8:-8] - cpu[8:-8, 8:-8]).max() < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("border", [0, 31])
+def test_fast_kernel_matches_plain(dev, dtype, border):
+    rng = np.random.default_rng(5)
+    imgs = np.stack([smooth(rng, (150, 331), sigma=1.0) for _ in range(3)])
+    imgs = torch.from_numpy(imgs).to(dev)
+    imgs = imgs.round().to(torch.uint8) if dtype == torch.uint8 else imgs
+    got = fast_cuda.fast_scores(imgs, 20, border)
+    want = fast_cuda.fast_scores_reference(imgs, 20, border)
+    torch.cuda.synchronize()
+    assert int((want > 0).sum()) > 100
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radius", [orb_cuda.BLUR_RADIUS, orb_cuda.PATCH_RADIUS])
+def test_extract_kernel_matches_plain(dev, radius):
+    rng = np.random.default_rng(6)
+    imgs = torch.from_numpy(
+        rng.integers(0, 256, (2, 120, 200)).astype(np.uint8)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 120, (2, 33)).astype(np.int32)).to(dev)
+    xs = torch.from_numpy(rng.integers(0, 200, (2, 33)).astype(np.int32)).to(dev)
+    ys[:, :3] = torch.tensor([0, 119, 140], dtype=torch.int32)
+    xs[:, :3] = torch.tensor([-5, 199, 3], dtype=torch.int32)
+    for src in (imgs, imgs.float()):
+        got = orb_cuda.extract_patches(src, ys, xs, radius)
+        want = orb_cuda.extract_patches_reference(src, ys, xs, radius)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_keypoint_slice_cuda_matches_cpu(dev):
+    from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_arrays
+    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import orb
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, _ = make_textured_burst(4, 270, 480, seed=2)
+    frames = frames.numpy()
+    p = KeyPointMatchParameters()
+    hs = []
+    for device in ("cpu", dev):
+        grey = keypoint._grey(torch.from_numpy(frames).to(device))
+        feats = orb.orb_detect_and_compute(grey)
+        gen = torch.Generator(device=device).manual_seed(0)
+        h, ok, _, _ = keypoint._match_and_estimate(
+            feats, gen, p.method, p.ransac_reproj_threshold,
+            p.match_keep_ratio, p.match_ratio)
+        assert bool(ok.all())
+        hs.append(h.double().cpu().numpy())
+    corners = np.array([[0, 0, 1], [479, 0, 1], [0, 269, 1], [479, 269, 1.0]])
+    for a, b in zip(*hs):
+        pa, pb = corners @ a.T, corners @ b.T
+        assert np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max() < 0.5
+    d_cpu, cpu = keypoint_match_arrays(frames, p, device="cpu")
+    d_gpu, gpu = keypoint_match_arrays(frames, p, device=dev)
+    assert d_cpu == d_gpu == 0
+    assert np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16]).max() < 0.02

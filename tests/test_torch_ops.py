@@ -25,7 +25,7 @@ from libstacker_tpu.ops import phasecorr as jphase  # noqa: E402
 from libstacker_tpu.ops import resize as jresize  # noqa: E402
 from libstacker_tpu.ops import warp as jwarp  # noqa: E402
 from libstacker_tpu.params import MotionType as JMotion  # noqa: E402
-from libstacker_tpu_torch import constants  # noqa: E402
+from libstacker_tpu_torch import constants, errors  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
     color, filters, phasecorr, resize, warp,
 )
@@ -106,9 +106,12 @@ def test_inter_area_u8_bit_exact(rng_local, src, dst):
     if all(a % b == 0 for a, b in zip(src, dst)):
         np.testing.assert_array_equal(got, want)
     else:
-        # fractional ratios: the two matmuls sum the band in different
-        # orders, so a value within a float32 ulp of k + 0.5 may round
-        # the other way (ROADMAP.md Queue C)
+        # fractional ratios: both packages take the dense form here
+        # (the band would cover the whole source on both axes), and
+        # XLA:CPU's order of the taps' sums inside that one product
+        # depends on the array's shape, so a value within a float32 ulp
+        # of k + 0.5 may round the other way (ops/resize.py,
+        # tests/test_torch_resize.py, ROADMAP.md Queue C)
         d = np.abs(got.astype(int) - want.astype(int))
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
 
@@ -127,8 +130,8 @@ def test_inter_area_f32_and_octave(rng_local):
         jresize.scale_image_size(1080, 1920, 540)
     assert resize.scale_image_size(140, 100, 64) == \
         jresize.scale_image_size(140, 100, 64)
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        resize.resize(t(x), (10, 10), constants.INTER_LINEAR)
+    with pytest.raises(errors.InvalidParamsError, match="interpolation"):
+        resize.resize(t(x), (10, 10), constants.INTER_CUBIC)
 
 
 @pytest.mark.parametrize("kind", ["perspective", "affine"])
