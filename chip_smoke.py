@@ -6,7 +6,7 @@
 Phases (each prints one line; any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), torch / CUDA
-   versions, and the ``nvcc`` build of the four kernels from ``csrc/``
+   versions, and the ``nvcc`` build of the five kernel sources of ``csrc/``
    (one ``nvcc`` per source, all started together);
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
@@ -34,7 +34,33 @@ Phases (each prints one line; any failure exits non-zero):
    ``scale_down_width=800``, each cold and warm, with the kernels'
    launch counters of the warm runs, the homographies against the
    burst's true warps (image corners within the RANSAC threshold on the
-   detection grid) and the stack against the ground-truth-warp stack.
+   detection grid) and the stack against the ground-truth-warp stack;
+10. kernel B4 (``warp_accum.cu``, moments form) against its plain version
+    at the main path's shape (99 u8 frames of 2160x3840, one dropped): a
+    moments pass, then a clip pass fed with that pass's mean and
+    kappa-sigma tolerance; S0 and C0 bitwise, S1 and S2 bitwise or within
+    1e-6 of the plane's largest value;
+11. kernel B5 (``warp.cu``) against its plain version, bitwise, on the 60
+    planes of phase 9's 20 RGB 4K frames in each of the six border modes,
+    once with slots sharing sources (``src_index``) and once on an output
+    grid other than the source's;
+12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
+    of 3 shared 4K planes;
+13. B1's masked (4-plane) form against its plain version on 99 homography
+    lanes of 2160x3840 with a quarter of the mask zero;
+14. ECC sigma-clip at full width: phase 5's burst with a bright 3-px
+    streak drawn into frames 7, 41 and 83, stacked by the mean and by
+    kappa-sigma (kappa 2.5, one clip pass), held against phase 5's clean
+    stack on and away from the streaks;
+15. ECC with a mask at full width (zero on the top-left sixteenth, as
+    ``bench.py:640-642`` sets it);
+16. the keypoint path at full width with ``stacking="sigma_clip"`` and
+    with ``BORDER_REPLICATE``, and with a detection mask on the
+    ``scale_down_width=800`` grid.
+
+Phases 5, 9 and 14-16 drive the entry points with every launch counter
+set to 0 just before the run and read just after it, and fail if a
+kernel of that path was not launched.
 
 Each kernel record carries its time (CUDA events), its plain version's
 time, the bound of the same work at the card's published rates (bytes
@@ -57,7 +83,7 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract")
+KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp")
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -104,6 +130,22 @@ B2_OPS = 15 + 12 + 8 + 3 * 10 + 3 * 4 + 3 * 2
 # arc trees (16 + 16 + 32 mins and 15 maxes each) and 16 negations
 B8_OPS_PIXEL = 16 + 8 + 9
 B8_OPS_CANDIDATE = 2 * (16 + 16 + 32 + 15) + 16
+# B4 per pixel-frame, counted off csrc/warp_accum.cu: coordinates,
+# quantisation and the coverage test for every frame; for the covered
+# frames B2's taps and channels plus the three moment sums and, in the
+# clip pass, the per-channel clip test
+B4_OPS_ANY = 15 + 12 + 6
+B4_OPS_COVERED = 8 + 3 * 10 + 3 * 4 + 3 * 5
+B4_OPS_CLIP = 3 * 4
+# B5 per output value and B9 per output pixel-lane (csrc/warp.cu):
+# coordinates, quantisation, the border test or index map, the lerp
+B5_OPS = 15 + 12 + 8 + 10
+B9_OPS = 15 + 12 + 8 + 3 * 10
+# sigma-clip phase (tests/test_stack.py:127-136): the streak's error
+# under kappa-sigma against the mean stack's, and away from the streak
+SIGMA_STREAK_RATIO = 0.25
+SIGMA_FAR_BAR = 0.01
+STREAK_FRAMES = (7, 41, 83)
 
 
 def bound(nbytes: float, ops: float):
@@ -172,6 +214,57 @@ def group_rel(got, want, p, with_hessian=True):
         scale = np.abs(want[:, lo:hi]).max(axis=1) + 1e-6
         worst = max(worst, float((err / scale).max()))
     return worst
+
+
+def counters():
+    """Each kernel's launch counter: name -> (module, attribute)."""
+    from libstacker_tpu_torch.ops import (
+        ecc_cuda, fast_cuda, orb_cuda, warp_accum_cuda, warp_cuda,
+    )
+
+    return {
+        "ecc_moments": (ecc_cuda, "launch_count"),
+        "ecc_moments_masked": (ecc_cuda, "masked_launch_count"),
+        "warp_accum": (warp_accum_cuda, "launch_count"),
+        "warp_moments": (warp_accum_cuda, "moments_launch_count"),
+        "fast": (fast_cuda, "launch_count"),
+        "orb_extract": (orb_cuda, "launch_count"),
+        "warp": (warp_cuda, "launch_count"),
+        "warp3": (warp_cuda, "warp3_launch_count"),
+    }
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
+
+
+def drive(fn):
+    """Run an entry point cold, then warm with every launch counter set
+    to 0 just before and read just after -> (result, cold_s, warm_s,
+    launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    return result, cold_s, warm_s, read_counts()
+
+
+def missing(launches: dict, names) -> list:
+    """The kernels of a path that its run did not launch."""
+    return [k for k in names if launches[k] == 0]
 
 
 def phase_device():
@@ -347,27 +440,24 @@ def phase_slice_parity(dev):
 
 def phase_full(dev):
     from libstacker_tpu_torch import ecc_match_arrays
-    from libstacker_tpu_torch.ops import ecc_cuda, warp_accum_cuda
     from libstacker_tpu_torch.utils.synth import make_burst
 
     params = headline_params()
-    frames, _ = make_burst(FULL_N, FULL_H, FULL_W, seed=0, device=dev)
+    frames, truth = make_burst(FULL_N, FULL_H, FULL_W, seed=0, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ecc_match_arrays(frames, params, device_output=True)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
 
-    ecc_cuda.launch_count = 0
-    warp_accum_cuda.launch_count = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, stats = ecc_match_arrays(frames, params, return_stats=True,
                                   device_output=True)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = {"ecc_moments": ecc_cuda.launch_count,
-                "warp_accum": warp_accum_cuda.launch_count}
+    launches = read_counts()
 
     iters = np.asarray(stats.ecc_iterations)
     rho = np.asarray(stats.ecc_rho)
@@ -379,7 +469,7 @@ def phase_full(dev):
     ok = (stats.frames_kept == FULL_N and float(rho.mean()) >= RHO_BAR
           and f0_diff < FRAME0_MEAN_BAR and finite
           and tuple(out.shape) == (FULL_H, FULL_W, 3)
-          and min(launches.values()) > 0)
+          and not missing(launches, ("ecc_moments", "warp_accum")))
     log(f"[5 full slice] {FULL_N}x{FULL_H}x{FULL_W} u8, homography, "
         f"coarse_levels=1: cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
         f"{FULL_N / warm_s:.2f} frames/s | stages ms: {splits} | iters "
@@ -389,7 +479,7 @@ def phase_full(dev):
         f"{'OK' if ok else 'FAILED'}")
     if not ok:
         fail("the full-size slice missed a bar")
-    return launches
+    return launches, frames, truth, out
 
 
 def textured_grey(dev):
@@ -548,13 +638,16 @@ def p99(a, b, margin=64):
     return float(torch.kthvalue(d.cpu(), int(0.99 * d.numel())).values)
 
 
-def kp_homographies(frames, params, scale_hw):
+def kp_homographies(frames, params, scale_hw, mask=None):
     """The full-resolution homographies of one ``keypoint_match_arrays``
     run (seed 0), recomputed through the same stages."""
-    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.models import ecc, keypoint
     from libstacker_tpu_torch.ops import orb
 
-    feats = orb.orb_detect_and_compute(keypoint._grey(frames, scale_hw))
+    det_mask = None if mask is None else ecc._ecc_mask(
+        mask, frames.shape[1:3], scale_hw, frames.device)
+    feats = orb.orb_detect_and_compute(keypoint._grey(frames, scale_hw),
+                                       mask=det_mask)
     gen = torch.Generator(device=frames.device).manual_seed(0)
     hs, oks, _, _ = keypoint._match_and_estimate(
         feats, gen, params.method, params.ransac_reproj_threshold,
@@ -567,9 +660,8 @@ def kp_homographies(frames, params, scale_hw):
 
 def phase_kp_full(dev, frames, truth):
     from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_arrays
-    from libstacker_tpu_torch.ops import fast_cuda, orb_cuda, resize, warp_accum_cuda
+    from libstacker_tpu_torch.ops import color, resize
     from libstacker_tpu_torch.ops.warp_batch import warp_accumulate_rgb
-    from libstacker_tpu_torch.ops import color
 
     params = KeyPointMatchParameters()
     n = frames.shape[0]
@@ -593,8 +685,7 @@ def phase_kp_full(dev, frames, truth):
                               device_output=True)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        for mod in (fast_cuda, orb_cuda, warp_accum_cuda):
-            mod.launch_count = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dropped, out, stats = keypoint_match_arrays(
@@ -602,9 +693,7 @@ def phase_kp_full(dev, frames, truth):
             device_output=True)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        launches = {"fast": fast_cuda.launch_count,
-                    "orb_extract": orb_cuda.launch_count,
-                    "warp_accum": warp_accum_cuda.launch_count}
+        launches = read_counts()
         q = p99(out, ref)
         c = 64
         f0_diff = float((out[c:-c, c:-c] - ref0[c:-c, c:-c]).abs().mean())
@@ -615,7 +704,7 @@ def phase_kp_full(dev, frames, truth):
         ok = (dropped == 0 and finite and c_err < corner_bar
               and (bar is None or q < bar)
               and tuple(out.shape) == (FULL_H, FULL_W, 3)
-              and min(launches.values()) > 0)
+              and not missing(launches, ("fast", "orb_extract", "warp_accum")))
         log(f"[9 keypoint slice {label}] {n}x{FULL_H}x{FULL_W} u8, default "
             f"parameters, detection on {scale_hw or (FULL_H, FULL_W)}: cold "
             f"{cold_s:.3f} s, warm {warm_s:.3f} s = {n / warm_s:.2f} frames/s "
@@ -628,6 +717,386 @@ def phase_kp_full(dev, frames, truth):
             f"{'OK' if ok else 'FAILED'}")
         if not ok:
             fail(f"the full keypoint slice ({label}) missed a bar")
+        results[label] = launches
+        del out
+    return results, ref
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_b4(dev, frames, truth):
+    """B4 on frames 1..N-1 of phase 5's burst, as the sigma-clip stack
+    sees them."""
+    from libstacker_tpu_torch.ops import stack, warp, warp_accum_cuda
+
+    frames = frames[1:]
+    n = frames.shape[0]
+    minv = warp.invert_3x3(torch.from_numpy(truth[1:]).float().to(dev))
+    minv = minv.contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[n // 2] = False
+    got = warp_accum_cuda.warp_moments_rgb(frames, minv, valid)
+    want = warp_accum_cuda.warp_moments_rgb_reference(frames, minv, valid)
+    # the clip pass of ops/stack.clip_iterate, fed with the kernel's pass
+    denom = torch.clamp(got[0], min=1.0)
+    mu = got[1] / denom
+    var = torch.clamp(got[2] / denom - mu * mu, min=0.0)
+    tol = (2.5 * torch.sqrt(var) + stack._CLIP_TOL).contiguous()
+    mu = mu.contiguous()
+    got_c = warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol)
+    want_c = warp_accum_cuda.warp_moments_rgb_reference(frames, minv, valid,
+                                                        mu, tol)
+    torch.cuda.synchronize()
+    count_equal = bool(torch.equal(got[0], want[0])
+                       and torch.equal(got_c[0], want_c[0]))
+    pairs = list(zip(got[1:], want[1:])) + list(zip(got_c[1:], want_c[1:]))
+    bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
+    rel = max(rel_err(a, b) for a, b in pairs)
+    max_abs = max(float((a - b).abs().max()) for a, b in pairs)
+    clipped = float((got[0] - got_c[0]).sum()) / max(float(got[0].sum()), 1.0)
+    ms_moments = time_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid), 10)
+    ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb(
+        frames, minv, valid, mu, tol), 10)
+    plain_ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb_reference(
+        frames, minv, valid, mu, tol), 1)
+    hw = FULL_H * FULL_W
+    # this run's data: coordinates and the coverage test for every
+    # pixel-frame, the taps and sums for the covered, valid ones
+    covered = float(want[0][..., 0].sum())
+    bound_ms, bound_by = bound(
+        n * hw * 3.0 + 2 * hw * 3 * 4.0 + 3 * hw * 3 * 4.0 + n * 40.0,
+        n * hw * float(B4_OPS_ANY)
+        + covered * (B4_OPS_COVERED + B4_OPS_CLIP))
+    ok = count_equal and rel <= 1e-6
+    why = ("S1/S2 bitwise" if bitwise else
+           "S1/S2 not bitwise: the compiler's order of the float sums "
+           "differs from PyTorch's")
+    log(f"[10 B4 warp_moments] {n} u8 frames of {FULL_H}x{FULL_W} (one "
+        f"dropped), moments pass then clip pass (kappa 2.5, "
+        f"{clipped:.4%} of samples clipped): S0 and C0 bitwise equal "
+        f"{count_equal}; {why}, rel {rel:.3e} (bar 1e-6), max abs "
+        f"{max_abs:.3e}; kernel {ms:.3f} ms clip pass, {ms_moments:.3f} ms "
+        f"moments pass, vs plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}; {covered / (n * hw):.3f} of pixel-frames covered) "
+        f"-> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B4 disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                moments_pass_ms=ms_moments,
+                library_note="no PyTorch call warps and reduces the "
+                             "coverage-masked moments over frames")
+
+
+def grid_for(minv, hw, src_hw):
+    """``grid_sample``'s normalised grid (align_corners=True) of each
+    inverse map: the unquantised source coordinates."""
+    from libstacker_tpu_torch.ops import warp
+
+    sh, sw = src_hw
+    grid = torch.empty((minv.shape[0], hw[0], hw[1], 2), dtype=torch.float32,
+                       device=minv.device)
+    for i, m in enumerate(minv):
+        sx, sy = warp._dst_coords(m, hw, perspective=True)
+        grid[i, ..., 0] = sx * (2.0 / (sw - 1)) - 1.0
+        grid[i, ..., 1] = sy * (2.0 / (sh - 1)) - 1.0
+    return grid
+
+
+def phase_b5(dev, frames, truth):
+    """B5 on the 60 planes of phase 9's burst, each slot its frame's
+    inverse map, as ``warp_frames_batch`` calls it."""
+    import torch.nn.functional as F
+
+    from libstacker_tpu_torch.ops import color, warp, warp_cuda
+
+    n, h, w, c = frames.shape
+    src = color.to_unit_f32(frames).permute(0, 3, 1, 2)
+    src = src.reshape(n * c, h, w).contiguous()
+    g = n * c
+    minv = warp.invert_3x3(torch.from_numpy(truth).float().to(dev))
+    minv = minv.repeat_interleave(c, dim=0).contiguous()
+    bv = torch.linspace(0.1, 0.9, g, device=dev)
+    modes = ("constant", "transparent", "replicate", "reflect",
+             "reflect101", "wrap")
+    cases = [(m, None, None) for m in modes]
+    # slots sharing sources (each frame's three slots read its first
+    # plane), and an output grid other than the source's
+    shared = (torch.arange(g, device=dev) // c) * c
+    cases += [("replicate", shared, None), ("wrap", None, (h - 112, w + 128))]
+    equal = True
+    max_abs = 0.0
+    for mode, sidx, out_hw in cases:
+        got = warp_cuda.warp_bilinear(src, minv, bv, sidx, out_hw, False, mode)
+        want = warp_cuda.warp_bilinear_reference(src, minv, bv, sidx, out_hw,
+                                                 False, mode)
+        torch.cuda.synchronize()
+        equal &= bool(torch.equal(got, want))
+        max_abs = max(max_abs, float((got - want).abs().max()))
+        del got, want
+    ms = time_ms(lambda: warp_cuda.warp_bilinear(
+        src, minv, border_mode="replicate"), 10)
+    plain_ms = time_ms(lambda: warp_cuda.warp_bilinear_reference(
+        src, minv, border_mode="replicate"), 1)
+    grid = grid_for(minv, (h, w), (h, w))
+    library_ms = time_ms(lambda: F.grid_sample(
+        src[:, None], grid, mode="bilinear", padding_mode="border",
+        align_corners=True), 10)
+    del grid
+    hw = h * w
+    bound_ms, bound_by = bound(g * hw * 4.0 * 2 + g * 40.0,
+                               g * hw * float(B5_OPS))
+    log(f"[11 B5 warp] {g} planes of {h}x{w} ({n} RGB frames) in each of "
+        f"{', '.join(modes)}, plus shared sources and a {h - 112}x{w + 128} "
+        f"grid: bitwise equal {equal}; kernel {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms (replicate), library grid_sample "
+        f"{library_ms:.3f} ms (border padding, grid precomputed, no 1/32 "
+        f"quantisation), bound {bound_ms:.3f} ms ({bound_by}) "
+        f"-> {'OK' if equal else 'MISMATCH'}")
+    if not equal:
+        fail("B5 disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_note="grid_sample(bilinear, border, align_corners) "
+                             "on a precomputed grid; it does not quantise "
+                             "to 1/32 px")
+
+
+def phase_b9(dev, frames):
+    import torch.nn.functional as F
+
+    from libstacker_tpu_torch.ops import color, warp_cuda
+
+    _, h, w, _ = frames.shape
+    srcs = color.to_unit_f32(frames[0]).permute(2, 0, 1).contiguous()
+    lanes = 16
+    rng = np.random.default_rng(12)
+    minv = torch.from_numpy(near_identity_homographies(rng, lanes, h, w))
+    minv = minv.to(dev)
+    got = warp_cuda.warp3_bilinear(srcs, minv)
+    want = warp_cuda.warp3_bilinear_reference(srcs, minv)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    max_abs = float((got - want).abs().max())
+    del got, want
+    ms = time_ms(lambda: warp_cuda.warp3_bilinear(srcs, minv), 10)
+    plain_ms = time_ms(lambda: warp_cuda.warp3_bilinear_reference(srcs, minv), 1)
+    grid = grid_for(minv, (h, w), (h, w))
+    batch = srcs[None].expand(lanes, 3, h, w).contiguous()
+    library_ms = time_ms(lambda: F.grid_sample(
+        batch, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 10)
+    del grid, batch
+    hw = h * w
+    bound_ms, bound_by = bound(3 * hw * 4.0 + lanes * 3 * hw * 4.0
+                               + lanes * 36.0, lanes * hw * float(B9_OPS))
+    log(f"[12 B9 warp3] {lanes} lanes of 3 shared {h}x{w} planes: bitwise "
+        f"equal {equal}; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"library grid_sample {library_ms:.3f} ms (zeros padding, grid "
+        f"precomputed, no 1/32 quantisation), bound {bound_ms:.3f} ms "
+        f"({bound_by}) -> {'OK' if equal else 'MISMATCH'}")
+    if not equal:
+        fail("B9 disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_note="grid_sample(bilinear, zeros, align_corners) "
+                             "on a precomputed grid; it does not quantise "
+                             "to 1/32 px")
+
+
+def phase_b1_masked(dev):
+    from libstacker_tpu_torch.ops import ecc as ecc_ops, ecc_cuda
+    from libstacker_tpu_torch.params import MotionType
+
+    rng = np.random.default_rng(13)
+    h, w, b = FULL_H, FULL_W, KERNEL_LANES
+    img = torch.from_numpy(smoothed_image(rng, h, w)).to(dev)
+    mask = torch.ones((h, w), device=dev)
+    mask[: h // 2, : w // 2] = 0.0  # a quarter of the mask zero
+    srcs = ecc_ops._prepare_masked_input(img, mask, 5).contiguous()
+    tmpl = torch.from_numpy(smoothed_image(rng, h, w)).to(dev)
+    tmpl = tmpl[None].repeat(b, 1, 1).contiguous()
+    m3 = torch.from_numpy(near_identity_homographies(rng, b, h, w)).to(dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[b // 3] = False
+    motion = MotionType.Homography
+    got = ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion, active=active)
+    want = ecc_cuda.ecc_iteration_moments_reference(srcs, tmpl, m3, motion,
+                                                    active=active)
+    torch.cuda.synchronize()
+    g = got.double().cpu().numpy()
+    wnt = want.double().cpu().numpy()
+    zero_ok = not np.any(g[~active.cpu().numpy()] != 0.0)
+    stats_rel = float((np.abs(g[:, :6] - wnt[:, :6])
+                       / (np.abs(wnt[:, :6]) + 1e-6)).max())
+    worst_rel = group_rel(g, wnt, motion.num_params)
+    max_abs = float(np.abs(g - wnt).max())
+    kept = float(wnt[active.cpu().numpy(), 0].mean()) / (h * w)
+    ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3,
+                                                        motion), 20)
+    plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
+        srcs, tmpl, m3, motion), 2)
+    bound_ms, bound_by = bound(4.0 * h * w * (4 + b) + 4.0 * b * 66,
+                               float(b) * h * w * (B1_OPS + 1))
+    ok = zero_ok and stats_rel < MOMENT_REL_BAR and worst_rel < MOMENT_REL_BAR
+    log(f"[13 B1 masked ecc_moments] {b} homography lanes at {h}x{w}, "
+        f"mask zero on a quarter ({kept:.3f} of pixels counted per active "
+        f"lane): stats rel {stats_rel:.3e}, group-norm rel {worst_rel:.3e} "
+        f"(bar {MOMENT_REL_BAR:g}), max abs {max_abs:.3e}, inactive lane "
+        f"zero {zero_ok}; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}) "
+        f"-> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B1's masked form disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def draw_streak(frames, idx, value=255):
+    """A bright 3-px diagonal line across frame ``idx`` (in place)."""
+    _, h, w, _ = frames.shape
+    n_pts = 4 * w
+    t = torch.linspace(0.0, 1.0, n_pts, device=frames.device)
+    xs = torch.round(0.1 * w + t * 0.8 * w).long()
+    ys = torch.round(0.2 * h + t * 0.6 * h).long()
+    for d in (-1, 0, 1):
+        frames[idx, (ys + d).clamp(0, h - 1), xs] = value
+
+
+def phase_ecc_sigma(dev, frames, clean):
+    """Sigma-clip at full width: the streaked burst's kappa-sigma stack
+    against phase 5's clean mean stack."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from libstacker_tpu_torch import ecc_match_arrays
+
+    dirty = frames.clone()
+    for i in STREAK_FRAMES:
+        draw_streak(dirty, i)
+    mean_dirty = ecc_match_arrays(dirty, headline_params(), device_output=True)
+    params = dataclasses.replace(headline_params(), stacking="sigma_clip",
+                                 sigma_kappa=2.5, sigma_iters=1)
+    (out, stats), cold_s, warm_s, launches = drive(
+        lambda: ecc_match_arrays(dirty, params, return_stats=True,
+                                 device_output=True))
+    del dirty
+    c = 64
+    d_mean = (mean_dirty - clean).abs().mean(-1)
+    d_sig = (out - clean).abs().mean(-1)
+    # the streak's footprint in the stack: where it moved the mean stack
+    # by at least half of one frame's full-contrast share
+    core = d_mean > 0.5 * 0.5 / FULL_N
+    interior = torch.zeros_like(core)
+    interior[c:-c, c:-c] = True
+    core &= interior
+    near = F.max_pool2d(core[None, None].float(), 19, 1, 9)[0, 0] > 0
+    far = interior & ~near
+    err_mean = float(d_mean[core].mean())
+    err_sig = float(d_sig[core].mean())
+    far_err = float(d_sig[far].mean())
+    rho = np.asarray(stats.ecc_rho)
+    ok = (stats.frames_kept == FULL_N and int(core.sum()) > 1000
+          and err_sig < SIGMA_STREAK_RATIO * err_mean
+          and far_err < SIGMA_FAR_BAR and bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (FULL_H, FULL_W, 3)
+          and launches["warp_moments"] == 1 + params.sigma_iters
+          and not missing(launches, ("ecc_moments",)))
+    splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+    log(f"[14 ECC sigma-clip] {FULL_N}x{FULL_H}x{FULL_W} u8, a 3-px streak "
+        f"in frames {list(STREAK_FRAMES)}, kappa 2.5, 1 clip pass: cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s = {FULL_N / warm_s:.2f} "
+        f"frames/s | stages ms: {splits} | kept {stats.frames_kept}/{FULL_N}, "
+        f"mean rho {rho.mean():.5f} | streak core ({int(core.sum())} px): "
+        f"mean stack err {err_mean:.3e}, sigma-clip err {err_sig:.3e} (bar "
+        f"{SIGMA_STREAK_RATIO} x mean) | away from it {far_err:.3e} (bar "
+        f"{SIGMA_FAR_BAR}) | clipped fraction "
+        f"{stats.clipped_sample_frac:.5f} | launches {launches} "
+        f"-> {'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("the full-size sigma-clip stack missed a bar")
+    return launches
+
+
+def phase_ecc_mask(dev, frames):
+    from libstacker_tpu_torch import ecc_match_arrays
+
+    mask = np.full((FULL_H, FULL_W), 255, np.uint8)
+    mask[: FULL_H // 4, : FULL_W // 4] = 0
+    (out, stats), cold_s, warm_s, launches = drive(
+        lambda: ecc_match_arrays(frames, headline_params(), mask=mask,
+                                 return_stats=True, device_output=True))
+    rho = np.asarray(stats.ecc_rho)
+    c = 64
+    ref0 = frames[0].float() / 255.0
+    f0_diff = float((out[c:-c, c:-c] - ref0[c:-c, c:-c]).abs().mean())
+    ok = (stats.frames_kept == FULL_N and float(rho.mean()) >= RHO_BAR
+          and f0_diff < FRAME0_MEAN_BAR and bool(torch.isfinite(out).all())
+          and "phase init" not in stats.phase_ms
+          and not missing(launches, ("ecc_moments_masked", "warp_accum")))
+    splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+    log(f"[15 ECC masked] {FULL_N}x{FULL_H}x{FULL_W} u8, mask zero on the "
+        f"top-left {FULL_H // 4}x{FULL_W // 4}: cold {cold_s:.3f} s, warm "
+        f"{warm_s:.3f} s = {FULL_N / warm_s:.2f} frames/s | stages ms: "
+        f"{splits} | kept {stats.frames_kept}/{FULL_N}, mean rho "
+        f"{rho.mean():.5f} (bar {RHO_BAR}) | stack vs frame 0 mean abs "
+        f"{f0_diff:.2e} | launches {launches} -> {'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("the full-size masked ECC stack missed a bar")
+    return launches
+
+
+def phase_kp_variants(dev, frames, truth, ref):
+    from libstacker_tpu_torch import (KeyPointMatchParameters, constants,
+                                      keypoint_match_arrays)
+    from libstacker_tpu_torch.ops import resize
+
+    n = frames.shape[0]
+    mask = np.full((FULL_H, FULL_W), 255, np.uint8)
+    mask[: FULL_H // 4, : FULL_W // 4] = 0
+    cases = (
+        ("sigma_clip", dict(stacking="sigma_clip"), None, None,
+         ("fast", "orb_extract", "warp_moments"), None),
+        ("replicate", dict(border_mode=constants.BORDER_REPLICATE), None,
+         None, ("fast", "orb_extract", "warp"), KP_P99_BAR),
+        ("scaled-800 mask", {}, 800.0, mask,
+         ("fast", "orb_extract", "warp_accum"), None),
+    )
+    results = {}
+    for label, kw, sdw, m, kernels, bar in cases:
+        params = KeyPointMatchParameters(**kw)
+        scale_hw = resize.scale_image_size(FULL_H, FULL_W, sdw) if sdw else None
+        grid = FULL_W / scale_hw[1] if scale_hw else 1.0
+        corner_bar = params.ransac_reproj_threshold * grid
+        (dropped, out, stats), cold_s, warm_s, launches = drive(
+            lambda: keypoint_match_arrays(
+                frames, params, scale_down_width=sdw, mask=m,
+                return_stats=True, device_output=True))
+        q = p99(out, ref)
+        hs, oks = kp_homographies(frames, params, scale_hw, m)
+        c_err = corner_err(hs, truth[1:][oks], FULL_H, FULL_W)
+        ok = (dropped == 0 and bool(torch.isfinite(out).all())
+              and c_err < corner_bar and (bar is None or q < bar)
+              and tuple(out.shape) == (FULL_H, FULL_W, 3)
+              and not missing(launches, kernels))
+        extra = ("" if stats.clipped_sample_frac is None else
+                 f" | clipped fraction {stats.clipped_sample_frac:.5f}")
+        splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+        log(f"[16 keypoint {label}] {n}x{FULL_H}x{FULL_W} u8, detection on "
+            f"{scale_hw or (FULL_H, FULL_W)}: cold {cold_s:.3f} s, warm "
+            f"{warm_s:.3f} s = {n / warm_s:.2f} frames/s | stages ms: "
+            f"{splits} | kept {stats.frames_kept}/{n} | matches min "
+            f"{min(stats.match_counts)} | corners by H vs truth within "
+            f"{c_err:.3f} px (bar {corner_bar:.2f}) | stack vs truth stack "
+            f"p99 {q:.4f} (bar {bar if bar is not None else 'none'}){extra} "
+            f"| launches {launches} -> {'OK' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"the keypoint {label} stack missed a bar")
         results[label] = launches
         del out
     return results
@@ -656,7 +1125,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_slice_parity(dev)
     torch.cuda.synchronize()
-    launches = phase_full(dev)
+    launches, ecc_frames, ecc_truth, ecc_clean = phase_full(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     frames, truth, grey = textured_grey(dev)
@@ -666,13 +1135,32 @@ def main() -> int:
     del grey
     torch.cuda.empty_cache()
     phase_kp_parity(dev)
-    kp = phase_kp_full(dev, frames, truth)
+    kp, kp_ref = phase_kp_full(dev, frames, truth)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    b4 = phase_b4(dev, ecc_frames, ecc_truth)
+    torch.cuda.empty_cache()
+    b5 = phase_b5(dev, frames, truth)
+    torch.cuda.empty_cache()
+    b9 = phase_b9(dev, frames)
+    torch.cuda.empty_cache()
+    b1m = phase_b1_masked(dev)
+    torch.cuda.empty_cache()
+    sigma = phase_ecc_sigma(dev, ecc_frames, ecc_clean)
+    torch.cuda.empty_cache()
+    masked = phase_ecc_mask(dev, ecc_frames)
+    del ecc_frames, ecc_clean
+    torch.cuda.empty_cache()
+    kp_var = phase_kp_variants(dev, frames, truth, kp_ref)
     torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
-               **{f"keypoint_match_arrays {k}": v for k, v in kp.items()}}
+               **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
+               "ecc_match_arrays sigma_clip": sigma,
+               "ecc_match_arrays mask": masked,
+               **{f"keypoint_match_arrays {k}": v for k, v in kp_var.items()}}
 
     def counts(name):
-        per = {path: c[name] for path, c in by_path.items() if name in c}
+        per = {path: c[name] for path, c in by_path.items() if c[name]}
         return dict(launches=sum(per.values()), launches_by_path=per)
 
     kernels = [
@@ -692,6 +1180,27 @@ def main() -> int:
              source="libstacker_tpu_torch/csrc/orb_extract.cu",
              replaces="libstacker_tpu/ops/orb_pallas.py:54",
              **counts("orb_extract"), **b3),
+        dict(name="warp_moments", route="cuda",
+             source="libstacker_tpu_torch/csrc/warp_accum.cu",
+             replaces="libstacker_tpu/ops/warp_accum_pallas.py:47",
+             replaces_note="_warp_accum_kernel with moments=True, via "
+                           "warp_moments_rgb_pallas (:291)",
+             **counts("warp_moments"), **b4),
+        dict(name="warp", route="cuda",
+             source="libstacker_tpu_torch/csrc/warp.cu",
+             replaces="libstacker_tpu/ops/warp_pallas.py:217",
+             **counts("warp"), **b5),
+        dict(name="warp3", route="cuda",
+             source="libstacker_tpu_torch/csrc/warp.cu",
+             replaces="libstacker_tpu/ops/warp_pallas.py:475",
+             replaces_note="on no entry point's path (the JAX package "
+                           "calls it only from tests)",
+             **counts("warp3"), **b9),
+        dict(name="ecc_moments_masked", route="cuda",
+             source="libstacker_tpu_torch/csrc/ecc_moments.cu",
+             replaces="libstacker_tpu/ops/ecc_pallas.py:202",
+             replaces_note="_moments_kernel with n_src == 4 (:202-247)",
+             **counts("ecc_moments_masked"), **b1m),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

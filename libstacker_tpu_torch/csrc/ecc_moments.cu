@@ -9,6 +9,14 @@
 //   mask     = INTER_NEAREST validity of the UNquantised (sx, sy)
 //   jac_p    = the motion model's Jacobian (_jac_tile_fields :70)
 //
+// With MASKED (the 4-plane form, ecc_pallas.py:202-247) a 4th source
+// plane holds cv2's preprocessed binary inputMask (ops/ecc.py
+// _prepare_masked_input): its INTER_NEAREST tap at the unquantised
+// (sx, sy), BORDER_CONSTANT 0, replaces the all-ones validity mask, as
+// the XLA path's per-iteration nearest warp of the mask does
+// (libstacker_tpu/ops/ecc.py:796-814).  The gradient planes arrive
+// already multiplied by the mask.
+//
 // summed over the image into
 //   [ n, S(m*i), S(m*i^2), S(m*t), S(m*t^2), S(m*t*i),
 //     S(jac_p*i) (P), S(jac_p*m) (P), S(jac_p*m*t) (P)
@@ -101,7 +109,7 @@ __device__ __forceinline__ void jacobian(float* jac, float gxw, float gyw,
   }
 }
 
-template <int P, bool HESS>
+template <int P, bool HESS, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
                const float* __restrict__ m3,
@@ -129,6 +137,7 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
   const float* img = srcs;
   const float* gxp = srcs + hw;
   const float* gyp = srcs + 2 * hw;
+  const float* mkp = srcs + 3 * hw;  // read only when MASKED
   const float* tp = tmpl + (size_t)b * hw;
   const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
   const float wm2 = (float)(W - 2), hm2 = (float)(H - 2);
@@ -151,8 +160,11 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
     // INTER_NEAREST validity mask from the unquantised coordinate
     const float xi = rintf(sx);
     const float yi = rintf(sy);
-    const float mask =
-        (xi >= 0.0f && xi <= wm1 && yi >= 0.0f && yi <= hm1) ? 1.0f : 0.0f;
+    const bool inside = xi >= 0.0f && xi <= wm1 && yi >= 0.0f && yi <= hm1;
+    float mask = inside ? 1.0f : 0.0f;
+    if constexpr (MASKED) {
+      if (inside) mask = mkp[(size_t)(int)yi * W + (int)xi];
+    }
 
     // 1/32-px quantisation (rintf rounds half to even, like torch.round)
     float xq, yq;
@@ -259,11 +271,16 @@ reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
 template <int P, bool HESS>
 cudaError_t launch(const float* srcs, const float* tmpl, const float* m3,
                    const uint8_t* active, float* partials, float* out, int B,
-                   int H, int W, int nblk, int quant_affine,
+                   int H, int W, int nblk, int quant_affine, int masked,
                    cudaStream_t st) {
   constexpr int NOUT = Layout<P, HESS>::NOUT;
-  moments_kernel<P, HESS><<<dim3(nblk, B), THREADS, 0, st>>>(
-      srcs, tmpl, m3, active, partials, H, W, nblk, quant_affine);
+  if (masked) {
+    moments_kernel<P, HESS, true><<<dim3(nblk, B), THREADS, 0, st>>>(
+        srcs, tmpl, m3, active, partials, H, W, nblk, quant_affine);
+  } else {
+    moments_kernel<P, HESS, false><<<dim3(nblk, B), THREADS, 0, st>>>(
+        srcs, tmpl, m3, active, partials, H, W, nblk, quant_affine);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<dim3(NOUT, B), RED_THREADS, 0, st>>>(partials, out, nblk,
@@ -277,12 +294,13 @@ extern "C" {
 
 int ecc_moments_pixels_per_block() { return PIX_PER_BLOCK; }
 
-// srcs [3,H,W] f32, tmpl [B,H,W] f32, m3 [B,3,3] f32 (inverse maps),
-// active [B] u8, partials [B, n_out, nblk] f32 scratch, out [B, n_out] f32.
+// srcs [3,H,W] f32 (masked: [4,H,W], the 4th plane the inputMask), tmpl
+// [B,H,W] f32, m3 [B,3,3] f32 (inverse maps), active [B] u8, partials
+// [B, n_out, nblk] f32 scratch, out [B, n_out] f32.
 int ecc_moments(const void* srcs, const void* tmpl, const void* m3,
                 const void* active, void* partials, void* out, int B, int H,
                 int W, int n_params, int with_hessian, int quant_affine,
-                void* stream) {
+                int masked, void* stream) {
   const size_t hw = (size_t)H * W;
   const int nblk = (int)((hw + PIX_PER_BLOCK - 1) / PIX_PER_BLOCK);
   if (B <= 0 || nblk <= 0) return (int)cudaErrorInvalidValue;
@@ -295,14 +313,14 @@ int ecc_moments(const void* srcs, const void* tmpl, const void* m3,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (n_params * 2 + (with_hessian ? 1 : 0)) {
-    case 2 * 2 + 0: e = launch<2, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 2 * 2 + 1: e = launch<2, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 3 * 2 + 0: e = launch<3, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 3 * 2 + 1: e = launch<3, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 6 * 2 + 0: e = launch<6, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 6 * 2 + 1: e = launch<6, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 8 * 2 + 0: e = launch<8, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
-    case 8 * 2 + 1: e = launch<8, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, st); break;
+    case 2 * 2 + 0: e = launch<2, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 2 * 2 + 1: e = launch<2, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 3 * 2 + 0: e = launch<3, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 3 * 2 + 1: e = launch<3, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 6 * 2 + 0: e = launch<6, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 6 * 2 + 1: e = launch<6, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 8 * 2 + 0: e = launch<8, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
+    case 8 * 2 + 1: e = launch<8, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

@@ -1,0 +1,234 @@
+// Batched single-plane bilinear warp (B5) and the three-plane shared-
+// coordinate warp (B9).
+//
+// Replaces the Pallas TPU kernels libstacker_tpu/ops/warp_pallas.py
+// _warp_kernel (:217, entry warp_bilinear_pallas :370) and _warp3_kernel
+// (:475, entry warp3_bilinear_pallas :594).  Per output slot g and pixel
+// (x, y) of an OH x OW grid:
+//
+//   (sx, sy) = M_g (x, y, 1)           (inverse map, float32)
+//   1/32-px quantised bilinear taps of src[src_index[g]] (H x W)
+//
+// B5 applies the border mode in the kernel: BORDER_CONSTANT with a value
+// per slot (BORDER_TRANSPARENT over a zero base is the same taps with the
+// value 0, set by the wrapper), or one of the index-mapping modes
+// REPLICATE / REFLECT / WRAP / REFLECT_101, which map each tap's row and
+// column index by OpenCV's borderInterpolate.  The TPU kernel ran those
+// modes as BORDER_CONSTANT over a source pre-extended by an apron
+// (libstacker_tpu/ops/warp_batch.py:270-281), sized on the host from the
+// matrices (pallas_required_apron :170-228): the apron, its pad pass and
+// its host sync have no counterpart here, and no matrix falls back to
+// another path.  B9 warps three shared planes (ECC's image, gx, gy) with
+// one coordinate and weight set per pixel, BORDER_CONSTANT 0.
+//
+// What bounds them on the H100.  Each output value is written once (4 B)
+// and each source pixel is read about once from DRAM (the 4 taps of
+// neighbouring threads share cache lines): 2 x 33 MB per 4K plane, ~20 us
+// at 3.35 TB/s.  Against that, ~45 separately rounded float operations
+// and 4 gathers per output value; for 60 planes of 4K ~2.2e10
+// operations, ~0.34 ms at 67 T/s, so operations bind.  The residual band,
+// (8,128)-aligned window DMAs and dynamic rolls of the TPU kernels exist
+// only for VMEM windows; a thread here reads any source pixel.
+//
+// Design: one thread per output pixel and slot (B5) or per output pixel
+// and lane covering the three planes (B9); coordinates exactly as
+// warp_accum.cu and ops/warp.py evaluate them.  Build with --fmad=false
+// (utils/cuda_build.py): the float expressions follow the plain PyTorch
+// versions (ops/warp_cuda.py, built on ops/warp.py) term for term, so
+// both land in the same 1/32-px bin and equal each other bitwise.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+// OpenCV's border-mode integers
+constexpr int CONSTANT = 0, REPLICATE = 1, REFLECT = 2, WRAP = 3,
+              REFLECT101 = 4;
+// tap origins of the index-mapping modes are clamped to +-2^30 before
+// the integer cast, as ops/warp.py does
+constexpr float INDEX_LIMIT = 1073741824.0f;
+
+template <int MODE>
+__device__ __forceinline__ int map_index(int i, int n) {
+  if constexpr (MODE == REPLICATE) {
+    return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
+  } else if constexpr (MODE == WRAP) {
+    const int m = i % n;
+    return m < 0 ? m + n : m;
+  } else if constexpr (MODE == REFLECT101) {
+    if (n == 1) return 0;
+    const int period = 2 * (n - 1);
+    int m = i % period;
+    if (m < 0) m += period;
+    return m < period - m ? m : period - m;
+  } else {  // REFLECT
+    const int period = 2 * n;
+    int m = i % period;
+    if (m < 0) m += period;
+    return m >= n ? period - 1 - m : m;
+  }
+}
+
+// Source coordinates of output pixel (x, y) under inverse map m, then
+// the 1/32-px quantisation: tap origin (x0f, y0f) and weights (fx, fy).
+__device__ __forceinline__ void coords(const float* m, float xs, float ys,
+                                       int perspective, float& x0f,
+                                       float& y0f, float& fx, float& fy) {
+  float sx = m[0] * xs + m[1] * ys + m[2];
+  float sy = m[3] * xs + m[4] * ys + m[5];
+  float xq, yq;
+  if (perspective) {
+    const float sw = m[6] * xs + m[7] * ys + m[8];
+    const float inv = sw != 0.0f ? 1.0f / sw : 0.0f;
+    sx = sx * inv;
+    sy = sy * inv;
+    xq = rintf(sx * 32.0f);
+    yq = rintf(sy * 32.0f);
+  } else {
+    xq = floorf((rintf(sx * 1024.0f) + 16.0f) / 32.0f);
+    yq = floorf((rintf(sy * 1024.0f) + 16.0f) / 32.0f);
+  }
+  x0f = floorf(xq * (1.0f / 32.0f));
+  y0f = floorf(yq * (1.0f / 32.0f));
+  fx = (xq - x0f * 32.0f) * (1.0f / 32.0f);
+  fy = (yq - y0f * 32.0f) * (1.0f / 32.0f);
+}
+
+__device__ __forceinline__ float lerp2(float t00, float t01, float t10,
+                                       float t11, float fx, float fy) {
+  const float top = t00 * (1.0f - fx) + t01 * fx;
+  const float bot = t10 * (1.0f - fx) + t11 * fx;
+  return top * (1.0f - fy) + bot * fy;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
+            const float* __restrict__ border,
+            const int32_t* __restrict__ src_index, float* __restrict__ out,
+            int H, int W, int OH, int OW, int perspective) {
+  const size_t ohw = (size_t)OH * OW;
+  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= ohw) return;
+  const int g = blockIdx.y;
+  const int y = (int)(p / OW);
+  const int x = (int)(p - (size_t)y * OW);
+  const float* m = minv + 9 * g;
+  const float* s = src + (size_t)src_index[g] * H * W;
+  float x0f, y0f, fx, fy;
+  coords(m, (float)x, (float)y, perspective, x0f, y0f, fx, fy);
+  float t00, t01, t10, t11;
+  if constexpr (MODE == CONSTANT) {
+    const float bv = border[g];
+    const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+    const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+    const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+    const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+    const int x0 = (vx0 || vx1) ? (int)x0f : 0;
+    const int y0 = (vy0 || vy1) ? (int)y0f : 0;
+    const size_t i00 = (size_t)y0 * W + x0;
+    t00 = (vy0 && vx0) ? s[i00] : bv;
+    t01 = (vy0 && vx1) ? s[i00 + 1] : bv;
+    t10 = (vy1 && vx0) ? s[i00 + W] : bv;
+    t11 = (vy1 && vx1) ? s[i00 + W + 1] : bv;
+  } else {
+    const int x0 = (int)fminf(fmaxf(x0f, -INDEX_LIMIT), INDEX_LIMIT);
+    const int y0 = (int)fminf(fmaxf(y0f, -INDEX_LIMIT), INDEX_LIMIT);
+    const int mx0 = map_index<MODE>(x0, W), mx1 = map_index<MODE>(x0 + 1, W);
+    const size_t r0 = (size_t)map_index<MODE>(y0, H) * W;
+    const size_t r1 = (size_t)map_index<MODE>(y0 + 1, H) * W;
+    t00 = s[r0 + mx0];
+    t01 = s[r0 + mx1];
+    t10 = s[r1 + mx0];
+    t11 = s[r1 + mx1];
+  }
+  out[(size_t)g * ohw + p] = lerp2(t00, t01, t10, t11, fx, fy);
+}
+
+__global__ void __launch_bounds__(THREADS)
+warp3_kernel(const float* __restrict__ srcs, const float* __restrict__ minv,
+             float* __restrict__ out, int H, int W, int perspective) {
+  const size_t hw = (size_t)H * W;
+  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= hw) return;
+  const int b = blockIdx.y;
+  const int y = (int)(p / W);
+  const int x = (int)(p - (size_t)y * W);
+  float x0f, y0f, fx, fy;
+  coords(minv + 9 * b, (float)x, (float)y, perspective, x0f, y0f, fx, fy);
+  const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+  const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+  const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+  const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+  const int x0 = (vx0 || vx1) ? (int)x0f : 0;
+  const int y0 = (vy0 || vy1) ? (int)y0f : 0;
+  const size_t i00 = (size_t)y0 * W + x0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* s = srcs + (size_t)c * hw;
+    const float t00 = (vy0 && vx0) ? s[i00] : 0.0f;
+    const float t01 = (vy0 && vx1) ? s[i00 + 1] : 0.0f;
+    const float t10 = (vy1 && vx0) ? s[i00 + W] : 0.0f;
+    const float t11 = (vy1 && vx1) ? s[i00 + W + 1] : 0.0f;
+    out[((size_t)b * 3 + c) * hw + p] = lerp2(t00, t01, t10, t11, fx, fy);
+  }
+}
+
+template <int MODE>
+cudaError_t launch(const float* src, const float* minv, const float* border,
+                   const int32_t* sidx, float* out, int G, int H, int W,
+                   int OH, int OW, int perspective, cudaStream_t st) {
+  const size_t ohw = (size_t)OH * OW;
+  const dim3 grid((unsigned)((ohw + THREADS - 1) / THREADS), (unsigned)G);
+  warp_kernel<MODE><<<grid, THREADS, 0, st>>>(src, minv, border, sidx, out,
+                                              H, W, OH, OW, perspective);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// src [S,H,W] f32, minv [G,3,3] f32 inverse maps, border [G] f32 (read in
+// BORDER_CONSTANT only), src_index [G] i32 (each in 0..S-1, checked by
+// the wrapper), out [G,OH,OW] f32.  border_mode is OpenCV's integer
+// (0 constant, 1 replicate, 2 reflect, 3 wrap, 4 reflect101).
+int warp_bilinear(const void* src, const void* minv, const void* border,
+                  const void* src_index, void* out, int G, int H, int W,
+                  int OH, int OW, int border_mode, int perspective,
+                  void* stream) {
+  if (G <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<const float*>(src);
+  auto m = static_cast<const float*>(minv);
+  auto b = static_cast<const float*>(border);
+  auto i = static_cast<const int32_t*>(src_index);
+  auto o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (border_mode) {
+    case CONSTANT: return (int)launch<CONSTANT>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    case REPLICATE: return (int)launch<REPLICATE>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    case REFLECT: return (int)launch<REFLECT>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    case WRAP: return (int)launch<WRAP>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    case REFLECT101: return (int)launch<REFLECT101>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// srcs [3,H,W] f32, minv [B,3,3] f32 inverse maps, out [B,3,H,W] f32.
+int warp3_bilinear(const void* srcs, const void* minv, void* out, int B,
+                   int H, int W, int perspective, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const size_t hw = (size_t)H * W;
+  const dim3 grid((unsigned)((hw + THREADS - 1) / THREADS), (unsigned)B);
+  warp3_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(srcs), static_cast<const float*>(minv),
+      static_cast<float*>(out), H, W, perspective);
+  return (int)cudaGetLastError();
+}
+
+const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+}  // extern "C"

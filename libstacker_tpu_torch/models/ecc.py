@@ -1,4 +1,4 @@
-"""``ecc_match`` pipeline — ECC-aligned burst stacking, mean stack.
+"""``ecc_match`` pipeline — ECC-aligned burst stacking.
 
 Counterpart of ``libstacker_tpu/models/ecc.py`` (``_adjust_warp_for_scale``
 :49, stages of ``ecc_match_arrays`` :507, ``ecc_match`` :735), in the
@@ -11,10 +11,13 @@ raises ``ProcessingError`` — or is dropped with ``on_failure="drop"``.
 Stages, all on one device:
 
 1. fixed-point grey (``ops/color``), INTER_AREA-scaled on the scaled path;
-2. phase-correlation translation start (``ops/phasecorr``);
-3. batched ECC with optional 2x octaves (``ops/ecc``, kernel B1);
-4. fused warp + sum of the kept frames (``ops/warp_batch``, kernel B2);
-5. divide by the frame count.
+2. phase-correlation translation start (``ops/phasecorr``; off when a
+   ``mask`` is given);
+3. batched ECC with optional 2x octaves (``ops/ecc``, kernel B1; its
+   4-plane form with a ``mask``);
+4. fused warp + sum of the kept frames (``ops/warp_batch``, kernel B2),
+   divided by the frame count; or, with ``stacking="sigma_clip"``, the
+   kappa-sigma stack (``ops/stack``, kernel B4) with per-pixel divisors.
 
 Options this slice does not port raise ``NotImplementedError`` naming
 the ROADMAP.md item that will port them.
@@ -27,9 +30,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import constants
 from ..errors import InvalidParamsError, NotEnoughFilesError, ProcessingError
 from ..params import EccMatchParameters, MotionType
 from ..ops import color, ecc as ecc_ops, phasecorr, resize
+from ..ops import stack as stack_ops
 from ..ops.warp_batch import warp_accumulate_rgb
 from ..utils import io
 from ..utils.device import resolve_device
@@ -92,16 +97,35 @@ def _ecc_warp_accumulate(
     )
 
 
-def _check_ported(params: EccMatchParameters, mask, mesh) -> None:
+def _ecc_mask(mask, hw, scale_hw=None, device="cpu") -> torch.Tensor:
+    """Validate and binarise a user mask (nonzero = valid; ECC's
+    reference-frame mask, the keypoint path's detection mask) and, on the
+    scaled path, shrink it conservatively to the solve grid: a scaled
+    pixel stays valid only if >= half its INTER_AREA footprint was
+    (``libstacker_tpu/models/ecc.py`` :93-103, :600-609)."""
+    mask = mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+    if mask.ndim == 3 and mask.shape[-1] == 1:
+        mask = mask[..., 0]
+    if mask.shape != tuple(hw):
+        raise InvalidParamsError(
+            f"mask must be [H,W] matching the frames, got {mask.shape}"
+            f" for frames {tuple(hw)}"
+        )
+    m = torch.from_numpy(np.ascontiguousarray(mask > 0)).to(device)
+    m = m.to(torch.float32)
+    if scale_hw is not None:
+        m = resize.resize(m, scale_hw, constants.INTER_AREA) >= 0.5
+        m = m.to(torch.float32)
+    return m
+
+
+def _check_ported(params: EccMatchParameters, mesh) -> None:
     """Raise for the options this slice does not port."""
     unported = [
-        (mask is not None, "mask=", "ROADMAP.md Queue A item 13"),
-        (params.stacking != "mean", f"stacking={params.stacking!r}",
-         "ROADMAP.md Queue A item 13"),
         (params.output_scale != 1, f"output_scale={params.output_scale}",
          "ROADMAP.md Queue A item 14"),
         (params.solver == "lazy", "solver='lazy'",
-         "ROADMAP.md Queue A item 13"),
+         "ROADMAP.md Queue A item 15"),
         (params.solver == "ic", "solver='ic'", "ROADMAP.md Queue A item 15"),
         (params.phase_init_rotation, "phase_init_rotation=True",
          "ROADMAP.md Queue A item 15"),
@@ -142,9 +166,16 @@ def ecc_match_arrays(
     frame 0's grid as numpy, or as a tensor on the device with
     ``device_output=True`` (plus a ``PipelineStats`` with
     ``return_stats``; its ``phase_ms`` holds the stage times, each
-    ending in a device synchronise)."""
+    ending in a device synchronise).
+
+    ``mask`` ([H,W], nonzero = valid) is cv2.findTransformECC's
+    inputMask over frame 0 (the ECC input image here): it excludes
+    pixels from the alignment, not from the stack, and turns the
+    phase-correlation start off.  ``params.stacking = "sigma_clip"``
+    stacks by per-pixel kappa-sigma clipping over the covered samples
+    (``clipped_sample_frac`` in the stats)."""
     params.validate()
-    _check_ported(params, mask, mesh)
+    _check_ported(params, mesh)
     if isinstance(frames, torch.Tensor):
         dev = resolve_device(frames.device)
         dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
@@ -192,10 +223,13 @@ def ecc_match_arrays(
         frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
     timer = PhaseTimer(dev) if return_stats else None
     motion = params.motion_type
+    input_mask = None
+    if mask is not None:
+        input_mask = _ecc_mask(mask, (h, w), scale_hw, dev)
     with ecc_ops._phase(timer, "grey"):
         grey = _ecc_grey(frames_t, scale_hw)
     warp_init = None
-    if params.phase_init:
+    if params.phase_init and input_mask is None:
         with ecc_ops._phase(timer, "phase init"):
             warp_init = phasecorr.phase_init_warps(
                 grey[1:], grey[0], motion_type=motion,
@@ -204,13 +238,26 @@ def ecc_match_arrays(
         grey[1:], grey[0], motion_type=motion, num_iters=num_iters,
         eps=eps, gauss_filt_size=params.gauss_filt_size,
         coarse_levels=params.coarse_levels, warp_init=warp_init,
-        timer=timer,
+        input_mask=input_mask, timer=timer,
     )
     del grey
+    sigma = params.stacking == "sigma_clip"
+    clip_frac = None
     with ecc_ops._phase(timer, "stack"):
-        stacked_sum = _ecc_warp_accumulate(
-            frames_t, result.warp_matrix, result.ok, motion, scale_hw,
-        )
+        if sigma:
+            warps = result.warp_matrix
+            if scale_hw is not None:
+                warps = _adjust_warp_for_scale(warps, motion, scale_hw,
+                                               (h, w))
+            stacked, clip_frac = stack_ops.kappa_sigma_stack(
+                frames_t, warps, result.ok,
+                perspective=motion == MotionType.Homography,
+                kappa=params.sigma_kappa, iters=params.sigma_iters,
+            )
+        else:
+            stacked = _ecc_warp_accumulate(
+                frames_t, result.warp_matrix, result.ok, motion, scale_hw,
+            )
     ok = result.ok.cpu().numpy()
     stats = None
     if return_stats:
@@ -220,6 +267,7 @@ def ecc_match_arrays(
             frames_dropped=int((~ok).sum()),
             ecc_iterations=result.num_iters.cpu().tolist(),
             ecc_rho=result.rho.cpu().tolist(),
+            clipped_sample_frac=clip_frac,
             phase_ms=timer.ms(),
         )
     fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
@@ -234,7 +282,9 @@ def ecc_match_arrays(
             )
         # drop mode: failed frames contributed nothing to the sum
         count = 1 + int(ok.sum())
-    out = fetch(stacked_sum) / count
+    # the sigma-clip image is final (per-pixel divisors, failed lanes
+    # already excluded)
+    out = fetch(stacked) if sigma else fetch(stacked) / count
     return (out, stats) if return_stats else out
 
 
@@ -255,7 +305,7 @@ def ecc_match(
     if preserve_depth:
         raise NotImplementedError(
             "preserve_depth (16-bit decode) is not ported to "
-            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 13)"
+            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 14)"
         )
     frames = io.load_frames(files)
     return ecc_match_arrays(

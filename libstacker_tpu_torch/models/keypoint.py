@@ -8,12 +8,16 @@ counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
 
 1. grey (``ops/color``), INTER_AREA-scaled on the scaled path;
 2. ORB on every frame in one batched call per pyramid level
-   (``ops/orb``, kernels B8 and B3);
+   (``ops/orb``, kernels B8 and B3), with an optional detection mask;
 3. Hamming 2-NN matching against frame 0, ratio / sort / keep filter and
    RANSAC homographies (``ops/matcher``, ``ops/ransac``), all frames at
    once;
-4. frame 0 plus the masked sum of the aligned frames 1..N-1
-   (``ops/warp_batch``, kernel B2), divided by the kept count.
+4. frame 0 plus the masked sum of the aligned frames 1..N-1, divided by
+   the kept count: BORDER_CONSTANT and BORDER_TRANSPARENT through the
+   fused warp-and-sum (``ops/warp_batch``, kernel B2), the index-mapping
+   border modes through per-frame warps (``warp_frames_batch``, kernel
+   B5); or, with ``stacking="sigma_clip"``, the kappa-sigma stack
+   (``ops/stack``, kernel B4).
 
 Drop bookkeeping follows the JAX package (SURVEY.md §3.1): frames with
 fewer than 5 kept matches, a failed estimate or |det H| < 1e-6 are
@@ -34,12 +38,13 @@ from .. import constants
 from ..errors import InvalidParamsError, NotEnoughFilesError
 from ..params import KeyPointMatchParameters
 from ..ops import color, matcher, orb, ransac, resize
+from ..ops import stack as stack_ops
 from ..ops.ecc import _phase
-from ..ops.warp_batch import warp_accumulate_rgb
+from ..ops.warp_batch import warp_accumulate_rgb, warp_frames_batch
 from ..utils import io
 from ..utils.device import resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
-from .ecc import _f32, _single_frame_out
+from .ecc import _ecc_mask, _f32, _single_frame_out
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
 _GREY_CHUNK = 16
@@ -102,10 +107,12 @@ def _match_and_estimate(
     return res.h, ok, filt.count, res.num_inliers
 
 
-def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None):
-    """Stage 4: frame 0 plus the masked sum of the aligned frames 1..N-1
-    (BORDER_CONSTANT; BORDER_TRANSPARENT over the zero base is a zero
-    border)."""
+def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
+                         border_mode=constants.BORDER_CONSTANT):
+    """Stage 4: frame 0 plus the masked sum of the aligned frames
+    1..N-1.  BORDER_CONSTANT (and BORDER_TRANSPARENT over the zero base,
+    a zero border) runs the fused warp-and-sum; the index-mapping modes
+    warp each frame (kernel B5) and sum the kept ones."""
     h, w = frames.shape[1], frames.shape[2]
     if scale_hw is not None:
         hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
@@ -113,20 +120,34 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None):
     # non-finite) matrices must not reach the warp: NaN * 0 == NaN
     eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
     hs = torch.where(oks[:, None, None], hs, eye)
-    return color.to_unit_f32(frames[0]) + warp_accumulate_rgb(
-        frames[1:], hs, oks, perspective=True, border_value=border_value,
+    base = color.to_unit_f32(frames[0])
+    border = constants.border_mode_name(border_mode)
+    if border in ("constant", "transparent"):
+        if border == "transparent":
+            border_value = [0.0] * 3
+        return base + warp_accumulate_rgb(
+            frames[1:], hs, oks, perspective=True, border_value=border_value,
+        )
+    warped = warp_frames_batch(
+        color.to_unit_f32(frames[1:]), hs, perspective=True,
+        border_value=border_value, border_mode=border,
     )
+    valid = oks.to(torch.float32)[:, None, None, None]
+    return base + torch.sum(warped * valid, dim=0)
 
 
-def _check_ported(params: KeyPointMatchParameters, mask, mesh) -> None:
-    """Raise for the options this slice does not port."""
+def _check_ported(params: KeyPointMatchParameters, mesh) -> None:
+    """Raise for the options this slice does not port, and for
+    sigma-clip with a border mode that has no coverage."""
     border = constants.border_mode_name(params.border_mode)
+    if (params.stacking == "sigma_clip"
+            and border not in ("constant", "transparent")):
+        raise InvalidParamsError(
+            "stacking='sigma_clip' / output_scale>1 require "
+            "BORDER_CONSTANT or BORDER_TRANSPARENT (sample inclusion is "
+            f"defined by warp coverage), got border mode {border!r}"
+        )
     unported = [
-        (mask is not None, "mask=", "ROADMAP.md Queue A item 13"),
-        (border not in ("constant", "transparent"),
-         f"border_mode={border!r}", "ROADMAP.md Queue A item 13"),
-        (params.stacking != "mean", f"stacking={params.stacking!r}",
-         "ROADMAP.md Queue A item 13"),
         (params.output_scale != 1, f"output_scale={params.output_scale}",
          "ROADMAP.md Queue A item 14"),
         (mesh is not None, "mesh=", "ROADMAP.md Queue A item 16"),
@@ -161,9 +182,16 @@ def keypoint_match_arrays(
     stack in [0,1] on frame 0's grid, as numpy, or as a tensor on the
     device with ``device_output=True``; ``return_stats`` adds a
     ``PipelineStats`` (match and inlier counts per frame, stage times in
-    ``phase_ms``, each ending in a device synchronise)."""
+    ``phase_ms``, each ending in a device synchronise).
+
+    ``mask`` ([H,W], nonzero = valid) is cv2 ``detectAndCompute``'s
+    detection mask, applied to every frame (shrunk to the detection
+    grid on the scaled path).  ``params.border_mode`` takes every
+    OpenCV mode the JAX package takes; ``params.stacking =
+    "sigma_clip"`` (BORDER_CONSTANT or BORDER_TRANSPARENT only) stacks
+    by per-pixel kappa-sigma clipping over the covered samples."""
     params.validate()
-    _check_ported(params, mask, mesh)
+    _check_ported(params, mesh)
     if isinstance(frames, torch.Tensor):
         dev = resolve_device(frames.device)
         dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
@@ -205,11 +233,14 @@ def keypoint_match_arrays(
         frames_t = frames.contiguous()
     else:
         frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+    # the detection mask on the detection grid (libstacker_tpu/models/
+    # keypoint.py _prepare_det_mask :341-357)
+    det_mask = None if mask is None else _ecc_mask(mask, (h, w), scale_hw, dev)
     timer = PhaseTimer(dev) if return_stats else None
     with _phase(timer, "grey"):
         grey = _grey(frames_t, scale_hw)
     with _phase(timer, "detect"):
-        feats = orb.orb_detect_and_compute(grey)
+        feats = orb.orb_detect_and_compute(grey, mask=det_mask)
     del grey
     with _phase(timer, "match+ransac"):
         gen = torch.Generator(device=dev)
@@ -221,15 +252,28 @@ def keypoint_match_arrays(
             match_ratio=params.match_ratio,
             max_iters=params.max_iters, confidence=params.confidence,
         )
-    border = constants.border_mode_name(params.border_mode)
-    bv = [0.0] * 3 if border == "transparent" else list(params.border_value[:3])
+    sigma = params.stacking == "sigma_clip"
+    clip_frac = None
     with _phase(timer, "stack"):
-        stacked_sum = _warp_and_accumulate(frames_t, hs, oks, bv, scale_hw)
+        if sigma:
+            hs_full = hs
+            if scale_hw is not None:
+                hs_full = _adjust_h_for_scale(hs, scale_hw, (h, w))
+            stacked, clip_frac = stack_ops.kappa_sigma_stack(
+                frames_t, hs_full, oks, perspective=True,
+                kappa=params.sigma_kappa, iters=params.sigma_iters,
+            )
+        else:
+            stacked = _warp_and_accumulate(
+                frames_t, hs, oks, list(params.border_value[:3]), scale_hw,
+                params.border_mode,
+            )
     ok = oks.cpu().numpy()
     kept = 1 + int(ok.sum())
     dropped = int((~ok).sum())
     fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
-    out = fetch(stacked_sum) / kept
+    # the sigma-clip image is final (per-pixel divisors)
+    out = fetch(stacked) if sigma else fetch(stacked) / kept
     if return_stats:
         stats = PipelineStats(
             frames_total=n,
@@ -237,6 +281,7 @@ def keypoint_match_arrays(
             frames_dropped=dropped,
             match_counts=mcounts.cpu().tolist(),
             inlier_counts=icounts.cpu().tolist(),
+            clipped_sample_frac=clip_frac,
             phase_ms=timer.ms(),
         )
         return dropped, out, stats
@@ -260,7 +305,7 @@ def keypoint_match(
     if preserve_depth:
         raise NotImplementedError(
             "preserve_depth (16-bit decode) is not ported to "
-            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 13)"
+            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 14)"
         )
     frames = io.load_frames(files)
     return keypoint_match_arrays(

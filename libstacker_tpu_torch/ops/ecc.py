@@ -29,8 +29,11 @@ residual band ladder ``_K_LADDER`` with its ``residual_domain_ok``
 escalation and XLA rescue (``:1470-1527``), and ``_solve_octave_nosync``.
 A thread on the card gathers any source pixel, so there is no band to
 escape; every octave runs the exact solve loop, as the JAX package does on
-the CPU.  The 'lazy' and 'ic' solvers and ``input_mask`` raise
-``NotImplementedError`` (ROADMAP.md Queue A items 13 and 15).
+the CPU, and carries the octave's shrunken ``input_mask`` as
+``_solve_octave_nosync`` does (``:1099-1130``).  ``input_mask``
+(cv2's inputMask, ``_prepare_masked_input``) rides kernel B1 as a 4th
+source plane.  The 'lazy' and 'ic' solvers raise ``NotImplementedError``
+(ROADMAP.md Queue A item 15).
 """
 
 from __future__ import annotations
@@ -125,15 +128,24 @@ def _phase(timer, name: str):
     return contextlib.nullcontext() if timer is None else timer.phase(name)
 
 
-def _check_mode(mode: Optional[str], input_mask) -> None:
+def _prepare_masked_input(input_image, input_mask, gauss_filt_size: int):
+    """Input-side fields plus OpenCV's inputMask preprocessing
+    (``_ecc_prepare_input_masked_jit`` :257-270): binarise, Gaussian-blur
+    with ``gauss_filt_size``, re-threshold at 0.95 through ``round(pre_f
+    * 0.5/0.95)`` (half to even, like cvRound), and multiply the
+    gradients by the binary mask -> ``[4,H,W]`` (image, gx, gy, mask)."""
+    image_f, gx, gy = _input_fields(input_image, gauss_filt_size)
+    pre = (input_mask > 0).to(torch.float32)
+    pre_f = filters.gaussian_blur(pre, gauss_filt_size)
+    pre_bin = torch.round(pre_f * (0.5 / 0.95))
+    return torch.stack([image_f, gx * pre_bin, gy * pre_bin, pre_bin])
+
+
+def _check_mode(mode: Optional[str]) -> None:
     if mode not in (None, "forward"):
         raise NotImplementedError(
-            f"solver {mode!r} is not ported (forward only; 'lazy' is "
-            "ROADMAP.md Queue A item 13, 'ic' item 15)"
-        )
-    if input_mask is not None:
-        raise NotImplementedError(
-            "input_mask is not ported (ROADMAP.md Queue A item 13)"
+            f"solver {mode!r} is not ported (forward only; 'lazy' and "
+            "'ic' are ROADMAP.md Queue A item 15)"
         )
 
 
@@ -151,7 +163,8 @@ def find_transform_ecc(
     """Estimate the warp aligning ``input_image`` to ``template``
     (``cv2.findTransformECC`` semantics: the returned ``M`` warps the
     input onto the template grid as dst(x, y) = input(M (x, y))).
-    Images are [H,W] uint8 or float on the raw 0..255 scale."""
+    Images are [H,W] uint8 or float on the raw 0..255 scale;
+    ``input_mask`` ([H,W], nonzero = valid) is cv2's inputMask."""
     template = torch.as_tensor(template)
     res = find_transform_ecc_batched(
         template[None],
@@ -192,12 +205,21 @@ def find_transform_ecc_batched(
     full resolution from that warm start, seeding each lane's
     ``last_rho`` with its octave's converged correlation (``rho_init``,
     ignored when ``eps <= 0``).  ``warp_init`` ([N,2|3,3]) is in
-    full-resolution pixels.  ``timer`` (a ``utils.tracing.PhaseTimer``)
-    records the octave build, the octave solves and the full-resolution
-    solve."""
-    _check_mode(mode, input_mask)
+    full-resolution pixels.  ``input_mask`` ([H,W], nonzero = valid) is
+    cv2.findTransformECC's inputMask over ``input_image``; each octave
+    solves with its INTER_AREA-shrunk mask (valid where >= 0.5).
+    ``timer`` (a ``utils.tracing.PhaseTimer``) records the octave build,
+    the octave solves and the full-resolution solve."""
+    _check_mode(mode)
     dev = templates.device
     input_image = input_image.to(dev)
+    if input_mask is not None:
+        input_mask = torch.as_tensor(input_mask).to(dev)
+        if tuple(input_mask.shape) != tuple(input_image.shape):
+            raise ValueError(
+                f"input_mask shape {tuple(input_mask.shape)} must match "
+                f"input_image shape {tuple(input_image.shape)}"
+            )
     init = warp_init
     if init is not None:
         init = torch.as_tensor(init, dtype=torch.float32).to(dev)
@@ -211,24 +233,30 @@ def find_transform_ecc_batched(
         octaves = {}
         with _phase(timer, "ecc octave build"):
             tl, il = templates.to(torch.float32), input_image.to(torch.float32)
+            ml = (None if input_mask is None
+                  else (input_mask > 0).to(torch.float32))
             for lvl in range(1, (max(levels) + 1) if levels else 1):
                 dh, dw = h // 2 ** lvl, w // 2 ** lvl
                 tl = resize.resize_area_octave(tl, dh, dw)
                 il = resize.resize_area_octave(il, dh, dw)
+                if ml is not None:
+                    ml = resize.resize_area_octave(ml, dh, dw)
                 if lvl in levels:
-                    octaves[lvl] = (tl, il)
+                    # a coarse pixel stays valid only if >= half its
+                    # INTER_AREA footprint was
+                    octaves[lvl] = (tl, il, None if ml is None else ml >= 0.5)
         init_at_full_scale = init is not None
         rho_seed = None  # the octaves' own seed replaces the caller's
         for lvl in sorted(octaves, reverse=True):
             s = 2 ** lvl
-            tl, il = octaves[lvl]
+            tl, il, mlv = octaves[lvl]
             if init_at_full_scale:
                 init = _rescale_warp_batch(init, motion_type, 1.0 / s)
                 init_at_full_scale = False
             with _phase(timer, "ecc octave solve"):
                 res = _solve_lanes(
                     tl, il, motion_type, num_iters, eps, gauss_filt_size,
-                    init, None,
+                    init, None, mlv,
                 )
             init = _rescale_warp_batch(res.warp_matrix, motion_type, 2.0)
             rho_seed = torch.where(
@@ -238,7 +266,7 @@ def find_transform_ecc_batched(
     with _phase(timer, "ecc full-res solve"):
         return _solve_lanes(
             templates, input_image, motion_type, num_iters, eps,
-            gauss_filt_size, init, rho_seed,
+            gauss_filt_size, init, rho_seed, input_mask,
         )
 
 
@@ -251,6 +279,7 @@ def _solve_lanes(
     gauss_filt_size: int,
     warp_init: Optional[torch.Tensor],
     rho_init: Optional[torch.Tensor],
+    input_mask: Optional[torch.Tensor] = None,
 ) -> EccResult:
     """One resolution's solve: template prep, carry, masked GN loop."""
     n, h, w = templates.shape
@@ -264,9 +293,12 @@ def _solve_lanes(
             ok=torch.zeros((0,), dtype=torch.bool, device=dev),
             num_iters=torch.zeros((0,), dtype=torch.int32, device=dev),
         )
-    image_f, gx, gy = _input_fields(input_image, gauss_filt_size)
-    srcs = torch.stack([image_f, gx, gy]).contiguous()
-    del image_f, gx, gy
+    if input_mask is None:
+        srcs = torch.stack(_input_fields(input_image, gauss_filt_size))
+    else:
+        srcs = _prepare_masked_input(input_image, input_mask,
+                                     gauss_filt_size)
+    srcs = srcs.contiguous()
     templates_f = filters.gaussian_blur(
         templates.to(torch.float32), gauss_filt_size
     ).contiguous()

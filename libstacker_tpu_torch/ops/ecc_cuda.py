@@ -14,8 +14,10 @@ moments the solver (``ops/ecc.py``) rebuilds OpenCV's quantities from:
 :func:`ecc_iteration_moments` runs the hand-written kernel
 ``csrc/ecc_moments.cu`` for CUDA tensors and the plain PyTorch version
 :func:`ecc_iteration_moments_reference` for CPU tensors; there is no
-other dispatch.  The 4-plane (user inputMask) variant is not ported
-(ROADMAP.md Queue A item 13).
+other dispatch.  With a 4th source plane (cv2's preprocessed binary
+inputMask, ``ops/ecc.py``), its INTER_NEAREST tap replaces the all-ones
+validity mask: the 4-plane variant of the kernel (``ecc_pallas.py``
+:202-247).
 """
 
 from __future__ import annotations
@@ -26,12 +28,15 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import constants
 from ..params import MotionType
 from ..utils import cuda_build
 from . import warp
 
-#: launches of the CUDA kernel since the last reset (one per call)
+#: launches of the 3-plane kernel since the last reset (one per call)
 launch_count = 0
+#: launches of the 4-plane (masked) kernel since the last reset
+masked_launch_count = 0
 
 
 def moments_layout(
@@ -78,8 +83,9 @@ def ecc_iteration_moments_reference(
     with_hessian: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: full warped fields through
-    ``ops/warp.py``, then mask, Jacobian and the moment sums (taken in
-    float64, returned as float32).  Inactive lanes give zero rows."""
+    ``ops/warp.py``, then mask (times the nearest-warped 4th plane when
+    there is one), Jacobian and the moment sums (taken in float64,
+    returned as float32).  Inactive lanes give zero rows."""
     _, h, w = srcs.shape
     b = templates.shape[0]
     _, n_out = moments_layout(motion_type, with_hessian)
@@ -92,12 +98,14 @@ def ecc_iteration_moments_reference(
         if active is not None and not bool(active[lane]):
             continue
         mm = m3[lane].to(torch.float32)
-        warp_fn = warp.warp_affine if quant_affine else warp.warp_perspective
-        mat = mm[:2] if quant_affine else mm
         imw, gxw, gyw = (
-            warp_fn(s, mat, (h, w), inverse_map=True) for s in srcs
+            warp.warp_inverse(s, mm, (h, w), quant_affine) for s in srcs[:3]
         )
         mask = warp.warp_valid_mask(mm, (h, w), (h, w))
+        if srcs.shape[0] == 4:
+            mask = mask * warp.warp_inverse(
+                srcs[3], mm, (h, w), quant_affine,
+                interpolation=constants.INTER_NEAREST)
         sx, sy = warp._dst_coords(mm, (h, w), perspective=True)
         jac = _jacobian(
             motion_type, gxw, gyw, xs, ys, sx, sy, mm.reshape(9)
@@ -131,18 +139,17 @@ def ecc_iteration_moments(
 ) -> torch.Tensor:
     """One ECC iteration sweep -> ``[B, n_out]`` float32 raw moments.
 
-    ``srcs`` [3,H,W] float32 (image, gx, gy), ``templates`` [B,H,W]
-    float32, ``m3`` [B,3,3] inverse maps, ``active`` [B] bool (inactive
-    lanes return zero rows).  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/ecc_moments.cu`` or raise."""
-    global launch_count
+    ``srcs`` [3,H,W] float32 (image, gx, gy) or [4,H,W] (plus the
+    preprocessed inputMask, gx and gy already multiplied by it),
+    ``templates`` [B,H,W] float32, ``m3`` [B,3,3] inverse maps,
+    ``active`` [B] bool (inactive lanes return zero rows).  CPU tensors
+    take the plain version; CUDA tensors launch ``csrc/ecc_moments.cu``
+    or raise."""
+    global launch_count, masked_launch_count
     if srcs.ndim != 3 or srcs.shape[0] not in (3, 4):
-        raise ValueError(f"srcs must be [3,H,W], got {tuple(srcs.shape)}")
-    if srcs.shape[0] == 4:
-        raise NotImplementedError(
-            "the 4-plane (inputMask) moments variant is not ported "
-            "(ROADMAP.md Queue A item 13)"
-        )
+        raise ValueError(f"srcs must be [3,H,W] or [4,H,W], got "
+                         f"{tuple(srcs.shape)}")
+    masked = srcs.shape[0] == 4
     b, ht, wt = templates.shape
     _, h, w = srcs.shape
     if (ht, wt) != (h, w):
@@ -176,10 +183,14 @@ def ecc_iteration_moments(
     err = lib.ecc_moments(
         srcs.data_ptr(), templates.data_ptr(), m3.data_ptr(), act.data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
-        int(quant_affine), torch.cuda.current_stream(dev).cuda_stream,
+        int(quant_affine), int(masked),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "ecc_moments")
-    launch_count += 1
+    if masked:
+        masked_launch_count += 1
+    else:
+        launch_count += 1
     return out
 
 
@@ -187,7 +198,7 @@ def ecc_iteration_moments(
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("ecc_moments")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ecc_moments.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.ecc_moments.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.ecc_moments.restype = ci
     lib.ecc_moments_pixels_per_block.argtypes = []
     lib.ecc_moments_pixels_per_block.restype = ci

@@ -18,10 +18,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .warp import _map_border_index
+
 _PAD_MODE = {
     "constant": "constant",
     "replicate": "replicate",
     "reflect101": "reflect",  # OpenCV BORDER_REFLECT_101  gfedcb|abcdefgh|gfedcba
+    # gathered through OpenCV's borderInterpolate (ops/warp.py)
+    "reflect": None,  # OpenCV BORDER_REFLECT      fedcba|abcdefgh|hgfedcb
+    "wrap": None,  # OpenCV BORDER_WRAP         cdefgh|abcdefgh|abcdefg
 }
 
 
@@ -33,17 +38,24 @@ def pad2d(
     value: float = 0.0,
 ) -> torch.Tensor:
     """Pad the trailing two axes with an OpenCV border mode
-    (``reflect101``, ``replicate`` or ``constant``)."""
+    (``reflect101``, ``replicate``, ``reflect``, ``wrap`` or
+    ``constant``)."""
     if pad_y == 0 and pad_x == 0:
         return img
     if border not in _PAD_MODE:
-        raise NotImplementedError(
-            f"border {border!r} is not ported (ROADMAP.md Queue A item 13)"
-        )
+        raise ValueError(f"unsupported border mode: {border!r}")
     mode = _PAD_MODE[border]
     pads = (pad_x, pad_x, pad_y, pad_y)
     if mode == "constant":
         return F.pad(img, pads, mode="constant", value=value)
+    if mode is None:
+        h, w = img.shape[-2:]
+        dev = img.device
+        iy = _map_border_index(torch.arange(-pad_y, h + pad_y, device=dev),
+                               h, border)
+        ix = _map_border_index(torch.arange(-pad_x, w + pad_x, device=dev),
+                               w, border)
+        return img[..., iy[:, None], ix[None, :]]
     # reflect/replicate take [C,H,W] or [N,C,H,W]: fold leading axes
     lead = img.shape[:-2]
     x = img.reshape((-1,) + tuple(img.shape[-2:]))

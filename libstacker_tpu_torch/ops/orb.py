@@ -18,7 +18,8 @@ all-default ``ORB::create`` ``detectAndCompute`` (nfeatures 500, scale
 The JAX package vmaps one frame's detector over the burst; here the
 frame axis is written out: ``[N,H,W]`` uint8 in, ``[N,K,...]`` features
 out, one call per level for the whole burst.  Every level's output has
-a fixed ``quota`` of slots with a validity mask.
+a fixed ``quota`` of slots with a validity mask.  An optional detection
+mask (cv2 ``detectAndCompute``'s) is shared by every frame.
 """
 
 from __future__ import annotations
@@ -186,18 +187,26 @@ def orb_detect_and_compute(
 ) -> OrbFeatures:
     """Detect and describe on ``[N,H,W]`` uint8 grey frames ->
     :class:`OrbFeatures` of ``[N,K,...]`` (K = nfeatures on full-size
-    images).  ``mask`` (cv2's detection mask) is not ported yet
-    (ROADMAP.md Queue A item 13)."""
-    if mask is not None:
-        raise NotImplementedError(
-            "the ORB detection mask is not ported to libstacker_tpu_torch "
-            "yet (ROADMAP.md Queue A item 13)"
-        )
+    images).
+
+    ``mask`` ([H,W], nonzero = valid) is cv2's detection mask, applied to
+    every frame as the JAX package applies it (``orb.py`` :185-257): its
+    float pyramid is resized level to level with INTER_LINEAR like the
+    image and re-binarised at each level (``rint(m * 255) >= 255``: only
+    pixels whose whole support was valid survive), and it filters the
+    candidates after FAST's non-maximum suppression (a masked stronger
+    corner still suppresses its valid neighbours)."""
     if imgs.ndim != 3 or imgs.dtype != torch.uint8:
         raise ValueError(
             f"imgs must be [N,H,W] uint8, got {tuple(imgs.shape)} {imgs.dtype}"
         )
     n, h, w = imgs.shape
+    level_mask = None
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=imgs.device)
+        if tuple(mask.shape) != (h, w):
+            raise ValueError(f"mask must be [{h},{w}], got {tuple(mask.shape)}")
+        level_mask = (mask > 0).to(torch.float32)
     quotas = _features_per_level(nfeatures, nlevels, scale_factor)
     # the patch-space rBRIEF blur needs BLUR_RADIUS + 3 px of interior
     # around every keypoint (see _blur_patches_valid), as in the JAX
@@ -214,14 +223,21 @@ def orb_detect_and_compute(
             lw = int(round(w / scale))
             level_img = resize.resize(level_img, (lh, lw),
                                       constants.INTER_LINEAR)
+            if level_mask is not None:
+                level_mask = resize.resize(level_mask, (lh, lw),
+                                           constants.INTER_LINEAR)
+                level_mask = (torch.round(level_mask * 255.0) >= 255.0).to(
+                    torch.float32)
         lh, lw = level_img.shape[-2:]
         quota = quotas[level]
         if quota == 0 or lh <= 2 * edge_threshold or lw <= 2 * edge_threshold:
             continue
         score = fast_cuda.fast_scores(level_img, fast_threshold,
                                       edge_threshold)
-        cand = fast.top_k_keypoints(score > 0.0, score,
-                                    min(2 * quota, lh * lw))
+        det = score > 0.0
+        if level_mask is not None:
+            det = det & (level_mask > 0.5)  # after NMS
+        cand = fast.top_k_keypoints(det, score, min(2 * quota, lh * lw))
         del score
         cand_patches = orb_cuda.extract_patches(level_img, cand.ys, cand.xs,
                                                 radius=br)

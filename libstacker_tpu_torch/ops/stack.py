@@ -1,0 +1,147 @@
+"""Kappa-sigma clipped burst stacking (``stacking="sigma_clip"``).
+
+Counterpart of ``libstacker_tpu/ops/stack.py`` (``_CLIP_TOL`` :59,
+``clip_iterate`` :62, ``_coverage`` :112, ``kappa_sigma_stack`` :240,
+``_prepare_lanes`` :292).  Per pixel and channel, samples further than
+``kappa`` standard deviations from the mean are excluded and the mean
+recomputed.  No warped ``[N,H,W,3]`` intermediate exists: the burst is
+re-warped once per pass and only the per-pixel moments stay resident:
+
+  pass 0:  S0 = sum incl,  S1 = sum incl*v,  S2 = sum incl*v^2
+  pass i:  mu = S1/S0, sigma^2 = S2/S0 - mu^2,
+           m = incl AND |v - mu| <= kappa*sigma + tol,
+           C0/C1/C2 = the same moments under m   (then S* <- C*)
+
+A frame contributes to a pixel only where its unquantised source
+coordinate lies inside the frame (coverage), so per-pixel denominators
+replace the mean stack's divide-by-count.  Each pass is one call of
+``ops/warp_accum_cuda.warp_moments_rgb`` over the whole burst: one
+launch of kernel B4 on CUDA, which keeps no per-frame intermediate, so
+the JAX package's frame chunks are not needed there.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import warp
+from .warp_accum_cuda import coverage, warp_moments_rgb
+
+# half an 8-bit LSB in the [0,1] value domain: keeps bit-identical
+# samples (sigma == 0) included instead of collapsing to frame 0
+_CLIP_TOL = float(np.float32(0.5 / 255.0))
+
+
+def clip_iterate(s0, s1, s2, kappa: float, iters: int, clipped_moments,
+                 start_pass: int = 1, entry_state=None, pass_hook=None):
+    """The kappa-sigma iteration (one source of the clip semantics).
+
+    ``s0``: pass-0 per-pixel sample count ([H,W] or [H,W,C]);
+    ``s1``/``s2``: value / squared-value sums ([H,W,C]).
+    ``clipped_moments(mu, tol) -> (c0, c1, c2)`` recomputes the moments
+    over the samples within ``tol`` of ``mu`` (per pixel and channel).
+
+    Resume support for the streams: ``entry_state`` is the
+    ``(s0c, s1, s2)`` state entering clip pass ``start_pass`` (1-based),
+    as ``pass_hook(i, s0c, s1, s2)`` records it after each non-final
+    pass; ``s0/s1/s2`` may then be None.
+
+    Returns ``(out [H,W,C], kept [H,W,C])``: ``kept`` is the last pass's
+    surviving-sample count before the clamp (an emptied pixel reports
+    0).  Pixels with no surviving sample take that pass's mean."""
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    if not kappa > 0.0:
+        raise ValueError(f"kappa must be > 0, got {kappa}")
+    if entry_state is not None:
+        s0c, s1, s2 = entry_state
+    else:
+        s0c = s0[..., None] if s0.ndim == s1.ndim - 1 else s0
+    kept = s0c
+    for i in range(start_pass, iters + 1):
+        denom = torch.clamp(s0c, min=1.0)
+        mu = s1 / denom
+        var = torch.clamp(s2 / denom - mu * mu, min=0.0)
+        tol = kappa * torch.sqrt(var) + _CLIP_TOL
+        s0c, s1, s2 = clipped_moments(mu, tol)
+        kept = s0c
+        # pixels where clipping removed everything fall back to mu
+        s1 = torch.where(s0c > 0.0, s1, mu)
+        s2 = torch.where(s0c > 0.0, s2, mu * mu)
+        s0c = torch.clamp(s0c, min=1.0)
+        if pass_hook is not None and i < iters:
+            pass_hook(i + 1, s0c, s1, s2)
+    return s1 / s0c, kept
+
+
+def _coverage(mats3: torch.Tensor, h: int, w: int,
+              perspective: bool) -> torch.Tensor:
+    """[G,H,W] bool: output pixels whose inverse-mapped source
+    coordinate is fully interior (no border contamination).  ``mats3``
+    [G,3,3] FORWARD maps."""
+    minv = warp.invert_3x3(mats3)
+    return torch.stack([coverage(m, (h, w), perspective) for m in minv])
+
+
+def _prepare_lanes(frames, mats, oks):
+    """Prologue of the re-warping stackers: 2x3 affine -> 3x3, frame 0
+    prepended as the identity lane, failed lanes given the identity (a
+    NaN matrix must not reach the inverse).  -> (mats_all [N,3,3],
+    oks_all [N] bool)."""
+    dev = frames.device
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    mats3 = torch.as_tensor(mats, device=dev).to(torch.float32)
+    if mats3.shape[-2] == 2:
+        mats3 = warp.affine_to_3x3(mats3)
+    mats_all = torch.cat([eye[None], mats3])
+    oks_all = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         torch.as_tensor(oks, device=dev).to(torch.bool)])
+    mats_all = torch.where(oks_all[:, None, None], mats_all, eye)
+    return mats_all, oks_all
+
+
+def kappa_sigma_stack(
+    frames: torch.Tensor,  # [N,H,W,3] uint8 / uint16 — frame 0 = reference
+    mats: torch.Tensor,  # [N-1,3,3] (or [N-1,2,3]) FULL-RES forward maps
+    oks: torch.Tensor,  # [N-1] bool — dropped lanes contribute nothing
+    perspective: bool = True,
+    kappa: float = 2.5,
+    iters: int = 1,
+    chunk: int = 8,
+) -> Tuple[torch.Tensor, float]:
+    """Robust stack -> (``[H,W,3]`` float32 in [0,1], clipped-sample
+    fraction).
+
+    Frame 0 takes part with the identity warp (fully covered), so every
+    pixel has a sample.  ``1 + iters`` sweeps over the burst, each one
+    call of ``warp_moments_rgb``.  ``chunk`` bounds the frames per call
+    of the plain CPU version (its sums add per chunk, as the JAX
+    package's do); CUDA sweeps all frames in one launch."""
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    mats_all, oks_all = _prepare_lanes(frames, mats, oks)
+    minv = warp.invert_3x3(mats_all).contiguous()
+    n = frames.shape[0]
+    step = n if frames.device.type == "cuda" else max(1, min(chunk, n))
+
+    def sweep(mu=None, tol=None):
+        acc = None
+        for s in range(0, n, step):
+            part = warp_moments_rgb(
+                frames[s : s + step], minv[s : s + step],
+                oks_all[s : s + step], mu, tol,
+                quant_affine=not perspective,
+            )
+            acc = part if acc is None else tuple(
+                a + p for a, p in zip(acc, part))
+        return acc
+
+    s0, s1, s2 = sweep()
+    s0 = s0[..., 0]  # coverage is per pixel: the channels agree
+    out, kept = clip_iterate(s0, s1, s2, kappa, iters, sweep)
+    tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
+    kept_frac = tk / max(ts * 3.0, 1.0)
+    return out, max(0.0, 1.0 - kept_frac)

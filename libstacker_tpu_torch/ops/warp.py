@@ -1,19 +1,22 @@
-"""Affine / perspective warps (inverse-map bilinear resampling).
+"""Affine / perspective warps (inverse-map resampling).
 
 Counterpart of ``libstacker_tpu/ops/warp.py`` (``affine_to_3x3`` :33,
-``invert_3x3`` :39, ``_sample_bilinear`` :67, ``_dst_coords`` :152,
-``warp_perspective`` :181, ``warp_affine`` :209, ``warp_valid_mask``
-:258): every output pixel is inverse-mapped through the matrix and
-bilinearly sampled with OpenCV's 1/32-px coordinate quantisation —
+``invert_3x3`` :39, ``_map_border_index`` :43, ``_sample_bilinear``
+:67, ``_dst_coords`` :152, ``warp_perspective`` :181, ``warp_affine``
+:209, ``_sample_nearest`` :236, ``warp_valid_mask`` :258): every output
+pixel is inverse-mapped through the matrix and sampled.  Bilinear
+sampling uses OpenCV's 1/32-px coordinate quantisation —
 ``round(s*32)`` for perspective, warpAffine's AB_BITS fixed point
-``floor((round(s*1024)+16)/32)`` for affine — and BORDER_CONSTANT taps.
+``floor((round(s*1024)+16)/32)`` for affine; INTER_NEAREST rounds the
+unquantised coordinate (half to even).  Border modes: CONSTANT (per
+channel value), TRANSPARENT (out-of-source taps read a destination base,
+zeros by default), and the index-mapping modes REPLICATE, REFLECT,
+REFLECT_101 and WRAP (OpenCV's borderInterpolate on each tap index).
 
-This module is the exact path both CUDA kernels are held to: their
-plain versions (``ecc_cuda.ecc_iteration_moments_reference``,
-``warp_accum_cuda.warp_accum_rgb_reference``) are built from it, and
-the kernels evaluate the same float32 expressions in the same order.
-Other border modes and INTER_NEAREST sampling wait for ROADMAP.md Queue
-A item 13.
+This module is the exact path the CUDA kernels are held to: their plain
+versions (``ecc_cuda``, ``warp_accum_cuda``, ``warp_cuda``) are built
+from it, and the kernels evaluate the same float32 expressions in the
+same order.
 """
 
 from __future__ import annotations
@@ -58,17 +61,79 @@ def _dst_coords(
     return sx, sy
 
 
+# index-mapping modes (OpenCV borderInterpolate) and the two that fill
+_INDEX_MODES = ("replicate", "reflect", "reflect101", "wrap")
+_FILL_MODES = ("constant", "transparent")
+# far tap origins are clamped before the integer cast: to the 1-px ring
+# around the image for the filling modes (no in-range tap moves), and to
+# +-2^30 for the index-mapping modes (every float32 coordinate below it
+# maps as in the JAX package)
+_INDEX_LIMIT = float(1 << 30)
+
+
+def _map_border_index(idx: torch.Tensor, size: int, border: str) -> torch.Tensor:
+    """OpenCV borderInterpolate for one axis (index-mapping modes)."""
+    if border == "replicate":
+        return torch.clamp(idx, 0, size - 1)
+    if border == "wrap":
+        return torch.remainder(idx, size)
+    if border == "reflect101":
+        if size == 1:
+            return torch.zeros_like(idx)
+        period = 2 * (size - 1)
+        m = torch.remainder(idx, period)
+        return torch.minimum(m, period - m)
+    if border == "reflect":
+        period = 2 * size
+        m = torch.remainder(idx, period)
+        return torch.where(m >= size, period - 1 - m, m)
+    raise ValueError(f"unsupported border mode: {border}")
+
+
+def _to_index(f: torch.Tensor, size: int, border: str) -> torch.Tensor:
+    """Integer tap index from a float one (see ``_INDEX_LIMIT``)."""
+    if border in _FILL_MODES:
+        return torch.clamp(f, -2.0, size + 1.0).to(torch.int64)
+    return torch.clamp(f, -_INDEX_LIMIT, _INDEX_LIMIT).to(torch.int64)
+
+
+def _fill(img, sx, border, border_value, dst_base):
+    """The value an out-of-source tap reads under a filling mode:
+    ``border_value`` (CONSTANT) or the destination base (TRANSPARENT,
+    zeros by default), shaped to broadcast against the taps."""
+    if border == "transparent":
+        if dst_base is None:
+            return torch.zeros((), dtype=img.dtype, device=img.device)
+        shape = tuple(sx.shape) + tuple(img.shape[2:])
+        return torch.as_tensor(dst_base, dtype=img.dtype,
+                               device=img.device).expand(shape)
+    return torch.as_tensor(border_value, dtype=img.dtype, device=img.device)
+
+
+def _tap(img, yi, xi, border, fill):
+    """``img[yi, xi]`` with the border mode applied to the indices."""
+    h, w = img.shape[0], img.shape[1]
+    if border in _FILL_MODES:
+        inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        v = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        if img.ndim == 3:
+            inside = inside[..., None]
+        return torch.where(inside, v, fill)
+    return img[_map_border_index(yi, h, border), _map_border_index(xi, w, border)]
+
+
 def _sample_bilinear(
     img: torch.Tensor,
     sx: torch.Tensor,
     sy: torch.Tensor,
     border_value,
     fixed_point_1024: bool = False,
+    border: str = "constant",
+    dst_base=None,
 ) -> torch.Tensor:
     """Bilinear sample ``img`` ([H,W] or [H,W,C] float32) at (sx, sy)
-    with the 1/32 quantisation and BORDER_CONSTANT taps."""
+    with the 1/32 quantisation and the border mode's taps."""
     h, w = img.shape[0], img.shape[1]
-    has_c = img.ndim == 3
     if fixed_point_1024:
         xq = torch.floor((torch.round(sx * 1024.0) + 16.0) / 32.0)
         yq = torch.floor((torch.round(sy * 1024.0) + 16.0) / 32.0)
@@ -79,41 +144,61 @@ def _sample_bilinear(
     y0f = torch.floor(yq * (1.0 / _INTER_TAB_SIZE))
     fx = (xq - x0f * _INTER_TAB_SIZE) * (1.0 / _INTER_TAB_SIZE)
     fy = (yq - y0f * _INTER_TAB_SIZE) * (1.0 / _INTER_TAB_SIZE)
-    # clamping the tap origin before the integer cast keeps far-away
-    # and non-finite coordinates well defined; it moves no in-range tap
-    x0 = torch.clamp(x0f, -2.0, w + 1.0).to(torch.int64)
-    y0 = torch.clamp(y0f, -2.0, h + 1.0).to(torch.int64)
-    if has_c:
+    x0 = _to_index(x0f, w, border)
+    y0 = _to_index(y0f, h, border)
+    if img.ndim == 3:
         fx = fx[..., None]
         fy = fy[..., None]
-    bv = torch.as_tensor(border_value, dtype=img.dtype, device=img.device)
-    taps = []
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yi = y0 + dy
-            xi = x0 + dx
-            inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-            v = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
-            if has_c:
-                inside = inside[..., None]
-            taps.append(torch.where(inside, v, bv))
-    t00, t01, t10, t11 = taps
+    fill = _fill(img, sx, border, border_value, dst_base)
+    t00, t01, t10, t11 = (
+        _tap(img, y0 + dy, x0 + dx, border, fill)
+        for dy in (0, 1) for dx in (0, 1)
+    )
     top = t00 * (1.0 - fx) + t01 * fx
     bot = t10 * (1.0 - fx) + t11 * fx
     return top * (1.0 - fy) + bot * fy
 
 
-def _check_modes(border_mode, interpolation) -> None:
-    if border_mode not in (constants.BORDER_CONSTANT, "constant"):
-        raise NotImplementedError(
-            f"border_mode {border_mode!r} is not ported (BORDER_CONSTANT "
-            "only; ROADMAP.md Queue A item 13)"
+def _sample_nearest(img, sx, sy, border, border_value, dst_base=None):
+    """INTER_NEAREST: the tap at the unquantised coordinate rounded half
+    to even, with the border mode's taps; keeps ``img``'s dtype."""
+    h, w = img.shape[0], img.shape[1]
+    xi = _to_index(torch.round(sx), w, border)
+    yi = _to_index(torch.round(sy), h, border)
+    return _tap(img, yi, xi, border,
+                _fill(img, sx, border, border_value, dst_base))
+
+
+def _resolve_border(border_mode) -> str:
+    """An OpenCV border-mode integer or a mode name -> the mode name."""
+    if isinstance(border_mode, str):
+        border = border_mode
+    else:
+        border = constants.border_mode_name(int(border_mode))
+    if border not in _FILL_MODES + _INDEX_MODES:
+        raise ValueError(f"unsupported border mode: {border}")
+    return border
+
+
+def _warp(img, m3, dsize, border_mode, border_value, inverse_map,
+          interpolation, dst, fixed_point_1024):
+    if interpolation not in (constants.INTER_LINEAR, constants.INTER_NEAREST):
+        raise ValueError(
+            f"interpolation {interpolation} is not supported (INTER_LINEAR "
+            "or INTER_NEAREST)"
         )
-    if interpolation != constants.INTER_LINEAR:
-        raise NotImplementedError(
-            f"interpolation {interpolation} is not ported (INTER_LINEAR "
-            "only; ROADMAP.md Queue A item 13)"
-        )
+    border = _resolve_border(border_mode)
+    if border_value is None:
+        border_value = 0.0
+    if dsize is None:
+        dsize = (img.shape[0], img.shape[1])
+    if not inverse_map:
+        m3 = invert_3x3(m3)
+    sx, sy = _dst_coords(m3, dsize, perspective=not fixed_point_1024)
+    if interpolation == constants.INTER_NEAREST:
+        return _sample_nearest(img, sx, sy, border, border_value, dst)
+    return _sample_bilinear(img, sx, sy, border_value, fixed_point_1024,
+                            border, dst)
 
 
 def warp_perspective(
@@ -124,19 +209,16 @@ def warp_perspective(
     border_value=0.0,
     inverse_map: bool = False,
     interpolation: int = constants.INTER_LINEAR,
+    dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """OpenCV warpPerspective: dst(x,y) = src(M^-1 (x,y,1)), INTER_LINEAR,
-    BORDER_CONSTANT.  ``dsize`` is (h, w); ``inverse_map=True`` takes
-    ``m`` as the dst->src map (WARP_INVERSE_MAP)."""
-    _check_modes(border_mode, interpolation)
-    if dsize is None:
-        dsize = (img.shape[0], img.shape[1])
+    """OpenCV warpPerspective: dst(x,y) = src(M^-1 (x,y,1)).  ``dsize``
+    is (h, w); ``inverse_map=True`` takes ``m`` as the dst->src map
+    (WARP_INVERSE_MAP); ``dst`` is the BORDER_TRANSPARENT base (zeros by
+    default)."""
     m3 = m.to(torch.float32)
     m3 = m3 if m3.shape[-2] == 3 else affine_to_3x3(m3)
-    if not inverse_map:
-        m3 = invert_3x3(m3)
-    sx, sy = _dst_coords(m3, dsize, perspective=True)
-    return _sample_bilinear(img, sx, sy, border_value)
+    return _warp(img, m3, dsize, border_mode, border_value, inverse_map,
+                 interpolation, dst, fixed_point_1024=False)
 
 
 def warp_affine(
@@ -147,18 +229,31 @@ def warp_affine(
     border_value=0.0,
     inverse_map: bool = False,
     interpolation: int = constants.INTER_LINEAR,
+    dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """OpenCV warpAffine with a 2x3 matrix (AB_BITS fixed-point
-    coordinates), INTER_LINEAR, BORDER_CONSTANT."""
-    _check_modes(border_mode, interpolation)
-    if dsize is None:
-        dsize = (img.shape[0], img.shape[1])
+    coordinates for INTER_LINEAR); ``dst`` as in
+    :func:`warp_perspective`."""
     m = m.to(torch.float32)
     m3 = affine_to_3x3(m) if m.shape[-2] == 2 else m
-    if not inverse_map:
-        m3 = invert_3x3(m3)
-    sx, sy = _dst_coords(m3, dsize, perspective=False)
-    return _sample_bilinear(img, sx, sy, border_value, fixed_point_1024=True)
+    return _warp(img, m3, dsize, border_mode, border_value, inverse_map,
+                 interpolation, dst, fixed_point_1024=True)
+
+
+def warp_inverse(
+    img: torch.Tensor,
+    minv: torch.Tensor,
+    dsize: Tuple[int, int],
+    quant_affine: bool = False,
+    **kw,
+) -> torch.Tensor:
+    """Warp by an inverse map ``minv`` [3,3]: :func:`warp_affine` on its
+    top two rows (the 1/1024 fixed-point coordinates) when
+    ``quant_affine``, else :func:`warp_perspective` — how the kernels'
+    plain versions warp one frame.  ``kw`` as those take."""
+    if quant_affine:
+        return warp_affine(img, minv[:2], dsize, inverse_map=True, **kw)
+    return warp_perspective(img, minv, dsize, inverse_map=True, **kw)
 
 
 def warp_valid_mask(

@@ -1,13 +1,18 @@
-"""Stage 3 of the ECC pipeline: warp the kept frames and sum them.
+"""Batched frame warps: the stacking stage's warp-and-sum and the
+per-frame warp of the other border modes.
 
-Counterpart of ``libstacker_tpu/ops/warp_batch.py:326
-warp_accumulate_rgb``.  Forward maps become inverse maps (one float32
-``torch.linalg.inv``, shared by the kernel and the plain path), dropped
-lanes get the identity so garbage matrices never reach the inverse, and
-the sum runs through ``ops/warp_accum_cuda.warp_accum_rgb`` (kernel B2
-on CUDA).  The TPU-only ``pallas_pick_config`` ladder has no
-counterpart: a thread samples any source pixel, so every homography
-runs through the kernel.
+Counterpart of ``libstacker_tpu/ops/warp_batch.py`` (``warp_frames_batch``
+:231, ``warp_accumulate_rgb`` :326).  Forward maps become inverse maps
+(one float32 ``torch.linalg.inv``, shared by the kernels and the plain
+paths).  :func:`warp_accumulate_rgb` runs
+``ops/warp_accum_cuda.warp_accum_rgb`` (kernel B2 on CUDA);
+:func:`warp_frames_batch` runs ``ops/warp_cuda.warp_bilinear`` (kernel
+B5) with one slot per plane.  The TPU-only ``pallas_pick_config``
+ladder, the source apron of the index-mapping border modes
+(``pallas_required_apron``) and the ``allow_pallas`` / ``pallas_k`` /
+``apron`` / ``pallas_tile_rows`` knobs have no counterpart: a thread
+samples any source pixel and B5 maps border indices itself, so every
+matrix runs through the kernels.
 """
 
 from __future__ import annotations
@@ -16,6 +21,45 @@ import torch
 
 from . import warp
 from .warp_accum_cuda import warp_accum_rgb
+from .warp_cuda import warp_bilinear
+
+
+def warp_frames_batch(
+    frames: torch.Tensor,  # [N,H,W,C] or [N,H,W] float32
+    mats: torch.Tensor,  # [N,3,3] (or [N,2,3]) FORWARD maps
+    perspective: bool = True,
+    border_value=0.0,
+    border_mode="constant",
+) -> torch.Tensor:
+    """Warp each frame onto its own grid with the given border mode ->
+    the shape of ``frames``, float32.  ``border_value`` is a scalar or
+    one value per channel (BORDER_CONSTANT); BORDER_TRANSPARENT reads
+    the zero base.  Every plane is one slot of kernel B5."""
+    has_c = frames.ndim == 4
+    n, h, w = frames.shape[:3]
+    c = frames.shape[3] if has_c else 1
+    border = warp._resolve_border(border_mode)
+    if border_value is None or border == "transparent":
+        border_value = 0.0
+    m3 = mats.to(torch.float32)
+    if m3.shape[-2] == 2:
+        m3 = warp.affine_to_3x3(m3)
+    minv = warp.invert_3x3(m3)
+    bv = torch.as_tensor(border_value, dtype=torch.float32,
+                         device=frames.device).reshape(-1)
+    bvs = bv[:1].expand(c) if bv.numel() == 1 else bv[:c]
+    src = frames.to(torch.float32)
+    if has_c:
+        src = src.permute(0, 3, 1, 2)
+    out = warp_bilinear(
+        src.reshape(n * c, h, w).contiguous(),
+        minv.repeat_interleave(c, dim=0).contiguous(),
+        border_value=bvs.repeat(n), quant_affine=not perspective,
+        border_mode=border,
+    )
+    if has_c:
+        return out.reshape(n, c, h, w).permute(0, 2, 3, 1)
+    return out
 
 
 def warp_accumulate_rgb(

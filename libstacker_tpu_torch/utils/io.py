@@ -4,7 +4,7 @@ Counterpart of ``libstacker_tpu/utils/io.py`` (``collect_image_files``
 :34, ``normalize_files`` :50, ``imread_rgb`` :80, ``rgb_to_gray_u8_host``
 :119, ``load_frames`` :339), decode through a PIL thread pool.  The
 native C++ loader and the 16-bit (``preserve_depth``) decode are not
-ported yet (ROADMAP.md Queue A item 13).
+ported yet (ROADMAP.md Queue A item 14).
 
 Channel order is RGB in memory, as in the reference.
 """

@@ -1,12 +1,16 @@
-"""Device-time profile of one warm run of the keypoint slice on a CUDA
-card.
+"""Device-time profile of one warm run of an entry point on a CUDA card.
 
     python -m libstacker_tpu_torch.utils.profile [--scale-down-width 800]
+        [--path keypoint|ecc] [--variant mean|sigma_clip|replicate|mask]
 
-Builds the keypoint bench's burst on the card (``utils/synth.py``: 20
-textured 2160x3840 frames), runs ``keypoint_match_arrays`` with the
-default parameters once cold and once warm, then once more under
-``torch.profiler``.  Prints the card's name and power limit, the
+Builds the bench's burst on the card (``utils/synth.py``: for the
+keypoint path 20 textured 2160x3840 frames and its default parameters,
+for ECC 100 frames of 2160x3840 and the headline parameters of
+``chip_smoke.py``), runs the entry point once cold and once warm, then
+once more under ``torch.profiler``.  ``--variant`` picks the stack:
+the mean (default), kappa-sigma clipping (kappa 2.5, one pass), the
+keypoint path's BORDER_REPLICATE, or a mask zero on the top-left
+sixteenth (ECC's alignment mask, the keypoint path's detection mask).  Prints the card's name and power limit, the
 warm wall time, the device busy time and idle share over the traced
 span, and the device time by kernel name, largest first; writes the
 chrome trace to ``chiprun_out/``.  Needs a card; exits non-zero without
@@ -55,25 +59,58 @@ def _busy_us(events) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale-down-width", type=float, default=None)
+    ap.add_argument("--path", choices=("keypoint", "ecc"), default="keypoint")
+    ap.add_argument("--variant", default="mean",
+                    choices=("mean", "sigma_clip", "replicate", "mask"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
         return 1
-    from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_arrays
+    import numpy as np
+
+    from libstacker_tpu_torch import (
+        EccMatchParameters, KeyPointMatchParameters, MotionType, constants,
+        ecc_match_arrays, keypoint_match_arrays,
+    )
     from libstacker_tpu_torch.utils.device import resolve_device
-    from libstacker_tpu_torch.utils.synth import make_textured_burst
+    from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
 
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    n = 20
-    frames, _ = make_textured_burst(n, 2160, 3840, seed=0, device=dev)
+    h, w = 2160, 3840
+    mask = None
+    if args.variant == "mask":
+        mask = np.full((h, w), 255, np.uint8)
+        mask[: h // 4, : w // 4] = 0
+    kw = {}
+    if args.variant == "sigma_clip":
+        kw = dict(stacking="sigma_clip", sigma_kappa=2.5, sigma_iters=1)
+    if args.path == "ecc":
+        if args.variant == "replicate":
+            ap.error("the ECC path has no border mode")
+        n = 100
+        frames, _ = make_burst(n, h, w, seed=0, device=dev)
+        params = EccMatchParameters(
+            motion_type=MotionType.Homography, max_count=50, epsilon=1e-4,
+            gauss_filt_size=5, coarse_levels=1, **kw)
 
-    def run():
-        return keypoint_match_arrays(
-            frames, KeyPointMatchParameters(),
-            scale_down_width=args.scale_down_width, device_output=True)
+        def run():
+            return ecc_match_arrays(
+                frames, params, scale_down_width=args.scale_down_width,
+                mask=mask, device_output=True)
+    else:
+        if args.variant == "replicate":
+            kw = dict(border_mode=constants.BORDER_REPLICATE)
+        n = 20
+        frames, _ = make_textured_burst(n, h, w, seed=0, device=dev)
+        params = KeyPointMatchParameters(**kw)
+
+        def run():
+            return keypoint_match_arrays(
+                frames, params, scale_down_width=args.scale_down_width,
+                mask=mask, device_output=True)
 
     run()
     torch.cuda.synchronize()
@@ -88,13 +125,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     events = _device_events(prof)
     OUT.mkdir(exist_ok=True)
-    tag = "keypoint" + (f"_sdw{int(args.scale_down_width)}"
-                        if args.scale_down_width else "")
+    tag = args.path + (f"_sdw{int(args.scale_down_width)}"
+                       if args.scale_down_width else "")
+    if args.variant != "mean":
+        tag += f"_{args.variant}"
     trace = OUT / f"profile_{tag}.json"
     prof.export_chrome_trace(str(trace))
     print(smi)
-    print(f"keypoint slice, {n}x2160x3840, scale_down_width="
-          f"{args.scale_down_width}: warm wall {warm_ms:.1f} ms")
+    print(f"{args.path} slice ({args.variant}), {n}x{h}x{w}, "
+          f"scale_down_width={args.scale_down_width}: warm wall "
+          f"{warm_ms:.1f} ms")
     if not events:
         print("no device events in the trace")
         return 1

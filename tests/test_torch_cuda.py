@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Phases 2-4 and 6-8 of chip_smoke.py at small sizes.  Every test needs CUDA and
+Phases 2-4, 6-8 and 10-14 of chip_smoke.py at small sizes.  Every test needs CUDA and
 the ``nvcc`` toolchain, is marked ``cuda`` and skips without a card.
 This file imports no JAX, so on a machine with the card run it without
 the suite's JAX-configuring conftest:
@@ -14,7 +14,12 @@ warp-accumulate max abs < 1e-3 and u8 source == f32 source bitwise;
 slice: equal ok flags, warps within 0.03, stacked interior within 0.02;
 FAST (B8) and patch extraction (B3) bitwise equal to their plain
 versions; keypoint slice: equal ``dropped``, homographies mapping the
-image corners within 0.5 px, stacked interior within 0.02.
+image corners within 0.5 px, stacked interior within 0.02.  B1's masked
+form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
+group's largest value (summed in the same frame order, so equal unless
+the compiler reorders); B5 in every border mode and B9 bitwise; the
+sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
+on the card against the CPU path at the slice bars above.
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
     color, ecc, ecc_cuda, fast_cuda, orb_cuda, warp, warp_accum_cuda,
+    warp_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -167,5 +173,138 @@ def test_keypoint_slice_cuda_matches_cpu(dev):
         assert np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max() < 0.5
     d_cpu, cpu = keypoint_match_arrays(frames, p, device="cpu")
     d_gpu, gpu = keypoint_match_arrays(frames, p, device=dev)
+    assert d_cpu == d_gpu == 0
+    assert np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16]).max() < 0.02
+
+
+@pytest.mark.parametrize("motion", [MotionType.Affine, MotionType.Homography])
+def test_masked_moments_kernel_matches_plain(dev, motion):
+    """B1's 4-plane form: the mask plane's nearest tap replaces the
+    validity mask."""
+    rng = np.random.default_rng(8)
+    h, w = 200, 333
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    mask = torch.ones((h, w), device=dev)
+    mask[: h // 2, : w // 4] = 0.0
+    srcs = ecc._prepare_masked_input(img, mask, 5).contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 2)).to(dev)
+    persp = (1e-5, -2e-5) if motion == MotionType.Homography else (0, 0)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 2.5 * a, -1.25, persp=persp)
+        for a in (0.7, -1.1)
+    ])).to(dev)
+    kw = dict(quant_affine=motion != MotionType.Homography)
+    before = ecc_cuda.masked_launch_count
+    got = ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion, **kw)
+    want = ecc_cuda.ecc_iteration_moments_reference(srcs, tmpl, m3, motion,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert ecc_cuda.masked_launch_count == before + 1
+    g, wn = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert _group_rel(g, wn, motion.num_params) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("quant_affine", [False, True])
+def test_warp_moments_kernel_matches_plain(dev, dtype, quant_affine):
+    """B4: the moments pass, then the clip pass fed with its mu and a
+    tolerance; S0 and C0 bitwise, S1 / S2 within 1e-6 relative."""
+    frames, truth = burst(4, 4, 150, 211)
+    frames[1, 40:70, 30:150] = 255  # a glitch for the clip pass to remove
+    frames = torch.from_numpy(frames).to(dev)
+    if dtype == torch.uint16:
+        frames = frames.to(torch.int32).mul(257).to(torch.uint16)
+    elif dtype == torch.float32:
+        frames = color.to_unit_f32(frames)
+    minv = warp.invert_3x3(torch.from_numpy(truth).float().to(dev))
+    valid = torch.tensor([True, True, False, True], device=dev)
+    got = warp_accum_cuda.warp_moments_rgb(frames, minv, valid,
+                                           quant_affine=quant_affine)
+    want = warp_accum_cuda.warp_moments_rgb_reference(
+        frames, minv, valid, quant_affine=quant_affine)
+    mu = (want[1] / want[0].clamp(min=1.0)).contiguous()
+    tol = torch.full_like(mu, 0.03)
+    got_c = warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol,
+                                             quant_affine)
+    want_c = warp_accum_cuda.warp_moments_rgb_reference(
+        frames, minv, valid, mu, tol, quant_affine)
+    torch.cuda.synchronize()
+    for g, wn in ((got, want), (got_c, want_c)):
+        assert torch.equal(g[0], wn[0])
+        for a, b in zip(g[1:], wn[1:]):
+            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert float((got_c[0] - got[0]).min()) < 0.0  # the clip removed some
+
+
+@pytest.mark.parametrize("mode", ["constant", "transparent", "replicate",
+                                  "reflect", "reflect101", "wrap"])
+@pytest.mark.parametrize("quant_affine", [False, True])
+def test_warp_kernel_matches_plain(dev, mode, quant_affine):
+    """B5 in every border mode, with shared sources and an output grid
+    other than the source's: bitwise equal to its plain version."""
+    rng = np.random.default_rng(9)
+    h, w = 97, 150
+    src = torch.from_numpy(np.stack([smooth(rng, (h, w)) for _ in range(2)]))
+    src = src.to(dev)
+    persp = (0.0, 0.0) if quant_affine else (2e-4, -1e-4)
+    m = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.1, 9.0 * a, -7.5, persp=persp)
+        for a in (8.0, -3.0, 0.5)
+    ])).to(dev)
+    sidx = torch.tensor([1, 0, 1], device=dev)
+    bv = torch.tensor([5.0, 6.0, 7.0], device=dev)
+    for out_hw in (None, (h + 11, w - 13)):
+        got = warp_cuda.warp_bilinear(src, m, bv, sidx, out_hw, quant_affine,
+                                      mode)
+        want = warp_cuda.warp_bilinear_reference(src, m, bv, sidx, out_hw,
+                                                 quant_affine, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_warp3_kernel_matches_plain(dev):
+    rng = np.random.default_rng(10)
+    h, w = 120, 181
+    srcs = torch.from_numpy(np.stack([smooth(rng, (h, w)) for _ in range(3)]))
+    srcs = srcs.to(dev)
+    m = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 2.0 * a, 1.5, persp=(1e-4, 0.0))
+        for a in (0.5, -2.0)
+    ])).to(dev)
+    for quant_affine in (False, True):
+        got = warp_cuda.warp3_bilinear(srcs, m, quant_affine)
+        want = warp_cuda.warp3_bilinear_reference(srcs, m, quant_affine)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_variant_slices_cuda_match_cpu(dev):
+    """Sigma-clip and masked ECC, and the keypoint path with
+    BORDER_REPLICATE, on the card against the port's CPU path."""
+    from libstacker_tpu_torch import (KeyPointMatchParameters, ecc_match_arrays,
+                                      keypoint_match_arrays)
+    from libstacker_tpu_torch import constants
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, _ = burst(9, 4, 192, 256, max_shift=4.0, max_angle=0.4)
+    mask = np.ones((192, 256), np.uint8)
+    mask[:96, :64] = 0
+    for kw in (dict(params=dict(stacking="sigma_clip", sigma_kappa=2.0)),
+               dict(mask=mask)):
+        kw = dict(kw)
+        p = EccMatchParameters(MotionType.Homography, max_count=50,
+                               epsilon=1e-4, gauss_filt_size=5,
+                               coarse_levels=1, **kw.pop("params", {}))
+        cpu, st_cpu = ecc_match_arrays(frames, p, return_stats=True,
+                                       device="cpu", **kw)
+        gpu, st_gpu = ecc_match_arrays(frames, p, return_stats=True,
+                                       device=dev, **kw)
+        assert st_cpu.frames_kept == st_gpu.frames_kept == 4
+        np.testing.assert_allclose(st_gpu.ecc_rho, st_cpu.ecc_rho, atol=1e-3)
+        assert np.abs(gpu[8:-8, 8:-8] - cpu[8:-8, 8:-8]).max() < 0.02
+    kframes, _ = make_textured_burst(4, 270, 480, seed=2)
+    kp = KeyPointMatchParameters(border_mode=constants.BORDER_REPLICATE)
+    d_cpu, cpu = keypoint_match_arrays(kframes.numpy(), kp, device="cpu")
+    d_gpu, gpu = keypoint_match_arrays(kframes.numpy(), kp, device=dev)
     assert d_cpu == d_gpu == 0
     assert np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16]).max() < 0.02

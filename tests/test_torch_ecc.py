@@ -151,9 +151,9 @@ def test_moments_layout_lanes_and_unpack(fields):
         np.testing.assert_array_equal(n(g), np.asarray(w))
     with pytest.raises(ValueError, match="templates"):
         ecc_cuda.ecc_iteration_moments(t(srcs), t(tm)[:, :8], t(m3), motion)
-    with pytest.raises(NotImplementedError, match="4-plane"):
+    with pytest.raises(ValueError, match="4,H,W"):
         ecc_cuda.ecc_iteration_moments(
-            torch.cat([t(srcs), t(srcs)[:1]]), t(tm), t(m3), motion)
+            torch.cat([t(srcs), t(srcs)[:2]]), t(tm), t(m3), motion)
 
 
 @pytest.mark.parametrize("motion", MOTIONS)
@@ -273,11 +273,11 @@ def test_solver_edges():
     assert tuple(res.warp_matrix.shape) == (0, 3, 3)
     assert res.ok.dtype == torch.bool and res.num_iters.dtype == torch.int32
     img = torch.zeros(96, 128)
-    for mode, item in (("lazy", "item 13"), ("ic", "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
+    for mode in ("lazy", "ic"):
+        with pytest.raises(NotImplementedError, match="item 15"):
             ecc.find_transform_ecc_batched(img[None], img, mode=mode)
-    with pytest.raises(NotImplementedError, match="input_mask"):
-        ecc.find_transform_ecc_batched(img[None], img, input_mask=img)
+    with pytest.raises(ValueError, match="input_mask"):
+        ecc.find_transform_ecc_batched(img[None], img, input_mask=img[:8])
     # a flat template has no correlation: the lane fails like OpenCV's
     res = ecc.find_transform_ecc_batched(
         torch.full((1, 96, 128), 7.0), t(smooth(np.random.default_rng(1),

@@ -66,7 +66,8 @@ def test_to_unit_f32_bit_exact(rng_local, dtype):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("border", ["reflect101", "replicate", "constant"])
+@pytest.mark.parametrize("border", ["reflect101", "replicate", "constant",
+                                    "reflect", "wrap"])
 def test_pad2d_matches(rng_local, border):
     x = smooth(rng_local, (2, 11, 13))
     got = n(filters.pad2d(t(x), 2, 3, border, value=7.0))
@@ -174,8 +175,8 @@ def test_warp_rgb_per_channel_border_and_mask(rng_local):
         n(warp.invert_3x3(t(m))), np.linalg.inv(m.astype(np.float64)),
         rtol=1e-5, atol=1e-5,
     )
-    with pytest.raises(NotImplementedError, match="BORDER_CONSTANT"):
-        warp.warp_perspective(t(img), t(m), border_mode=constants.BORDER_REFLECT)
+    with pytest.raises(ValueError, match="border mode"):
+        warp.warp_perspective(t(img), t(m), border_mode=7)
 
 
 def test_phase_correlation_matches(rng_local):

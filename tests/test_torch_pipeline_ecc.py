@@ -172,10 +172,8 @@ def test_ecc_match_files(frames, tmp_path, jax_headline):
 
 
 @pytest.mark.parametrize("opt,item", [
-    (dict(mask=np.ones((192, 256), np.uint8)), "item 13"),
-    (dict(params=dict(stacking="sigma_clip")), "item 13"),
     (dict(params=dict(output_scale=2)), "item 14"),
-    (dict(params=dict(solver="lazy")), "item 13"),
+    (dict(params=dict(solver="lazy")), "item 15"),
     (dict(params=dict(solver="ic")), "item 15"),
     (dict(params=dict(phase_init_rotation=True)), "item 15"),
     (dict(mesh="auto"), "item 16"),
@@ -188,7 +186,7 @@ def test_unported_options_raise(frames, opt, item):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         P.ecc_match([], _params(P), preserve_depth=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         P.ecc_match_stream([], _params(P))

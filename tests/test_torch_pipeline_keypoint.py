@@ -185,10 +185,6 @@ def test_files_and_uint16(burst, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mask=np.ones((240, 320), np.uint8)), "item 13"),
-    (dict(params=P.KeyPointMatchParameters(
-        border_mode=constants.BORDER_REPLICATE)), "item 13"),
-    (dict(params=P.KeyPointMatchParameters(stacking="sigma_clip")), "item 13"),
     (dict(params=P.KeyPointMatchParameters(output_scale=2)), "item 14"),
     (dict(mesh="auto"), "item 16"),
 ])
@@ -200,5 +196,5 @@ def test_unported_options_raise(burst, kw, item):
 def test_unported_entry_points_raise(burst):
     with pytest.raises(NotImplementedError, match="item 14"):
         P.keypoint_match_stream(["a.png", "b.png"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         P.keypoint_match(["a.png"], preserve_depth=True, device="cpu")
