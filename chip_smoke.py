@@ -6,8 +6,8 @@
 Phases (each prints one line; any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), torch / CUDA
-   versions, and the ``nvcc`` build of the five kernel sources of ``csrc/``
-   (one ``nvcc`` per source, all started together);
+   versions, and the ``nvcc`` build of the seven kernel sources of
+   ``csrc/`` (one ``nvcc`` per source, all started together);
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
    2160x3840, one of them inactive) plus one affine lane;
@@ -56,11 +56,27 @@ Phases (each prints one line; any failure exits non-zero):
     ``bench.py:640-642`` sets it);
 16. the keypoint path at full width with ``stacking="sigma_clip"`` and
     with ``BORDER_REPLICATE``, and with a detection mask on the
-    ``scale_down_width=800`` grid.
+    ``scale_down_width=800`` grid;
+17. kernel B7 (``ecc_ic_moments.cu``) against its plain version on 99
+    homography lanes of 2160x3840 (one inactive), with and without the
+    Gram, plus one affine lane; and B1 without the Gram (the lazy
+    solver's sweep) at the same shape;
+18. kernel B6 (``sr_deposit.cu``) against its plain version on frames 0-7
+    of phase 5's burst (near-identity homographies, one lane dropped) at
+    factors 2 and 3, sigma 0.3 and 0.1 (the hole-fallback form);
+19. ECC super-resolution at full width: the first 8 frames of phase 5's
+    burst, headline parameters, ``output_scale=2`` -> 4320x7680, held
+    against the mean stack of the same frames (2x2 box mean);
+20. keypoint super-resolution at full width: phase 9's burst with
+    ``output_scale=2``, held against phase 9's mean stack;
+21. the opt-in ECC solvers at full width: phase 5's burst with
+    ``solver="lazy"``, ``solver="ic"`` and ``phase_init_rotation=True``,
+    at the headline bars and against phase 5's forward stack, with the
+    lanes the forward rescue re-solved.
 
-Phases 5, 9 and 14-16 drive the entry points with every launch counter
-set to 0 just before the run and read just after it, and fail if a
-kernel of that path was not launched.
+Phases 5, 9, 14-16 and 19-21 drive the entry points with every launch
+counter set to 0 just before the run and read just after it, and fail if
+a kernel of that path was not launched.
 
 Each kernel record carries its time (CUDA events), its plain version's
 time, the bound of the same work at the card's published rates (bytes
@@ -83,7 +99,8 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp")
+KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
+           "ecc_ic_moments", "sr_deposit")
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -141,6 +158,26 @@ B4_OPS_CLIP = 3 * 4
 # coordinates, quantisation, the border test or index map, the lerp
 B5_OPS = 15 + 12 + 8 + 10
 B9_OPS = 15 + 12 + 8 + 3 * 10
+# B1 without the Gram: 6 + 3P = 30 sums for a homography.  B7 per
+# pixel-lane (csrc/ecc_ic_moments.cu): coordinates, quantisation, the
+# taps of one plane, the template's two differences, the Jacobian, and
+# B1's sums (with or without the Gram)
+B1_LITE_OPS = 15 + 12 + 3 * 10 + 4 + 16 + 2 * 30
+B7_OPS = 15 + 12 + 10 + 4 + 16 + 2 * 66
+B7_LITE_OPS = 15 + 12 + 10 + 4 + 16 + 2 * 30
+# B6 per fine pixel-frame (csrc/sr_deposit.cu): the coordinate, its
+# guarded reciprocal, rounding, the distance and the inside test; per
+# deposited sample the exp, its divide, 3 widened channels and 4 sums
+B6_OPS_ANY = 28
+B6_OPS_DEPOSIT = 12
+SR_FRAMES = 8
+# ECC / keypoint super-resolution bar (tests/test_stack.py:434-436): the
+# 2x2 box mean of the SR image against the mean stack, interior mean abs
+SR_BOX_BAR = 0.02
+# the opt-in solvers against phase 5's forward stack, interior p99
+# (tests/test_pipeline_ecc.py:110-111, :140-141)
+SOLVER_P99_BAR = 0.02
+
 # sigma-clip phase (tests/test_stack.py:127-136): the streak's error
 # under kappa-sigma against the mean stack's, and away from the streak
 SIGMA_STREAK_RATIO = 0.25
@@ -219,12 +256,15 @@ def group_rel(got, want, p, with_hessian=True):
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
     from libstacker_tpu_torch.ops import (
-        ecc_cuda, fast_cuda, orb_cuda, warp_accum_cuda, warp_cuda,
+        ecc_cuda, fast_cuda, orb_cuda, sr_cuda, warp_accum_cuda, warp_cuda,
     )
 
     return {
         "ecc_moments": (ecc_cuda, "launch_count"),
+        "ecc_moments_lite": (ecc_cuda, "lite_launch_count"),
         "ecc_moments_masked": (ecc_cuda, "masked_launch_count"),
+        "ecc_ic_moments": (ecc_cuda, "ic_launch_count"),
+        "sr_deposit": (sr_cuda, "launch_count"),
         "warp_accum": (warp_accum_cuda, "launch_count"),
         "warp_moments": (warp_accum_cuda, "moments_launch_count"),
         "fast": (fast_cuda, "launch_count"),
@@ -718,8 +758,10 @@ def phase_kp_full(dev, frames, truth):
         if not ok:
             fail(f"the full keypoint slice ({label}) missed a bar")
         results[label] = launches
+        if label == "full":
+            full_out = out
         del out
-    return results, ref
+    return results, ref, full_out
 
 
 def rel_err(a, b) -> float:
@@ -1102,6 +1144,308 @@ def phase_kp_variants(dev, frames, truth, ref):
     return results
 
 
+def phase_b7(dev):
+    """B7 (with and without the Gram) and B1 without the Gram against their
+    plain versions at the main path's full-resolution shape."""
+    from libstacker_tpu_torch.ops import ecc as ecc_ops, ecc_cuda
+    from libstacker_tpu_torch.params import MotionType
+
+    rng = np.random.default_rng(17)
+    h, w, b = FULL_H, FULL_W, KERNEL_LANES
+    img = torch.from_numpy(smoothed_image(rng, h, w)).to(dev)
+    srcs = torch.stack(ecc_ops._input_fields(img, 5)).contiguous()
+    src = srcs[0]
+    tmpl = torch.from_numpy(smoothed_image(rng, h, w)).to(dev)
+    tmpl = tmpl[None].repeat(b, 1, 1).contiguous()
+    m3 = torch.from_numpy(near_identity_homographies(rng, b, h, w)).to(dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[b // 2] = False
+    aff = m3[:1].clone()
+    aff[:, 2] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    hom = MotionType.Homography
+
+    worst = {"ic": 0.0, "lite": 0.0}
+    max_abs = {"ic": 0.0, "lite": 0.0}
+    zero_ok = True
+    for motion, mats, act in ((hom, m3, active),
+                              (MotionType.Affine, aff, None)):
+        for gram in (True, False):
+            kw = dict(quant_affine=motion != hom, active=act,
+                      with_hessian=gram)
+            pairs = [("ic", ecc_cuda.ecc_ic_iteration_moments(
+                          src, tmpl[: len(mats)], mats, motion, **kw),
+                      ecc_cuda.ecc_ic_iteration_moments_reference(
+                          src, tmpl[: len(mats)], mats, motion, **kw))]
+            if not gram:
+                pairs.append(("lite", ecc_cuda.ecc_iteration_moments(
+                                  srcs, tmpl[: len(mats)], mats, motion, **kw),
+                              ecc_cuda.ecc_iteration_moments_reference(
+                                  srcs, tmpl[: len(mats)], mats, motion,
+                                  **kw)))
+            torch.cuda.synchronize()
+            for key, got, want in pairs:
+                g = got.double().cpu().numpy()
+                wnt = want.double().cpu().numpy()
+                if act is not None:
+                    zero_ok &= not np.any(g[~act.cpu().numpy()] != 0.0)
+                worst[key] = max(worst[key], group_rel(
+                    g, wnt, motion.num_params, with_hessian=gram))
+                max_abs[key] = max(max_abs[key], float(np.abs(g - wnt).max()))
+    ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments(
+        src, tmpl, m3, hom), 20)
+    ms_gram = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments(
+        src, tmpl, m3, hom, with_hessian=True), 10)
+    plain_ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments_reference(
+        src, tmpl, m3, hom), 1)
+    lite_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
+        srcs, tmpl, m3, hom, with_hessian=False), 20)
+    lite_plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
+        srcs, tmpl, m3, hom, with_hessian=False), 1)
+    torch.cuda.synchronize()
+    hw = float(h * w)
+    bound_ms, bound_by = bound(4.0 * hw * (1 + b) + 4.0 * b * 30,
+                               b * hw * B7_LITE_OPS)
+    gram_bound_ms, _ = bound(4.0 * hw * (1 + b) + 4.0 * b * 66,
+                             b * hw * B7_OPS)
+    lite_bound_ms, lite_bound_by = bound(4.0 * hw * (3 + b) + 4.0 * b * 30,
+                                         b * hw * B1_LITE_OPS)
+    ok = (zero_ok and worst["ic"] < MOMENT_REL_BAR
+          and worst["lite"] < MOMENT_REL_BAR)
+    log(f"[17 B7 ecc_ic_moments, B1 without the Gram] {b} homography lanes "
+        f"(one inactive) + 1 affine lane at {h}x{w}, with and without the "
+        f"Gram: B7 group-norm rel {worst['ic']:.3e}, B1 lite "
+        f"{worst['lite']:.3e} (bar {MOMENT_REL_BAR:g}), inactive lanes zero "
+        f"{zero_ok}; B7 {ms:.3f} ms ({ms_gram:.3f} with the Gram) vs plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{gram_bound_ms:.3f} with the Gram); B1 lite {lite_ms:.3f} ms vs "
+        f"plain {lite_plain_ms:.3f} ms, bound {lite_bound_ms:.3f} ms "
+        f"({lite_bound_by}) -> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B7 or B1 without the Gram disagrees with its plain version")
+    b7 = dict(max_abs_err=max_abs["ic"], ms=ms, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+              ms_with_gram=ms_gram, bound_ms_with_gram=gram_bound_ms,
+              library_note="no PyTorch call fuses a warp with 30-66 "
+                           "reductions")
+    lite = dict(max_abs_err=max_abs["lite"], ms=lite_ms,
+                plain_ms=lite_plain_ms, bound_ms=lite_bound_ms,
+                bound_by=lite_bound_by, library_ms=None,
+                library_note="no PyTorch call fuses a warp with 30 "
+                             "reductions")
+    return b7, lite
+
+
+def sr_image(acc):
+    """The super-resolution image of a deposit (ops/stack.super_res_stack)."""
+    av, aw = acc[0], acc[1]
+    out = av / torch.clamp(aw, min=1e-6)[..., None]
+    if len(acc) == 4:
+        fallback = acc[2] / torch.clamp(acc[3], min=1.0)[..., None]
+        out = torch.where((aw > 1e-6)[..., None], out, fallback)
+    return out
+
+
+def sr_deposits(minv, valid, h, w, factor):
+    """Fine pixel-frames whose nearest tap is inside and valid (this run's
+    data: the samples B6 deposits)."""
+    from libstacker_tpu_torch.ops import sr_cuda
+
+    gy, gx = sr_cuda._fine_coords(h, w, factor, minv.device)
+    total = 0
+    for m, v in zip(minv, valid):
+        if not bool(v):
+            continue
+        den = m[2, 0] * gx + m[2, 1] * gy + m[2, 2]
+        sx = (m[0, 0] * gx + m[0, 1] * gy + m[0, 2]) / den
+        sy = (m[1, 0] * gx + m[1, 1] * gy + m[1, 2]) / den
+        qx, qy = torch.round(sx), torch.round(sy)
+        total += int(((qx >= 0) & (qx <= w - 1) & (qy >= 0)
+                      & (qy <= h - 1) & (den > 1e-6)).sum())
+    return total
+
+
+def phase_b6(dev, frames):
+    """B6 on frames 0-7 of phase 5's burst, as super_res_stack calls it."""
+    from libstacker_tpu_torch.ops import sr_cuda
+
+    frames = frames[:SR_FRAMES]
+    n, h, w, _ = frames.shape
+    rng = np.random.default_rng(18)
+    minv = torch.from_numpy(near_identity_homographies(rng, n, h, w)).to(dev)
+    minv[0] = torch.eye(3, device=dev)  # frame 0 deposits as itself
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[5] = False
+    lines, bitwise_all, max_abs, ok = [], True, 0.0, True
+    for factor in (2, 3):
+        for sigma in (0.3, 0.1):
+            fb = sigma < 0.15
+            got = sr_cuda.sr_deposit(frames, minv, valid, factor, sigma,
+                                     True, fb)
+            want = sr_cuda.sr_deposit_reference(frames, minv, valid, factor,
+                                                sigma, True, fb)
+            torch.cuda.synchronize()
+            bitwise = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+            max_abs = max(max_abs, max(float((a - c).abs().max())
+                                       for a, c in zip(got, want)))
+            d = (sr_image(got) - sr_image(want)).abs()
+            frac = float((d > 1e-4).float().mean())
+            med = float(d.median())
+            ok &= bitwise or (frac <= 1e-3 and med < 1e-6)
+            bitwise_all &= bitwise
+            lines.append(f"x{factor} sigma {sigma}: "
+                         + ("bitwise" if bitwise else
+                            f"not bitwise, image (d > 1e-4) {frac:.2e}, "
+                            f"median {med:.1e}"))
+            del got, want, d
+            torch.cuda.empty_cache()
+    ms = time_ms(lambda: sr_cuda.sr_deposit(frames, minv, valid, 2, 0.3), 20)
+    plain_ms = time_ms(lambda: sr_cuda.sr_deposit_reference(
+        frames, minv, valid, 2, 0.3), 2)
+    fhw = 4.0 * h * w
+    deposits = sr_deposits(minv, valid, h, w, 2)
+    # the kernel skips a dropped frame whole: only the kept frames (and
+    # their maps) are read and swept
+    kept = int(valid.sum())
+    bound_ms, bound_by = bound(
+        kept * h * w * 3.0 + fhw * (3 + 1) * 4.0 + kept * 36.0 + n,
+        kept * fhw * B6_OPS_ANY + deposits * B6_OPS_DEPOSIT)
+    why = ("" if bitwise_all else
+           " (where not bitwise: the weights go through the two exp "
+           "implementations, the kernel's expf and PyTorch's)")
+    log(f"[18 B6 sr_deposit] frames 0-{n - 1} of phase 5's burst ({h}x{w} "
+        f"u8, near-identity homographies, lane 5 dropped): "
+        f"{'; '.join(lines)}{why}; max abs of the sums {max_abs:.3e}; "
+        f"kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (x2, sigma 0.3), "
+        f"bound {bound_ms:.3f} ms ({bound_by}; {kept} frames kept, "
+        f"{deposits / (kept * fhw):.3f} of their fine pixel-frames "
+        f"deposit) -> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B6 disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                library_note="no PyTorch call computes a nearest-tap "
+                             "Gaussian deposit over frames")
+
+
+def box2(img):
+    """2x2 box mean of an [2H, 2W, 3] image."""
+    h2, w2, c = img.shape
+    return img.reshape(h2 // 2, 2, w2 // 2, 2, c).mean(dim=(1, 3))
+
+
+def phase_ecc_sr(dev, frames):
+    import dataclasses
+
+    from libstacker_tpu_torch import ecc_match_arrays
+
+    frames = frames[:SR_FRAMES].contiguous()
+    n = frames.shape[0]
+    mean = ecc_match_arrays(frames, headline_params(), device_output=True)
+    params = dataclasses.replace(headline_params(), output_scale=2)
+    (out, stats), cold_s, warm_s, launches = drive(
+        lambda: ecc_match_arrays(frames, params, return_stats=True,
+                                 device_output=True))
+    c = 64
+    box_err = float((box2(out) - mean)[c:-c, c:-c].abs().mean())
+    splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+    ok = (stats.frames_kept == n and bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
+          and box_err < SR_BOX_BAR and launches["sr_deposit"] == 1
+          and launches["warp_accum"] == 0
+          and not missing(launches, ("ecc_moments",)))
+    log(f"[19 ECC super-resolution] {n}x{FULL_H}x{FULL_W} u8, headline "
+        f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s | stages ms: {splits} | kept "
+        f"{stats.frames_kept}/{n} | 2x2 box mean vs the mean stack mean abs "
+        f"{box_err:.3e} (bar {SR_BOX_BAR}) | launches {launches} -> "
+        f"{'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("the full-size ECC super-resolution missed a bar")
+    return launches
+
+
+def phase_kp_sr(dev, frames, mean_out):
+    from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_arrays
+
+    n = frames.shape[0]
+    params = KeyPointMatchParameters(output_scale=2)
+    (dropped, out, stats), cold_s, warm_s, launches = drive(
+        lambda: keypoint_match_arrays(frames, params, return_stats=True,
+                                      device_output=True))
+    c = 64
+    box_err = float((box2(out) - mean_out)[c:-c, c:-c].abs().mean())
+    splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+    ok = (dropped == 0 and bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
+          and box_err < SR_BOX_BAR and launches["sr_deposit"] == 1
+          and launches["warp_accum"] == 0
+          and not missing(launches, ("fast", "orb_extract")))
+    log(f"[20 keypoint super-resolution] {n}x{FULL_H}x{FULL_W} u8, default "
+        f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s | stages ms: {splits} | kept "
+        f"{stats.frames_kept}/{n} | 2x2 box mean vs phase 9's mean stack "
+        f"mean abs {box_err:.3e} (bar {SR_BOX_BAR}) | launches B8 "
+        f"{launches['fast']}, B3 {launches['orb_extract']}, B6 "
+        f"{launches['sr_deposit']}: {launches} -> {'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("the full-size keypoint super-resolution missed a bar")
+    return launches
+
+
+def phase_solvers(dev, frames, clean):
+    """solver='lazy', solver='ic' and phase_init_rotation=True on phase 5's
+    burst, each cold and warm."""
+    import dataclasses
+
+    from libstacker_tpu_torch import ecc_match_arrays
+    from libstacker_tpu_torch.ops import ecc as ecc_ops
+
+    results = {}
+    ref0 = frames[0].float() / 255.0
+    c = 64
+    for label, kw, need in (
+        ("solver=lazy", dict(solver="lazy"), ("ecc_moments_lite",)),
+        ("solver=ic", dict(solver="ic"), ("ecc_ic_moments",)),
+        ("phase_init_rotation", dict(phase_init_rotation=True),
+         ("ecc_moments",)),
+    ):
+        params = dataclasses.replace(headline_params(), **kw)
+
+        def run():
+            ecc_ops.rescued_lane_count = 0
+            return ecc_match_arrays(frames, params, return_stats=True,
+                                    device_output=True)
+
+        (out, stats), cold_s, warm_s, launches = drive(run)
+        rescued = ecc_ops.rescued_lane_count
+        rho = np.asarray(stats.ecc_rho)
+        iters = np.asarray(stats.ecc_iterations)
+        f0_diff = float((out[c:-c, c:-c] - ref0[c:-c, c:-c]).abs().mean())
+        q = p99(out, clean)
+        splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
+        ok = (stats.frames_kept == FULL_N and float(rho.mean()) >= RHO_BAR
+              and f0_diff < FRAME0_MEAN_BAR and q < SOLVER_P99_BAR
+              and bool(torch.isfinite(out).all())
+              and tuple(out.shape) == (FULL_H, FULL_W, 3)
+              and not missing(launches, need + ("warp_accum",)))
+        log(f"[21 ECC {label}] {FULL_N}x{FULL_H}x{FULL_W} u8, headline "
+            f"parameters: cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
+            f"{FULL_N / warm_s:.2f} frames/s | stages ms: {splits} | iters "
+            f"(full-res) mean {iters.mean():.2f} max {iters.max()} | mean "
+            f"rho {rho.mean():.5f} | kept {stats.frames_kept}/{FULL_N} | "
+            f"stack vs frame 0 mean abs {f0_diff:.2e} | vs phase 5's forward "
+            f"stack p99 {q:.4f} (bar {SOLVER_P99_BAR}) | launches B1 with "
+            f"the Gram {launches['ecc_moments']}, without "
+            f"{launches['ecc_moments_lite']}, B7 {launches['ecc_ic_moments']}"
+            f" | lanes re-solved by the forward rescue {rescued} -> "
+            f"{'OK' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"the full-size ECC {label} run missed a bar")
+        results[label] = launches
+        del out
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1135,7 +1479,7 @@ def main() -> int:
     del grey
     torch.cuda.empty_cache()
     phase_kp_parity(dev)
-    kp, kp_ref = phase_kp_full(dev, frames, truth)
+    kp, kp_ref, kp_out = phase_kp_full(dev, frames, truth)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     b4 = phase_b4(dev, ecc_frames, ecc_truth)
@@ -1149,15 +1493,28 @@ def main() -> int:
     sigma = phase_ecc_sigma(dev, ecc_frames, ecc_clean)
     torch.cuda.empty_cache()
     masked = phase_ecc_mask(dev, ecc_frames)
+    torch.cuda.empty_cache()
+    b7, b1_lite = phase_b7(dev)
+    torch.cuda.empty_cache()
+    b6 = phase_b6(dev, ecc_frames)
+    torch.cuda.empty_cache()
+    ecc_sr = phase_ecc_sr(dev, ecc_frames)
+    torch.cuda.empty_cache()
+    solvers = phase_solvers(dev, ecc_frames, ecc_clean)
     del ecc_frames, ecc_clean
     torch.cuda.empty_cache()
     kp_var = phase_kp_variants(dev, frames, truth, kp_ref)
+    torch.cuda.empty_cache()
+    kp_sr = phase_kp_sr(dev, frames, kp_out)
     torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
                **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
                "ecc_match_arrays sigma_clip": sigma,
                "ecc_match_arrays mask": masked,
-               **{f"keypoint_match_arrays {k}": v for k, v in kp_var.items()}}
+               **{f"keypoint_match_arrays {k}": v for k, v in kp_var.items()},
+               "ecc_match_arrays output_scale=2": ecc_sr,
+               **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
+               "keypoint_match_arrays output_scale=2": kp_sr}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}
@@ -1201,6 +1558,20 @@ def main() -> int:
              replaces="libstacker_tpu/ops/ecc_pallas.py:202",
              replaces_note="_moments_kernel with n_src == 4 (:202-247)",
              **counts("ecc_moments_masked"), **b1m),
+        dict(name="ecc_moments_lite", route="cuda",
+             source="libstacker_tpu_torch/csrc/ecc_moments.cu",
+             replaces="libstacker_tpu/ops/ecc_pallas.py:92",
+             replaces_note="_moments_kernel with with_hessian=False (the "
+                           "lazy solver's sweep)",
+             **counts("ecc_moments_lite"), **b1_lite),
+        dict(name="ecc_ic_moments", route="cuda",
+             source="libstacker_tpu_torch/csrc/ecc_ic_moments.cu",
+             replaces="libstacker_tpu/ops/ecc_pallas.py:460",
+             **counts("ecc_ic_moments"), **b7),
+        dict(name="sr_deposit", route="cuda",
+             source="libstacker_tpu_torch/csrc/sr_deposit.cu",
+             replaces="libstacker_tpu/ops/sr_pallas.py:47",
+             **counts("sr_deposit"), **b6),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -48,66 +48,17 @@
 // of the TPU kernel exist only for VMEM windows; a thread here gathers
 // any source pixel, so there is no residual band and no k.
 //
+// The coordinates, taps, Jacobian and reductions it shares with B7
+// (csrc/ecc_ic_moments.cu) are in csrc/ecc_moments_common.cuh.
+//
 // Build with --fmad=false (utils/cuda_build.py): every float expression
-// below is written in the order of the plain PyTorch version
+// is written in the order of the plain PyTorch version
 // (ops/ecc_cuda.py ecc_iteration_moments_reference, built on
 // ops/warp.py), so both land in the same 1/32-px bins.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ecc_moments_common.cuh"
 
 namespace {
-
-constexpr int THREADS = 128;
-constexpr int PIX_PER_THREAD = 32;
-constexpr int PIX_PER_BLOCK = THREADS * PIX_PER_THREAD;
-constexpr int RED_THREADS = 256;
-
-template <int P, bool HESS>
-struct Layout {
-  static constexpr int NOUT = 6 + 3 * P + (HESS ? P * (P + 1) / 2 : 0);
-};
-
-// Motion-model Jacobian (OpenCV image_jacobian_*_ECC; P = 2/3/6/8).
-template <int P>
-__device__ __forceinline__ void jacobian(float* jac, float gxw, float gyw,
-                                         float xs, float ys, float sx,
-                                         float sy, const float* m) {
-  if constexpr (P == 2) {
-    jac[0] = gxw;
-    jac[1] = gyw;
-  } else if constexpr (P == 3) {
-    const float h0 = m[0];  // cos(theta)
-    const float h1 = m[3];  // sin(theta)
-    const float hat_x = -xs * h1 - ys * h0;
-    const float hat_y = xs * h0 - ys * h1;
-    jac[0] = gxw * hat_x + gyw * hat_y;
-    jac[1] = gxw;
-    jac[2] = gyw;
-  } else if constexpr (P == 6) {
-    jac[0] = gxw * xs;
-    jac[1] = gyw * xs;
-    jac[2] = gxw * ys;
-    jac[3] = gyw * ys;
-    jac[4] = gxw;
-    jac[5] = gyw;
-  } else {
-    // homography: hatX = sx, hatY = sy; den without a zero guard
-    const float den = m[6] * xs + m[7] * ys + 1.0f;
-    const float inv_den = 1.0f / den;
-    const float gxd = gxw * inv_den;
-    const float gyd = gyw * inv_den;
-    const float tmp = sx * gxd + sy * gyd;
-    jac[0] = gxd * xs;
-    jac[1] = gyd * xs;
-    jac[2] = -tmp * xs;
-    jac[3] = gxd * ys;
-    jac[4] = gyd * ys;
-    jac[5] = -tmp * ys;
-    jac[6] = gxd;
-    jac[7] = gyd;
-  }
-}
 
 template <int P, bool HESS, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
@@ -117,12 +68,10 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
                float* __restrict__ partials, int H, int W, int nblk,
                int quant_affine) {
   constexpr int NOUT = Layout<P, HESS>::NOUT;
-  __shared__ float red[THREADS / 32][NOUT];
   const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  float* part = partials + (size_t)b * NOUT * nblk + blk;
+  float* part = partials + (size_t)b * NOUT * nblk + blockIdx.x;
   if (!active[b]) {
-    for (int k = threadIdx.x; k < NOUT; k += THREADS) part[(size_t)k * nblk] = 0.0f;
+    zero_partials<NOUT>(part, nblk);
     return;
   }
   float m[9];
@@ -140,8 +89,7 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
   const float* mkp = srcs + 3 * hw;  // read only when MASKED
   const float* tp = tmpl + (size_t)b * hw;
   const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
-  const float wm2 = (float)(W - 2), hm2 = (float)(H - 2);
-  const size_t base = (size_t)blk * PIX_PER_BLOCK + threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * PIX_PER_BLOCK + threadIdx.x;
 
   for (int it = 0; it < PIX_PER_THREAD; ++it) {
     const size_t p = base + (size_t)it * THREADS;
@@ -150,12 +98,8 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
     const int x = (int)(p - (size_t)y * W);
     const float xs = (float)x;
     const float ys = (float)y;
-
-    // source coordinates (ops/warp.py _dst_coords, perspective form)
-    const float den = m[6] * xs + m[7] * ys + m[8];
-    const float inv = den != 0.0f ? 1.0f / den : 0.0f;
-    const float sx = (m[0] * xs + m[1] * ys + m[2]) * inv;
-    const float sy = (m[3] * xs + m[4] * ys + m[5]) * inv;
+    float sx, sy;
+    source_coords(m, xs, ys, sx, sy);
 
     // INTER_NEAREST validity mask from the unquantised coordinate
     const float xi = rintf(sx);
@@ -166,45 +110,11 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
       if (inside) mask = mkp[(size_t)(int)yi * W + (int)xi];
     }
 
-    // 1/32-px quantisation (rintf rounds half to even, like torch.round)
-    float xq, yq;
-    if (quant_affine) {
-      xq = floorf((rintf(sx * 1024.0f) + 16.0f) / 32.0f);
-      yq = floorf((rintf(sy * 1024.0f) + 16.0f) / 32.0f);
-    } else {
-      xq = rintf(sx * 32.0f);
-      yq = rintf(sy * 32.0f);
-    }
-    const float x0f = floorf(xq * (1.0f / 32.0f));
-    const float y0f = floorf(yq * (1.0f / 32.0f));
-    const float fx = (xq - x0f * 32.0f) * (1.0f / 32.0f);
-    const float fy = (yq - y0f * 32.0f) * (1.0f / 32.0f);
-    const bool vx0 = x0f >= 0.0f && x0f <= wm1;
-    const bool vx1 = x0f >= -1.0f && x0f <= wm2;
-    const bool vy0 = y0f >= 0.0f && y0f <= hm1;
-    const bool vy1 = y0f >= -1.0f && y0f <= hm2;
-    const int x0 = (vx0 || vx1) ? (int)x0f : 0;
-    const int y0 = (vy0 || vy1) ? (int)y0f : 0;
-    const size_t r0 = (size_t)y0 * W;
-    const size_t r1 = r0 + W;
-
-    float v[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float* s = c == 0 ? img : (c == 1 ? gxp : gyp);
-      const float t00 = (vy0 && vx0) ? s[r0 + x0] : 0.0f;
-      const float t01 = (vy0 && vx1) ? s[r0 + x0 + 1] : 0.0f;
-      const float t10 = (vy1 && vx0) ? s[r1 + x0] : 0.0f;
-      const float t11 = (vy1 && vx1) ? s[r1 + x0 + 1] : 0.0f;
-      const float top = t00 * (1.0f - fx) + t01 * fx;
-      const float bot = t10 * (1.0f - fx) + t11 * fx;
-      v[c] = top * (1.0f - fy) + bot * fy;
-    }
-    const float imw = v[0];
+    const Taps taps(sx, sy, H, W, quant_affine);
+    const float imw = taps.sample(img);
     const float tm = tp[p];
-
     float jac[P];
-    jacobian<P>(jac, v[1], v[2], xs, ys, sx, sy, m);
+    jacobian<P>(jac, taps.sample(gxp), taps.sample(gyp), xs, ys, sx, sy, m);
 
     const float mi = mask * imw;
     const float mt = mask * tm;
@@ -229,63 +139,7 @@ moments_kernel(const float* __restrict__ srcs, const float* __restrict__ tmpl,
       }
     }
   }
-
-  // block reduction: warp shuffles, then the 4 warps in a fixed order
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NOUT; ++k) {
-    float s = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][k] = s;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < NOUT; k += THREADS) {
-    float s = red[0][k];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) s += red[w][k];
-    part[(size_t)k * nblk] = s;
-  }
-}
-
-// out[b, k] = sum over blocks of partials[b, k, :], in double.
-__global__ void __launch_bounds__(RED_THREADS)
-reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
-              int nblk, int nout) {
-  __shared__ double sh[RED_THREADS];
-  const int k = blockIdx.x;
-  const int b = blockIdx.y;
-  const float* src = partials + ((size_t)b * nout + k) * nblk;
-  double s = 0.0;
-  for (int i = threadIdx.x; i < nblk; i += RED_THREADS) s += (double)src[i];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int st = RED_THREADS / 2; st > 0; st >>= 1) {
-    if (threadIdx.x < st) sh[threadIdx.x] += sh[threadIdx.x + st];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[(size_t)b * nout + k] = (float)sh[0];
-}
-
-template <int P, bool HESS>
-cudaError_t launch(const float* srcs, const float* tmpl, const float* m3,
-                   const uint8_t* active, float* partials, float* out, int B,
-                   int H, int W, int nblk, int quant_affine, int masked,
-                   cudaStream_t st) {
-  constexpr int NOUT = Layout<P, HESS>::NOUT;
-  if (masked) {
-    moments_kernel<P, HESS, true><<<dim3(nblk, B), THREADS, 0, st>>>(
-        srcs, tmpl, m3, active, partials, H, W, nblk, quant_affine);
-  } else {
-    moments_kernel<P, HESS, false><<<dim3(nblk, B), THREADS, 0, st>>>(
-        srcs, tmpl, m3, active, partials, H, W, nblk, quant_affine);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  reduce_kernel<<<dim3(NOUT, B), RED_THREADS, 0, st>>>(partials, out, nblk,
-                                                      NOUT);
-  return cudaGetLastError();
+  block_reduce_store<NOUT>(acc, part, nblk);
 }
 
 }  // namespace
@@ -311,19 +165,19 @@ int ecc_moments(const void* srcs, const void* tmpl, const void* m3,
   auto pp = static_cast<float*>(partials);
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (n_params * 2 + (with_hessian ? 1 : 0)) {
-    case 2 * 2 + 0: e = launch<2, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 2 * 2 + 1: e = launch<2, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 3 * 2 + 0: e = launch<3, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 3 * 2 + 1: e = launch<3, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 6 * 2 + 0: e = launch<6, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 6 * 2 + 1: e = launch<6, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 8 * 2 + 0: e = launch<8, false>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    case 8 * 2 + 1: e = launch<8, true>(s, t, m, a, pp, o, B, H, W, nblk, quant_affine, masked, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return (int)e;
+  return (int)dispatch(n_params, with_hessian, [&](auto pc, auto hc) {
+    constexpr int P = decltype(pc)::value;
+    constexpr bool HESS = decltype(hc)::value;
+    const dim3 grid(nblk, B);
+    if (masked) {
+      moments_kernel<P, HESS, true><<<grid, THREADS, 0, st>>>(
+          s, t, m, a, pp, H, W, nblk, quant_affine);
+    } else {
+      moments_kernel<P, HESS, false><<<grid, THREADS, 0, st>>>(
+          s, t, m, a, pp, H, W, nblk, quant_affine);
+    }
+    return reduce_partials<Layout<P, HESS>::NOUT>(pp, o, B, nblk, st);
+  });
 }
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -11,13 +11,17 @@ raises ``ProcessingError`` — or is dropped with ``on_failure="drop"``.
 Stages, all on one device:
 
 1. fixed-point grey (``ops/color``), INTER_AREA-scaled on the scaled path;
-2. phase-correlation translation start (``ops/phasecorr``; off when a
-   ``mask`` is given);
-3. batched ECC with optional 2x octaves (``ops/ecc``, kernel B1; its
-   4-plane form with a ``mask``);
+2. phase-correlation start (``ops/phasecorr``; translation, or with
+   ``phase_init_rotation`` rotation/scale first; off when a ``mask`` is
+   given);
+3. batched ECC with optional 2x octaves (``ops/ecc``): kernel B1 (its
+   4-plane form with a ``mask``), B1 without the Gram for
+   ``solver="lazy"``, B7 for ``solver="ic"``;
 4. fused warp + sum of the kept frames (``ops/warp_batch``, kernel B2),
    divided by the frame count; or, with ``stacking="sigma_clip"``, the
-   kappa-sigma stack (``ops/stack``, kernel B4) with per-pixel divisors.
+   kappa-sigma stack (``ops/stack``, kernel B4) with per-pixel divisors;
+   or, with ``output_scale > 1``, the super-resolution stack
+   (``ops/stack.super_res_stack``, kernel B6) on the finer grid.
 
 Options this slice does not port raise ``NotImplementedError`` naming
 the ROADMAP.md item that will port them.
@@ -119,30 +123,32 @@ def _ecc_mask(mask, hw, scale_hw=None, device="cpu") -> torch.Tensor:
     return m
 
 
-def _check_ported(params: EccMatchParameters, mesh) -> None:
-    """Raise for the options this slice does not port."""
-    unported = [
-        (params.output_scale != 1, f"output_scale={params.output_scale}",
-         "ROADMAP.md Queue A item 14"),
-        (params.solver == "lazy", "solver='lazy'",
-         "ROADMAP.md Queue A item 15"),
-        (params.solver == "ic", "solver='ic'", "ROADMAP.md Queue A item 15"),
-        (params.phase_init_rotation, "phase_init_rotation=True",
-         "ROADMAP.md Queue A item 15"),
-        (mesh is not None, "mesh=", "ROADMAP.md Queue A item 16"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to libstacker_tpu_torch yet ({item})"
-            )
+def _check_mesh(mesh) -> None:
+    """Raise for the option this package does not port yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported to libstacker_tpu_torch yet (ROADMAP.md "
+            "Queue A item 16)"
+        )
 
 
-def _single_frame_out(frame) -> np.ndarray:
-    """n == 1: the stack is frame 0 itself, as float32 in [0, 1]."""
-    frame = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else frame
-    scale = 65535.0 if frame.dtype == np.uint16 else 255.0
-    return frame.astype(np.float32) / scale
+def _single_frame_out(frame, params, device, device_output=False):
+    """n == 1: the stack is frame 0 itself, as float32 in [0, 1] —
+    INTER_LINEAR-upsampled when a super-resolution grid was asked for
+    (``libstacker_tpu/models/keypoint.py`` :360-375).  A numpy frame
+    moves to ``device`` first; the upsample runs there and the result is
+    fetched to numpy unless ``device_output``."""
+    if not isinstance(frame, torch.Tensor):
+        frame = torch.from_numpy(np.ascontiguousarray(frame)).to(device)
+    scale = 65535.0 if frame.dtype == torch.uint16 else 255.0
+    out = frame.to(torch.float32) / scale
+    f = params.output_scale
+    if f > 1:
+        h, w = out.shape[:2]
+        out = resize.resize(out.permute(2, 0, 1), (h * f, w * f),
+                            constants.INTER_LINEAR).permute(1, 2, 0)
+        out = out.contiguous()
+    return out if device_output else out.cpu().numpy()
 
 
 def ecc_match_arrays(
@@ -173,9 +179,14 @@ def ecc_match_arrays(
     pixels from the alignment, not from the stack, and turns the
     phase-correlation start off.  ``params.stacking = "sigma_clip"``
     stacks by per-pixel kappa-sigma clipping over the covered samples
-    (``clipped_sample_frac`` in the stats)."""
+    (``clipped_sample_frac`` in the stats).  ``params.output_scale = f``
+    (2-4) returns the ``[f*H, f*W, 3]`` super-resolution stack;
+    ``params.solver`` picks the ECC formulation ('forward', 'lazy',
+    'ic') and ``params.phase_init_rotation`` the rotation/scale start.
+    The super-resolution and sigma-clip images are final: failed frames
+    are left out of them under ``on_failure="drop"``."""
     params.validate()
-    _check_ported(params, mesh)
+    _check_mesh(mesh)
     if isinstance(frames, torch.Tensor):
         dev = resolve_device(frames.device)
         dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
@@ -211,7 +222,7 @@ def ecc_match_arrays(
 
     if n == 1:
         # reference: stacked = sum / 1 = frame 0 (src/lib.rs:836-843)
-        out = _single_frame_out(frames[0])
+        out = _single_frame_out(frames[0], params, dev, device_output)
         if return_stats:
             return out, PipelineStats(frames_total=1, frames_kept=1,
                                       frames_dropped=0)
@@ -233,22 +244,29 @@ def ecc_match_arrays(
         with ecc_ops._phase(timer, "phase init"):
             warp_init = phasecorr.phase_init_warps(
                 grey[1:], grey[0], motion_type=motion,
+                rotation=params.phase_init_rotation,
             )
     result = ecc_ops.find_transform_ecc_batched(
         grey[1:], grey[0], motion_type=motion, num_iters=num_iters,
         eps=eps, gauss_filt_size=params.gauss_filt_size,
         coarse_levels=params.coarse_levels, warp_init=warp_init,
-        input_mask=input_mask, timer=timer,
+        mode=params.solver, input_mask=input_mask, timer=timer,
     )
     del grey
     sigma = params.stacking == "sigma_clip"
+    sr_factor = params.output_scale
+    final = sigma or sr_factor > 1  # per-pixel divisors: no divide below
     clip_frac = None
     with ecc_ops._phase(timer, "stack"):
-        if sigma:
-            warps = result.warp_matrix
-            if scale_hw is not None:
-                warps = _adjust_warp_for_scale(warps, motion, scale_hw,
-                                               (h, w))
+        warps = result.warp_matrix
+        if final and scale_hw is not None:
+            warps = _adjust_warp_for_scale(warps, motion, scale_hw, (h, w))
+        if sr_factor > 1:
+            stacked = stack_ops.super_res_stack(
+                frames_t, warps, result.ok, factor=sr_factor,
+                perspective=motion == MotionType.Homography,
+            )
+        elif sigma:
             stacked, clip_frac = stack_ops.kappa_sigma_stack(
                 frames_t, warps, result.ok,
                 perspective=motion == MotionType.Homography,
@@ -282,9 +300,9 @@ def ecc_match_arrays(
             )
         # drop mode: failed frames contributed nothing to the sum
         count = 1 + int(ok.sum())
-    # the sigma-clip image is final (per-pixel divisors, failed lanes
-    # already excluded)
-    out = fetch(stacked) if sigma else fetch(stacked) / count
+    # the sigma-clip and super-resolution images are final (per-pixel
+    # divisors, failed lanes already excluded)
+    out = fetch(stacked) if final else fetch(stacked) / count
     return (out, stats) if return_stats else out
 
 

@@ -17,7 +17,8 @@ counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
    fused warp-and-sum (``ops/warp_batch``, kernel B2), the index-mapping
    border modes through per-frame warps (``warp_frames_batch``, kernel
    B5); or, with ``stacking="sigma_clip"``, the kappa-sigma stack
-   (``ops/stack``, kernel B4).
+   (``ops/stack``, kernel B4); or, with ``output_scale > 1``, the
+   super-resolution stack (``ops/stack.super_res_stack``, kernel B6).
 
 Drop bookkeeping follows the JAX package (SURVEY.md §3.1): frames with
 fewer than 5 kept matches, a failed estimate or |det H| < 1e-6 are
@@ -44,7 +45,7 @@ from ..ops.warp_batch import warp_accumulate_rgb, warp_frames_batch
 from ..utils import io
 from ..utils.device import resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
-from .ecc import _ecc_mask, _f32, _single_frame_out
+from .ecc import _check_mesh, _ecc_mask, _f32, _single_frame_out
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
 _GREY_CHUNK = 16
@@ -137,26 +138,18 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
 
 
 def _check_ported(params: KeyPointMatchParameters, mesh) -> None:
-    """Raise for the options this slice does not port, and for
-    sigma-clip with a border mode that has no coverage."""
+    """Raise for the option this package does not port yet, and for
+    sigma-clip or super-resolution with a border mode that has no
+    coverage (``libstacker_tpu/models/keypoint.py`` :568-577)."""
     border = constants.border_mode_name(params.border_mode)
-    if (params.stacking == "sigma_clip"
+    if ((params.stacking == "sigma_clip" or params.output_scale > 1)
             and border not in ("constant", "transparent")):
         raise InvalidParamsError(
             "stacking='sigma_clip' / output_scale>1 require "
             "BORDER_CONSTANT or BORDER_TRANSPARENT (sample inclusion is "
             f"defined by warp coverage), got border mode {border!r}"
         )
-    unported = [
-        (params.output_scale != 1, f"output_scale={params.output_scale}",
-         "ROADMAP.md Queue A item 14"),
-        (mesh is not None, "mesh=", "ROADMAP.md Queue A item 16"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to libstacker_tpu_torch yet ({item})"
-            )
+    _check_mesh(mesh)
 
 
 def keypoint_match_arrays(
@@ -189,7 +182,9 @@ def keypoint_match_arrays(
     grid on the scaled path).  ``params.border_mode`` takes every
     OpenCV mode the JAX package takes; ``params.stacking =
     "sigma_clip"`` (BORDER_CONSTANT or BORDER_TRANSPARENT only) stacks
-    by per-pixel kappa-sigma clipping over the covered samples."""
+    by per-pixel kappa-sigma clipping over the covered samples;
+    ``params.output_scale = f`` (2-4, the same border modes) returns the
+    ``[f*H, f*W, 3]`` super-resolution stack.  Both images are final."""
     params.validate()
     _check_ported(params, mesh)
     if isinstance(frames, torch.Tensor):
@@ -223,7 +218,7 @@ def keypoint_match_arrays(
 
     if n == 1:
         # the single-frame stack is frame 0 itself (src/lib.rs:306-343)
-        out = _single_frame_out(frames[0])
+        out = _single_frame_out(frames[0], params, dev, device_output)
         if return_stats:
             return 0, out, PipelineStats(frames_total=1, frames_kept=1,
                                          frames_dropped=0)
@@ -253,12 +248,18 @@ def keypoint_match_arrays(
             max_iters=params.max_iters, confidence=params.confidence,
         )
     sigma = params.stacking == "sigma_clip"
+    sr_factor = params.output_scale
+    final = sigma or sr_factor > 1  # per-pixel divisors: no divide below
     clip_frac = None
     with _phase(timer, "stack"):
-        if sigma:
-            hs_full = hs
-            if scale_hw is not None:
-                hs_full = _adjust_h_for_scale(hs, scale_hw, (h, w))
+        hs_full = hs
+        if final and scale_hw is not None:
+            hs_full = _adjust_h_for_scale(hs, scale_hw, (h, w))
+        if sr_factor > 1:
+            stacked = stack_ops.super_res_stack(
+                frames_t, hs_full, oks, factor=sr_factor, perspective=True,
+            )
+        elif sigma:
             stacked, clip_frac = stack_ops.kappa_sigma_stack(
                 frames_t, hs_full, oks, perspective=True,
                 kappa=params.sigma_kappa, iters=params.sigma_iters,
@@ -272,8 +273,9 @@ def keypoint_match_arrays(
     kept = 1 + int(ok.sum())
     dropped = int((~ok).sum())
     fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
-    # the sigma-clip image is final (per-pixel divisors)
-    out = fetch(stacked) if sigma else fetch(stacked) / kept
+    # the sigma-clip and super-resolution images are final (per-pixel
+    # divisors)
+    out = fetch(stacked) if final else fetch(stacked) / kept
     if return_stats:
         stats = PipelineStats(
             frames_total=n,

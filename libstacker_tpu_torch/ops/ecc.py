@@ -2,38 +2,63 @@
 
 Counterpart of ``libstacker_tpu/ops/ecc.py``: OpenCV's forward-additive
 ``findTransformECC`` (Evangelidis & Psarakis, PAMI 2008) for a batch of
-templates against one shared input image.
+templates against one shared input image, and the JAX package's two
+opt-in formulations of the same objective.
 
 - ``identity_warp`` :105, ``_as_3x3`` :113, ``_update_warp`` :117
-  (OpenCV's parameter order), ``_input_fields`` :236 (Gaussian
-  pre-filter, [-0.5, 0, 0.5] central differences, reflect-101),
+  (OpenCV's parameter order), ``_compose_warp_ic`` :145,
+  ``_input_fields`` :236 (Gaussian pre-filter, [-0.5, 0, 0.5] central
+  differences, reflect-101), ``_reactivate_carry`` :273,
   ``_rescale_warp_batch`` :1006, the template prep and solve carry
-  ``(m, rho=-1, last_rho=-eps, it=0, ok=True)`` of :936-959, and
-  ``find_transform_ecc_batched`` :1150 with ``coarse_levels``,
-  ``warp_init`` and the cross-scale ``rho_init`` seed (:1214-1348).
-- Every Gauss-Newton iteration is one sweep of kernel B1
-  (``ops/ecc_cuda.ecc_iteration_moments``, the TPU's
-  ``_moments_kernel``); OpenCV's statistics, projections and the
-  update are rebuilt from its raw moments as ``ecc.py:778-906`` does.
-  The port has this one code path, where the JAX package has two (the
-  fused moments on TPU, warped fields through XLA elsewhere).
+  ``(m, rho=-1, last_rho=-eps, it=0, ok=True[, gram, h_ok])`` of
+  :936-959, and ``find_transform_ecc_batched`` :1150 with
+  ``coarse_levels``, ``warp_init`` and the cross-scale ``rho_init`` seed
+  (:1214-1348).
+- ``mode='forward'`` (the default): every Gauss-Newton iteration is one
+  sweep of kernel B1 (``ops/ecc_cuda.ecc_iteration_moments``, the TPU's
+  ``_moments_kernel``); OpenCV's statistics, projections and the update
+  are rebuilt from its raw moments as ``ecc.py:778-906`` does.
+- ``mode='lazy'`` (:735-769): the same forward linearisation, but the
+  Jacobian Gram is computed on each lane's first iteration (B1 with the
+  Gram) and carried; later sweeps run B1 without it (30 instead of 66
+  reductions for a homography).  No rho guard (:879-886).
+- ``mode='ic'`` (:627-721): inverse-compositional — kernel B7
+  (``ecc_cuda.ecc_ic_iteration_moments``) warps only the input image and
+  takes the Jacobian on the template side at the identity, the Gram is
+  carried as in 'lazy', the update is role-swapped and composes
+  ``W <- W @ inv(w(dp))``, and a lane whose rho drops by more than
+  ``max(eps, 1e-5)`` after its first iteration is failed (:694-697).
+- Rescue (:1512-1527): a lane that ends an 'ic' or 'lazy' solve with
+  ``ok == False`` restarts from its original init and is solved again in
+  forward mode, the port's exact formulation (the JAX package runs that
+  rescue on its XLA path); every other lane stays as it ended.
 - The loop is plain Python over iterations with a per-lane ``active``
   mask; convergence (``|rho - last_rho| < eps``, iteration budget,
   failure) is read on the host every ``_CHUNK_ITERS`` iterations.
   Inactive lanes are frozen, so the iterates do not depend on how often
   the host looks.
 
+The port has this one code path on every device, so ``mode`` means the
+same on the CPU (the kernels' plain versions) as on the card; the JAX
+package runs 'lazy' and 'ic' only through its Pallas kernels and solves
+forward on the CPU unless ``LIBSTACKER_FORCE_PALLAS`` is set.  Its
+``LIBSTACKER_ECC_MODE`` override, an A/B knob, is not ported:
+``EccMatchParameters.solver`` is the switch.
+
 Not ported, because it exists only for TPU limits: the lane groups,
 slabs and watchdog bound (``ecc.py:983-1003``, ``:1362-1426``), the
 residual band ladder ``_K_LADDER`` with its ``residual_domain_ok``
-escalation and XLA rescue (``:1470-1527``), and ``_solve_octave_nosync``.
-A thread on the card gathers any source pixel, so there is no band to
-escape; every octave runs the exact solve loop, as the JAX package does on
-the CPU, and carries the octave's shrunken ``input_mask`` as
-``_solve_octave_nosync`` does (``:1099-1130``).  ``input_mask``
-(cv2's inputMask, ``_prepare_masked_input``) rides kernel B1 as a 4th
-source plane.  The 'lazy' and 'ic' solvers raise ``NotImplementedError``
-(ROADMAP.md Queue A item 15).
+checks, the ``esc`` carry flag and the escalation (``:1470-1511``), and
+``_solve_octave_nosync``'s dispatch without host syncs.  A thread on the
+card gathers any source pixel, so there is no band to escape.  Every
+octave runs the solve loop and carries the octave's shrunken
+``input_mask`` as ``_solve_octave_nosync`` does (``:1099-1130``); a
+'forward' or 'lazy' octave skips the rescue as that function does, and
+a failed 'lazy' octave lane hands the next level its pre-solve init
+(:1130-1139), while an 'ic' octave runs with its rescue (:1285-1317).
+``input_mask`` (cv2's inputMask, ``_prepare_masked_input``) rides kernel
+B1 as a 4th source plane; with a mask 'ic' solves in forward mode
+(:1210-1213).
 """
 
 from __future__ import annotations
@@ -49,6 +74,14 @@ from . import ecc_cuda, filters, resize, warp
 # Iterations between host convergence checks (the reference's
 # while_loop chunk).
 _CHUNK_ITERS = 4
+
+_MODES = ("forward", "lazy", "ic")
+# floor of the IC solver's rho-monotonicity guard (ecc.py:694-697)
+_IC_GUARD_FLOOR = 1e-5
+
+#: lanes that the 'ic' / 'lazy' rescue re-solved in forward mode since
+#: the last reset
+rescued_lane_count = 0
 
 
 class EccResult(NamedTuple):
@@ -98,6 +131,23 @@ def _update_warp(
     return m + upd
 
 
+def _compose_warp_ic(
+    motion_type: MotionType, m: torch.Tensor, dp: torch.Tensor
+) -> torch.Tensor:
+    """Batched inverse-compositional update ``W <- W @ inv(w(dp))``,
+    ``w(dp)`` being OpenCV's parameter layout applied to the identity; a
+    homography renormalises to ``m22 = 1``, the other motion types keep
+    the top two rows (their compositions stay in the class)."""
+    eye = identity_warp(motion_type, m.device).expand(m.shape[0], -1, -1)
+    delta = _update_warp(motion_type, eye, dp)
+    # failed lanes' dp may be non-finite: their result is masked out
+    inv, _ = torch.linalg.inv_ex(_as_3x3(delta))
+    new = _as_3x3(m) @ inv
+    if motion_type == MotionType.Homography:
+        return new / new[:, 2:3, 2:3]
+    return new[:, :2]
+
+
 def _input_fields(input_image: torch.Tensor, gauss_filt_size: int):
     """Input-side fields: Gaussian pre-filter + central-difference
     gradients (OpenCV ecc.cpp's image preparation)."""
@@ -141,12 +191,16 @@ def _prepare_masked_input(input_image, input_mask, gauss_filt_size: int):
     return torch.stack([image_f, gx * pre_bin, gy * pre_bin, pre_bin])
 
 
-def _check_mode(mode: Optional[str]) -> None:
-    if mode not in (None, "forward"):
-        raise NotImplementedError(
-            f"solver {mode!r} is not ported (forward only; 'lazy' and "
-            "'ic' are ROADMAP.md Queue A item 15)"
-        )
+def _resolve_mode(mode: Optional[str], input_mask) -> str:
+    """``None`` -> 'forward'; anything outside ``_MODES`` raises; a
+    masked 'ic' solve runs forward (B7 has no mask operand)."""
+    if mode is None:
+        mode = "forward"
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    if input_mask is not None and mode == "ic":
+        return "forward"
+    return mode
 
 
 def find_transform_ecc(
@@ -209,8 +263,13 @@ def find_transform_ecc_batched(
     cv2.findTransformECC's inputMask over ``input_image``; each octave
     solves with its INTER_AREA-shrunk mask (valid where >= 0.5).
     ``timer`` (a ``utils.tracing.PhaseTimer``) records the octave build,
-    the octave solves and the full-resolution solve."""
-    _check_mode(mode)
+    the octave solves and the full-resolution solve.
+
+    ``mode``: 'forward' (``None``; OpenCV's formulation), 'lazy' or
+    'ic' (module docstring).  The ``rho_init`` seed applies to 'forward'
+    and 'lazy' only: 'ic''s divergence guard compares against the
+    running rho (:1404)."""
+    mode = _resolve_mode(mode, input_mask)
     dev = templates.device
     input_image = input_image.to(dev)
     if input_mask is not None:
@@ -256,9 +315,16 @@ def find_transform_ecc_batched(
             with _phase(timer, "ecc octave solve"):
                 res = _solve_lanes(
                     tl, il, motion_type, num_iters, eps, gauss_filt_size,
-                    init, None, mlv,
+                    init, None, mlv, mode, rescue=mode == "ic",
                 )
-            init = _rescale_warp_batch(res.warp_matrix, motion_type, 2.0)
+            wm = res.warp_matrix
+            if mode == "lazy":
+                # a failed lane's frozen iterate is no warm start: hand
+                # the next level its pre-solve init
+                m0 = (identity_warp(motion_type, dev).expand_as(wm)
+                      if init is None else init)
+                wm = torch.where(res.ok[:, None, None], wm, m0)
+            init = _rescale_warp_batch(wm, motion_type, 2.0)
             rho_seed = torch.where(
                 res.ok & (res.rho > -1.0), res.rho,
                 torch.full_like(res.rho, -1.0),
@@ -266,8 +332,23 @@ def find_transform_ecc_batched(
     with _phase(timer, "ecc full-res solve"):
         return _solve_lanes(
             templates, input_image, motion_type, num_iters, eps,
-            gauss_filt_size, init, rho_seed, input_mask,
+            gauss_filt_size, init, rho_seed, input_mask, mode,
+            rescue=mode != "forward",
         )
+
+
+class _Carry(NamedTuple):
+    """The solve carry: OpenCV's (m, rho, last_rho, it, ok) per lane, and
+    for 'lazy' / 'ic' the carried Gram [B,P,P] and ``h_ok`` [B] (the
+    lane's Gram is computed)."""
+
+    m: torch.Tensor
+    rho: torch.Tensor
+    last_rho: torch.Tensor
+    it: torch.Tensor
+    ok: torch.Tensor
+    gram: torch.Tensor
+    h_ok: torch.Tensor
 
 
 def _solve_lanes(
@@ -280,8 +361,13 @@ def _solve_lanes(
     warp_init: Optional[torch.Tensor],
     rho_init: Optional[torch.Tensor],
     input_mask: Optional[torch.Tensor] = None,
+    mode: str = "forward",
+    rescue: bool = False,
 ) -> EccResult:
-    """One resolution's solve: template prep, carry, masked GN loop."""
+    """One resolution's solve: template prep, carry, masked GN loop, and
+    with ``rescue`` the forward re-solve of the lanes an 'ic' / 'lazy'
+    solve failed."""
+    global rescued_lane_count
     n, h, w = templates.shape
     dev = templates.device
     rows = 3 if motion_type == MotionType.Homography else 2
@@ -309,7 +395,7 @@ def _solve_lanes(
         m = warp_init.to(device=dev, dtype=torch.float32).clone()
     rho = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
     last_rho = torch.zeros((n,), dtype=torch.float32, device=dev)
-    if rho_init is not None and eps > 0:
+    if rho_init is not None and eps > 0 and mode != "ic":
         # seeded lanes: rho = octave rho, last_rho 2*eps below it so the
         # first iteration always runs (the -eps shift below applies to
         # both); unseeded lanes keep the (-1, -eps) cold start
@@ -317,33 +403,90 @@ def _solve_lanes(
         valid = r0 > -1.0
         rho = torch.where(valid, r0, rho)
         last_rho = torch.where(valid, r0 - eps, last_rho)
-    last_rho = last_rho - eps
-    it = torch.zeros((n,), dtype=torch.int32, device=dev)
-    ok = torch.ones((n,), dtype=torch.bool, device=dev)
-
-    def active_lanes():
-        return (it < num_iters) & ((rho - last_rho).abs() >= eps) & ok
-
-    while bool(active_lanes().any()):
-        for _ in range(_CHUNK_ITERS):
-            m, rho, last_rho, it, ok = _iterate(
-                srcs, templates_f, m, rho, last_rho, it, ok,
-                active_lanes(), motion_type,
-            )
-    return EccResult(rho=rho, warp_matrix=m, ok=ok, num_iters=it)
-
-
-def _iterate(srcs, templates_f, m, rho, last_rho, it, ok, active,
-             motion_type: MotionType):
-    """One masked Gauss-Newton iteration over every lane (the reference's
-    ``iter_body``, forward mode, moments branch)."""
-    perspective = motion_type == MotionType.Homography
-    mom = ecc_cuda.ecc_iteration_moments(
-        srcs, templates_f, _as_3x3(m).contiguous(), motion_type,
-        quant_affine=not perspective, active=active, with_hessian=True,
+    p = motion_type.num_params
+    st = _Carry(
+        m=m, rho=rho, last_rho=last_rho - eps,
+        it=torch.zeros((n,), dtype=torch.int32, device=dev),
+        ok=torch.ones((n,), dtype=torch.bool, device=dev),
+        gram=torch.zeros((n, p, p), dtype=torch.float32, device=dev),
+        h_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
     )
+    st = _drive(srcs, templates_f, st, motion_type, num_iters, eps, mode)
+    if rescue and mode != "forward":
+        bad = ~st.ok
+        if bool(bad.any()):
+            # _reactivate_carry on the failed lanes, restarted from their
+            # ORIGINAL init: a lane the 'ic' guard froze holds a
+            # mid-divergence iterate (ecc.py:1517-1526)
+            rescued_lane_count += int(bad.sum())
+            st = _Carry(
+                m=torch.where(bad[:, None, None], m, st.m),
+                rho=torch.where(bad, -1.0, st.rho),
+                last_rho=torch.where(bad, -float(eps), st.last_rho),
+                it=torch.where(bad, 0, st.it),
+                ok=st.ok | bad,
+                gram=st.gram,
+                h_ok=st.h_ok & ~bad,
+            )
+            st = _drive(srcs, templates_f, st, motion_type, num_iters, eps,
+                        "forward")
+    return EccResult(rho=st.rho, warp_matrix=st.m, ok=st.ok,
+                     num_iters=st.it)
+
+
+def _drive(srcs, templates_f, st: _Carry, motion_type: MotionType,
+           num_iters: int, eps: float, mode: str) -> _Carry:
+    """Iterate until no lane is active, checking on the host every
+    ``_CHUNK_ITERS`` iterations."""
+
+    def active_lanes(c):
+        return (c.it < num_iters) & ((c.rho - c.last_rho).abs() >= eps) & c.ok
+
+    # 'lazy' / 'ic': the JAX package computes the Gram when any active
+    # lane lacks one (lax.cond on need_h = active & ~h_ok).  A lane
+    # inactive once stays inactive, so every lane that ever runs is
+    # active on the first iteration and gets its Gram there: only that
+    # sweep needs the Gram form, which the host knows without a sync.
+    with_gram = mode != "forward"
+    while bool(active_lanes(st).any()):
+        for _ in range(_CHUNK_ITERS):
+            st = _iterate(srcs, templates_f, st, active_lanes(st),
+                          motion_type, mode, eps, with_gram)
+            with_gram = False
+    return st
+
+
+def _iterate(srcs, templates_f, st: _Carry, active, motion_type: MotionType,
+             mode: str, eps: float, with_gram: bool) -> _Carry:
+    """One masked Gauss-Newton iteration over every lane (the reference's
+    ``iter_body``: the fused-moments branch for 'forward' and 'lazy',
+    the IC branch for 'ic')."""
+    perspective = motion_type == MotionType.Homography
+    m3 = _as_3x3(st.m).contiguous()
+    kw = dict(quant_affine=not perspective, active=active)
+    with_hessian = mode == "forward" or with_gram
+    if mode == "ic":
+        mom = ecc_cuda.ecc_ic_iteration_moments(
+            srcs[0], templates_f, m3, motion_type,
+            with_hessian=with_hessian, **kw,
+        )
+    else:
+        mom = ecc_cuda.ecc_iteration_moments(
+            srcs, templates_f, m3, motion_type, with_hessian=with_hessian,
+            **kw,
+        )
     (n_raw, s_mi, s_mii, s_mt, s_mtt, s_mti,
-     hessian, j_i, j_m, j_mt) = ecc_cuda.unpack_moments(mom, motion_type)
+     hess_new, j_i, j_m, j_mt) = ecc_cuda.unpack_moments(
+        mom, motion_type, with_hessian)
+    gram, h_ok = st.gram, st.h_ok
+    if mode == "forward":
+        hessian = hess_new
+    else:
+        if hess_new is not None:
+            need_h = active & ~h_ok
+            gram = torch.where(need_h[:, None, None], hess_new, gram)
+        h_ok = h_ok | active
+        hessian = gram
     n = torch.clamp(n_raw, min=1.0)
     img_mean = s_mi / n
     img_std = torch.sqrt(torch.clamp(s_mii / n - img_mean**2, min=0.0))
@@ -362,26 +505,45 @@ def _iterate(srcs, templates_f, m, rho, last_rho, it, ok, active,
     # instead of raising, and their results are masked out below
     hessian_inv, _ = torch.linalg.inv_ex(hessian)
     new_rho = correlation / (img_norm * tmp_norm)
-    iph = (hessian_inv @ image_proj[..., None])[..., 0]
-    lambda_n = img_norm**2 - (image_proj * iph).sum(dim=1)
-    lambda_d = correlation - (template_proj * iph).sum(dim=1)
+    if mode == "ic":
+        # role-swapped update: the template is the moving image
+        tph = (hessian_inv @ template_proj[..., None])[..., 0]
+        lambda_n = tmp_norm**2 - (template_proj * tph).sum(dim=1)
+        lambda_d = correlation - (image_proj * tph).sum(dim=1)
+    else:
+        iph = (hessian_inv @ image_proj[..., None])[..., 0]
+        lambda_n = img_norm**2 - (image_proj * iph).sum(dim=1)
+        lambda_d = correlation - (template_proj * iph).sum(dim=1)
     failed = torch.isnan(new_rho) | (lambda_d <= 0.0)
+    if mode == "ic":
+        # rho-monotonicity guard: the frozen template Gram blunts the
+        # lambda_d test on diverging lanes (ecc.py:685-697)
+        failed = failed | ((st.it > 0) & (
+            new_rho < st.rho - max(eps, _IC_GUARD_FLOOR)))
     lam = lambda_n / torch.where(
         lambda_d == 0.0, torch.ones_like(lambda_d), lambda_d
     )
-    # err = lam * template_zm - image_zm: its Jacobian projection is the
-    # same linear combination of the projections
-    error_proj = lam[:, None] * template_proj - image_proj
-    dp = (hessian_inv @ error_proj[..., None])[..., 0]
-    new_m = _update_warp(motion_type, m, dp)
-    new_m = torch.where(failed[:, None, None], m, new_m)
+    if mode == "ic":
+        error_proj = lam[:, None] * image_proj - template_proj
+        dp = (hessian_inv @ error_proj[..., None])[..., 0]
+        new_m = _compose_warp_ic(motion_type, st.m, dp)
+    else:
+        # err = lam * template_zm - image_zm: its Jacobian projection is
+        # the same linear combination of the projections
+        error_proj = lam[:, None] * template_proj - image_proj
+        dp = (hessian_inv @ error_proj[..., None])[..., 0]
+        new_m = _update_warp(motion_type, st.m, dp)
+    new_m = torch.where(failed[:, None, None], st.m, new_m)
 
     upd = (active & ~failed)[:, None, None]
-    minus_one = torch.full_like(rho, -1.0)
-    return (
-        torch.where(upd, new_m, m),
-        torch.where(active, torch.where(failed, minus_one, new_rho), rho),
-        torch.where(active, rho, last_rho),
-        torch.where(active, it + 1, it),
-        ok & ~(active & failed),
+    minus_one = torch.full_like(st.rho, -1.0)
+    return _Carry(
+        m=torch.where(upd, new_m, st.m),
+        rho=torch.where(active, torch.where(failed, minus_one, new_rho),
+                        st.rho),
+        last_rho=torch.where(active, st.rho, st.last_rho),
+        it=torch.where(active, st.it + 1, st.it),
+        ok=st.ok & ~(active & failed),
+        gram=gram,
+        h_ok=h_ok,
     )

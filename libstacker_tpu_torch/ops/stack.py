@@ -1,8 +1,11 @@
-"""Kappa-sigma clipped burst stacking (``stacking="sigma_clip"``).
+"""Re-warping burst stackers: kappa-sigma clipping (``stacking=
+"sigma_clip"``) and super-resolution (``output_scale > 1``).
 
 Counterpart of ``libstacker_tpu/ops/stack.py`` (``_CLIP_TOL`` :59,
 ``clip_iterate`` :62, ``_coverage`` :112, ``kappa_sigma_stack`` :240,
-``_prepare_lanes`` :292).  Per pixel and channel, samples further than
+``_prepare_lanes`` :292, ``super_res_stack`` :418).
+
+Sigma-clip: per pixel and channel, samples further than
 ``kappa`` standard deviations from the mean are excluded and the mean
 recomputed.  No warped ``[N,H,W,3]`` intermediate exists: the burst is
 re-warped once per pass and only the per-pixel moments stay resident:
@@ -18,6 +21,11 @@ replace the mean stack's divide-by-count.  Each pass is one call of
 ``ops/warp_accum_cuda.warp_moments_rgb`` over the whole burst: one
 launch of kernel B4 on CUDA, which keeps no per-frame intermediate, so
 the JAX package's frame chunks are not needed there.
+
+Super-resolution: every frame deposits its nearest samples on the
+``factor``-times-finer grid with Gaussian sub-pixel weights, one call of
+``ops/sr_cuda.sr_deposit`` over the burst (one launch of kernel B6 on
+CUDA); fine pixels no sample lands near fall back to the bilinear mean.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from . import warp
+from .sr_cuda import sr_deposit
 from .warp_accum_cuda import coverage, warp_moments_rgb
 
 # half an 8-bit LSB in the [0,1] value domain: keeps bit-identical
@@ -145,3 +154,49 @@ def kappa_sigma_stack(
     tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
     kept_frac = tk / max(ts * 3.0, 1.0)
     return out, max(0.0, 1.0 - kept_frac)
+
+
+def super_res_stack(
+    frames: torch.Tensor,  # [N,H,W,3] uint8 / uint16 — frame 0 = reference
+    mats: torch.Tensor,  # [N-1,3,3] (or [N-1,2,3]) FULL-RES forward maps
+    oks: torch.Tensor,  # [N-1] bool — dropped lanes contribute nothing
+    factor: int = 2,
+    kernel_sigma: float = 0.3,
+    perspective: bool = True,
+    chunk: int = 4,
+) -> torch.Tensor:
+    """Super-resolution stack -> ``[factor*H, factor*W, 3]`` float32 in
+    [0,1].
+
+    Shift-and-add on the finer grid: each frame deposits its NEAREST
+    sample at every fine pixel's unquantised source coordinate, weighted
+    by a Gaussian of the sub-pixel distance (``kernel_sigma`` in input
+    pixels), and the weighted mean is taken per pixel.  Frame 0 deposits
+    with the identity, so for ``kernel_sigma >= 0.15`` every fine pixel
+    has weight above 1e-6; below it the deposit also sums the bilinear
+    samples, and pixels with no weight take their bilinear mean.
+    ``chunk`` bounds the frames per call of the plain CPU version (the
+    sums add per chunk, as the JAX package's do); CUDA deposits all
+    frames in one launch."""
+    if factor < 2 or factor > 4:
+        raise ValueError(f"factor must be in 2..4, got {factor}")
+    if not kernel_sigma > 0.0:
+        raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
+    mats_all, oks_all = _prepare_lanes(frames, mats, oks)
+    minv = warp.invert_3x3(mats_all).contiguous()
+    n = frames.shape[0]
+    step = n if frames.device.type == "cuda" else max(1, min(chunk, n))
+    with_fallback = kernel_sigma < 0.15
+    acc = None
+    for s in range(0, n, step):
+        part = sr_deposit(frames[s : s + step], minv[s : s + step],
+                          oks_all[s : s + step], factor, kernel_sigma,
+                          perspective, with_fallback)
+        acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
+    av, aw = acc[0], acc[1]
+    out = av / torch.clamp(aw, min=1e-6)[..., None]
+    if with_fallback:
+        bl, cnt = acc[2], acc[3]
+        fallback = bl / torch.clamp(cnt, min=1.0)[..., None]
+        out = torch.where((aw > 1e-6)[..., None], out, fallback)
+    return out

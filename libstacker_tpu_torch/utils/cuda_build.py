@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` beside the
-package, keyed by a hash of its source and flags, then loaded with
+package, keyed by a hash of its source, the shared headers
+``csrc/*.cuh`` and the flags, then loaded with
 ``ctypes``.  No PyTorch header is compiled, which keeps a build at a few
 seconds (``torch.utils.cpp_extension.load`` takes minutes per file).
 
@@ -49,8 +50,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """``build/lib<name>_<hash>.so`` for the current source of
-    ``csrc/<name>.cu``."""
+    ``csrc/<name>.cu`` and the shared headers ``csrc/*.cuh``."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}_{digest[:16]}.so"
 

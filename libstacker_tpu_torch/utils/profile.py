@@ -1,7 +1,8 @@
 """Device-time profile of one warm run of an entry point on a CUDA card.
 
     python -m libstacker_tpu_torch.utils.profile [--scale-down-width 800]
-        [--path keypoint|ecc] [--variant mean|sigma_clip|replicate|mask]
+        [--path keypoint|ecc]
+        [--variant mean|sigma_clip|replicate|mask|sr|lazy|ic|rotation]
 
 Builds the bench's burst on the card (``utils/synth.py``: for the
 keypoint path 20 textured 2160x3840 frames and its default parameters,
@@ -9,8 +10,11 @@ for ECC 100 frames of 2160x3840 and the headline parameters of
 ``chip_smoke.py``), runs the entry point once cold and once warm, then
 once more under ``torch.profiler``.  ``--variant`` picks the stack:
 the mean (default), kappa-sigma clipping (kappa 2.5, one pass), the
-keypoint path's BORDER_REPLICATE, or a mask zero on the top-left
-sixteenth (ECC's alignment mask, the keypoint path's detection mask).  Prints the card's name and power limit, the
+keypoint path's BORDER_REPLICATE, a mask zero on the top-left
+sixteenth (ECC's alignment mask, the keypoint path's detection mask),
+or ``output_scale=2`` (``sr``; ECC then stacks the first 8 frames, as
+``bench.py:643`` does); for ECC also ``solver="lazy"``, ``solver="ic"``
+or ``phase_init_rotation=True``.  Prints the card's name and power limit, the
 warm wall time, the device busy time and idle share over the traced
 span, and the device time by kernel name, largest first; writes the
 chrome trace to ``chiprun_out/``.  Needs a card; exits non-zero without
@@ -61,7 +65,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale-down-width", type=float, default=None)
     ap.add_argument("--path", choices=("keypoint", "ecc"), default="keypoint")
     ap.add_argument("--variant", default="mean",
-                    choices=("mean", "sigma_clip", "replicate", "mask"))
+                    choices=("mean", "sigma_clip", "replicate", "mask", "sr",
+                             "lazy", "ic", "rotation"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
@@ -85,13 +90,20 @@ def main(argv=None) -> int:
         mask = np.full((h, w), 255, np.uint8)
         mask[: h // 4, : w // 4] = 0
     kw = {}
-    if args.variant == "sigma_clip":
-        kw = dict(stacking="sigma_clip", sigma_kappa=2.5, sigma_iters=1)
+    kw = {
+        "sigma_clip": dict(stacking="sigma_clip", sigma_kappa=2.5,
+                           sigma_iters=1),
+        "sr": dict(output_scale=2),
+        "lazy": dict(solver="lazy"),
+        "ic": dict(solver="ic"),
+        "rotation": dict(phase_init_rotation=True),
+    }.get(args.variant, {})
     if args.path == "ecc":
         if args.variant == "replicate":
             ap.error("the ECC path has no border mode")
-        n = 100
-        frames, _ = make_burst(n, h, w, seed=0, device=dev)
+        n = 8 if args.variant == "sr" else 100
+        frames, _ = make_burst(100, h, w, seed=0, device=dev)
+        frames = frames[:n].contiguous()
         params = EccMatchParameters(
             motion_type=MotionType.Homography, max_count=50, epsilon=1e-4,
             gauss_filt_size=5, coarse_levels=1, **kw)
@@ -101,6 +113,8 @@ def main(argv=None) -> int:
                 frames, params, scale_down_width=args.scale_down_width,
                 mask=mask, device_output=True)
     else:
+        if args.variant in ("lazy", "ic", "rotation"):
+            ap.error(f"--variant {args.variant} is an ECC option")
         if args.variant == "replicate":
             kw = dict(border_mode=constants.BORDER_REPLICATE)
         n = 20

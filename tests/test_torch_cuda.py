@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Phases 2-4, 6-8 and 10-14 of chip_smoke.py at small sizes.  Every test needs CUDA and
+Phases 2-4, 6-8, 10-14 and 17-21 of chip_smoke.py at small sizes.  Every test needs CUDA and
 the ``nvcc`` toolchain, is marked ``cuda`` and skips without a card.
 This file imports no JAX, so on a machine with the card run it without
 the suite's JAX-configuring conftest:
@@ -19,7 +19,13 @@ form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
 the compiler reorders); B5 in every border mode and B9 bitwise; the
 sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
-on the card against the CPU path at the slice bars above.
+on the card against the CPU path at the slice bars above.  B7 at B1's
+bar; B6 within 1e-5 of the largest value (the taps are the same, the
+weights go through the two math libraries' exp); the lazy and IC
+solvers, the rotation start and super-resolution on the card against
+the CPU path at the slice bars (the keypoint SR image, whose RANSAC
+draws differ between devices, at a mean abs of 0.01); the n == 1
+upsample of both entry points within 1e-6 of the CPU path.
 """
 
 import numpy as np
@@ -308,3 +314,116 @@ def test_variant_slices_cuda_match_cpu(dev):
     d_gpu, gpu = keypoint_match_arrays(kframes.numpy(), kp, device=dev)
     assert d_cpu == d_gpu == 0
     assert np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16]).max() < 0.02
+
+
+@pytest.mark.parametrize("motion", list(MotionType))
+@pytest.mark.parametrize("with_hessian", [True, False])
+def test_ic_moments_kernel_matches_plain(dev, motion, with_hessian):
+    """B7 against its plain version at B1's bar; an inactive lane gives a
+    zero row."""
+    rng = np.random.default_rng(17)
+    h, w = 200, 333
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    src = ecc._input_fields(img, 5)[0].contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 3)).to(dev)
+    persp = (1e-5, -2e-5) if motion == MotionType.Homography else (0, 0)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 2.5 * a, -1.25, persp=persp)
+        for a in (0.0, 0.7, -1.1)
+    ])).to(dev)
+    active = torch.tensor([True, False, True], device=dev)
+    kw = dict(quant_affine=motion != MotionType.Homography, active=active,
+              with_hessian=with_hessian)
+    got = ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, motion, **kw)
+    want = ecc_cuda.ecc_ic_iteration_moments_reference(src, tmpl, m3, motion,
+                                                       **kw)
+    torch.cuda.synchronize()
+    g, wn = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert g.shape == (3, ecc_cuda.moments_layout(motion, with_hessian)[1])
+    assert np.all(g[1] == 0.0)
+    assert _group_rel(g, wn, motion.num_params) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("perspective", [False, True])
+@pytest.mark.parametrize("sigma", [0.3, 0.1])
+def test_sr_deposit_kernel_matches_plain(dev, dtype, perspective, sigma):
+    """B6 against its plain version: the same taps, and weights that may
+    differ by an ulp of exp between the kernel's expf and PyTorch's."""
+    from libstacker_tpu_torch.ops import sr_cuda
+
+    rng = np.random.default_rng(23)
+    h, w, f = 97, 131, 3
+    frames = rng.integers(0, 256, (4, h, w, 3))
+    if dtype == torch.uint16:
+        frames = frames * 257
+    frames = torch.from_numpy(frames.astype(
+        {torch.uint8: np.uint8, torch.uint16: np.uint16,
+         torch.float32: np.float32}[dtype])).to(dev)
+    if dtype == torch.float32:
+        frames = frames / 255.0
+    persp = (1e-4, -5e-5) if perspective else (0.0, 0.0)
+    minv = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 0.37 * a, -0.6, persp=persp)
+        for a in (0.0, 0.8, -1.3, 2.1)
+    ])).to(dev)
+    valid = torch.tensor([True, True, False, True], device=dev)
+    got = sr_cuda.sr_deposit(frames, minv, valid, f, sigma, perspective,
+                             sigma < 0.15)
+    want = sr_cuda.sr_deposit_reference(frames, minv, valid, f, sigma,
+                                        perspective, sigma < 0.15)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (4 if sigma < 0.15 else 2)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        d = (a - b).abs()
+        assert float(d.max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
+def test_opt_in_paths_cuda_match_cpu(dev):
+    """The lazy and IC solvers, the rotation start and super-resolution
+    on the card against the port's CPU path."""
+    from libstacker_tpu_torch import (KeyPointMatchParameters, ecc_match_arrays,
+                                      keypoint_match_arrays)
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, _ = burst(11, 4, 192, 256, max_shift=4.0, max_angle=0.4)
+    for opt in (dict(solver="lazy"), dict(solver="ic"),
+                dict(phase_init_rotation=True), dict(output_scale=2)):
+        p = EccMatchParameters(MotionType.Homography, max_count=50,
+                               epsilon=1e-4, gauss_filt_size=5,
+                               coarse_levels=1, **opt)
+        cpu, st_cpu = ecc_match_arrays(frames, p, return_stats=True,
+                                       device="cpu")
+        gpu, st_gpu = ecc_match_arrays(frames, p, return_stats=True,
+                                       device=dev)
+        assert st_cpu.frames_kept == st_gpu.frames_kept == 4, opt
+        np.testing.assert_allclose(st_gpu.ecc_rho, st_cpu.ecc_rho, atol=1e-3)
+        c = 8 * p.output_scale
+        assert np.abs(gpu[c:-c, c:-c] - cpu[c:-c, c:-c]).max() < 0.02, opt
+    kframes, _ = make_textured_burst(4, 270, 480, seed=2)
+    kp = KeyPointMatchParameters(output_scale=2)
+    d_cpu, cpu = keypoint_match_arrays(kframes.numpy(), kp, device="cpu")
+    d_gpu, gpu = keypoint_match_arrays(kframes.numpy(), kp, device=dev)
+    assert d_cpu == d_gpu == 0 and gpu.shape == (540, 960, 3)
+    assert np.abs(gpu[32:-32, 32:-32] - cpu[32:-32, 32:-32]).mean() < 0.01
+
+
+def test_single_frame_output_scale_on_card(dev):
+    """n == 1 with ``output_scale=2``: frame 0 upsampled on the card
+    (the result stays there with ``device_output``) against the CPU
+    path."""
+    from libstacker_tpu_torch import (KeyPointMatchParameters, ecc_match_arrays,
+                                      keypoint_match_arrays)
+
+    frames, _ = burst(12, 1, 96, 128, max_shift=0.0, max_angle=0.0)
+    p = EccMatchParameters(MotionType.Homography, output_scale=2)
+    cpu = ecc_match_arrays(frames, p, device="cpu")
+    gpu = ecc_match_arrays(frames, p, device=dev, device_output=True)
+    assert gpu.device.type == "cuda" and tuple(gpu.shape) == (192, 256, 3)
+    np.testing.assert_allclose(gpu.cpu().numpy(), cpu, atol=1e-6)
+    on_card = torch.from_numpy(frames).to(dev)
+    np.testing.assert_allclose(ecc_match_arrays(on_card, p), cpu, atol=1e-6)
+    _, kgpu = keypoint_match_arrays(
+        frames, KeyPointMatchParameters(output_scale=2), device=dev)
+    np.testing.assert_allclose(kgpu, cpu, atol=1e-6)

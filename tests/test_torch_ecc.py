@@ -273,9 +273,12 @@ def test_solver_edges():
     assert tuple(res.warp_matrix.shape) == (0, 3, 3)
     assert res.ok.dtype == torch.bool and res.num_iters.dtype == torch.int32
     img = torch.zeros(96, 128)
-    for mode in ("lazy", "ic"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ecc.find_transform_ecc_batched(img[None], img, mode=mode)
+    for mode in ("lazy", "ic"):  # empty lane sets under every mode
+        res = ecc.find_transform_ecc_batched(z, img, MotionType.Affine, 5,
+                                             1e-4, mode=mode)
+        assert tuple(res.warp_matrix.shape) == (0, 2, 3)
+    with pytest.raises(ValueError, match="mode"):
+        ecc.find_transform_ecc_batched(img[None], img, mode="gauss-newton")
     with pytest.raises(ValueError, match="input_mask"):
         ecc.find_transform_ecc_batched(img[None], img, input_mask=img[:8])
     # a flat template has no correlation: the lane fails like OpenCV's

@@ -202,5 +202,15 @@ def test_phase_correlation_matches(rng_local):
     w2 = np.asarray(jphase.phase_init_warps(jnp.asarray(wide), jnp.asarray(wide[0]),
                                             motion_type=JMotion.Affine))
     np.testing.assert_allclose(g2, w2, atol=0.05)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        phasecorr.phase_init_warps(t(tm), t(ref), rotation=True)
+    # rotation=True: Translation ignores it (libstacker_tpu/ops/
+    # phasecorr.py:309); Affine runs the log-polar start, which finds no
+    # rotation on shifted crops
+    tr = n(phasecorr.phase_init_warps(t(tm), t(ref), MotionType.Translation,
+                                      rotation=True))
+    np.testing.assert_array_equal(tr, n(phasecorr.phase_init_warps(
+        t(tm), t(ref), MotionType.Translation)))
+    g3 = n(phasecorr.phase_init_warps(t(tm), t(ref), rotation=True))
+    w3 = np.asarray(jphase.phase_init_warps(
+        jnp.asarray(tm), jnp.asarray(ref), motion_type=JMotion.Affine,
+        rotation=True))
+    np.testing.assert_allclose(g3, w3, atol=0.05)

@@ -6,9 +6,9 @@ numpy burst with the headline parameters (Homography, max_count 50, eps
 1e-4, gauss 5, coarse_levels 1, phase start on): equal ``ok`` flags and
 stacked interiors within 0.02 (tests/test_pipeline_ecc.py:73-74).  Also
 the scaled path, the 1-frame path, the guards' error types and messages,
-``on_failure``, ``ecc_match`` on files, the options that raise
-``NotImplementedError``, and the copied host modules pinned to the
-originals.
+``on_failure``, ``ecc_match`` on files, ``output_scale``, ``solver`` and
+``phase_init_rotation``, the options that raise ``NotImplementedError``,
+and the copied host modules pinned to the originals.
 """
 
 import dataclasses
@@ -172,17 +172,32 @@ def test_ecc_match_files(frames, tmp_path, jax_headline):
 
 
 @pytest.mark.parametrize("opt,item", [
-    (dict(params=dict(output_scale=2)), "item 14"),
-    (dict(params=dict(solver="lazy")), "item 15"),
-    (dict(params=dict(solver="ic")), "item 15"),
-    (dict(params=dict(phase_init_rotation=True)), "item 15"),
     (dict(mesh="auto"), "item 16"),
 ])
 def test_unported_options_raise(frames, opt, item):
-    opt = dict(opt)
-    p = _params(P, **opt.pop("params", {}))
     with pytest.raises(NotImplementedError, match=item):
-        P.ecc_match_arrays(frames, p, device="cpu", **opt)
+        P.ecc_match_arrays(frames, _params(P), device="cpu", **opt)
+
+
+@pytest.mark.parametrize("opt", [
+    dict(output_scale=2), dict(solver="lazy"), dict(solver="ic"),
+    dict(phase_init_rotation=True),
+])
+def test_lifted_options_match_jax(frames, opt):
+    """The options this package once refused, with the headline
+    parameters, against the JAX package with the same options (which
+    solves 'lazy' and 'ic' forward on the CPU): same kept frames, rho
+    within 1e-3, stacked interior within 0.02."""
+    want, jst = J.ecc_match_arrays(frames, _params(J, **opt),
+                                   return_stats=True)
+    got, st = P.ecc_match_arrays(frames, _params(P, **opt),
+                                 return_stats=True, device="cpu")
+    f = opt.get("output_scale", 1)
+    assert got.shape == want.shape == (f * 192, f * 256, 3)
+    assert st.frames_kept == jst.frames_kept == 4
+    np.testing.assert_allclose(st.ecc_rho, jst.ecc_rho, atol=1e-3)
+    c = 8 * f
+    assert np.abs(got[c:-c, c:-c] - want[c:-c, c:-c]).max() < 0.02
 
 
 def test_unported_entry_points_raise(tmp_path):

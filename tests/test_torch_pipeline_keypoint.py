@@ -12,7 +12,8 @@ stacks within that file's p99 bars of the ground-truth-warp stack (0.04;
 0.02 of each other at the 99th percentile.  Also the featureless frame,
 ``n == 1``, the stats, BORDER_TRANSPARENT, the tiny scale width that
 drops every frame, the guards, ``keypoint_match`` on files, uint16
-bursts and the options that raise ``NotImplementedError``.
+bursts, ``output_scale=2`` and the options that raise
+``NotImplementedError``.
 """
 
 import numpy as np
@@ -185,12 +186,27 @@ def test_files_and_uint16(burst, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(params=P.KeyPointMatchParameters(output_scale=2)), "item 14"),
     (dict(mesh="auto"), "item 16"),
 ])
 def test_unported_options_raise(burst, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         P.keypoint_match_arrays(burst[0], device="cpu", **kw)
+
+
+def test_output_scale_matches_jax(burst, truth):
+    """``output_scale=2`` (no longer refused): the 2x grid, the 2x2 box
+    mean within the slice's p99 bar of the truth stack, and the JAX
+    package's SR image within 0.02 at the 99th percentile."""
+    frames = burst[0]
+    h, w = frames.shape[1:3]
+    d_got, got = P.keypoint_match_arrays(frames, _params(P, output_scale=2),
+                                         device="cpu")
+    d_want, want = J.keypoint_match_arrays(frames, _params(J, output_scale=2))
+    assert d_got == d_want == 0
+    assert got.shape == want.shape == (2 * h, 2 * w, 3)
+    down = got.reshape(h, 2, w, 2, 3).mean((1, 3))
+    assert _p99(down, truth) < 0.04
+    assert _p99(got, want) < 0.02
 
 
 def test_unported_entry_points_raise(burst):
