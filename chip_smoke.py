@@ -82,6 +82,14 @@ Each kernel record carries its time (CUDA events), its plain version's
 time, the bound of the same work at the card's published rates (bytes
 over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
+Phases 2, 6, 13 and 17 also print the registers and spills that ptxas
+gave each instance of B1, B8 and B7, the kernel's share of its bound,
+and, with ``--baseline DIR``, the time of an earlier design of those
+kernels on the same inputs: ``DIR`` holds that design's
+``ecc_moments.cu``, ``ecc_ic_moments.cu``, ``ecc_moments_common.cuh``
+and ``fast.cu`` (with the same C interfaces as before the texel layout:
+B1 took the ``[3|4,H,W]`` planes), built beside the others, and each
+pair is timed in turns (new, earlier, earlier, new).
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -89,6 +97,8 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -101,6 +111,15 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit")
+# the sources an earlier design is timed from (--baseline)
+BASELINE_KERNELS = ("ecc_moments", "ecc_ic_moments", "fast")
+# mangled-name pieces of the instances whose registers are printed
+B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
+B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
+B1_LITE_INSTANCE = "moments_kernelILi8ELb0ELb0E"  # P=8, no Gram
+B7_INSTANCE = "ic_moments_kernelILi8ELb0E"  # P=8, no Gram
+B7_GRAM_INSTANCE = "ic_moments_kernelILi8ELb1E"
+B8_INSTANCE = "fast_kernelIhE"  # u8 source
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -307,6 +326,143 @@ def missing(launches: dict, names) -> list:
     return [k for k in names if launches[k] == 0]
 
 
+# the earlier design's libraries and their directory (--baseline)
+BASELINE: dict = {}
+BASELINE_DIR: list = []
+
+
+def load_baseline(path: str) -> None:
+    """Build the earlier design's sources in ``path`` and bind their C
+    entry points (the interfaces they had: B1 takes the planes)."""
+    from libstacker_tpu_torch.utils import cuda_build
+
+    d = Path(path).resolve()
+    cuda_build.build(*BASELINE_KERNELS, csrc=d)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, fn, argtypes, per_block in (
+        ("ecc_moments", "ecc_moments", [vp] * 6 + [ci] * 7 + [vp],
+         "ecc_moments_pixels_per_block"),
+        ("ecc_ic_moments", "ecc_ic_moments", [vp] * 6 + [ci] * 6 + [vp],
+         "ecc_ic_moments_pixels_per_block"),
+        ("fast", "fast_scores",
+         [vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, vp], None),
+    ):
+        lib = cuda_build.load(name, d)
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ci
+        if per_block:
+            getattr(lib, per_block).argtypes = []
+            getattr(lib, per_block).restype = ci
+        BASELINE[name] = lib
+    BASELINE_DIR.append(d)
+
+
+def resources(name: str, piece: str, csrc=None) -> dict:
+    """ptxas's registers and spills of the kernel of build ``name`` whose
+    mangled name contains ``piece`` ({} if the report is missing)."""
+    from libstacker_tpu_torch.utils import cuda_build
+
+    found = cuda_build.kernel_resources(name, csrc or cuda_build.CSRC)
+    return next((v for k, v in found.items() if piece in k), {})
+
+
+def fmt_resources(r: dict) -> str:
+    if not r:
+        return "no ptxas report"
+    return (f"{r['registers']} registers, spill stores/loads "
+            f"{r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B")
+
+
+def paired_ms(fn, earlier, reps: int):
+    """(ms, earlier_ms): ``fn`` alone, or with the earlier design's call
+    in turns (new, earlier, earlier, new), each the mean of its two."""
+    if earlier is None:
+        return time_ms(fn, reps), None
+    a, b = time_ms(fn, reps), time_ms(earlier, reps)
+    c, d = time_ms(earlier, reps), time_ms(fn, reps)
+    return (a + d) / 2.0, (b + c) / 2.0
+
+
+def design_report(label: str, name: str, piece: str, ms: float,
+                  bound_ms: float, earlier_ms) -> dict:
+    """Print one line on an instance's registers, spills, bound share and
+    earlier-design time; return them for the kernel record."""
+    res = resources(name, piece)
+    line = (f"    {label}: {fmt_resources(res)}; {ms:.3f} ms, "
+            f"{bound_ms / ms:.3f} of its bound")
+    rec = dict(registers=res.get("registers"),
+               spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
+               if res else None)
+    if earlier_ms is not None:
+        old = resources(name, piece, BASELINE_DIR[0])
+        line += (f"; earlier design {earlier_ms:.3f} ms ({fmt_resources(old)})"
+                 f" -> new/earlier {ms / earlier_ms:.3f}")
+        rec.update(earlier_design_ms=earlier_ms,
+                   earlier_design_registers=old.get("registers"))
+    log(line)
+    return rec
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def b1_earlier(srcs, tmpl, m3, motion, with_hessian=True):
+    """The earlier B1 design on the ``[3|4,H,W]`` planes."""
+    from libstacker_tpu_torch.ops import ecc_cuda
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["ecc_moments"]
+    b, h, w = tmpl.shape
+    p, n_out = ecc_cuda.moments_layout(motion, with_hessian)
+    nblk = -(-(h * w) // lib.ecc_moments_pixels_per_block())
+    act = torch.ones((b,), dtype=torch.uint8, device=tmpl.device)
+    partials = torch.empty((b, n_out, nblk), dtype=torch.float32,
+                           device=tmpl.device)
+    out = torch.empty((b, n_out), dtype=torch.float32, device=tmpl.device)
+    err = lib.ecc_moments(
+        srcs.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
+        0, int(srcs.shape[0] == 4), _stream())
+    cuda_build.check(lib, err, "earlier ecc_moments")
+    return out
+
+
+def b7_earlier(src, tmpl, m3, motion, with_hessian=False):
+    """The earlier build of B7 (its source with the earlier header)."""
+    from libstacker_tpu_torch.ops import ecc_cuda
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["ecc_ic_moments"]
+    b, h, w = tmpl.shape
+    p, n_out = ecc_cuda.moments_layout(motion, with_hessian)
+    nblk = -(-(h * w) // lib.ecc_ic_moments_pixels_per_block())
+    act = torch.ones((b,), dtype=torch.uint8, device=tmpl.device)
+    partials = torch.empty((b, n_out, nblk), dtype=torch.float32,
+                           device=tmpl.device)
+    out = torch.empty((b, n_out), dtype=torch.float32, device=tmpl.device)
+    err = lib.ecc_ic_moments(
+        src.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
+        0, _stream())
+    cuda_build.check(lib, err, "earlier ecc_ic_moments")
+    return out
+
+
+def b8_earlier(imgs, threshold, border):
+    """The earlier B8 design."""
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["fast"]
+    n, h, w = imgs.shape
+    out = torch.empty((n, h, w), dtype=torch.float32, device=imgs.device)
+    err = lib.fast_scores(imgs.data_ptr(), out.data_ptr(), n, h, w,
+                          0 if imgs.dtype == torch.uint8 else 2,
+                          float(threshold), int(border), _stream())
+    cuda_build.check(lib, err, "earlier fast_scores")
+    return out
+
+
 def phase_device():
     from libstacker_tpu_torch.utils import cuda_build
 
@@ -351,6 +507,7 @@ def phase_b1(dev):
     aff = m3[:1].clone()
     aff[:, 2] = torch.tensor([0.0, 0.0, 1.0], device=dev)
 
+    tex = ecc_cuda.pack_texels(srcs)  # as the solver packs each level
     worst_rel = stats_rel = max_abs = 0.0
     for motion, mats, act in (
         (MotionType.Homography, m3, active),
@@ -358,7 +515,7 @@ def phase_b1(dev):
     ):
         kw = dict(quant_affine=motion != MotionType.Homography, active=act)
         got = ecc_cuda.ecc_iteration_moments(srcs, tmpl[: len(mats)], mats,
-                                             motion, **kw)
+                                             motion, texels=tex, **kw)
         want = ecc_cuda.ecc_iteration_moments_reference(
             srcs, tmpl[: len(mats)], mats, motion, **kw)
         torch.cuda.synchronize()
@@ -372,10 +529,19 @@ def phase_b1(dev):
         ))
         worst_rel = max(worst_rel, group_rel(g, wnt, p))
         max_abs = max(max_abs, float(np.abs(g - wnt).max()))
-    ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
-        srcs, tmpl, m3, MotionType.Homography), 20)
+    hom = MotionType.Homography
+    ms, earlier_ms = paired_ms(
+        lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, hom,
+                                               texels=tex),
+        (lambda: b1_earlier(srcs, tmpl, m3, hom)) if BASELINE else None, 20)
+    # the same sweep with 10 of the lanes active: what the blocks of the
+    # 89 inactive lanes cost
+    act10 = torch.zeros(b, dtype=torch.bool, device=dev)
+    act10[:10] = True
+    ms10 = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
+        srcs, tmpl, m3, hom, active=act10, texels=tex), 20)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
-        srcs, tmpl, m3, MotionType.Homography), 2)
+        srcs, tmpl, m3, hom), 2)
     torch.cuda.synchronize()
     bound_ms, bound_by = bound(4.0 * h * w * (3 + b) + 4.0 * b * 66,
                                float(b) * h * w * B1_OPS)
@@ -383,13 +549,17 @@ def phase_b1(dev):
     log(f"[2 B1 ecc_moments] {b} homography lanes + 1 affine lane at "
         f"{h}x{w}: stats rel {stats_rel:.3e}, group-norm rel "
         f"{worst_rel:.3e} (bar {MOMENT_REL_BAR:g}), max abs {max_abs:.3e}; "
-        f"kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms for {b} lanes, "
+        f"kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms for {b} lanes "
+        f"({ms10:.3f} ms with 10 lanes active, {10 / b * ms:.3f} pro rata), "
         f"bound {bound_ms:.3f} ms ({bound_by}) "
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B1 disagrees with its plain version")
+    rec = design_report("B1 P=8 with the Gram", "ecc_moments", B1_INSTANCE,
+                        ms, bound_ms, earlier_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms_10_lanes_active=ms10, **rec)
 
 
 def phase_b2(dev):
@@ -546,7 +716,9 @@ def phase_b8(dev, grey):
         equal &= bool(torch.equal(got, want))
         kept.append(int((want > 0).sum()))
         del got, want
-    ms = time_ms(lambda: fast_cuda.fast_scores(grey, KP_T, KP_B), 10)
+    ms, earlier_ms = paired_ms(
+        lambda: fast_cuda.fast_scores(grey, KP_T, KP_B),
+        (lambda: b8_earlier(grey, KP_T, KP_B)) if BASELINE else None, 10)
     plain_ms = time_ms(
         lambda: fast_cuda.fast_scores_reference(grey, KP_T, KP_B), 2)
     # this run's data: every pixel runs the compass test, the pixels that
@@ -570,8 +742,11 @@ def phase_b8(dev, grey):
         f"-> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B8 disagrees with its plain version")
+    rec = design_report("B8 u8", "fast", B8_INSTANCE, ms, bound_ms,
+                        earlier_ms)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None,
+                compass_pass_share=cand / (n * h * w), **rec)
 
 
 def phase_b3(dev, grey):
@@ -966,7 +1141,9 @@ def phase_b1_masked(dev):
     active = torch.ones(b, dtype=torch.bool, device=dev)
     active[b // 3] = False
     motion = MotionType.Homography
-    got = ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion, active=active)
+    tex = ecc_cuda.pack_texels(srcs)
+    got = ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion, active=active,
+                                         texels=tex)
     want = ecc_cuda.ecc_iteration_moments_reference(srcs, tmpl, m3, motion,
                                                     active=active)
     torch.cuda.synchronize()
@@ -978,8 +1155,11 @@ def phase_b1_masked(dev):
     worst_rel = group_rel(g, wnt, motion.num_params)
     max_abs = float(np.abs(g - wnt).max())
     kept = float(wnt[active.cpu().numpy(), 0].mean()) / (h * w)
-    ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3,
-                                                        motion), 20)
+    ms, earlier_ms = paired_ms(
+        lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion,
+                                               texels=tex),
+        (lambda: b1_earlier(srcs, tmpl, m3, motion)) if BASELINE else None,
+        20)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, motion), 2)
     bound_ms, bound_by = bound(4.0 * h * w * (4 + b) + 4.0 * b * 66,
@@ -994,8 +1174,10 @@ def phase_b1_masked(dev):
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B1's masked form disagrees with its plain version")
+    rec = design_report("B1m P=8 with the Gram", "ecc_moments",
+                        B1M_INSTANCE, ms, bound_ms, earlier_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
 
 def draw_streak(frames, idx, value=255):
@@ -1163,6 +1345,7 @@ def phase_b7(dev):
     aff = m3[:1].clone()
     aff[:, 2] = torch.tensor([0.0, 0.0, 1.0], device=dev)
     hom = MotionType.Homography
+    tex = ecc_cuda.pack_texels(srcs)
 
     worst = {"ic": 0.0, "lite": 0.0}
     max_abs = {"ic": 0.0, "lite": 0.0}
@@ -1178,7 +1361,8 @@ def phase_b7(dev):
                           src, tmpl[: len(mats)], mats, motion, **kw))]
             if not gram:
                 pairs.append(("lite", ecc_cuda.ecc_iteration_moments(
-                                  srcs, tmpl[: len(mats)], mats, motion, **kw),
+                                  srcs, tmpl[: len(mats)], mats, motion,
+                                  texels=tex, **kw),
                               ecc_cuda.ecc_iteration_moments_reference(
                                   srcs, tmpl[: len(mats)], mats, motion,
                                   **kw)))
@@ -1191,14 +1375,21 @@ def phase_b7(dev):
                 worst[key] = max(worst[key], group_rel(
                     g, wnt, motion.num_params, with_hessian=gram))
                 max_abs[key] = max(max_abs[key], float(np.abs(g - wnt).max()))
-    ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments(
-        src, tmpl, m3, hom), 20)
-    ms_gram = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments(
-        src, tmpl, m3, hom, with_hessian=True), 10)
+    ms, earlier_ms = paired_ms(
+        lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom),
+        (lambda: b7_earlier(src, tmpl, m3, hom)) if BASELINE else None, 20)
+    ms_gram, earlier_gram_ms = paired_ms(
+        lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom,
+                                                  with_hessian=True),
+        (lambda: b7_earlier(src, tmpl, m3, hom, True)) if BASELINE else None,
+        10)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments_reference(
         src, tmpl, m3, hom), 1)
-    lite_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
-        srcs, tmpl, m3, hom, with_hessian=False), 20)
+    lite_ms, earlier_lite_ms = paired_ms(
+        lambda: ecc_cuda.ecc_iteration_moments(
+            srcs, tmpl, m3, hom, with_hessian=False, texels=tex),
+        (lambda: b1_earlier(srcs, tmpl, m3, hom, False)) if BASELINE
+        else None, 20)
     lite_plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, hom, with_hessian=False), 1)
     torch.cuda.synchronize()
@@ -1222,16 +1413,24 @@ def phase_b7(dev):
         f"({lite_bound_by}) -> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B7 or B1 without the Gram disagrees with its plain version")
+    rec7 = design_report("B7 P=8", "ecc_ic_moments", B7_INSTANCE, ms,
+                         bound_ms, earlier_ms)
+    rec7g = design_report("B7 P=8 with the Gram", "ecc_ic_moments",
+                          B7_GRAM_INSTANCE, ms_gram, gram_bound_ms,
+                          earlier_gram_ms)
+    rec_lite = design_report("B1 lite P=8", "ecc_moments", B1_LITE_INSTANCE,
+                             lite_ms, lite_bound_ms, earlier_lite_ms)
     b7 = dict(max_abs_err=max_abs["ic"], ms=ms, plain_ms=plain_ms,
               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
               ms_with_gram=ms_gram, bound_ms_with_gram=gram_bound_ms,
               library_note="no PyTorch call fuses a warp with 30-66 "
-                           "reductions")
+                           "reductions", **rec7,
+              **{f"with_gram_{k}": v for k, v in rec7g.items()})
     lite = dict(max_abs_err=max_abs["lite"], ms=lite_ms,
                 plain_ms=lite_plain_ms, bound_ms=lite_bound_ms,
                 bound_by=lite_bound_by, library_ms=None,
                 library_note="no PyTorch call fuses a warp with 30 "
-                             "reductions")
+                             "reductions", **rec_lite)
     return b7, lite
 
 
@@ -1446,7 +1645,12 @@ def phase_solvers(dev, frames, clean):
     return results
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR", default=None,
+                    help="time an earlier design of B1, B7 and B8 from the "
+                         "sources in DIR beside the current one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card only", file=sys.stderr)
@@ -1462,6 +1666,8 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     smi = phase_device()
+    if args.baseline:
+        load_baseline(args.baseline)
     torch.cuda.synchronize()
     b1 = phase_b1(dev)
     torch.cuda.synchronize()

@@ -1,8 +1,12 @@
 // Device code shared by the two ECC moment sweeps: csrc/ecc_moments.cu
 // (B1, forward additive) and csrc/ecc_ic_moments.cu (B7, inverse
-// compositional).  Both walk the same grid (pixel blocks, lane), bin
-// every source coordinate like ops/warp.py, and reduce their NOUT sums
-// the same way; only what they sample and sum differs.
+// compositional).  Both bin every source coordinate like ops/warp.py,
+// build the motion Jacobian and reduce per-block partials in double;
+// they differ in how they walk the image, what they sample and sum, and
+// how a block reduces its sums (B7 uses block_reduce_store, B1 a warp
+// reduce-scatter of its own).  What B7 uses is kept as it was built
+// before B1's redesign: its register allocation, and so its time, moves
+// with any change here.
 //
 // Build with --fmad=false (utils/cuda_build.py): every float expression
 // here is written in the order of the plain PyTorch versions
@@ -28,6 +32,27 @@ template <int P, bool HESS>
 struct Layout {
   static constexpr int NOUT = 6 + 3 * P + (HESS ? P * (P + 1) / 2 : 0);
 };
+
+// The homography Jacobian (hatX = sx, hatY = sy) given inv_den = 1 /
+// (m6 * xs + m7 * ys + 1), the denominator without a zero guard: B1
+// passes the reciprocal it already holds when m8 == 1.  The same
+// expressions as jacobian<8> below.
+__device__ __forceinline__ void jacobian_homography(float* jac, float gxw,
+                                                    float gyw, float xs,
+                                                    float ys, float sx,
+                                                    float sy, float inv_den) {
+  const float gxd = gxw * inv_den;
+  const float gyd = gyw * inv_den;
+  const float tmp = sx * gxd + sy * gyd;
+  jac[0] = gxd * xs;
+  jac[1] = gyd * xs;
+  jac[2] = -tmp * xs;
+  jac[3] = gxd * ys;
+  jac[4] = gyd * ys;
+  jac[5] = -tmp * ys;
+  jac[6] = gxd;
+  jac[7] = gyd;
+}
 
 // Motion-model Jacobian (OpenCV image_jacobian_*_ECC; P = 2/3/6/8).
 template <int P>
@@ -116,6 +141,14 @@ struct Taps {
     v01 = vy0 && vx1;
     v10 = vy1 && vx0;
     v11 = vy1 && vx1;
+  }
+
+  // the bilinear value of 4 taps the caller fetched, as sample() forms it
+  __device__ __forceinline__ float lerp(float t00, float t01, float t10,
+                                        float t11) const {
+    const float top = t00 * (1.0f - fx) + t01 * fx;
+    const float bot = t10 * (1.0f - fx) + t11 * fx;
+    return top * (1.0f - fy) + bot * fy;
   }
 
   __device__ __forceinline__ float sample(const float* s) const {

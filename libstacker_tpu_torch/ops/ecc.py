@@ -385,6 +385,8 @@ def _solve_lanes(
         srcs = _prepare_masked_input(input_image, input_mask,
                                      gauss_filt_size)
     srcs = srcs.contiguous()
+    # B1 reads the planes as interleaved texels: pack once per level
+    texels = ecc_cuda.pack_texels(srcs) if srcs.is_cuda else None
     templates_f = filters.gaussian_blur(
         templates.to(torch.float32), gauss_filt_size
     ).contiguous()
@@ -411,7 +413,8 @@ def _solve_lanes(
         gram=torch.zeros((n, p, p), dtype=torch.float32, device=dev),
         h_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
     )
-    st = _drive(srcs, templates_f, st, motion_type, num_iters, eps, mode)
+    st = _drive(srcs, texels, templates_f, st, motion_type, num_iters, eps,
+                mode)
     if rescue and mode != "forward":
         bad = ~st.ok
         if bool(bad.any()):
@@ -428,13 +431,13 @@ def _solve_lanes(
                 gram=st.gram,
                 h_ok=st.h_ok & ~bad,
             )
-            st = _drive(srcs, templates_f, st, motion_type, num_iters, eps,
-                        "forward")
+            st = _drive(srcs, texels, templates_f, st, motion_type,
+                        num_iters, eps, "forward")
     return EccResult(rho=st.rho, warp_matrix=st.m, ok=st.ok,
                      num_iters=st.it)
 
 
-def _drive(srcs, templates_f, st: _Carry, motion_type: MotionType,
+def _drive(srcs, texels, templates_f, st: _Carry, motion_type: MotionType,
            num_iters: int, eps: float, mode: str) -> _Carry:
     """Iterate until no lane is active, checking on the host every
     ``_CHUNK_ITERS`` iterations."""
@@ -450,14 +453,15 @@ def _drive(srcs, templates_f, st: _Carry, motion_type: MotionType,
     with_gram = mode != "forward"
     while bool(active_lanes(st).any()):
         for _ in range(_CHUNK_ITERS):
-            st = _iterate(srcs, templates_f, st, active_lanes(st),
+            st = _iterate(srcs, texels, templates_f, st, active_lanes(st),
                           motion_type, mode, eps, with_gram)
             with_gram = False
     return st
 
 
-def _iterate(srcs, templates_f, st: _Carry, active, motion_type: MotionType,
-             mode: str, eps: float, with_gram: bool) -> _Carry:
+def _iterate(srcs, texels, templates_f, st: _Carry, active,
+             motion_type: MotionType, mode: str, eps: float,
+             with_gram: bool) -> _Carry:
     """One masked Gauss-Newton iteration over every lane (the reference's
     ``iter_body``: the fused-moments branch for 'forward' and 'lazy',
     the IC branch for 'ic')."""
@@ -473,7 +477,7 @@ def _iterate(srcs, templates_f, st: _Carry, active, motion_type: MotionType,
     else:
         mom = ecc_cuda.ecc_iteration_moments(
             srcs, templates_f, m3, motion_type, with_hessian=with_hessian,
-            **kw,
+            texels=texels, **kw,
         )
     (n_raw, s_mi, s_mii, s_mt, s_mtt, s_mti,
      hess_new, j_i, j_m, j_mt) = ecc_cuda.unpack_moments(

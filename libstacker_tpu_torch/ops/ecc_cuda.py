@@ -21,7 +21,9 @@ moments the solver (``ops/ecc.py``) rebuilds OpenCV's quantities from:
 :func:`ecc_iteration_moments` runs the hand-written kernel
 ``csrc/ecc_moments.cu`` for CUDA tensors and the plain PyTorch version
 :func:`ecc_iteration_moments_reference` for CPU tensors; there is no
-other dispatch.  With a 4th source plane (cv2's preprocessed binary
+other dispatch.  The kernel reads the source planes interleaved as
+``[H,W,4]`` texels (:func:`pack_texels`), which a solver packs once per
+pyramid level.  With a 4th source plane (cv2's preprocessed binary
 inputMask, ``ops/ecc.py``), its INTER_NEAREST tap replaces the all-ones
 validity mask: the 4-plane variant of the kernel (``ecc_pallas.py``
 :202-247).  ``with_hessian=False`` drops the Gram: the sweep of the
@@ -156,6 +158,17 @@ def ecc_iteration_moments_reference(
     return out
 
 
+def pack_texels(srcs: torch.Tensor) -> torch.Tensor:
+    """``[3|4,H,W]`` source planes -> the ``[H,W,4]`` float32 texels B1
+    reads (image, gx, gy, and the inputMask or 0): one 16-byte load per
+    bilinear tap.  Pack once per pyramid level and pass the result to
+    every :func:`ecc_iteration_moments` sweep of that level."""
+    c, h, w = srcs.shape
+    tex = torch.zeros((h, w, 4), dtype=torch.float32, device=srcs.device)
+    tex[..., :c] = srcs.permute(1, 2, 0)
+    return tex
+
+
 def ecc_iteration_moments(
     srcs: torch.Tensor,
     templates: torch.Tensor,
@@ -164,6 +177,7 @@ def ecc_iteration_moments(
     quant_affine: bool = False,
     active: Optional[torch.Tensor] = None,
     with_hessian: bool = True,
+    texels: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One ECC iteration sweep -> ``[B, n_out]`` float32 raw moments.
 
@@ -172,7 +186,9 @@ def ecc_iteration_moments(
     ``templates`` [B,H,W] float32, ``m3`` [B,3,3] inverse maps,
     ``active`` [B] bool (inactive lanes return zero rows).  CPU tensors
     take the plain version; CUDA tensors launch ``csrc/ecc_moments.cu``
-    or raise."""
+    or raise.  ``texels`` is ``pack_texels(srcs)``, made once by a caller
+    that sweeps the same sources many times; without it a CUDA call
+    packs its own."""
     global launch_count, lite_launch_count, masked_launch_count
     if srcs.ndim != 3 or srcs.shape[0] not in (3, 4):
         raise ValueError(f"srcs must be [3,H,W] or [4,H,W], got "
@@ -200,16 +216,22 @@ def ecc_iteration_moments(
             raise ValueError(
                 f"{name} must be a contiguous float32 tensor on {dev}"
             )
+    if texels is None:
+        texels = pack_texels(srcs)
+    elif (tuple(texels.shape) != (h, w, 4) or texels.dtype != torch.float32
+          or not texels.is_contiguous() or texels.device != dev):
+        raise ValueError(f"texels must be pack_texels(srcs): a contiguous "
+                         f"[{h},{w},4] float32 tensor on {dev}")
     if active is None:
         act = torch.ones((b,), dtype=torch.uint8, device=dev)
     else:
         act = active.to(device=dev, dtype=torch.uint8).contiguous()
     lib = _lib()
-    nblk = -(-(h * w) // lib.ecc_moments_pixels_per_block())
+    nblk = lib.ecc_moments_num_blocks(h, w)
     partials = torch.empty((b, n_out, nblk), dtype=torch.float32, device=dev)
     out = torch.empty((b, n_out), dtype=torch.float32, device=dev)
     err = lib.ecc_moments(
-        srcs.data_ptr(), templates.data_ptr(), m3.data_ptr(), act.data_ptr(),
+        texels.data_ptr(), templates.data_ptr(), m3.data_ptr(), act.data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
         int(quant_affine), int(masked),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -230,8 +252,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ecc_moments.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.ecc_moments.restype = ci
-    lib.ecc_moments_pixels_per_block.argtypes = []
-    lib.ecc_moments_pixels_per_block.restype = ci
+    lib.ecc_moments_num_blocks.argtypes = [ci, ci]
+    lib.ecc_moments_num_blocks.restype = ci
     return lib
 
 

@@ -25,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,30 +49,32 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     """``build/lib<name>_<hash>.so`` for the current source of
-    ``csrc/<name>.cu`` and the shared headers ``csrc/*.cuh``."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    ``<csrc>/<name>.cu`` and the headers ``<csrc>/*.cuh`` beside it
+    (``csrc`` is the package's ``csrc/`` unless a caller builds another
+    copy of the sources, e.g. an earlier design to time against)."""
+    src = (csrc / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}_{digest[:16]}.so"
 
 
-def build(*names: str) -> None:
-    """Compile every ``csrc/<name>.cu`` whose hashed build is missing,
+def build(*names: str, csrc: Path = CSRC) -> None:
+    """Compile every ``<csrc>/<name>.cu`` whose hashed build is missing,
     one ``nvcc`` per source, all started together.  The compiler's
     ``-Xptxas -v`` report (registers, spills) is kept beside each
     library as ``<lib>.ptxas.txt``."""
     jobs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         BUILD.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         jobs.append((name, out, tmp, proc))
@@ -82,7 +85,7 @@ def build(*names: str) -> None:
             out.with_suffix(".ptxas.txt").write_text(err)
             os.replace(tmp, out)  # atomic: concurrent builders agree
         else:
-            failed.append(f"nvcc failed for csrc/{name}.cu:\n{err}")
+            failed.append(f"nvcc failed for {csrc / name}.cu:\n{err}")
         if os.path.exists(tmp):
             os.remove(tmp)
     if failed:
@@ -90,18 +93,41 @@ def build(*names: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its hashed build is missing, then
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Compile ``<csrc>/<name>.cu`` if its hashed build is missing, then
     load it."""
-    build(name)
-    return ctypes.CDLL(str(library_path(name)))
+    build(name, csrc=csrc)
+    return ctypes.CDLL(str(library_path(name, csrc)))
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name: str, csrc: Path = CSRC) -> str:
     """The ``-Xptxas -v`` lines of the last build of ``name`` ('' if the
     library was built by another process without the report)."""
-    p = library_path(name).with_suffix(".ptxas.txt")
+    p = library_path(name, csrc).with_suffix(".ptxas.txt")
     return p.read_text() if p.exists() else ""
+
+
+def kernel_resources(name: str, csrc: Path = CSRC) -> dict:
+    """Per kernel of the last build of ``name``, from its ``-Xptxas -v``
+    report: mangled name -> ``{"registers", "spill_stores",
+    "spill_loads"}`` (spills in bytes)."""
+    out, cur = {}, None
+    for line in ptxas_report(name, csrc).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

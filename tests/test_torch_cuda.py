@@ -9,11 +9,14 @@ the suite's JAX-configuring conftest:
 
 Bars: moments per group norm-relative < 1e-4 (the kernel sums in float32
 partials then double, the plain version in double, and both bin every
-coordinate identically: the kernels are built with --fmad=false);
-warp-accumulate max abs < 1e-3 and u8 source == f32 source bitwise;
-slice: equal ok flags, warps within 0.03, stacked interior within 0.02;
-FAST (B8) and patch extraction (B3) bitwise equal to their plain
-versions; keypoint slice: equal ``dropped``, homographies mapping the
+coordinate identically: the kernels are built with --fmad=false), B1
+also at an odd width, with taps off the image, with every lane inactive
+and with a ragged mask; warp-accumulate max abs < 1e-3 and u8 source ==
+f32 source bitwise; slice: equal ok flags, warps within 0.03, stacked
+interior within 0.02; FAST (B8) and patch extraction (B3) bitwise equal
+to their plain versions, B8 also with every pixel a candidate, with
+none, with corners on the tile and warp edges and at the pyramid's
+widths; keypoint slice: equal ``dropped``, homographies mapping the
 image corners within 0.5 px, stacked interior within 0.02.  B1's masked
 form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
@@ -88,6 +91,104 @@ def test_moments_kernel_matches_plain(dev, motion, with_hessian):
     assert _group_rel(g, wn, motion.num_params) < 1e-4
 
 
+def _moments_vs_plain(dev, srcs, tmpl, m3, motion, with_hessian=True,
+                      active=None):
+    """B1 (texels packed once, as the solver does) and its plain version
+    on the same inputs -> (kernel, plain) as float64 numpy."""
+    kw = dict(quant_affine=motion != MotionType.Homography, active=active,
+              with_hessian=with_hessian)
+    tex = ecc_cuda.pack_texels(srcs)
+    got = ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion, texels=tex,
+                                         **kw)
+    want = ecc_cuda.ecc_iteration_moments_reference(srcs, tmpl, m3, motion,
+                                                    **kw)
+    torch.cuda.synchronize()
+    return got.double().cpu().numpy(), want.double().cpu().numpy()
+
+
+@pytest.mark.parametrize("motion", [MotionType.Affine, MotionType.Homography])
+@pytest.mark.parametrize("with_hessian", [True, False])
+def test_moments_kernel_odd_width(dev, motion, with_hessian):
+    """B1 on a width that is no multiple of the 128-column tile, nor of 4
+    (a pyramid width of the keypoint path): texel rows start unaligned."""
+    rng = np.random.default_rng(31)
+    h, w = 61, 1423
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    srcs = torch.stack(ecc._input_fields(img, 5)).contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 2)).to(dev)
+    persp = (1e-5, -2e-5) if motion == MotionType.Homography else (0, 0)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 2.5 * a, -1.25, persp=persp)
+        for a in (0.4, -0.9)
+    ])).to(dev)
+    g, wn = _moments_vs_plain(dev, srcs, tmpl, m3, motion, with_hessian)
+    assert _group_rel(g, wn, motion.num_params) < 1e-4
+
+
+def test_moments_kernel_taps_off_image(dev):
+    """Lanes whose warps put most taps (or all of them) outside the
+    source: the BORDER_CONSTANT taps and the validity mask at the edges."""
+    rng = np.random.default_rng(32)
+    h, w = 150, 260
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    srcs = torch.stack(ecc._input_fields(img, 5)).contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 4)).to(dev)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, 0.0, 1.0, 0.9 * w, 0.5),  # 10 % inside
+        rotation_inverse_map(h, w, 35.0, 1.3, -40.0, 70.0,
+                             persp=(2e-4, -1e-4)),
+        rotation_inverse_map(h, w, 0.0, 1.0, -0.97 * w, -0.95 * h),
+        rotation_inverse_map(h, w, 0.0, 1.0, 2.0 * w, 0.0),  # all outside
+    ])).to(dev)
+    g, wn = _moments_vs_plain(dev, srcs, tmpl, m3, MotionType.Homography)
+    assert 0.0 < wn[0, 0] < 0.2 * h * w and wn[3, 0] == 0.0
+    np.testing.assert_array_equal(g[3], 0.0)
+    assert _group_rel(g, wn, 8) < 1e-4
+
+
+@pytest.mark.parametrize("planes", [3, 4])
+def test_moments_kernel_all_lanes_inactive(dev, planes):
+    """With no lane active every row is zero, masked form included."""
+    rng = np.random.default_rng(33)
+    h, w = 70, 90
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    if planes == 3:
+        srcs = torch.stack(ecc._input_fields(img, 5)).contiguous()
+    else:
+        mask = torch.ones((h, w), device=dev)
+        srcs = ecc._prepare_masked_input(img, mask, 5).contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 3)).to(dev)
+    m3 = torch.eye(3, device=dev).repeat(3, 1, 1).contiguous()
+    active = torch.zeros(3, dtype=torch.bool, device=dev)
+    g, wn = _moments_vs_plain(dev, srcs, tmpl, m3, MotionType.Homography,
+                              active=active)
+    np.testing.assert_array_equal(g, 0.0)
+    np.testing.assert_array_equal(wn, 0.0)
+
+
+@pytest.mark.parametrize("with_hessian", [True, False])
+def test_masked_moments_kernel_ragged_mask(dev, with_hessian):
+    """B1's 4-plane form with a ragged mask (thresholded noise blobs) at
+    an odd width: the nearest tap of the texels' 4th component."""
+    rng = np.random.default_rng(34)
+    h, w = 90, 333
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    blobs = smooth(rng, (h, w), sigma=4.0)
+    mask = torch.from_numpy((blobs > np.median(blobs)).astype(np.float32))
+    srcs = ecc._prepare_masked_input(img, mask.to(dev), 5).contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 3)).to(dev)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 3.0 * a, -2.0, persp=(1e-5, 0.0))
+        for a in (0.0, 1.5, -3.0)
+    ])).to(dev)
+    active = torch.tensor([True, True, False], device=dev)
+    g, wn = _moments_vs_plain(dev, srcs, tmpl, m3, MotionType.Homography,
+                              with_hessian, active)
+    assert 0.3 * h * w < wn[0, 0] < 0.7 * h * w
+    np.testing.assert_array_equal(g[2], 0.0)
+    assert _group_rel(g, wn, 8) < 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
 @pytest.mark.parametrize("quant_affine", [False, True])
 def test_warp_accum_kernel_matches_plain(dev, dtype, quant_affine):
@@ -136,6 +237,60 @@ def test_fast_kernel_matches_plain(dev, dtype, border):
     torch.cuda.synchronize()
     assert int((want > 0).sum()) > 100
     assert torch.equal(got, want)
+
+
+def _fast_vs_plain(imgs, threshold=20, border=0):
+    got = fast_cuda.fast_scores(imgs, threshold, border)
+    want = fast_cuda.fast_scores_reference(imgs, threshold, border)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_fast_kernel_every_or_no_pixel_a_candidate(dev, dtype):
+    """A 0/255 checkerboard puts every pixel past the compass test (the
+    candidate queue full), a flat frame none."""
+    ys, xs = np.mgrid[0:70, 0:300]
+    board = ((ys + xs) % 2 * 255).astype(np.uint8)
+    imgs = torch.from_numpy(np.stack([board, np.full_like(board, 128)]))
+    imgs = imgs.to(dev).to(dtype)
+    want = _fast_vs_plain(imgs)
+    assert int((want[1] > 0).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_fast_kernel_corners_at_tile_edges(dev, dtype):
+    """Squares of random brightness on textured content, their corners on
+    and beside the 128x16 tile edges and the 32-column warp edges."""
+    rng = np.random.default_rng(36)
+    img = np.stack([smooth(rng, (100, 400), sigma=1.0) for _ in range(2)])
+    for y in (13, 15, 16, 29, 31, 32, 47, 48, 63, 64):
+        for x in (29, 32, 62, 95, 126, 128, 255):
+            img[0, y : y + 4, x : x + 4] = rng.uniform(200, 255)
+            img[1, y : y + 3, x : x + 5] = rng.uniform(0, 40)
+    imgs = torch.from_numpy(img).to(dev)
+    imgs = imgs.round().to(torch.uint8) if dtype == torch.uint8 else imgs
+    want = _fast_vs_plain(imgs)
+    edges = want[:, 12:20, :].sum() + want[:, :, 124:133].sum()
+    assert int((want > 0).sum()) > 100 and float(edges) > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("w", [3200, 2667, 1423])
+def test_fast_kernel_pyramid_widths(dev, dtype, w):
+    """Widths of the keypoint path's pyramid: 4-pixel groups load as one
+    vector where the rows allow it (3200), byte by byte where not; and
+    a base address off the vector alignment."""
+    rng = np.random.default_rng(35)
+    imgs = np.stack([smooth(rng, (40, w), sigma=1.0) for _ in range(2)])
+    imgs = torch.from_numpy(imgs).to(dev)
+    imgs = imgs.round().to(torch.uint8) if dtype == torch.uint8 else imgs
+    want = _fast_vs_plain(imgs)
+    assert int((want > 0).sum()) > 100
+    buf = torch.zeros(imgs.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = imgs.reshape(-1)
+    _fast_vs_plain(buf[1:].view(imgs.shape), border=5)
 
 
 @pytest.mark.parametrize("radius", [orb_cuda.BLUR_RADIUS, orb_cuda.PATCH_RADIUS])

@@ -156,6 +156,21 @@ def test_moments_layout_lanes_and_unpack(fields):
             torch.cat([t(srcs), t(srcs)[:2]]), t(tm), t(m3), motion)
 
 
+@pytest.mark.parametrize("planes", [3, 4])
+def test_texel_packing_round_trip(planes):
+    """B1's texels: pixel (y, x) holds (image, gx, gy, inputMask or 0) as
+    one contiguous [H,W,4] float32 row, bit for bit."""
+    rng = np.random.default_rng(41)
+    srcs = rng.standard_normal((planes, 13, 29)).astype(np.float32)
+    tex = ecc_cuda.pack_texels(t(srcs))
+    assert tex.dtype == torch.float32 and tex.is_contiguous()
+    assert tuple(tex.shape) == (13, 29, 4)
+    np.testing.assert_array_equal(np.moveaxis(n(tex)[..., :planes], -1, 0),
+                                  srcs)
+    if planes == 3:
+        np.testing.assert_array_equal(n(tex)[..., 3], 0.0)
+
+
 @pytest.mark.parametrize("motion", MOTIONS)
 def test_update_and_rescale_match(motion):
     rng = np.random.default_rng(5)
