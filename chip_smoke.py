@@ -11,10 +11,10 @@ Phases (each prints one line; any failure exits non-zero):
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
    2160x3840, one of them inactive) plus one affine lane;
-3. kernel B2 (``warp_accum.cu``) against its plain version at the main
-   path's shape (99 u8 frames of 2160x3840, one dropped), and its
-   u8-source result against its f32-source result (must be bitwise
-   equal);
+3. kernel B2 (``warp_accum.cu``) against its plain version, bitwise, at
+   the main path's shape (99 u8 frames of 2160x3840, one dropped), its
+   u8-source result against its f32-source result (bitwise), and 4
+   frames rotated by 30 degrees (bitwise);
 4. the ECC slice on CUDA against the port's own CPU path on a small
    burst (``ok`` flags, warps, stacked interior);
 5. the full-size slice: a 100x2160x3840 burst through ``ecc_match_arrays``
@@ -38,8 +38,7 @@ Phases (each prints one line; any failure exits non-zero):
 10. kernel B4 (``warp_accum.cu``, moments form) against its plain version
     at the main path's shape (99 u8 frames of 2160x3840, one dropped): a
     moments pass, then a clip pass fed with that pass's mean and
-    kappa-sigma tolerance; S0 and C0 bitwise, S1 and S2 bitwise or within
-    1e-6 of the plane's largest value;
+    kappa-sigma tolerance; S0, S1 and S2 of both passes bitwise;
 11. kernel B5 (``warp.cu``) against its plain version, bitwise, on the 60
     planes of phase 9's 20 RGB 4K frames in each of the six border modes,
     once with slots sharing sources (``src_index``) and once on an output
@@ -72,9 +71,17 @@ Phases (each prints one line; any failure exits non-zero):
 21. the opt-in ECC solvers at full width: phase 5's burst with
     ``solver="lazy"``, ``solver="ic"`` and ``phase_init_rotation=True``,
     at the headline bars and against phase 5's forward stack, with the
-    lanes the forward rescue re-solved.
+    lanes the forward rescue re-solved;
+22. the file entry points: 8 frames of 1080x1920 written as 16-bit PNGs
+    by ``save_image(..., bit_depth=16)`` and as 8-bit PNGs, decoded by
+    ``load_frames`` with and without ``preserve_depth``, and
+    ``ecc_match(files)`` (also with ``preserve_depth=True``) and
+    ``keypoint_match(files)`` bitwise against their ``_arrays`` forms on
+    the decoded arrays; whether the native loader built, and if not, the
+    compiler's reason on a line of its own (a 48-bit PNG then decodes at
+    full depth nowhere, and the phase checks the reference's refusal).
 
-Phases 5, 9, 14-16 and 19-21 drive the entry points with every launch
+Phases 5, 9, 14-16 and 19-22 drive the entry points with every launch
 counter set to 0 just before the run and read just after it, and fail if
 a kernel of that path was not launched.
 
@@ -82,14 +89,14 @@ Each kernel record carries its time (CUDA events), its plain version's
 time, the bound of the same work at the card's published rates (bytes
 over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
-Phases 2, 6, 13 and 17 also print the registers and spills that ptxas
-gave each instance of B1, B8 and B7, the kernel's share of its bound,
-and, with ``--baseline DIR``, the time of an earlier design of those
-kernels on the same inputs: ``DIR`` holds that design's
-``ecc_moments.cu``, ``ecc_ic_moments.cu``, ``ecc_moments_common.cuh``
-and ``fast.cu`` (with the same C interfaces as before the texel layout:
-B1 took the ``[3|4,H,W]`` planes), built beside the others, and each
-pair is timed in turns (new, earlier, earlier, new).
+Phases 2, 3, 6, 10, 13 and 17 also print the registers and spills that
+ptxas gave each instance of B1, B2, B8, B4 and B7, the kernel's share of
+its bound, and, with ``--baseline DIR``, the time of an earlier design of
+B1, B2, B4 and B7 on the same inputs: ``DIR`` holds that design's
+``ecc_moments.cu``, ``ecc_ic_moments.cu``, ``ecc_moments_common.cuh`` and
+``warp_accum.cu`` (with the C interfaces they had: B1 on the ``[H,W,4]``
+texels, B7 with its pixels-a-block count), built beside the others, and
+each pair is timed in turns (new, earlier, earlier, new).
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -112,7 +119,7 @@ REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit")
 # the sources an earlier design is timed from (--baseline)
-BASELINE_KERNELS = ("ecc_moments", "ecc_ic_moments", "fast")
+BASELINE_KERNELS = ("ecc_moments", "ecc_ic_moments", "warp_accum")
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -120,6 +127,8 @@ B1_LITE_INSTANCE = "moments_kernelILi8ELb0ELb0E"  # P=8, no Gram
 B7_INSTANCE = "ic_moments_kernelILi8ELb0E"  # P=8, no Gram
 B7_GRAM_INSTANCE = "ic_moments_kernelILi8ELb1E"
 B8_INSTANCE = "fast_kernelIhE"  # u8 source
+B2_INSTANCE = "warp_accum_kernelIhE"  # u8 source
+B4_INSTANCE = "warp_moments_kernelIhLb1E"  # u8 source, clip pass
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -136,7 +145,6 @@ KERNEL_FRAMES = FULL_N - 1
 # bars (bench.py:166-167, tests/test_ecc_pallas.py:176-178,
 # tests/test_pipeline_ecc.py:73-74)
 MOMENT_REL_BAR = 1e-4
-ACCUM_MAX_BAR = 1e-3
 WARP_ATOL = 0.03
 STACK_MAX_BAR = 0.02
 RHO_BAR = 0.99
@@ -333,28 +341,34 @@ BASELINE_DIR: list = []
 
 def load_baseline(path: str) -> None:
     """Build the earlier design's sources in ``path`` and bind their C
-    entry points (the interfaces they had: B1 takes the planes)."""
+    entry points (the interfaces they had: B7 with a fixed number of
+    pixels a block)."""
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
     cuda_build.build(*BASELINE_KERNELS, csrc=d)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, fn, argtypes, per_block in (
-        ("ecc_moments", "ecc_moments", [vp] * 6 + [ci] * 7 + [vp],
-         "ecc_moments_pixels_per_block"),
-        ("ecc_ic_moments", "ecc_ic_moments", [vp] * 6 + [ci] * 6 + [vp],
-         "ecc_ic_moments_pixels_per_block"),
-        ("fast", "fast_scores",
-         [vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, vp], None),
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, fns in (
+        ("ecc_moments", (("ecc_moments", [vp] * 6 + [ci] * 7 + [vp]),
+                         ("ecc_moments_num_blocks", [ci, ci]))),
+        ("ecc_ic_moments", (("ecc_ic_moments", [vp] * 6 + [ci] * 6 + [vp]),
+                            ("ecc_ic_moments_pixels_per_block", []))),
+        ("warp_accum", (("warp_accum_rgb", [vp] * 5 + [ci] * 5 + [cf, vp]),
+                        ("warp_moments_rgb",
+                         [vp] * 8 + [ci] * 5 + [cf, vp]))),
     ):
         lib = cuda_build.load(name, d)
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ci
-        if per_block:
-            getattr(lib, per_block).argtypes = []
-            getattr(lib, per_block).restype = ci
+        for fn, argtypes in fns:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ci
         BASELINE[name] = lib
     BASELINE_DIR.append(d)
+
+
+def earlier(name: str, fn):
+    """``fn`` (a call of the earlier design of source ``name``) when
+    ``--baseline`` built one, else None."""
+    return fn if name in BASELINE else None
 
 
 def resources(name: str, piece: str, csrc=None) -> dict:
@@ -407,23 +421,23 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def b1_earlier(srcs, tmpl, m3, motion, with_hessian=True):
-    """The earlier B1 design on the ``[3|4,H,W]`` planes."""
+def b1_earlier(tex, tmpl, m3, motion, with_hessian=True, masked=False):
+    """The earlier B1 build on the ``[H,W,4]`` texels."""
     from libstacker_tpu_torch.ops import ecc_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
     lib = BASELINE["ecc_moments"]
     b, h, w = tmpl.shape
     p, n_out = ecc_cuda.moments_layout(motion, with_hessian)
-    nblk = -(-(h * w) // lib.ecc_moments_pixels_per_block())
+    nblk = lib.ecc_moments_num_blocks(h, w)
     act = torch.ones((b,), dtype=torch.uint8, device=tmpl.device)
     partials = torch.empty((b, n_out, nblk), dtype=torch.float32,
                            device=tmpl.device)
     out = torch.empty((b, n_out), dtype=torch.float32, device=tmpl.device)
     err = lib.ecc_moments(
-        srcs.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
+        tex.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
-        0, int(srcs.shape[0] == 4), _stream())
+        0, int(masked), _stream())
     cuda_build.check(lib, err, "earlier ecc_moments")
     return out
 
@@ -449,18 +463,41 @@ def b7_earlier(src, tmpl, m3, motion, with_hessian=False):
     return out
 
 
-def b8_earlier(imgs, threshold, border):
-    """The earlier B8 design."""
+def b2_earlier(frames, minv, valid):
+    """The earlier B2 design (u8 frames, perspective maps, border 0)."""
+    from libstacker_tpu_torch.ops import color
     from libstacker_tpu_torch.utils import cuda_build
 
-    lib = BASELINE["fast"]
-    n, h, w = imgs.shape
-    out = torch.empty((n, h, w), dtype=torch.float32, device=imgs.device)
-    err = lib.fast_scores(imgs.data_ptr(), out.data_ptr(), n, h, w,
-                          0 if imgs.dtype == torch.uint8 else 2,
-                          float(threshold), int(border), _stream())
-    cuda_build.check(lib, err, "earlier fast_scores")
+    lib = BASELINE["warp_accum"]
+    n, h, w, _ = frames.shape
+    vf = valid.to(torch.float32)
+    bv = torch.zeros(3, dtype=torch.float32, device=frames.device)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
+    err = lib.warp_accum_rgb(frames.data_ptr(), minv.data_ptr(),
+                             vf.data_ptr(), bv.data_ptr(), out.data_ptr(),
+                             n, h, w, 0, 1, color.U8_SCALE, _stream())
+    cuda_build.check(lib, err, "earlier warp_accum_rgb")
     return out
+
+
+def b4_earlier(frames, minv, valid, mu=None, tol=None):
+    """The earlier B4 design (u8 frames, perspective maps)."""
+    from libstacker_tpu_torch.ops import color
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["warp_accum"]
+    n, h, w, _ = frames.shape
+    vf = valid.to(torch.float32)
+    s0, s1, s2 = (torch.empty((h, w, 3), dtype=torch.float32,
+                              device=frames.device) for _ in range(3))
+    err = lib.warp_moments_rgb(
+        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(),
+        None if mu is None else mu.data_ptr(),
+        None if tol is None else tol.data_ptr(), s0.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(), n, h, w, 0, 1, color.U8_SCALE,
+        _stream())
+    cuda_build.check(lib, err, "earlier warp_moments_rgb")
+    return s0, s1, s2
 
 
 def phase_device():
@@ -533,7 +570,7 @@ def phase_b1(dev):
     ms, earlier_ms = paired_ms(
         lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, hom,
                                                texels=tex),
-        (lambda: b1_earlier(srcs, tmpl, m3, hom)) if BASELINE else None, 20)
+        earlier("ecc_moments", lambda: b1_earlier(tex, tmpl, m3, hom)), 20)
     # the same sweep with 10 of the lanes active: what the blocks of the
     # 89 inactive lanes cost
     act10 = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -562,6 +599,18 @@ def phase_b1(dev):
                 ms_10_lanes_active=ms10, **rec)
 
 
+def rotation_maps(b, h, w, deg):
+    """``b`` inverse maps rotating by +-``deg`` about the centre."""
+    mats = []
+    for i in range(b):
+        a = np.radians(deg if i % 2 else -deg)
+        c, s = np.cos(a), np.sin(a)
+        cx, cy = w / 2.0, h / 2.0
+        mats.append([[c, -s, cx - c * cx + s * cy],
+                     [s, c, cy - s * cx - c * cy], [0.0, 0.0, 1.0]])
+    return np.asarray(mats, np.float32)
+
+
 def phase_b2(dev):
     from libstacker_tpu_torch.ops import color, warp, warp_accum_cuda
     from libstacker_tpu_torch.utils.synth import make_burst
@@ -569,6 +618,7 @@ def phase_b2(dev):
     n = KERNEL_FRAMES
     frames, truth = make_burst(n, FULL_H, FULL_W, seed=3, device=dev)
     minv = warp.invert_3x3(torch.from_numpy(truth).float().to(dev))
+    minv = minv.contiguous()
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     valid[n // 2] = False
     got = warp_accum_cuda.warp_accum_rgb(frames, minv, valid)
@@ -578,22 +628,37 @@ def phase_b2(dev):
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
     u8_f32 = float((got - got_f32).abs().max())
-    ms = time_ms(lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid), 20)
+    del got_f32
+    # 4 frames rotated by 30 degrees: taps far from the output pixel
+    rot = torch.from_numpy(rotation_maps(4, FULL_H, FULL_W, 30.0)).to(dev)
+    rvalid = torch.ones(4, dtype=torch.bool, device=dev)
+    rot_got = warp_accum_cuda.warp_accum_rgb(frames[:4], rot, rvalid)
+    rot_want = warp_accum_cuda.warp_accum_rgb_reference(frames[:4], rot,
+                                                        rvalid)
+    torch.cuda.synchronize()
+    rot_abs = float((rot_got - rot_want).abs().max())
+    del rot_got, rot_want
+    ms, earlier_ms = paired_ms(
+        lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid),
+        earlier("warp_accum", lambda: b2_earlier(frames, minv, valid)), 20)
     plain_ms = time_ms(
         lambda: warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid), 2)
     hw = FULL_H * FULL_W
     bound_ms, bound_by = bound((n - 1) * hw * 3.0 + hw * 3 * 4.0 + n * 40.0,
                                float(n - 1) * hw * B2_OPS)
-    ok = max_abs < ACCUM_MAX_BAR and u8_f32 == 0.0
+    ok = max_abs == 0.0 and u8_f32 == 0.0 and rot_abs == 0.0
     log(f"[3 B2 warp_accum] {n} u8 frames of {FULL_H}x{FULL_W} (one "
-        f"dropped): max abs {max_abs:.3e} (bar {ACCUM_MAX_BAR:g}), u8 vs "
-        f"f32 source {u8_f32:.1e} (bar 0); kernel {ms:.3f} ms vs plain "
+        f"dropped): max abs {max_abs:.3e} (bar 0), u8 vs f32 source "
+        f"{u8_f32:.1e} (bar 0), 4 frames rotated 30 degrees max abs "
+        f"{rot_abs:.1e} (bar 0); kernel {ms:.3f} ms vs plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B2 disagrees with its plain version")
+    rec = design_report("B2 u8", "warp_accum", B2_INSTANCE, ms, bound_ms,
+                        earlier_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
 
 def headline_params():
@@ -718,7 +783,7 @@ def phase_b8(dev, grey):
         del got, want
     ms, earlier_ms = paired_ms(
         lambda: fast_cuda.fast_scores(grey, KP_T, KP_B),
-        (lambda: b8_earlier(grey, KP_T, KP_B)) if BASELINE else None, 10)
+        None, 10)
     plain_ms = time_ms(
         lambda: fast_cuda.fast_scores_reference(grey, KP_T, KP_B), 2)
     # this run's data: every pixel runs the compass test, the pixels that
@@ -974,10 +1039,14 @@ def phase_b4(dev, frames, truth):
     rel = max(rel_err(a, b) for a, b in pairs)
     max_abs = max(float((a - b).abs().max()) for a, b in pairs)
     clipped = float((got[0] - got_c[0]).sum()) / max(float(got[0].sum()), 1.0)
-    ms_moments = time_ms(
-        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid), 10)
-    ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb(
-        frames, minv, valid, mu, tol), 10)
+    ms_moments, earlier_moments_ms = paired_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid),
+        earlier("warp_accum", lambda: b4_earlier(frames, minv, valid)), 10)
+    ms, earlier_ms = paired_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu,
+                                                 tol),
+        earlier("warp_accum",
+                lambda: b4_earlier(frames, minv, valid, mu, tol)), 10)
     plain_ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb_reference(
         frames, minv, valid, mu, tol), 1)
     hw = FULL_H * FULL_W
@@ -988,25 +1057,30 @@ def phase_b4(dev, frames, truth):
         n * hw * 3.0 + 2 * hw * 3 * 4.0 + 3 * hw * 3 * 4.0 + n * 40.0,
         n * hw * float(B4_OPS_ANY)
         + covered * (B4_OPS_COVERED + B4_OPS_CLIP))
-    ok = count_equal and rel <= 1e-6
-    why = ("S1/S2 bitwise" if bitwise else
-           "S1/S2 not bitwise: the compiler's order of the float sums "
-           "differs from PyTorch's")
+    ok = count_equal and bitwise
     log(f"[10 B4 warp_moments] {n} u8 frames of {FULL_H}x{FULL_W} (one "
         f"dropped), moments pass then clip pass (kappa 2.5, "
         f"{clipped:.4%} of samples clipped): S0 and C0 bitwise equal "
-        f"{count_equal}; {why}, rel {rel:.3e} (bar 1e-6), max abs "
-        f"{max_abs:.3e}; kernel {ms:.3f} ms clip pass, {ms_moments:.3f} ms "
+        f"{count_equal}, S1/S2 bitwise equal {bitwise} (rel {rel:.3e}, max "
+        f"abs {max_abs:.3e}); kernel {ms:.3f} ms clip pass, "
+        f"{ms_moments:.3f} ms "
         f"moments pass, vs plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}; {covered / (n * hw):.3f} of pixel-frames covered) "
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B4 disagrees with its plain version")
+    rec = design_report("B4 u8 clip pass", "warp_accum", B4_INSTANCE, ms,
+                        bound_ms, earlier_ms)
+    if earlier_moments_ms is not None:
+        log(f"    B4 u8 moments pass: {ms_moments:.3f} ms; earlier design "
+            f"{earlier_moments_ms:.3f} ms -> new/earlier "
+            f"{ms_moments / earlier_moments_ms:.3f}")
+        rec.update(moments_pass_earlier_design_ms=earlier_moments_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 moments_pass_ms=ms_moments,
                 library_note="no PyTorch call warps and reduces the "
-                             "coverage-masked moments over frames")
+                             "coverage-masked moments over frames", **rec)
 
 
 def grid_for(minv, hw, src_hw):
@@ -1158,8 +1232,8 @@ def phase_b1_masked(dev):
     ms, earlier_ms = paired_ms(
         lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion,
                                                texels=tex),
-        (lambda: b1_earlier(srcs, tmpl, m3, motion)) if BASELINE else None,
-        20)
+        earlier("ecc_moments",
+                lambda: b1_earlier(tex, tmpl, m3, motion, masked=True)), 20)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, motion), 2)
     bound_ms, bound_by = bound(4.0 * h * w * (4 + b) + 4.0 * b * 66,
@@ -1377,19 +1451,20 @@ def phase_b7(dev):
                 max_abs[key] = max(max_abs[key], float(np.abs(g - wnt).max()))
     ms, earlier_ms = paired_ms(
         lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom),
-        (lambda: b7_earlier(src, tmpl, m3, hom)) if BASELINE else None, 20)
+        earlier("ecc_ic_moments", lambda: b7_earlier(src, tmpl, m3, hom)),
+        20)
     ms_gram, earlier_gram_ms = paired_ms(
         lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom,
                                                   with_hessian=True),
-        (lambda: b7_earlier(src, tmpl, m3, hom, True)) if BASELINE else None,
-        10)
+        earlier("ecc_ic_moments",
+                lambda: b7_earlier(src, tmpl, m3, hom, True)), 10)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments_reference(
         src, tmpl, m3, hom), 1)
     lite_ms, earlier_lite_ms = paired_ms(
         lambda: ecc_cuda.ecc_iteration_moments(
             srcs, tmpl, m3, hom, with_hessian=False, texels=tex),
-        (lambda: b1_earlier(srcs, tmpl, m3, hom, False)) if BASELINE
-        else None, 20)
+        earlier("ecc_moments",
+                lambda: b1_earlier(tex, tmpl, m3, hom, False)), 20)
     lite_plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, hom, with_hessian=False), 1)
     torch.cuda.synchronize()
@@ -1645,11 +1720,120 @@ def phase_solvers(dev, frames, clean):
     return results
 
 
+def phase_files(dev):
+    """The file entry points on the card's host: 8 frames of 1080x1920
+    written as 16-bit PNGs by ``save_image(..., bit_depth=16)`` (and as
+    8-bit PNGs), decoded by ``load_frames`` with and without
+    ``preserve_depth``, and ``ecc_match(files)`` / ``keypoint_match(files)``
+    held bitwise against their ``_arrays`` forms on the decoded arrays.
+    A 48-bit PNG decodes at full depth only through the native loader:
+    where it did not build, that comparison is replaced by the
+    reference's error, and the compiler's reason is printed."""
+    import shutil
+
+    from libstacker_tpu_torch import (
+        KeyPointMatchParameters, StackerIoError, ecc_match, ecc_match_arrays,
+        keypoint_match, keypoint_match_arrays, save_image,
+    )
+    from libstacker_tpu_torch.utils import io, native_loader
+    from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
+
+    n, h, w = SLICE_N, SLICE_H, SLICE_W
+    rgb8 = make_burst(n, h, w, seed=5)[0].numpy()
+    # 16-bit content whose high byte is the 8-bit burst
+    rgb16 = (rgb8.astype(np.uint16) << 8) | np.random.default_rng(5).integers(
+        0, 256, rgb8.shape, dtype=np.uint16)
+    kp8 = make_textured_burst(n, h, w, seed=1)[0].numpy()
+    d = REPO / "build" / "smoke_files"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    p16, p8, pkp = ([d / f"{tag}{i}.png" for i in range(n)]
+                    for tag in ("ecc16_", "ecc8_", "kp8_"))
+    t0 = time.perf_counter()
+    for i in range(n):
+        save_image(p16[i], rgb16[i], bit_depth=16)
+        save_image(p8[i], rgb8[i])
+        save_image(pkp[i], kp8[i])
+    write_s = time.perf_counter() - t0
+    native = native_loader.available()
+
+    checks = {}
+    t0 = time.perf_counter()
+    checks["16-bit PNG, 8-bit decode = high byte"] = np.array_equal(
+        io.load_frames(p16), rgb8)
+    decode_s = time.perf_counter() - t0
+    checks["8-bit PNG decode"] = np.array_equal(io.load_frames(p8), rgb8)
+    u16_from_8 = io.load_frames(p8, preserve_depth=True)
+    checks["8-bit PNG, preserve_depth = x257"] = np.array_equal(
+        u16_from_8, rgb8.astype(np.uint16) * 257)
+    refused = None
+    if native:
+        checks["16-bit PNG, preserve_depth"] = np.array_equal(
+            io.load_frames(p16, preserve_depth=True), rgb16)
+    else:
+        try:
+            io.load_frames(p16, preserve_depth=True)
+            checks["16-bit PNG refused without the native loader"] = False
+        except StackerIoError as e:
+            refused = str(e)
+
+    def entry(label, run_files, run_arrays, kernels):
+        reset_counts()
+        torch.cuda.synchronize()
+        got = run_files()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = run_arrays()
+        key = f"{label} = _arrays"
+        checks[key] = (np.array_equal(got, want)
+                       and not missing(launches, kernels))
+        return launches
+
+    params = headline_params()
+    kp = KeyPointMatchParameters()
+    results = {}
+    results["ecc_match files"] = entry(
+        "ecc_match(files)", lambda: ecc_match(p8, params, device=dev),
+        lambda: ecc_match_arrays(rgb8, params, device=dev),
+        ("ecc_moments", "warp_accum"))
+    results["ecc_match files preserve_depth"] = entry(
+        "ecc_match(files, preserve_depth)",
+        lambda: ecc_match(p8, params, preserve_depth=True, device=dev),
+        lambda: ecc_match_arrays(u16_from_8, params, device=dev),
+        ("ecc_moments", "warp_accum"))
+    if native:
+        entry("ecc_match(16-bit files, preserve_depth)",
+              lambda: ecc_match(p16, params, preserve_depth=True, device=dev),
+              lambda: ecc_match_arrays(rgb16, params, device=dev),
+              ("ecc_moments", "warp_accum"))
+    results["keypoint_match files"] = entry(
+        "keypoint_match(files)",
+        lambda: keypoint_match(pkp, kp, device=dev)[1],
+        lambda: keypoint_match_arrays(io.load_frames(pkp), kp,
+                                      device=dev)[1],
+        ("fast", "orb_extract", "warp_accum"))
+    shutil.rmtree(d, ignore_errors=True)
+    ok = all(checks.values())
+    log(f"[22 file entry points] {n}x{h}x{w}: native loader built {native}; "
+        f"wrote {3 * n} PNGs in {write_s:.2f} s ({n} of them 16-bit), decoded "
+        f"the {n} 16-bit PNGs in {decode_s:.2f} s; "
+        + "; ".join(f"{k} {v}" for k, v in checks.items())
+        + (f"; 16-bit PNG with preserve_depth refused: {refused}"
+           if refused else "")
+        + f" -> {'OK' if ok else 'FAILED'}")
+    if not native:
+        reason = (native_loader.build_error() or "").replace("\n", " | ")
+        log(f"    native loader not built: {reason}")
+    if not ok:
+        fail("a file entry point disagrees with its _arrays form")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time an earlier design of B1, B7 and B8 from the "
-                         "sources in DIR beside the current one")
+                    help="time an earlier design of B1, B2, B4 and B7 from "
+                         "the sources in DIR beside the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1712,6 +1896,9 @@ def main(argv=None) -> int:
     kp_var = phase_kp_variants(dev, frames, truth, kp_ref)
     torch.cuda.empty_cache()
     kp_sr = phase_kp_sr(dev, frames, kp_out)
+    del frames, truth, kp_ref, kp_out
+    torch.cuda.empty_cache()
+    files = phase_files(dev)
     torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
                **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
@@ -1720,7 +1907,8 @@ def main(argv=None) -> int:
                **{f"keypoint_match_arrays {k}": v for k, v in kp_var.items()},
                "ecc_match_arrays output_scale=2": ecc_sr,
                **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
-               "keypoint_match_arrays output_scale=2": kp_sr}
+               "keypoint_match_arrays output_scale=2": kp_sr,
+               **files}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}

@@ -30,6 +30,12 @@ from .models.keypoint import (  # noqa: F401
     keypoint_match_arrays,
     keypoint_match_stream,
 )
-from .utils.io import load_frames  # noqa: F401
+from .utils.io import (  # noqa: F401
+    imread,
+    imread_gray,
+    imread_unchanged,
+    load_frames,
+    save_image,
+)
 
 __version__ = "0.1.0"

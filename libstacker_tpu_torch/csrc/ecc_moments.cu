@@ -85,49 +85,50 @@ struct MinBlocks {
   static constexpr int value = Layout<P, HESS>::NOUT >= 40 ? 4 : 6;
 };
 
-// One halving step of a warp's reduce-scatter: lanes with bit OFF set
-// keep the upper half of the N values and send the lower half to their
-// partner, which keeps the lower half.
-template <int N, int OFF>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-  if constexpr (OFF > 0) {
-    constexpr int H = N / 2;
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = upper ? v[i] : v[i + H];
-      const float keep = upper ? v[i + H] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
-    }
-    reduce_scatter<H, OFF / 2>(v, lane);
-  }
+// The homography Jacobian (hatX = sx, hatY = sy) given inv_den = 1 /
+// (m6 * xs + m7 * ys + 1), the denominator without a zero guard: B1
+// passes the reciprocal it already holds when m8 == 1.
+__device__ __forceinline__ void jacobian_homography(float* jac, float gxw,
+                                                    float gyw, float xs,
+                                                    float ys, float sx,
+                                                    float sy, float inv_den) {
+  const float gxd = gxw * inv_den;
+  const float gyd = gyw * inv_den;
+  const float tmp = sx * gxd + sy * gyd;
+  jac[0] = gxd * xs;
+  jac[1] = gyd * xs;
+  jac[2] = -tmp * xs;
+  jac[3] = gxd * ys;
+  jac[4] = gyd * ys;
+  jac[5] = -tmp * ys;
+  jac[6] = gxd;
+  jac[7] = gyd;
 }
 
-// Block reduction of every thread's NOUT sums into one column of
-// per-block partials.  Padded to R * 32 values, a warp's reduce-scatter
-// (5 halving steps, R * 31 shuffles a lane where a shuffle tree per sum
-// takes 5 * NOUT) leaves lane L the warp's sums of entries L*R .. L*R+R-1;
-// the 4 warps' sums then add in a fixed order.
-template <int NOUT>
-__device__ __forceinline__ void block_reduce_scatter_store(const float* acc,
-                                                           float* part,
-                                                           int nblk) {
-  constexpr int R = (NOUT + 31) / 32;
-  __shared__ float red[THREADS / 32][R * 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float v[R * 32];
-#pragma unroll
-  for (int k = 0; k < R * 32; ++k) v[k] = k < NOUT ? acc[k] : 0.0f;
-  reduce_scatter<R * 32, 16>(v, lane);
-#pragma unroll
-  for (int j = 0; j < R; ++j) red[warp][lane * R + j] = v[j];
-  __syncthreads();
-  for (int k = threadIdx.x; k < NOUT; k += THREADS) {
-    float s = red[0][k];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) s += red[w][k];
-    part[(size_t)k * nblk] = s;
+// Motion-model Jacobian (OpenCV image_jacobian_*_ECC) for P = 2/3/6.
+template <int P>
+__device__ __forceinline__ void jacobian(float* jac, float gxw, float gyw,
+                                         float xs, float ys, float sx,
+                                         float sy, const float* m) {
+  if constexpr (P == 2) {
+    jac[0] = gxw;
+    jac[1] = gyw;
+  } else if constexpr (P == 3) {
+    const float h0 = m[0];  // cos(theta)
+    const float h1 = m[3];  // sin(theta)
+    const float hat_x = -xs * h1 - ys * h0;
+    const float hat_y = xs * h0 - ys * h1;
+    jac[0] = gxw * hat_x + gyw * hat_y;
+    jac[1] = gxw;
+    jac[2] = gyw;
+  } else {
+    static_assert(P == 6, "the homography's is jacobian_homography");
+    jac[0] = gxw * xs;
+    jac[1] = gyw * xs;
+    jac[2] = gxw * ys;
+    jac[3] = gyw * ys;
+    jac[4] = gxw;
+    jac[5] = gyw;
   }
 }
 
@@ -160,7 +161,7 @@ moments_kernel(const float4* __restrict__ tex, const float* __restrict__ tmpl,
   const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
   if (x < W) {
     const float xs = (float)x;
-    // source_coords' column products, the same values in every row
+    // the coordinates' column products, the same values in every row
     const float m0x = m[0] * xs, m3x = m[3] * xs, m6x = m[6] * xs;
     const float* tp = tmpl + (size_t)b * H * W + x;
     float ys = (float)y_begin;

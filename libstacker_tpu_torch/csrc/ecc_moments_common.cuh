@@ -1,12 +1,10 @@
 // Device code shared by the two ECC moment sweeps: csrc/ecc_moments.cu
 // (B1, forward additive) and csrc/ecc_ic_moments.cu (B7, inverse
 // compositional).  Both bin every source coordinate like ops/warp.py,
-// build the motion Jacobian and reduce per-block partials in double;
-// they differ in how they walk the image, what they sample and sum, and
-// how a block reduces its sums (B7 uses block_reduce_store, B1 a warp
-// reduce-scatter of its own).  What B7 uses is kept as it was built
-// before B1's redesign: its register allocation, and so its time, moves
-// with any change here.
+// reduce a block's sums by a warp reduce-scatter and the per-block
+// partials in double; each walks its tiles, samples and sums in its own
+// source.  Their register allocation, and so their times, can move with
+// any change here.
 //
 // Build with --fmad=false (utils/cuda_build.py): every float expression
 // here is written in the order of the plain PyTorch versions
@@ -24,86 +22,12 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int PIX_PER_THREAD = 32;
-constexpr int PIX_PER_BLOCK = THREADS * PIX_PER_THREAD;
 constexpr int RED_THREADS = 256;
 
 template <int P, bool HESS>
 struct Layout {
   static constexpr int NOUT = 6 + 3 * P + (HESS ? P * (P + 1) / 2 : 0);
 };
-
-// The homography Jacobian (hatX = sx, hatY = sy) given inv_den = 1 /
-// (m6 * xs + m7 * ys + 1), the denominator without a zero guard: B1
-// passes the reciprocal it already holds when m8 == 1.  The same
-// expressions as jacobian<8> below.
-__device__ __forceinline__ void jacobian_homography(float* jac, float gxw,
-                                                    float gyw, float xs,
-                                                    float ys, float sx,
-                                                    float sy, float inv_den) {
-  const float gxd = gxw * inv_den;
-  const float gyd = gyw * inv_den;
-  const float tmp = sx * gxd + sy * gyd;
-  jac[0] = gxd * xs;
-  jac[1] = gyd * xs;
-  jac[2] = -tmp * xs;
-  jac[3] = gxd * ys;
-  jac[4] = gyd * ys;
-  jac[5] = -tmp * ys;
-  jac[6] = gxd;
-  jac[7] = gyd;
-}
-
-// Motion-model Jacobian (OpenCV image_jacobian_*_ECC; P = 2/3/6/8).
-template <int P>
-__device__ __forceinline__ void jacobian(float* jac, float gxw, float gyw,
-                                         float xs, float ys, float sx,
-                                         float sy, const float* m) {
-  if constexpr (P == 2) {
-    jac[0] = gxw;
-    jac[1] = gyw;
-  } else if constexpr (P == 3) {
-    const float h0 = m[0];  // cos(theta)
-    const float h1 = m[3];  // sin(theta)
-    const float hat_x = -xs * h1 - ys * h0;
-    const float hat_y = xs * h0 - ys * h1;
-    jac[0] = gxw * hat_x + gyw * hat_y;
-    jac[1] = gxw;
-    jac[2] = gyw;
-  } else if constexpr (P == 6) {
-    jac[0] = gxw * xs;
-    jac[1] = gyw * xs;
-    jac[2] = gxw * ys;
-    jac[3] = gyw * ys;
-    jac[4] = gxw;
-    jac[5] = gyw;
-  } else {
-    // homography: hatX = sx, hatY = sy; den without a zero guard
-    const float den = m[6] * xs + m[7] * ys + 1.0f;
-    const float inv_den = 1.0f / den;
-    const float gxd = gxw * inv_den;
-    const float gyd = gyw * inv_den;
-    const float tmp = sx * gxd + sy * gyd;
-    jac[0] = gxd * xs;
-    jac[1] = gyd * xs;
-    jac[2] = -tmp * xs;
-    jac[3] = gxd * ys;
-    jac[4] = gyd * ys;
-    jac[5] = -tmp * ys;
-    jac[6] = gxd;
-    jac[7] = gyd;
-  }
-}
-
-// Source coordinates of output pixel (xs, ys) under the inverse map m
-// (ops/warp.py _dst_coords, perspective form).
-__device__ __forceinline__ void source_coords(const float* m, float xs,
-                                              float ys, float& sx, float& sy) {
-  const float den = m[6] * xs + m[7] * ys + m[8];
-  const float inv = den != 0.0f ? 1.0f / den : 0.0f;
-  sx = (m[0] * xs + m[1] * ys + m[2]) * inv;
-  sy = (m[3] * xs + m[4] * ys + m[5]) * inv;
-}
 
 // The 4 taps of a 1/32-px quantised bilinear sample, BORDER_CONSTANT 0
 // (rintf rounds half to even, like torch.round).
@@ -162,27 +86,43 @@ struct Taps {
   }
 };
 
-// An inactive lane's block writes zero partials.
-template <int NOUT>
-__device__ __forceinline__ void zero_partials(float* part, int nblk) {
-  for (int k = threadIdx.x; k < NOUT; k += THREADS) part[(size_t)k * nblk] = 0.0f;
+// One halving step of a warp's reduce-scatter: lanes with bit OFF set
+// keep the upper half of the N values and send the lower half to their
+// partner, which keeps the lower half.
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (OFF > 0) {
+    constexpr int H = N / 2;
+    const bool upper = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = upper ? v[i] : v[i + H];
+      const float keep = upper ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    reduce_scatter<H, OFF / 2>(v, lane);
+  }
 }
 
-// Block reduction of every thread's NOUT sums: warp shuffles, then the 4
-// warps in a fixed order, into one column of per-block partials.
+// Block reduction of every thread's NOUT sums into one column of
+// per-block partials.  Padded to R * 32 values, a warp's reduce-scatter
+// (5 halving steps, R * 31 shuffles a lane where a shuffle tree per sum
+// takes 5 * NOUT) leaves lane L the warp's sums of entries L*R .. L*R+R-1;
+// the 4 warps' sums then add in a fixed order.
 template <int NOUT>
-__device__ __forceinline__ void block_reduce_store(const float* acc,
-                                                   float* part, int nblk) {
-  __shared__ float red[THREADS / 32][NOUT];
+__device__ __forceinline__ void block_reduce_scatter_store(const float* acc,
+                                                           float* part,
+                                                           int nblk) {
+  constexpr int R = (NOUT + 31) / 32;
+  __shared__ float red[THREADS / 32][R * 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  float v[R * 32];
 #pragma unroll
-  for (int k = 0; k < NOUT; ++k) {
-    float s = acc[k];
+  for (int k = 0; k < R * 32; ++k) v[k] = k < NOUT ? acc[k] : 0.0f;
+  reduce_scatter<R * 32, 16>(v, lane);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][k] = s;
-  }
+  for (int j = 0; j < R; ++j) red[warp][lane * R + j] = v[j];
   __syncthreads();
   for (int k = threadIdx.x; k < NOUT; k += THREADS) {
     float s = red[0][k];
@@ -190,6 +130,12 @@ __device__ __forceinline__ void block_reduce_store(const float* acc,
     for (int w = 1; w < THREADS / 32; ++w) s += red[w][k];
     part[(size_t)k * nblk] = s;
   }
+}
+
+// An inactive lane's block writes zero partials.
+template <int NOUT>
+__device__ __forceinline__ void zero_partials(float* part, int nblk) {
+  for (int k = threadIdx.x; k < NOUT; k += THREADS) part[(size_t)k * nblk] = 0.0f;
 }
 
 // out[b, k] = sum over blocks of partials[b, k, :], in double.

@@ -318,14 +318,12 @@ def ecc_match(
     device="cuda",
 ):
     """Align and stack image files with ECC (ref src/lib.rs:702-717):
-    decode on the host (PIL), then :func:`ecc_match_arrays` on
-    ``device``."""
-    if preserve_depth:
-        raise NotImplementedError(
-            "preserve_depth (16-bit decode) is not ported to "
-            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 14)"
-        )
-    frames = io.load_frames(files)
+    decode on the host (``utils.io.load_frames``: the native loader, else
+    PIL), then :func:`ecc_match_arrays` on ``device``.
+    ``preserve_depth`` decodes 16-bit files to uint16 and stacks at full
+    depth (alignment is unchanged; pair with
+    ``save_image(..., bit_depth=16)``)."""
+    frames = io.load_frames(files, preserve_depth=preserve_depth)
     return ecc_match_arrays(
         frames, params, scale_down_width, on_failure, return_stats,
         mask=mask, mesh=mesh, device=device,
@@ -336,5 +334,5 @@ def ecc_match_stream(*args, **kwargs):
     """Streaming ``ecc_match`` — not ported yet."""
     raise NotImplementedError(
         "ecc_match_stream is not ported to libstacker_tpu_torch yet "
-        "(ROADMAP.md Queue A item 14)"
+        "(ROADMAP.md Queue A item 14b)"
     )

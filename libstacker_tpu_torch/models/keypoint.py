@@ -302,14 +302,11 @@ def keypoint_match(
     device="cuda",
 ):
     """Align and stack image files by ORB keypoint matching
-    (ref src/lib.rs:129-144): decode on the host (PIL), then
-    :func:`keypoint_match_arrays` on ``device``."""
-    if preserve_depth:
-        raise NotImplementedError(
-            "preserve_depth (16-bit decode) is not ported to "
-            "libstacker_tpu_torch yet (ROADMAP.md Queue A item 14)"
-        )
-    frames = io.load_frames(files)
+    (ref src/lib.rs:129-144): decode on the host (``utils.io.load_frames``:
+    the native loader, else PIL), then :func:`keypoint_match_arrays` on
+    ``device``.  ``preserve_depth`` decodes 16-bit files to uint16 and
+    stacks at full depth (detection runs on the high byte)."""
+    frames = io.load_frames(files, preserve_depth=preserve_depth)
     return keypoint_match_arrays(
         frames, params, scale_down_width, seed, return_stats, mask=mask,
         mesh=mesh, device=device,
@@ -320,5 +317,5 @@ def keypoint_match_stream(*args, **kwargs):
     """Streaming ``keypoint_match`` — not ported yet."""
     raise NotImplementedError(
         "keypoint_match_stream is not ported to libstacker_tpu_torch yet "
-        "(ROADMAP.md Queue A item 14)"
+        "(ROADMAP.md Queue A item 14b)"
     )

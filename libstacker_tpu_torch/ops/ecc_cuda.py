@@ -364,7 +364,7 @@ def ecc_ic_iteration_moments(
     else:
         act = active.to(device=dev, dtype=torch.uint8).contiguous()
     lib = _ic_lib()
-    nblk = -(-(h * w) // lib.ecc_ic_moments_pixels_per_block())
+    nblk = lib.ecc_ic_moments_num_blocks(h, w)
     partials = torch.empty((b, n_out, nblk), dtype=torch.float32, device=dev)
     out = torch.empty((b, n_out), dtype=torch.float32, device=dev)
     err = lib.ecc_ic_moments(
@@ -383,8 +383,8 @@ def _ic_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ecc_ic_moments.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.ecc_ic_moments.restype = ci
-    lib.ecc_ic_moments_pixels_per_block.argtypes = []
-    lib.ecc_ic_moments_pixels_per_block.restype = ci
+    lib.ecc_ic_moments_num_blocks.argtypes = [ci, ci]
+    lib.ecc_ic_moments_num_blocks.restype = ci
     return lib
 
 

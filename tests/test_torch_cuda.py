@@ -28,7 +28,10 @@ weights go through the two math libraries' exp); the lazy and IC
 solvers, the rotation start and super-resolution on the card against
 the CPU path at the slice bars (the keypoint SR image, whose RANSAC
 draws differ between devices, at a mean abs of 0.01); the n == 1
-upsample of both entry points within 1e-6 of the CPU path.
+upsample of both entry points within 1e-6 of the CPU path.  B2 and B4
+bitwise for u8, u16 and f32 sources, affine, perspective, 30-degree and
+strongly perspective maps, odd sizes, N = 1 and every frame dropped; B7
+across its tile and warp edges; the native loader where it builds.
 """
 
 import numpy as np
@@ -582,3 +585,111 @@ def test_single_frame_output_scale_on_card(dev):
     _, kgpu = keypoint_match_arrays(
         frames, KeyPointMatchParameters(output_scale=2), device=dev)
     np.testing.assert_allclose(kgpu, cpu, atol=1e-6)
+
+
+def _burst_of(dev, dtype, n_frames, h, w, seed=4):
+    frames, truth = burst(seed, n_frames, h, w)
+    frames = torch.from_numpy(frames).to(dev)
+    if dtype == torch.uint16:
+        frames = frames.to(torch.int32).mul(257).to(torch.uint16)
+    elif dtype == torch.float32:
+        frames = color.to_unit_f32(frames)
+    return frames, warp.invert_3x3(torch.from_numpy(truth).float().to(dev))
+
+
+def _maps(dev, kind, n_frames, h, w):
+    """``n_frames`` inverse maps of one kind: near-identity affine or
+    perspective, 30 degrees, or a strong perspective term."""
+    deg, persp = {"affine": (0.5, (0, 0)), "perspective": (0.5, (2e-5, -3e-5)),
+                  "rot30": (30.0, (0, 0)), "strong": (4.0, (2e-3, 1e-3))}[kind]
+    return torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, deg * (1 - 2 * (i % 2)), 1.0, 2.5, -1.5,
+                             persp=persp)
+        for i in range(n_frames)
+    ])).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("kind", ["affine", "perspective", "rot30", "strong"])
+@pytest.mark.parametrize("shape", [(4, 150, 211), (1, 97, 33)])
+def test_warp_accum_bitwise(dev, dtype, kind, shape):
+    """B2 and B4 (moments and clip pass) bitwise against their plain
+    versions, at near-identity, 30-degree and strongly perspective maps,
+    odd sizes and N = 1."""
+    n_frames, h, w = shape
+    frames, _ = _burst_of(dev, dtype, n_frames, h, w)
+    minv = _maps(dev, kind, n_frames, h, w)
+    qa = kind == "affine"
+    valid = torch.ones(n_frames, dtype=torch.bool, device=dev)
+    valid[-1] = n_frames == 1
+    bv = [0.1, 0.2, 0.3]
+    got = warp_accum_cuda.warp_accum_rgb(frames, minv, valid, bv, qa)
+    want = warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid, bv,
+                                                    qa)
+    mom = warp_accum_cuda.warp_moments_rgb(frames, minv, valid,
+                                           quant_affine=qa)
+    mom_want = warp_accum_cuda.warp_moments_rgb_reference(
+        frames, minv, valid, quant_affine=qa)
+    mu = (mom_want[1] / mom_want[0].clamp(min=1.0)).contiguous()
+    tol = torch.full_like(mu, 0.03)
+    clip = warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol, qa)
+    clip_want = warp_accum_cuda.warp_moments_rgb_reference(
+        frames, minv, valid, mu, tol, qa)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for g, wn in zip(mom + clip, mom_want + clip_want):
+        assert torch.equal(g, wn)
+
+
+def test_warp_accum_every_frame_dropped(dev):
+    frames, minv = _burst_of(dev, torch.uint8, 3, 150, 211)
+    valid = torch.zeros(3, dtype=torch.bool, device=dev)
+    got = warp_accum_cuda.warp_accum_rgb(frames, minv, valid)
+    mom = warp_accum_cuda.warp_moments_rgb(frames, minv, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, warp_accum_cuda.warp_accum_rgb_reference(
+        frames, minv, valid))
+    assert float(got.abs().max()) == 0.0
+    assert all(float(s.abs().max()) == 0.0 for s in mom)
+
+
+@pytest.mark.parametrize("motion", [MotionType.Affine, MotionType.Homography])
+@pytest.mark.parametrize("with_hessian", [True, False])
+def test_ic_moments_kernel_tile_edges(dev, motion, with_hessian):
+    """B7 where the column walk meets the tile's and the warps' edges: a
+    height no multiple of the 64-row tile, a width crossing two 128-column
+    tiles and not a multiple of 32; an inactive lane stays zero."""
+    rng = np.random.default_rng(23)
+    h, w = 131, 269
+    img = torch.from_numpy(smooth(rng, (h, w))).to(dev)
+    src = ecc._input_fields(img, 5)[0].contiguous()
+    tmpl = torch.from_numpy(np.stack([smooth(rng, (h, w))] * 3)).to(dev)
+    persp = (1e-5, -2e-5) if motion == MotionType.Homography else (0, 0)
+    m3 = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 1.5 * a, 0.75, persp=persp)
+        for a in (0.3, -0.8, 1.2)
+    ])).to(dev)
+    active = torch.tensor([True, True, False], device=dev)
+    kw = dict(quant_affine=motion != MotionType.Homography, active=active,
+              with_hessian=with_hessian)
+    got = ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, motion, **kw)
+    want = ecc_cuda.ecc_ic_iteration_moments_reference(src, tmpl, m3, motion,
+                                                       **kw)
+    torch.cuda.synchronize()
+    g, wn = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(g[2] == 0.0)
+    assert _group_rel(g, wn, motion.num_params) < 1e-4
+
+
+def test_native_loader_on_card(tmp_path, dev):
+    """The native loader where it builds on the card's host: a 16-bit PNG
+    written by ``save_image`` decodes at full depth."""
+    from libstacker_tpu_torch.utils import io, native_loader
+
+    if not native_loader.available():
+        pytest.skip(f"native loader not built: {native_loader.build_error()}")
+    rgb16 = np.random.default_rng(1).integers(0, 65536, (33, 47, 3),
+                                              dtype=np.uint16)
+    io.save_image(tmp_path / "a.png", rgb16, bit_depth=16)
+    got = io.load_frames([tmp_path / "a.png"], preserve_depth=True)
+    np.testing.assert_array_equal(got[0], rgb16)

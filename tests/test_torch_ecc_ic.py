@@ -162,6 +162,91 @@ def test_ic_moments_inactive_lane_and_checks():
         ecc_cuda.ecc_ic_iteration_moments(src, tm, m3[:1], MotionType.Affine)
 
 
+def _kernel_sum_order(terms, fma_terms, rows=64, cols=128):
+    """B7's summation (``csrc/ecc_ic_moments.cu``) of per-pixel float32
+    terms [K, H, W] in float32: each column walks ``rows`` rows of its
+    tile (a sum by ``__fmaf_rn`` where ``fma_terms[k]`` holds the two
+    factors, else an add), a warp's 32 columns add by a butterfly tree,
+    the 4 warps of a block in order, and the blocks' partials in
+    float64."""
+    k_n, h, w = terms.shape
+    out = np.zeros(k_n, np.float64)
+    for y0 in range(0, h, rows):
+        acc = np.zeros((k_n, w), np.float32)
+        for y in range(y0, min(y0 + rows, h)):
+            for k in range(k_n):
+                if fma_terms[k] is None:
+                    acc[k] = acc[k] + terms[k, y]
+                else:
+                    a, b = fma_terms[k]
+                    acc[k] = (a[y].astype(np.float64) * b[y]
+                              + acc[k]).astype(np.float32)
+        for x0 in range(0, w, cols):
+            block = np.zeros((k_n, cols), np.float32)
+            block[:, : min(cols, w - x0)] = acc[:, x0 : x0 + cols]
+            warps = []
+            for wi in range(cols // 32):
+                v = block[:, wi * 32 : wi * 32 + 32]
+                while v.shape[1] > 1:
+                    half = v.shape[1] // 2
+                    v = v[:, :half] + v[:, half:]
+                warps.append(v[:, 0])
+            part = warps[0]
+            for v in warps[1:]:
+                part = part + v
+            out += part.astype(np.float64)
+    return out
+
+
+@pytest.mark.parametrize("with_hessian", [False, True])
+def test_ic_kernel_sum_order_within_bar(with_hessian):
+    """B7 sums each column's 64 rows with fused multiply-adds in float32,
+    then reduces in a fixed tree: emulated on the plain version's float32
+    terms, the moments stay within B1's group-norm bar (1e-4) of their
+    float64 sums, for a homography lane over three 64-row tiles and three
+    128-column tiles."""
+    rng = np.random.default_rng(29)
+    h, w = 150, 300
+    src = t(cv2.GaussianBlur(rng.random((h, w)).astype(np.float32) * 255,
+                             (0, 0), 2.0))
+    tmpl = t(cv2.GaussianBlur(rng.random((h, w)).astype(np.float32) * 255,
+                              (0, 0), 2.0))
+    a = np.radians(0.4)
+    m = torch.tensor([[np.cos(a), -np.sin(a), 2.5], [np.sin(a), np.cos(a),
+                      -1.5], [1e-5, -2e-5, 1.0]], dtype=torch.float32)
+    from libstacker_tpu_torch.ops import warp as pwarp
+
+    imw = n(pwarp.warp_inverse(src, m, (h, w)))
+    mask = n(pwarp.warp_valid_mask(m, (h, w), (h, w))).astype(np.float32)
+    gtx, gty = ecc_cuda._template_gradients(tmpl)
+    ys = torch.arange(h, dtype=torch.float32)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32)[None, :].expand(h, w)
+    ident = torch.eye(3).reshape(-1)
+    jac = [n(j) for j in ecc_cuda._jacobian(MotionType.Homography, gtx, gty,
+                                           xs, ys, xs, ys, ident)]
+    tm = n(tmpl)
+    jm = [j * mask for j in jac]
+    mi, mt = mask * imw, mask * tm
+    terms = [mask, mi, mi * imw, mt, mt * tm, mt * imw]
+    fmas = [None, None, (mi, imw), None, (mt, tm), (mt, imw)]
+    terms += [j * imw for j in jm] + jm + [j * tm for j in jm]
+    fmas += [(j, imw) for j in jm] + [None] * 8 + [(j, tm) for j in jm]
+    if with_hessian:
+        for p_ in range(8):
+            for q in range(p_, 8):
+                terms.append(jm[p_] * jm[q])
+                fmas.append((jm[p_], jm[q]))
+    terms = np.stack(terms).astype(np.float32)
+    got = _kernel_sum_order(terms, fmas)
+    want = terms.astype(np.float64).sum(axis=(1, 2))
+    np.testing.assert_allclose(
+        want, n(ecc_cuda.ecc_ic_iteration_moments_reference(
+            src, tmpl[None], m[None], MotionType.Homography,
+            with_hessian=with_hessian))[0], rtol=1e-6, atol=1e-3)
+    rel = _group_rel(got, want, 8)
+    assert rel < 1e-4, rel
+
+
 def _shift_pair(h=192, w=512):
     rng = np.random.default_rng(61)
     base = cv2.GaussianBlur(

@@ -201,7 +201,9 @@ def test_lifted_options_match_jax(frames, opt):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """The stream is not ported yet; ``preserve_depth`` is (item 14a) and
+    raises the reference's errors."""
+    with pytest.raises(errors.NotEnoughFilesError):
         P.ecc_match([], _params(P), preserve_depth=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         P.ecc_match_stream([], _params(P))

@@ -210,7 +210,9 @@ def test_output_scale_matches_jax(burst, truth):
 
 
 def test_unported_entry_points_raise(burst):
+    """The stream is not ported yet; ``preserve_depth`` is (item 14a) and
+    raises the reference's error for a file that does not exist."""
     with pytest.raises(NotImplementedError, match="item 14"):
         P.keypoint_match_stream(["a.png", "b.png"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(errors.StackerIoError):
         P.keypoint_match(["a.png"], preserve_depth=True, device="cpu")
