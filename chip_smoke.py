@@ -6,7 +6,7 @@
 Phases (each prints one line; any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), torch / CUDA
-   versions, and the ``nvcc`` build of the seven kernel sources of
+   versions, and the ``nvcc`` build of the eight kernel sources of
    ``csrc/`` (one ``nvcc`` per source, all started together);
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
@@ -25,7 +25,12 @@ Phases (each prints one line; any failure exits non-zero):
    1800x3200 pyramid level;
 7. kernel B3 (``orb_extract.cu``) against its plain version, bitwise, at
    the level-0 shape of the keypoint path (20 frames, K=218, radius 21,
-   some centres at the clamp edges);
+   some centres at the clamp edges), and kernels B3h and B3d
+   (``orb_describe.cu``: Harris at the K=218 candidates, some invalid;
+   angle and rBRIEF at Q=109 keypoints) against theirs, bitwise, on the
+   same level, with the detector's per-level tail timed both ways: B3's
+   patches and the eager chain on them (PR 6's route), and B3h, the
+   top-k, B3d;
 8. the keypoint slice on CUDA against the port's own CPU path on a
    4x540x960 burst (``ok`` flags, corners mapped by H, stacked
    interior);
@@ -42,7 +47,11 @@ Phases (each prints one line; any failure exits non-zero):
 11. kernel B5 (``warp.cu``) against its plain version, bitwise, on the 60
     planes of phase 9's 20 RGB 4K frames in each of the six border modes,
     once with slots sharing sources (``src_index``) and once on an output
-    grid other than the source's;
+    grid other than the source's; then B5's frames and accumulate forms on
+    frames 1-19 of that burst as u8 and as u16 (one frame dropped) in the
+    six modes, bitwise, with the keypoint stack's BORDER_REPLICATE sum
+    timed both ways: the float32 widening, planes, planar B5 and
+    ``torch.sum`` (PR 6's route), and the accumulate form;
 12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
     of 3 shared 4K planes;
 13. B1's masked (4-plane) form against its plain version on 99 homography
@@ -83,10 +92,13 @@ Phases (each prints one line; any failure exits non-zero):
 
 Phases 5, 9, 14-16 and 19-22 drive the entry points with every launch
 counter set to 0 just before the run and read just after it, and fail if
-a kernel of that path was not launched.
+a kernel of that path was not launched; the keypoint phases also fail if
+B3 (``orb_extract``) ran, and BORDER_REPLICATE if the planar B5 did.
 
-Each kernel record carries its time (CUDA events), its plain version's
-time, the bound of the same work at the card's published rates (bytes
+Each kernel record carries its time (CUDA events around a batch of
+calls; for B3, B3h and B3d, whose kernels are shorter than their
+wrappers' host time, the device time ``torch.profiler`` reads), its
+plain version's time, the bound of the same work at the card's published rates (bytes
 over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 10, 13 and 17 also print the registers and spills that
@@ -117,7 +129,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
-           "ecc_ic_moments", "sr_deposit")
+           "ecc_ic_moments", "sr_deposit", "orb_describe")
 # the sources an earlier design is timed from (--baseline)
 BASELINE_KERNELS = ("ecc_moments", "ecc_ic_moments", "warp_accum")
 # mangled-name pieces of the instances whose registers are printed
@@ -129,6 +141,14 @@ B7_GRAM_INSTANCE = "ic_moments_kernelILi8ELb1E"
 B8_INSTANCE = "fast_kernelIhE"  # u8 source
 B2_INSTANCE = "warp_accum_kernelIhE"  # u8 source
 B4_INSTANCE = "warp_moments_kernelIhLb1E"  # u8 source, clip pass
+B5_INSTANCE = "11warp_kernelILi1EE"  # planar, BORDER_REPLICATE
+B5F_INSTANCE = "frames_kernelILi1EhE"  # u8 frames, BORDER_REPLICATE
+B5A_INSTANCE = "accum_kernelILi1EhE"
+B3_INSTANCE = "extract_kernelIhE"
+B3H_INSTANCE = "harris_kernel"
+B3D_INSTANCE = "describe_kernel"
+B9_INSTANCE = "warp3_kernel"
+B6_INSTANCE = "sr_deposit_kernelIhLb1ELb0E"  # u8, homography, no fallback
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -138,6 +158,7 @@ SLICE_N, SLICE_H, SLICE_W = 8, 1080, 1920
 KP_N = 20
 KP_SLICE_N, KP_SLICE_H, KP_SLICE_W = 4, 540, 960
 KP_K, KP_RADIUS, KP_T, KP_B = 218, 21, 20, 31  # level 0: 2 x quota 109
+KP_Q = KP_K // 2
 # the kernels see frames 1..N-1 of the burst on the main path
 KERNEL_LANES = FULL_N - 1
 KERNEL_FRAMES = FULL_N - 1
@@ -185,6 +206,21 @@ B4_OPS_CLIP = 3 * 4
 # coordinates, quantisation, the border test or index map, the lerp
 B5_OPS = 15 + 12 + 8 + 10
 B9_OPS = 15 + 12 + 8 + 3 * 10
+# B5's frames / accumulate forms per pixel-frame: the coordinates,
+# quantisation and tap map once, then per channel four widened taps and
+# the lerp (plus, accumulating, the weight and the sum)
+B5F_OPS_PIXEL = 15 + 12 + 8
+B5F_OPS_CHANNEL = 4 + 10
+B5A_OPS_CHANNEL = B5F_OPS_CHANNEL + 2
+# B3h per candidate (csrc/orb_describe.cu): 49 block positions of 6
+# differences, two Sobel sums of 3 and three multiply-adds; the warp
+# sums and the response.  B3d per keypoint: the IC moments (2 multiply-
+# adds a circle pixel), the 7-tap blur of 37x43 then 37x37 values, the
+# angle, and per descriptor bit two steered taps and a compare
+B3H_OPS = 49 * (6 + 6 + 6) + 3 * 5 + 8
+B3D_OPS_CIRCLE_PIXEL = 4
+B3D_OPS_BLUR = (37 * 43 + 37 * 37) * 13
+B3D_OPS_BIT = 2 * (4 + 2 + 2 + 2) + 1
 # B1 without the Gram: 6 + 3P = 30 sums for a homography.  B7 per
 # pixel-lane (csrc/ecc_ic_moments.cu): coordinates, quantisation, the
 # taps of one plane, the template's two differences, the Jacobian, and
@@ -296,7 +332,11 @@ def counters():
         "warp_moments": (warp_accum_cuda, "moments_launch_count"),
         "fast": (fast_cuda, "launch_count"),
         "orb_extract": (orb_cuda, "launch_count"),
+        "orb_harris": (orb_cuda, "harris_launch_count"),
+        "orb_describe": (orb_cuda, "describe_launch_count"),
         "warp": (warp_cuda, "launch_count"),
+        "warp_frames": (warp_cuda, "frames_launch_count"),
+        "warp_frames_accum": (warp_cuda, "accum_launch_count"),
         "warp3": (warp_cuda, "warp3_launch_count"),
     }
 
@@ -332,6 +372,44 @@ def drive(fn):
 def missing(launches: dict, names) -> list:
     """The kernels of a path that its run did not launch."""
     return [k for k in names if launches[k] == 0]
+
+
+# every keypoint path detects through B8, B3h and B3d, never B3
+KP_DETECT = ("fast", "orb_harris", "orb_describe")
+
+
+def stray(launches: dict, names=("orb_extract",)) -> list:
+    """The kernels a path must no longer launch that its run launched."""
+    return [k for k in names if launches[k] != 0]
+
+
+def device_profile(fn, piece: str = "", reps: int = 10):
+    """``(operations, device ms, ms of the kernels named with piece)``
+    per ``fn()`` call, from ``torch.profiler`` over ``reps`` calls: the
+    device's own time, which a CUDA-event loop around a kernel shorter
+    than its wrapper's host time cannot see."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a trace that came back empty is taken again
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        named = sum(ev.time_range.elapsed_us() for ev in evs
+                    if piece and piece in ev.name)
+        if evs and (named or not piece):
+            break
+    else:
+        ms = time_ms(fn, reps)
+        log(f"    torch.profiler did not record {piece or 'the operations'} "
+            f"three times; CUDA events instead: {ms:.4f} ms a call")
+        return None, ms, ms
+    total = sum(ev.time_range.elapsed_us() for ev in evs)
+    return len(evs) // reps, total / reps / 1e3, named / reps / 1e3
 
 
 # the earlier design's libraries and their directory (--baseline)
@@ -383,8 +461,9 @@ def resources(name: str, piece: str, csrc=None) -> dict:
 def fmt_resources(r: dict) -> str:
     if not r:
         return "no ptxas report"
-    return (f"{r['registers']} registers, spill stores/loads "
-            f"{r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B")
+    return (f"{r['registers']} registers, {r.get('smem', 0)} B shared, "
+            f"spill stores/loads {r.get('spill_stores', 0)}/"
+            f"{r.get('spill_loads', 0)} B")
 
 
 def paired_ms(fn, earlier, reps: int):
@@ -404,7 +483,7 @@ def design_report(label: str, name: str, piece: str, ms: float,
     res = resources(name, piece)
     line = (f"    {label}: {fmt_resources(res)}; {ms:.3f} ms, "
             f"{bound_ms / ms:.3f} of its bound")
-    rec = dict(registers=res.get("registers"),
+    rec = dict(registers=res.get("registers"), smem_bytes=res.get("smem"),
                spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
                if res else None)
     if earlier_ms is not None:
@@ -814,6 +893,39 @@ def phase_b8(dev, grey):
                 compass_pass_share=cand / (n * h * w), **rec)
 
 
+def window_bytes(grey, ys, xs, radius, offset=0, side=None):
+    """Distinct level bytes that the clamped windows of ``(ys, xs)`` cover
+    (``side`` x ``side`` from ``offset`` inside each ``2 radius + 1``
+    window), the bytes a kernel must read at least once."""
+    n, h, w = grey.shape
+    full = 2 * radius + 1
+    side = side or full
+    offs = torch.arange(side, device=grey.device) + offset
+    y0 = torch.clamp(ys.long() - radius, 0, h - full)
+    x0 = torch.clamp(xs.long() - radius, 0, w - full)
+    py = (y0[..., None, None] + offs[:, None]).expand(-1, -1, side, side)
+    px = (x0[..., None, None] + offs[None, :]).expand(-1, -1, side, side)
+    bi = torch.arange(n, device=grey.device)[:, None, None, None]
+    touched = torch.zeros_like(grey, dtype=torch.bool)
+    touched[bi.expand_as(py), py, px] = True
+    return float(touched.sum())
+
+
+def harris_f32(patch):
+    """PR 6's ``fast.harris_from_patches``: the block sums in float32
+    (the former route, timed against B3h)."""
+    dx = patch[..., :, 2:] - patch[..., :, :-2]
+    dy = patch[..., 2:, :] - patch[..., :-2, :]
+    ix = 2.0 * dx[..., 1:-1, :] + dx[..., :-2, :] + dx[..., 2:, :]
+    iy = 2.0 * dy[..., :, 1:-1] + dy[..., :, :-2] + dy[..., :, 2:]
+    a = torch.sum(ix * ix, dim=(-2, -1))
+    b = torch.sum(iy * iy, dim=(-2, -1))
+    c = torch.sum(ix * iy, dim=(-2, -1))
+    scale = 1.0 / (4.0 * 7 * 255.0)
+    return (a * b - c * c - 0.04 * (a + b) ** 2) * (scale * scale * scale
+                                                    * scale)
+
+
 def phase_b3(dev, grey):
     from libstacker_tpu_torch.ops import fast, fast_cuda, orb_cuda
 
@@ -830,7 +942,11 @@ def phase_b3(dev, grey):
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
     max_abs = float((got - want).abs().max())
-    ms = time_ms(lambda: orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS), 20)
+    events_ms = time_ms(
+        lambda: orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS), 20)
+    ms = device_profile(
+        lambda: orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS),
+        "extract_kernel")[2]
     plain_ms = time_ms(
         lambda: orb_cuda.extract_patches_reference(grey, ys, xs, KP_RADIUS), 20)
     # the library call: one advanced-indexing gather of the same windows
@@ -844,21 +960,121 @@ def phase_b3(dev, grey):
     px = x0[..., None, None] + offs[None, :]
     bi = torch.arange(n, device=dev)[:, None, None, None]
     library_ms = time_ms(lambda: grey[bi, py, px], 20)
-    touched = torch.zeros_like(grey, dtype=torch.bool)
-    touched[bi.expand_as(py), py.expand(-1, -1, -1, side),
-            px.expand(-1, -1, side, -1)] = True
-    in_bytes = float(touched.sum()) + ys.numel() * 8.0
-    del touched
+    in_bytes = window_bytes(grey, ys, xs, KP_RADIUS) + ys.numel() * 8.0
     bound_ms, bound_by = bound(in_bytes + got.numel() * 4.0, 0.0)
+    del got, want
     log(f"[7 B3 orb_extract] {n} frames of {h}x{w}, K={KP_K}, radius "
         f"{KP_RADIUS} (4 centres at the clamp edges): bitwise equal "
-        f"{equal}; kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+        f"{equal}; kernel {ms:.4f} ms on the device ({events_ms:.4f} ms a "
+        f"call, wrapper included) vs plain {plain_ms:.4f} ms, library "
         f"gather {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
         f"-> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B3 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    b3 = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+              ms_source="torch.profiler device time", call_ms=events_ms,
+              **design_report("B3 u8", "orb_extract", B3_INSTANCE, ms,
+                              bound_ms, None))
+
+    # B3h at the K candidates (two of them invalid), B3d at Q keypoints
+    # with the same clamp-edge centres
+    valid = cand.valid.clone()
+    valid[:, 4:6] = False
+    kq_ys, kq_xs = ys[:, :KP_Q].contiguous(), xs[:, :KP_Q].contiguous()
+    hg = orb_cuda.candidate_harris(grey, ys, xs, valid)
+    hw_ = orb_cuda.candidate_harris_reference(grey, ys, xs, valid)
+    ag, dg = orb_cuda.describe(grey, kq_ys, kq_xs)
+    aw, dw = orb_cuda.describe_reference(grey, kq_ys, kq_xs)
+    torch.cuda.synchronize()
+    eq_h = bool(torch.equal(hg, hw_))
+    eq_d = bool(torch.equal(ag, aw)) and bool(torch.equal(dg, dw))
+    fin = torch.isfinite(hw_)
+    h_err = float((hg[fin] - hw_[fin]).abs().max())
+    a_err = float((ag - aw).abs().max())
+    d_err = float((dg.int() - dw.int()).abs().max())
+    del hg, hw_, ag, aw, dg, dw
+    h_call = time_ms(
+        lambda: orb_cuda.candidate_harris(grey, ys, xs, valid), 20)
+    h_ms = device_profile(
+        lambda: orb_cuda.candidate_harris(grey, ys, xs, valid),
+        "harris_kernel")[2]
+    h_plain = time_ms(
+        lambda: orb_cuda.candidate_harris_reference(grey, ys, xs, valid), 5)
+    d_call = time_ms(lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 20)
+    d_ms = device_profile(lambda: orb_cuda.describe(grey, kq_ys, kq_xs),
+                          "describe_kernel")[2]
+    d_plain = time_ms(
+        lambda: orb_cuda.describe_reference(grey, kq_ys, kq_xs), 5)
+    o = orb_cuda.HARRIS_ORIGIN
+    h_bytes = (window_bytes(grey, ys, xs, KP_RADIUS, o, 9)
+               + ys.numel() * (4.0 + 4.0 + 1.0 + 4.0))
+    h_bound, h_by = bound(h_bytes, ys.numel() * float(B3H_OPS))
+    circle = sum(2 * u + 1 for u in orb_cuda._ic_umax()) * 2 - (
+        2 * orb_cuda._ic_umax()[0] + 1)
+    d_ops = (B3D_OPS_CIRCLE_PIXEL * circle + B3D_OPS_BLUR + 100
+             + 256 * B3D_OPS_BIT)
+    d_bytes = (window_bytes(grey, kq_ys, kq_xs, KP_RADIUS)
+               + kq_ys.numel() * (8.0 + 4.0 + 32.0))
+    d_bound, d_by = bound(d_bytes, kq_ys.numel() * float(d_ops))
+
+    # the detector's per-level tail, both ways, on the same candidates:
+    # PR 6's (B3 patches, then the eager chain) and B3h, top-k, B3d
+    def former():
+        patches = orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS)
+        hr = harris_f32(patches[..., o : o + 9, o : o + 9])
+        hr = torch.where(valid, hr, torch.full_like(hr, -float("inf")))
+        hval, hidx = fast.topk_stable(hr, KP_Q)
+        kept = torch.gather(patches, 1, hidx[..., None, None].expand(
+            -1, -1, side, side))
+        ang = orb_cuda._ic_angles_from_patches(kept, center=KP_RADIUS)
+        return hval, ang, orb_cuda._rbrief_from_patches(
+            orb_cuda._blur_patches_valid(kept), ang)
+
+    def current():
+        hr = orb_cuda.candidate_harris(grey, ys, xs, valid)
+        hval, hidx = fast.topk_stable(hr, KP_Q)
+        ang, desc = orb_cuda.describe(grey, torch.gather(ys, 1, hidx),
+                                      torch.gather(xs, 1, hidx))
+        return hval, ang, desc
+
+    route_old = time_ms(former, 20)
+    route_new = time_ms(current, 20)
+    route_new2 = time_ms(current, 20)
+    route_old2 = time_ms(former, 20)
+    n_old, dev_old, _ = device_profile(former)
+    n_new, dev_new, _ = device_profile(current)
+    ok = eq_h and eq_d
+    log(f"[7 B3h orb_harris, B3d orb_describe] the same level: B3h at "
+        f"K={KP_K} (2 invalid a frame) bitwise equal {eq_h}; B3d at "
+        f"Q={KP_Q} bitwise equal {eq_d} (max abs: Harris {h_err:.3e}, "
+        f"angle {a_err:.3e}, descriptor bytes {d_err:.0f}); on the device "
+        f"B3h {h_ms:.4f} ms ({h_call:.4f} a call) vs plain {h_plain:.4f}, "
+        f"bound {h_bound:.4f} ms ({h_by}); B3d {d_ms:.4f} ms ({d_call:.4f} "
+        f"a call) vs plain {d_plain:.4f}, bound {d_bound:.4f} ms ({d_by}); "
+        f"per-level tail: B3 + eager chain "
+        f"{(route_old + route_old2) / 2:.4f} ms a call, {dev_old:.4f} ms of "
+        f"device time in {n_old} operations; B3h + top-k + B3d "
+        f"{(route_new + route_new2) / 2:.4f} ms a call, {dev_new:.4f} ms in "
+        f"{n_new} -> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B3h or B3d disagrees with its plain version")
+    route = dict(former_route_ms=(route_old + route_old2) / 2,
+                 route_ms=(route_new + route_new2) / 2,
+                 former_route_device_ms=dev_old, route_device_ms=dev_new,
+                 former_route_device_ops=n_old, route_device_ops=n_new,
+                 ms_source="torch.profiler device time")
+    b3h = dict(max_abs_err=h_err, ms=h_ms, plain_ms=h_plain,
+               bound_ms=h_bound, bound_by=h_by, library_ms=None,
+               call_ms=h_call,
+               **design_report("B3h", "orb_describe", B3H_INSTANCE, h_ms,
+                               h_bound, None), **route)
+    b3d = dict(max_abs_err=max(a_err, d_err), ms=d_ms, plain_ms=d_plain,
+               bound_ms=d_bound, bound_by=d_by, library_ms=None,
+               call_ms=d_call,
+               **design_report("B3d", "orb_describe", B3D_INSTANCE, d_ms,
+                               d_bound, None), **route)
+    return b3, b3h, b3d
 
 
 def corner_err(a, b, h, w):
@@ -984,7 +1200,8 @@ def phase_kp_full(dev, frames, truth):
         ok = (dropped == 0 and finite and c_err < corner_bar
               and (bar is None or q < bar)
               and tuple(out.shape) == (FULL_H, FULL_W, 3)
-              and not missing(launches, ("fast", "orb_extract", "warp_accum")))
+              and not missing(launches, KP_DETECT + ("warp_accum",))
+              and not stray(launches))
         log(f"[9 keypoint slice {label}] {n}x{FULL_H}x{FULL_W} u8, default "
             f"parameters, detection on {scale_hw or (FULL_H, FULL_W)}: cold "
             f"{cold_s:.3f} s, warm {warm_s:.3f} s = {n / warm_s:.2f} frames/s "
@@ -1150,11 +1367,136 @@ def phase_b5(dev, frames, truth):
         f"-> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B5 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                library_note="grid_sample(bilinear, border, align_corners) "
-                             "on a precomputed grid; it does not quantise "
-                             "to 1/32 px")
+    b5 = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+              library_note="grid_sample(bilinear, border, align_corners) "
+                           "on a precomputed grid; it does not quantise "
+                           "to 1/32 px",
+              **design_report("B5 replicate", "warp", B5_INSTANCE, ms,
+                              bound_ms, None))
+    del src
+    torch.cuda.empty_cache()
+    return (b5, *phase_b5_frames(dev, frames, truth, modes))
+
+
+def phase_b5_frames(dev, frames, truth, modes):
+    """B5's frames and accumulate forms on frames 1..N-1 of phase 9's
+    burst, as the keypoint stack and ``warp_frames_batch`` call them."""
+    import torch.nn.functional as F
+
+    from libstacker_tpu_torch.ops import color, warp, warp_cuda
+
+    fr = frames[1:].contiguous()
+    n, h, w, c = fr.shape
+    minv = warp.invert_3x3(torch.from_numpy(truth[1:]).float().to(dev))
+    minv = minv.contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[n // 2] = False
+    bv = [0.1, 0.2, 0.3]
+    fr16 = (fr.to(torch.int32) * 257).to(torch.uint16)
+    equal, max_abs = True, 0.0
+    for src in (fr, fr16):
+        for mode in modes:
+            for v in (None, valid):
+                got = warp_cuda.warp_frames(src, minv, bv, mode, valid=v)
+                want = warp_cuda.warp_frames_reference(src, minv, bv, mode,
+                                                       valid=v)
+                torch.cuda.synchronize()
+                equal &= bool(torch.equal(got, want))
+                max_abs = max(max_abs, float((got - want).abs().max()))
+                del got, want
+    del fr16
+    torch.cuda.empty_cache()
+
+    # the keypoint stack with BORDER_REPLICATE, both ways: PR 6's route
+    # (widen the burst, planes, planar B5 per plane, torch.sum) and the
+    # accumulate form on the raw burst
+    minv_rep = minv.repeat_interleave(c, dim=0).contiguous()
+    bvs = torch.tensor(bv, device=dev).repeat(n)
+    vf = valid.to(torch.float32)[:, None, None, None]
+
+    def planar():
+        src = color.to_unit_f32(fr).permute(0, 3, 1, 2)
+        out = warp_cuda.warp_bilinear(
+            src.reshape(n * c, h, w).contiguous(), minv_rep, bvs,
+            border_mode="replicate")
+        return out.reshape(n, c, h, w).permute(0, 2, 3, 1)
+
+    def former_stack():
+        return torch.sum(planar() * vf, dim=0)
+
+    def stack():
+        return warp_cuda.warp_frames(fr, minv, bv, "replicate", valid=valid)
+
+    def frames_form():
+        return warp_cuda.warp_frames(fr, minv, bv, "replicate")
+
+    sum_diff = float((stack() - former_stack()).abs().max())
+    f_diff = float((frames_form() - planar()).abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a_ms, old_ms = time_ms(stack, 10), time_ms(former_stack, 5)
+    old_ms2, a_ms2 = time_ms(former_stack, 5), time_ms(stack, 10)
+    a_ms, old_ms = (a_ms + a_ms2) / 2, (old_ms + old_ms2) / 2
+    torch.cuda.empty_cache()
+    f_ms, fold_ms = time_ms(frames_form, 10), time_ms(planar, 5)
+    fold_ms2, f_ms2 = time_ms(planar, 5), time_ms(frames_form, 10)
+    f_ms, fold_ms = (f_ms + f_ms2) / 2, (fold_ms + fold_ms2) / 2
+    n_old, dev_old, _ = device_profile(former_stack, reps=3)
+    n_new, dev_new, _ = device_profile(stack, reps=3)
+    torch.cuda.empty_cache()
+    a_plain = time_ms(lambda: warp_cuda.warp_frames_reference(
+        fr, minv, bv, "replicate", valid=valid), 1)
+    f_plain = time_ms(lambda: warp_cuda.warp_frames_reference(
+        fr, minv, bv, "replicate"), 1)
+    torch.cuda.empty_cache()
+    planes = color.to_unit_f32(fr).permute(0, 3, 1, 2).contiguous()
+    grid = grid_for(minv, (h, w), (h, w))
+    library_ms = time_ms(lambda: F.grid_sample(
+        planes, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), 10)
+    del planes, grid
+    torch.cuda.empty_cache()
+    hw = h * w
+    kept = int(valid.sum())
+    f_bound, f_by = bound(n * hw * c * (1.0 + 4.0) + n * 36.0,
+                          n * hw * float(B5F_OPS_PIXEL + c * B5F_OPS_CHANNEL))
+    a_bound, a_by = bound(kept * hw * c * 1.0 + hw * c * 4.0 + n * 40.0,
+                          kept * hw * float(B5F_OPS_PIXEL
+                                            + c * B5A_OPS_CHANNEL))
+    log(f"[11 B5 warp_frames, warp_frames_accum] frames 1-{n} of the burst "
+        f"as u8 and u16 ({n} RGB frames of {h}x{w}, frame {n // 2} dropped) "
+        f"in each of {', '.join(modes)}, both forms: bitwise equal {equal}; "
+        f"accumulate {a_ms:.3f} ms vs plain {a_plain:.3f} ms, bound "
+        f"{a_bound:.3f} ms ({a_by}); PR 6's route (f32 widening, planes, "
+        f"planar B5, torch.sum) {old_ms:.3f} ms, {dev_old:.3f} ms of device "
+        f"time in {n_old} operations, the accumulate form {dev_new:.3f} "
+        f"ms in {n_new}; max abs against it "
+        f"{sum_diff:.3e} (float32 summation order); frames form "
+        f"{f_ms:.3f} ms vs widening + planes + planar B5 {fold_ms:.3f} ms "
+        f"(max abs {f_diff:.3e}), plain {f_plain:.3f} ms, bound "
+        f"{f_bound:.3f} ms ({f_by}); library grid_sample {library_ms:.3f} ms "
+        f"(f32 planes, border padding, grid precomputed) "
+        f"-> {'OK' if equal and f_diff == 0.0 else 'MISMATCH'}")
+    if not equal or f_diff != 0.0:
+        fail("B5's frames or accumulate form disagrees with its plain "
+             "version")
+    note = ("grid_sample(bilinear, border, align_corners) on the f32 planes "
+            "and a precomputed grid; no 1/32-px quantisation, no sum")
+    b5f = dict(max_abs_err=max_abs, ms=f_ms, plain_ms=f_plain,
+               bound_ms=f_bound, bound_by=f_by, library_ms=library_ms,
+               library_note=note, former_route_ms=fold_ms,
+               **design_report("B5 frames u8", "warp", B5F_INSTANCE, f_ms,
+                               f_bound, None))
+    b5a = dict(max_abs_err=max_abs, ms=a_ms, plain_ms=a_plain,
+               bound_ms=a_bound, bound_by=a_by, library_ms=library_ms,
+               library_note=note, former_route_ms=old_ms,
+               former_route_device_ops=n_old, route_device_ops=n_new,
+               former_route_device_ms=dev_old, route_device_ms=dev_new,
+               former_route_max_abs_diff=sum_diff,
+               **design_report("B5 accumulate u8", "warp", B5A_INSTANCE,
+                               a_ms, a_bound, None))
+    return b5f, b5a
 
 
 def phase_b9(dev, frames):
@@ -1196,7 +1538,9 @@ def phase_b9(dev, frames):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 library_note="grid_sample(bilinear, zeros, align_corners) "
                              "on a precomputed grid; it does not quantise "
-                             "to 1/32 px")
+                             "to 1/32 px",
+                **design_report("B9", "warp", B9_INSTANCE, ms, bound_ms,
+                                None))
 
 
 def phase_b1_masked(dev):
@@ -1359,11 +1703,11 @@ def phase_kp_variants(dev, frames, truth, ref):
     mask[: FULL_H // 4, : FULL_W // 4] = 0
     cases = (
         ("sigma_clip", dict(stacking="sigma_clip"), None, None,
-         ("fast", "orb_extract", "warp_moments"), None),
+         KP_DETECT + ("warp_moments",), None),
         ("replicate", dict(border_mode=constants.BORDER_REPLICATE), None,
-         None, ("fast", "orb_extract", "warp"), KP_P99_BAR),
+         None, KP_DETECT + ("warp_frames_accum",), KP_P99_BAR),
         ("scaled-800 mask", {}, 800.0, mask,
-         ("fast", "orb_extract", "warp_accum"), None),
+         KP_DETECT + ("warp_accum",), None),
     )
     results = {}
     for label, kw, sdw, m, kernels, bar in cases:
@@ -1381,7 +1725,8 @@ def phase_kp_variants(dev, frames, truth, ref):
         ok = (dropped == 0 and bool(torch.isfinite(out).all())
               and c_err < corner_bar and (bar is None or q < bar)
               and tuple(out.shape) == (FULL_H, FULL_W, 3)
-              and not missing(launches, kernels))
+              and not missing(launches, kernels)
+              and not stray(launches, ("orb_extract", "warp")))
         extra = ("" if stats.clipped_sample_frac is None else
                  f" | clipped fraction {stats.clipped_sample_frac:.5f}")
         splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
@@ -1598,7 +1943,9 @@ def phase_b6(dev, frames):
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 library_note="no PyTorch call computes a nearest-tap "
-                             "Gaussian deposit over frames")
+                             "Gaussian deposit over frames",
+                **design_report("B6 x2", "sr_deposit", B6_INSTANCE, ms,
+                                bound_ms, None))
 
 
 def box2(img):
@@ -1653,14 +2000,15 @@ def phase_kp_sr(dev, frames, mean_out):
           and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
           and box_err < SR_BOX_BAR and launches["sr_deposit"] == 1
           and launches["warp_accum"] == 0
-          and not missing(launches, ("fast", "orb_extract")))
+          and not missing(launches, KP_DETECT) and not stray(launches))
     log(f"[20 keypoint super-resolution] {n}x{FULL_H}x{FULL_W} u8, default "
         f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
         f"{cold_s:.3f} s, warm {warm_s:.3f} s | stages ms: {splits} | kept "
         f"{stats.frames_kept}/{n} | 2x2 box mean vs phase 9's mean stack "
         f"mean abs {box_err:.3e} (bar {SR_BOX_BAR}) | launches B8 "
-        f"{launches['fast']}, B3 {launches['orb_extract']}, B6 "
-        f"{launches['sr_deposit']}: {launches} -> {'OK' if ok else 'FAILED'}")
+        f"{launches['fast']}, B3h {launches['orb_harris']}, B3d "
+        f"{launches['orb_describe']}, B6 {launches['sr_deposit']}: "
+        f"{launches} -> {'OK' if ok else 'FAILED'}")
     if not ok:
         fail("the full-size keypoint super-resolution missed a bar")
     return launches
@@ -1786,7 +2134,8 @@ def phase_files(dev):
         want = run_arrays()
         key = f"{label} = _arrays"
         checks[key] = (np.array_equal(got, want)
-                       and not missing(launches, kernels))
+                       and not missing(launches, kernels)
+                       and not stray(launches))
         return launches
 
     params = headline_params()
@@ -1811,7 +2160,7 @@ def phase_files(dev):
         lambda: keypoint_match(pkp, kp, device=dev)[1],
         lambda: keypoint_match_arrays(io.load_frames(pkp), kp,
                                       device=dev)[1],
-        ("fast", "orb_extract", "warp_accum"))
+        KP_DETECT + ("warp_accum",))
     shutil.rmtree(d, ignore_errors=True)
     ok = all(checks.values())
     log(f"[22 file entry points] {n}x{h}x{w}: native loader built {native}; "
@@ -1865,7 +2214,7 @@ def main(argv=None) -> int:
     frames, truth, grey = textured_grey(dev)
     b8 = phase_b8(dev, grey)
     torch.cuda.empty_cache()
-    b3 = phase_b3(dev, grey)
+    b3, b3h, b3d = phase_b3(dev, grey)
     del grey
     torch.cuda.empty_cache()
     phase_kp_parity(dev)
@@ -1874,7 +2223,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     b4 = phase_b4(dev, ecc_frames, ecc_truth)
     torch.cuda.empty_cache()
-    b5 = phase_b5(dev, frames, truth)
+    b5, b5f, b5a = phase_b5(dev, frames, truth)
     torch.cuda.empty_cache()
     b9 = phase_b9(dev, frames)
     torch.cuda.empty_cache()
@@ -1930,7 +2279,23 @@ def main(argv=None) -> int:
         dict(name="orb_extract", route="cuda",
              source="libstacker_tpu_torch/csrc/orb_extract.cu",
              replaces="libstacker_tpu/ops/orb_pallas.py:54",
+             replaces_note="on no entry point's path since B3h / B3d",
              **counts("orb_extract"), **b3),
+        dict(name="orb_harris", route="cuda",
+             source="libstacker_tpu_torch/csrc/orb_describe.cu",
+             replaces="libstacker_tpu/ops/orb_pallas.py:54",
+             replaces_note="_extract_kernel's windows at the candidates "
+                           "with the Harris response the JAX package "
+                           "takes from them (libstacker_tpu/ops/fast.py:237)",
+             **counts("orb_harris"), **b3h),
+        dict(name="orb_describe", route="cuda",
+             source="libstacker_tpu_torch/csrc/orb_describe.cu",
+             replaces="libstacker_tpu/ops/orb_pallas.py:54",
+             replaces_note="_extract_kernel's windows at the kept keypoints "
+                           "with the IC angle, blur and rBRIEF the JAX "
+                           "package takes from them "
+                           "(libstacker_tpu/ops/orb.py:99-153)",
+             **counts("orb_describe"), **b3d),
         dict(name="warp_moments", route="cuda",
              source="libstacker_tpu_torch/csrc/warp_accum.cu",
              replaces="libstacker_tpu/ops/warp_accum_pallas.py:47",
@@ -1940,7 +2305,23 @@ def main(argv=None) -> int:
         dict(name="warp", route="cuda",
              source="libstacker_tpu_torch/csrc/warp.cu",
              replaces="libstacker_tpu/ops/warp_pallas.py:217",
+             replaces_note="the planar form: on no entry point's path "
+                           "since the interleaved forms",
              **counts("warp"), **b5),
+        dict(name="warp_frames", route="cuda",
+             source="libstacker_tpu_torch/csrc/warp.cu",
+             replaces="libstacker_tpu/ops/warp_pallas.py:217",
+             replaces_note="_warp_kernel as warp_frames_batch calls it "
+                           "(libstacker_tpu/ops/warp_batch.py:231), one "
+                           "slot per plane",
+             **counts("warp_frames"), **b5f),
+        dict(name="warp_frames_accum", route="cuda",
+             source="libstacker_tpu_torch/csrc/warp.cu",
+             replaces="libstacker_tpu/ops/warp_pallas.py:217",
+             replaces_note="_warp_kernel in the keypoint path's "
+                           "index-mapping stack and the sum after it "
+                           "(libstacker_tpu/models/keypoint.py:277-285)",
+             **counts("warp_frames_accum"), **b5a),
         dict(name="warp3", route="cuda",
              source="libstacker_tpu_torch/csrc/warp.cu",
              replaces="libstacker_tpu/ops/warp_pallas.py:475",

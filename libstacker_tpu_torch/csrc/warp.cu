@@ -1,5 +1,5 @@
-// Batched single-plane bilinear warp (B5) and the three-plane shared-
-// coordinate warp (B9).
+// Batched single-plane bilinear warp (B5), its forms on interleaved
+// frames, and the three-plane shared-coordinate warp (B9).
 //
 // Replaces the Pallas TPU kernels libstacker_tpu/ops/warp_pallas.py
 // _warp_kernel (:217, entry warp_bilinear_pallas :370) and _warp3_kernel
@@ -36,6 +36,34 @@
 // (utils/cuda_build.py): the float expressions follow the plain PyTorch
 // versions (ops/warp_cuda.py, built on ops/warp.py) term for term, so
 // both land in the same 1/32-px bin and equal each other bitwise.
+//
+// B5 on interleaved frames (frames_kernel, accum_kernel; entry
+// warp_frames).  The stacking stage of the keypoint path with an
+// index-mapping border used to widen the burst to float32, copy it to
+// planes and give B5 one slot per plane, so every pixel's homography
+// division, 1/32 binning and border map ran once per channel, and a
+// [N,H,W,3] float32 intermediate was written and summed back by PyTorch.
+// The TPU kernel's plane-and-apron layout exists for its VMEM windows; a
+// CUDA thread reads any texel.  Here one thread per output pixel (and
+// frame) computes the coordinates and the four mapped tap offsets once,
+// reads the taps of all C <= 4 channels of the [N,H,W,C] frame in its
+// own type (u8 / u16 / f32) and widens each tap as warp_accum.cu does,
+// (float)v * float32(1/255) (or 1/65535): bitwise what feeding
+// ops/color.py's to_unit_f32(frames) gives.  Two outputs:
+//   frames:     out[n, y, x, c] = warp(frames[n], minv[n])[y, x, c]
+//   accumulate: out[y, x, c] = sum_n valid[n] * warp(...)[y, x, c],
+//               frame by frame in frame order in one launch, the sums
+//               in registers (B2's loop); a frame with valid[n] == 0 is
+//               skipped whole, its map never read.
+// What bounds them: the accumulate form reads the burst in its own type
+// once and writes one [H,W,C] f32 image (0.47 GB + 0.1 GB for 19 u8
+// frames of 4K, ~0.17 ms at 3.35 TB/s) against ~35 float operations a
+// pixel-frame for the coordinates and ~16 a channel (~1.2e10 for the
+// same burst, ~0.19 ms at 67 T/s): the two bounds are close, and B2's
+// identical loop measures issue-bound (warp_accum.cu).  The index maps
+// are applied only to taps outside the frame; inside, every mode is the
+// identity.  The border values travel by value in the launch, so a
+// call copies nothing to the device and never waits on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +129,92 @@ __device__ __forceinline__ float lerp2(float t00, float t01, float t10,
   const float top = t00 * (1.0f - fx) + t01 * fx;
   const float bot = t10 * (1.0f - fx) + t11 * fx;
   return top * (1.0f - fy) + bot * fy;
+}
+
+template <typename T>
+__device__ __forceinline__ float widen(T v, float scale) {
+  return (float)v * scale;
+}
+template <>
+__device__ __forceinline__ float widen<float>(float v, float) {
+  return v;
+}
+
+// map_index for a tap that may lie inside the frame, where every mode is
+// the identity
+template <int MODE>
+__device__ __forceinline__ int map_tap(int i, int n) {
+  return (unsigned)i < (unsigned)n ? i : map_index<MODE>(i, n);
+}
+
+// BORDER_CONSTANT's value per channel, passed by value
+struct Border4 {
+  float v[4];
+};
+
+// The four taps of one output pixel under one inverse map: pixel offsets
+// into the frame (row * W + column), whether each reads the frame
+// (BORDER_CONSTANT reads the border value where not), and the weights.
+struct Taps {
+  size_t i00, i01, i10, i11;
+  bool v00, v01, v10, v11;
+  float fx, fy;
+};
+
+template <int MODE>
+__device__ __forceinline__ Taps frame_taps(const float* m, float xs, float ys,
+                                           int H, int W, int perspective) {
+  Taps t;
+  float x0f, y0f;
+  coords(m, xs, ys, perspective, x0f, y0f, t.fx, t.fy);
+  if constexpr (MODE == CONSTANT) {
+    const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+    const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+    const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+    const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+    const int x0 = (vx0 || vx1) ? (int)x0f : 0;
+    const int y0 = (vy0 || vy1) ? (int)y0f : 0;
+    t.i00 = (size_t)((long long)y0 * W + x0);
+    t.i01 = t.i00 + 1;
+    t.i10 = t.i00 + W;
+    t.i11 = t.i10 + 1;
+    t.v00 = vy0 && vx0;
+    t.v01 = vy0 && vx1;
+    t.v10 = vy1 && vx0;
+    t.v11 = vy1 && vx1;
+  } else {
+    const int x0 = (int)fminf(fmaxf(x0f, -INDEX_LIMIT), INDEX_LIMIT);
+    const int y0 = (int)fminf(fmaxf(y0f, -INDEX_LIMIT), INDEX_LIMIT);
+    const int mx0 = map_tap<MODE>(x0, W), mx1 = map_tap<MODE>(x0 + 1, W);
+    const size_t r0 = (size_t)map_tap<MODE>(y0, H) * W;
+    const size_t r1 = (size_t)map_tap<MODE>(y0 + 1, H) * W;
+    t.i00 = r0 + mx0;
+    t.i01 = r0 + mx1;
+    t.i10 = r1 + mx0;
+    t.i11 = r1 + mx1;
+    t.v00 = t.v01 = t.v10 = t.v11 = true;
+  }
+  return t;
+}
+
+// channel c of frame f ([H,W,C] in its own type) at taps t
+template <int MODE, typename T>
+__device__ __forceinline__ float sample(const T* __restrict__ f,
+                                        const Taps& t, int c, int C,
+                                        float bv, float scale) {
+  float t00, t01, t10, t11;
+  if constexpr (MODE == CONSTANT) {
+    t00 = t.v00 ? widen<T>(f[t.i00 * C + c], scale) : bv;
+    t01 = t.v01 ? widen<T>(f[t.i01 * C + c], scale) : bv;
+    t10 = t.v10 ? widen<T>(f[t.i10 * C + c], scale) : bv;
+    t11 = t.v11 ? widen<T>(f[t.i11 * C + c], scale) : bv;
+  } else {
+    t00 = widen<T>(f[t.i00 * C + c], scale);
+    t01 = widen<T>(f[t.i01 * C + c], scale);
+    t10 = widen<T>(f[t.i10 * C + c], scale);
+    t11 = widen<T>(f[t.i11 * C + c], scale);
+  }
+  return lerp2(t00, t01, t10, t11, t.fx, t.fy);
 }
 
 template <int MODE>
@@ -176,6 +290,91 @@ warp3_kernel(const float* __restrict__ srcs, const float* __restrict__ minv,
   }
 }
 
+// B5, frames form: one thread per output pixel of frame blockIdx.y
+template <int MODE, typename T>
+__global__ void __launch_bounds__(THREADS)
+frames_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
+              Border4 border, float* __restrict__ out, int H, int W, int C,
+              int perspective, float scale) {
+  const size_t hw = (size_t)H * W;
+  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= hw) return;
+  const int n = blockIdx.y;
+  const int y = (int)(p / W);
+  const int x = (int)(p - (size_t)y * W);
+  const Taps t =
+      frame_taps<MODE>(minv + 9 * n, (float)x, (float)y, H, W, perspective);
+  const T* f = frames + (size_t)n * hw * C;
+  float* o = out + ((size_t)n * hw + p) * C;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < C) o[c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
+}
+
+// B5, accumulate form: one thread per output pixel walks the frames in
+// order; a dropped frame (valid[n] == 0) is skipped whole
+template <int MODE, typename T>
+__global__ void __launch_bounds__(THREADS)
+accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
+             const float* __restrict__ valid, Border4 border,
+             float* __restrict__ out, int N, int H, int W, int C,
+             int perspective, float scale) {
+  const size_t hw = (size_t)H * W;
+  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= hw) return;
+  const int y = (int)(p / W);
+  const int x = (int)(p - (size_t)y * W);
+  const float xs = (float)x, ys = (float)y;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int n = 0; n < N; ++n) {
+    const float vn = valid[n];
+    if (vn == 0.0f) continue;
+    const Taps t = frame_taps<MODE>(minv + 9 * n, xs, ys, H, W, perspective);
+    const T* f = frames + (size_t)n * hw * C;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < C)
+        acc[c] = acc[c] + sample<MODE, T>(f, t, c, C, border.v[c], scale) * vn;
+  }
+  float* o = out + p * C;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < C) o[c] = acc[c];
+}
+
+template <int MODE, typename T>
+cudaError_t launch_frames(const void* frames, const float* minv,
+                          const Border4& border, const float* valid,
+                          float* out, int N, int H, int W, int C,
+                          int perspective, float scale, cudaStream_t st) {
+  const size_t hw = (size_t)H * W;
+  const unsigned blocks = (unsigned)((hw + THREADS - 1) / THREADS);
+  const T* f = static_cast<const T*>(frames);
+  if (valid) {
+    accum_kernel<MODE, T><<<blocks, THREADS, 0, st>>>(
+        f, minv, valid, border, out, N, H, W, C, perspective, scale);
+  } else {
+    frames_kernel<MODE, T><<<dim3(blocks, (unsigned)N), THREADS, 0, st>>>(
+        f, minv, border, out, H, W, C, perspective, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t frames_by_mode(int mode, const void* frames, const float* minv,
+                           const Border4& border, const float* valid,
+                           float* out, int N, int H, int W, int C,
+                           int perspective, float scale, cudaStream_t st) {
+  switch (mode) {
+    case CONSTANT: return launch_frames<CONSTANT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    case REPLICATE: return launch_frames<REPLICATE, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    case REFLECT: return launch_frames<REFLECT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    case WRAP: return launch_frames<WRAP, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    case REFLECT101: return launch_frames<REFLECT101, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int MODE>
 cudaError_t launch(const float* src, const float* minv, const float* border,
                    const int32_t* sidx, float* out, int G, int H, int W,
@@ -227,6 +426,32 @@ int warp3_bilinear(const void* srcs, const void* minv, void* out, int B,
       static_cast<const float*>(srcs), static_cast<const float*>(minv),
       static_cast<float*>(out), H, W, perspective);
   return (int)cudaGetLastError();
+}
+
+// frames [N,H,W,C] (dtype_code 0 = u8, 1 = u16, 2 = f32; C in 1..4),
+// minv [N,3,3] f32 inverse maps, border [C] f32 in HOST memory (read in
+// BORDER_CONSTANT only), scale the widening factor of integer taps.  valid == NULL: the
+// frames form, out [N,H,W,C] f32.  valid [N] f32: the accumulate form,
+// out [H,W,C] f32 (N may be 0: zeros).
+int warp_frames(const void* frames, const void* minv, const float* border,
+                const void* valid, void* out, int N, int H, int W, int C,
+                int dtype_code, int border_mode, int perspective,
+                float scale, void* stream) {
+  if (N < 0 || (N == 0 && !valid) || N > 65535 || H <= 0 || W <= 0 ||
+      C < 1 || C > 4)
+    return (int)cudaErrorInvalidValue;
+  auto m = static_cast<const float*>(minv);
+  Border4 b;
+  for (int c = 0; c < 4; ++c) b.v[c] = c < C ? border[c] : 0.0f;
+  auto v = static_cast<const float*>(valid);
+  auto o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype_code) {
+    case 0: return (int)frames_by_mode<uint8_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
+    case 1: return (int)frames_by_mode<uint16_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
+    case 2: return (int)frames_by_mode<float>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -15,8 +15,8 @@ counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
 4. frame 0 plus the masked sum of the aligned frames 1..N-1, divided by
    the kept count: BORDER_CONSTANT and BORDER_TRANSPARENT through the
    fused warp-and-sum (``ops/warp_batch``, kernel B2), the index-mapping
-   border modes through per-frame warps (``warp_frames_batch``, kernel
-   B5); or, with ``stacking="sigma_clip"``, the kappa-sigma stack
+   border modes through B5's accumulate form (``ops/warp_cuda.warp_frames``
+   with ``valid``); or, with ``stacking="sigma_clip"``, the kappa-sigma stack
    (``ops/stack``, kernel B4); or, with ``output_scale > 1``, the
    super-resolution stack (``ops/stack.super_res_stack``, kernel B6).
 
@@ -38,10 +38,11 @@ import torch
 from .. import constants
 from ..errors import InvalidParamsError, NotEnoughFilesError
 from ..params import KeyPointMatchParameters
-from ..ops import color, matcher, orb, ransac, resize
+from ..ops import color, matcher, orb, ransac, resize, warp
 from ..ops import stack as stack_ops
 from ..ops.ecc import _phase
-from ..ops.warp_batch import warp_accumulate_rgb, warp_frames_batch
+from ..ops.warp_batch import warp_accumulate_rgb
+from ..ops.warp_cuda import warp_frames
 from ..utils import io
 from ..utils.device import resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
@@ -112,8 +113,9 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
                          border_mode=constants.BORDER_CONSTANT):
     """Stage 4: frame 0 plus the masked sum of the aligned frames
     1..N-1.  BORDER_CONSTANT (and BORDER_TRANSPARENT over the zero base,
-    a zero border) runs the fused warp-and-sum; the index-mapping modes
-    warp each frame (kernel B5) and sum the kept ones."""
+    a zero border) runs the fused warp-and-sum (kernel B2); the
+    index-mapping modes run B5's accumulate form on the raw burst, which
+    skips the dropped frames."""
     h, w = frames.shape[1], frames.shape[2]
     if scale_hw is not None:
         hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
@@ -129,12 +131,10 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
         return base + warp_accumulate_rgb(
             frames[1:], hs, oks, perspective=True, border_value=border_value,
         )
-    warped = warp_frames_batch(
-        color.to_unit_f32(frames[1:]), hs, perspective=True,
-        border_value=border_value, border_mode=border,
+    return base + warp_frames(
+        frames[1:], warp.invert_3x3(hs), border_value=border_value,
+        border_mode=border, valid=oks,
     )
-    valid = oks.to(torch.float32)[:, None, None, None]
-    return base + torch.sum(warped * valid, dim=0)
 
 
 def _check_ported(params: KeyPointMatchParameters, mesh) -> None:

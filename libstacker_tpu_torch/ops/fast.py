@@ -149,22 +149,34 @@ def top_k_keypoints(
     )
 
 
+def harris_scale4(block_size: int = 7) -> float:
+    """``(1 / (4 * block_size * 255))^4``, the Harris response's scale
+    (a Python float; float32 where it multiplies a tensor)."""
+    scale = 1.0 / (4.0 * block_size * 255.0)
+    return scale * scale * scale * scale
+
+
 def harris_from_patches(
     patch: torch.Tensor, block_size: int = 7, harris_k: float = 0.04
 ) -> torch.Tensor:
     """Harris response from ``[..., b+2, b+2]`` pixel patches, matching
     ORB's HarrisResponses (orb.cpp): 3x3 Sobel gradients, 7x7 block
-    sums, response = (ab - c^2 - k (a+b)^2) * (1/(4*7*255))^4."""
+    sums, response = (ab - c^2 - k (a+b)^2) * (1/(4*7*255))^4.
+
+    The block sums are taken in float64 and cast to float32 once: on
+    integer pixels they are exact (each at most 49 * 1020^2 < 2^53),
+    where a float32 sum (> 2^24) would round in an order of its own;
+    kernel B3h (``csrc/orb_describe.cu``) sums the same integers exactly
+    in int32."""
     dx = patch[..., :, 2:] - patch[..., :, :-2]  # [..., b+2, b]
     dy = patch[..., 2:, :] - patch[..., :-2, :]  # [..., b, b+2]
     ix = 2.0 * dx[..., 1:-1, :] + dx[..., :-2, :] + dx[..., 2:, :]
     iy = 2.0 * dy[..., :, 1:-1] + dy[..., :, :-2] + dy[..., :, 2:]
-    a = torch.sum(ix * ix, dim=(-2, -1))
-    b = torch.sum(iy * iy, dim=(-2, -1))
-    c = torch.sum(ix * iy, dim=(-2, -1))
-    scale = 1.0 / (4.0 * block_size * 255.0)
-    scale_sq_sq = scale * scale * scale * scale
-    return (a * b - c * c - harris_k * (a + b) ** 2) * scale_sq_sq
+    dims = (-2, -1)
+    a = torch.sum(ix * ix, dim=dims, dtype=torch.float64).to(torch.float32)
+    b = torch.sum(iy * iy, dim=dims, dtype=torch.float64).to(torch.float32)
+    c = torch.sum(ix * iy, dim=dims, dtype=torch.float64).to(torch.float32)
+    return (a * b - c * c - harris_k * (a + b) ** 2) * harris_scale4(block_size)
 
 
 def harris_response_at(

@@ -6,8 +6,9 @@ Counterpart of ``libstacker_tpu/ops/warp_batch.py`` (``warp_frames_batch``
 (one float32 ``torch.linalg.inv``, shared by the kernels and the plain
 paths).  :func:`warp_accumulate_rgb` runs
 ``ops/warp_accum_cuda.warp_accum_rgb`` (kernel B2 on CUDA);
-:func:`warp_frames_batch` runs ``ops/warp_cuda.warp_bilinear`` (kernel
-B5) with one slot per plane.  The TPU-only ``pallas_pick_config``
+:func:`warp_frames_batch` runs ``ops/warp_cuda.warp_frames`` (kernel B5
+on the interleaved frames: one coordinate and tap set per pixel for
+all its channels).  The TPU-only ``pallas_pick_config``
 ladder, the source apron of the index-mapping border modes
 (``pallas_required_apron``) and the ``allow_pallas`` / ``pallas_k`` /
 ``apron`` / ``pallas_tile_rows`` knobs have no counterpart: a thread
@@ -21,7 +22,7 @@ import torch
 
 from . import warp
 from .warp_accum_cuda import warp_accum_rgb
-from .warp_cuda import warp_bilinear
+from .warp_cuda import warp_frames
 
 
 def warp_frames_batch(
@@ -34,9 +35,8 @@ def warp_frames_batch(
     """Warp each frame onto its own grid with the given border mode ->
     the shape of ``frames``, float32.  ``border_value`` is a scalar or
     one value per channel (BORDER_CONSTANT); BORDER_TRANSPARENT reads
-    the zero base.  Every plane is one slot of kernel B5."""
+    the zero base.  One launch of kernel B5's frames form."""
     has_c = frames.ndim == 4
-    n, h, w = frames.shape[:3]
     c = frames.shape[3] if has_c else 1
     border = warp._resolve_border(border_mode)
     if border_value is None or border == "transparent":
@@ -48,18 +48,11 @@ def warp_frames_batch(
     bv = torch.as_tensor(border_value, dtype=torch.float32,
                          device=frames.device).reshape(-1)
     bvs = bv[:1].expand(c) if bv.numel() == 1 else bv[:c]
-    src = frames.to(torch.float32)
-    if has_c:
-        src = src.permute(0, 3, 1, 2)
-    out = warp_bilinear(
-        src.reshape(n * c, h, w).contiguous(),
-        minv.repeat_interleave(c, dim=0).contiguous(),
-        border_value=bvs.repeat(n), quant_affine=not perspective,
-        border_mode=border,
-    )
-    if has_c:
-        return out.reshape(n, c, h, w).permute(0, 2, 3, 1)
-    return out
+    src = frames.to(torch.float32).contiguous()
+    out = warp_frames(src if has_c else src[..., None], minv,
+                      border_value=bvs, border_mode=border,
+                      quant_affine=not perspective)
+    return out if has_c else out[..., 0]
 
 
 def warp_accumulate_rgb(

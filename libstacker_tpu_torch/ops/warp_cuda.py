@@ -10,12 +10,18 @@ Counterpart of ``libstacker_tpu/ops/warp_pallas.py`` (``_warp_kernel``
   the source plane ``src_index[g]`` (slots may share a source), on an
   ``out_hw`` grid that may differ from the source extent, with a border
   value per slot and any border mode.
+- :func:`warp_frames` (B5 on interleaved frames): each ``[H,W,C]``
+  frame of a burst in its own type (u8 / u16 / f32, widened per tap as
+  ``color.to_unit_f32`` widens it) warped onto its own grid with one
+  coordinate and tap set per pixel, any border mode; with ``valid`` the
+  validity-weighted sum over the burst in one launch (the keypoint
+  path's stack with an index-mapping border);
 - :func:`warp3_bilinear` (B9): three shared planes warped per lane with
   one coordinate and weight set, BORDER_CONSTANT 0.
 
 CUDA tensors launch ``csrc/warp.cu`` or raise; CPU tensors take
-:func:`warp_bilinear_reference` / :func:`warp3_bilinear_reference`,
-built on ``ops/warp.py``.  Divergence from the TPU kernel, by design:
+:func:`warp_bilinear_reference` / :func:`warp_frames_reference` /
+:func:`warp3_bilinear_reference`, built on ``ops/warp.py``.  Divergence from the TPU kernel, by design:
 the index-mapping border modes (REPLICATE, REFLECT, REFLECT_101, WRAP)
 map each tap index in the kernel (OpenCV's borderInterpolate), where
 the JAX package padded the source by a host-sized apron and warped it
@@ -33,16 +39,23 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import cuda_build
-from . import warp
+from . import color, warp
 
 #: launches of B5 (``warp_bilinear``) since the last reset
 launch_count = 0
+#: launches of B5's frames form (``warp_frames`` without ``valid``)
+frames_launch_count = 0
+#: launches of B5's accumulate form (``warp_frames`` with ``valid``)
+accum_launch_count = 0
 #: launches of B9 (``warp3_bilinear``) since the last reset
 warp3_launch_count = 0
 
 # OpenCV's border-mode integers, as csrc/warp.cu switches on them
 _MODE_CODE = {"constant": 0, "replicate": 1, "reflect": 2, "wrap": 3,
               "reflect101": 4}
+_DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+_SCALE = {torch.uint8: color.U8_SCALE, torch.uint16: color.U16_SCALE,
+          torch.float32: 1.0}
 
 
 def _per_slot(border_value, g: int, device) -> torch.Tensor:
@@ -148,6 +161,116 @@ def warp_bilinear(
     return out
 
 
+def _check_frames(frames, minv, valid) -> None:
+    if frames.ndim != 4 or not 1 <= frames.shape[-1] <= 4:
+        raise ValueError(
+            f"frames must be [N,H,W,C] with C in 1..4, got "
+            f"{tuple(frames.shape)}")
+    if frames.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported frame dtype {frames.dtype}")
+    n = frames.shape[0]
+    if tuple(minv.shape) != (n, 3, 3):
+        raise ValueError(f"minv must be [{n},3,3], got {tuple(minv.shape)}")
+    if valid is not None and tuple(valid.shape) != (n,):
+        raise ValueError(f"valid must be [{n}], got {tuple(valid.shape)}")
+
+
+def warp_frames_reference(
+    frames: torch.Tensor,
+    minv: torch.Tensor,
+    border_value=0.0,
+    border_mode="constant",
+    quant_affine: bool = False,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_frames`: per frame,
+    ``color.to_unit_f32`` and :func:`warp_bilinear_reference` on its
+    planes; with ``valid``, ``warped * valid[n]`` added to a running sum
+    frame by frame, a frame with ``valid[n] == 0`` skipped."""
+    _check_frames(frames, minv, valid)
+    n, h, w, c = frames.shape
+    bv = _per_slot(border_value, c, frames.device)
+    if valid is None:
+        out = torch.empty((n, h, w, c), dtype=torch.float32,
+                          device=frames.device)
+    else:
+        vf = valid.to(device=frames.device, dtype=torch.float32)
+        keep = vf.tolist()
+        out = torch.zeros((h, w, c), dtype=torch.float32, device=frames.device)
+    for i in range(n):
+        if valid is not None and keep[i] == 0.0:
+            continue
+        planes = color.to_unit_f32(frames[i]).permute(2, 0, 1)
+        wp = warp_bilinear_reference(
+            planes, minv[i].expand(c, 3, 3), bv, quant_affine=quant_affine,
+            border_mode=border_mode).permute(1, 2, 0)
+        if valid is None:
+            out[i] = wp
+        else:
+            out = out + wp * vf[i]
+    return out
+
+
+def warp_frames(
+    frames: torch.Tensor,
+    minv: torch.Tensor,
+    border_value=0.0,
+    border_mode="constant",
+    quant_affine: bool = False,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Warp each frame of ``frames`` [N,H,W,C] (u8, u16 or float32, C in
+    1..4) by its inverse map ``minv`` [N,3,3] onto its own grid, integer
+    taps widened to [0,1] as ``color.to_unit_f32`` widens them ->
+    ``[N,H,W,C]`` float32; with ``valid`` [N] (bool or float) ->
+    ``sum_n valid[n] * warp(frames[n])``, ``[H,W,C]`` float32, summed in
+    frame order (a frame with ``valid[n] == 0`` adds nothing).
+    ``border_value`` is a scalar or one value per channel
+    (BORDER_CONSTANT), ``border_mode`` an OpenCV integer or mode name
+    (BORDER_TRANSPARENT reads the zero base).  CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/warp.cu`` or raise."""
+    global frames_launch_count, accum_launch_count
+    _check_frames(frames, minv, valid)
+    if frames.device.type == "cpu":
+        return warp_frames_reference(frames, minv, border_value, border_mode,
+                                     quant_affine, valid)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    dev = frames.device
+    border = warp._resolve_border(border_mode)
+    if border == "transparent":
+        border, border_value = "constant", 0.0
+    minv = minv.contiguous()
+    _check_cuda(dev, minv=minv)
+    n, h, w, c = frames.shape
+    # on the host: the kernel takes the values by value
+    bv = (ctypes.c_float * c)(*_per_slot(border_value, c, "cpu").tolist())
+    if valid is None:
+        out = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
+        if n == 0:
+            return out
+        vptr = None
+    else:
+        out = torch.empty((h, w, c), dtype=torch.float32, device=dev)
+        vf = valid.to(device=dev, dtype=torch.float32).contiguous()
+        vptr = vf.data_ptr()
+    lib = _lib()
+    err = lib.warp_frames(
+        frames.data_ptr(), minv.data_ptr(), bv, vptr,
+        out.data_ptr(), n, h, w, c, _DTYPE_CODE[frames.dtype],
+        _MODE_CODE[border], int(not quant_affine), _SCALE[frames.dtype],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, err, "warp_frames")
+    if valid is None:
+        frames_launch_count += 1
+    else:
+        accum_launch_count += 1
+    return out
+
+
 def warp3_bilinear_reference(
     srcs: torch.Tensor, minv: torch.Tensor, quant_affine: bool = False
 ) -> torch.Tensor:
@@ -212,4 +335,7 @@ def _lib() -> ctypes.CDLL:
     lib.warp_bilinear.restype = ci
     lib.warp3_bilinear.argtypes = [vp] * 3 + [ci] * 4 + [vp]
     lib.warp3_bilinear.restype = ci
+    lib.warp_frames.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
+                                 vp, vp] + [ci] * 7 + [ctypes.c_float, vp])
+    lib.warp_frames.restype = ci
     return lib

@@ -110,7 +110,8 @@ def ptxas_report(name: str, csrc: Path = CSRC) -> str:
 def kernel_resources(name: str, csrc: Path = CSRC) -> dict:
     """Per kernel of the last build of ``name``, from its ``-Xptxas -v``
     report: mangled name -> ``{"registers", "spill_stores",
-    "spill_loads"}`` (spills in bytes)."""
+    "spill_loads", "smem"}`` (spills and static shared memory per block
+    in bytes)."""
     out, cur = {}, None
     for line in ptxas_report(name, csrc).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -127,6 +128,8 @@ def kernel_resources(name: str, csrc: Path = CSRC) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
     return {k: v for k, v in out.items() if "registers" in v}
 
 

@@ -17,13 +17,18 @@ or ``output_scale=2`` (``sr``; ECC then stacks the first 8 frames, as
 or ``phase_init_rotation=True``.  Prints the card's name and power limit, the
 warm wall time, the device busy time and idle share over the traced
 span, and the device time by kernel name, largest first; writes the
-chrome trace to ``chiprun_out/``.  Needs a card; exits non-zero without
-one.
+chrome trace to ``chiprun_out/``.  Then it traces one more run with
+``return_stats=True``, whose stages each end in a synchronise, and
+prints the device time and operations of each stage (``grey``,
+``detect``, ``stack``, ...) with its largest kernels: a device operation
+belongs to the stage whose host span contains its start.  Needs a card;
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -36,10 +41,12 @@ OUT = Path(__file__).resolve().parents[2] / "chiprun_out"
 
 
 def _device_events(prof):
-    """(name, start_us, duration_us) of every device-side event."""
+    """(name, start_us, duration_us) of every device-side operation (the
+    device-side copies of the ``stage:`` ranges are left out)."""
     out = []
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith("stage:")):
             out.append((ev.name, ev.time_range.start, ev.time_range.elapsed_us()))
     return out
 
@@ -58,6 +65,37 @@ def _busy_us(events) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
+
+
+def _stage_ranges(timer_cls) -> None:
+    """Open a profiler range ``stage:<name>`` around every phase of the
+    entry points' ``PhaseTimer`` (this tool's process only)."""
+    phase = timer_cls.phase
+
+    @contextlib.contextmanager
+    def ranged(self, name):
+        with torch.profiler.record_function(f"stage:{name}"):
+            with phase(self, name):
+                yield
+
+    timer_cls.phase = ranged
+
+
+def _by_stage(prof, events):
+    """stage -> (device us, operations, {kernel: us}) for the device
+    events that start inside a ``stage:`` host range."""
+    spans = [(ev.name[len("stage:"):], ev.time_range.start,
+              ev.time_range.end) for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CPU
+             and ev.name.startswith("stage:")]
+    out = {}
+    for name, s, d in events:
+        stage = next((st for st, a, b in spans if a <= s <= b), "(none)")
+        us, ops, names = out.setdefault(stage, [0.0, 0, defaultdict(float)])
+        out[stage][0] = us + d
+        out[stage][1] = ops + 1
+        names[name] += d
+    return out
 
 
 def main(argv=None) -> int:
@@ -108,10 +146,10 @@ def main(argv=None) -> int:
             motion_type=MotionType.Homography, max_count=50, epsilon=1e-4,
             gauss_filt_size=5, coarse_levels=1, **kw)
 
-        def run():
+        def run(stats=False):
             return ecc_match_arrays(
                 frames, params, scale_down_width=args.scale_down_width,
-                mask=mask, device_output=True)
+                mask=mask, device_output=True, return_stats=stats)
     else:
         if args.variant in ("lazy", "ic", "rotation"):
             ap.error(f"--variant {args.variant} is an ECC option")
@@ -121,10 +159,10 @@ def main(argv=None) -> int:
         frames, _ = make_textured_burst(n, h, w, seed=0, device=dev)
         params = KeyPointMatchParameters(**kw)
 
-        def run():
+        def run(stats=False):
             return keypoint_match_arrays(
                 frames, params, scale_down_width=args.scale_down_width,
-                mask=mask, device_output=True)
+                mask=mask, device_output=True, return_stats=stats)
 
     run()
     torch.cuda.synchronize()
@@ -165,6 +203,21 @@ def main(argv=None) -> int:
     for name, (d, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"{d / 1e3:10.3f} {100.0 * d / total:5.1f}% {c:6d}  {name[:110]}")
     print(f"trace: {trace}")
+
+    from libstacker_tpu_torch.utils import tracing
+
+    _stage_ranges(tracing.PhaseTimer)
+    run(stats=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run(stats=True)
+        torch.cuda.synchronize()
+    staged = _by_stage(prof, _device_events(prof))
+    print("by stage (a run with return_stats=True, each stage synchronised):")
+    for stage, (us, ops, names) in staged.items():
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  {stage}: device {us / 1e3:.3f} ms, {ops} operations; "
+              + "; ".join(f"{d / 1e3:.3f} {k[:60]}" for k, d in top))
     return 0
 
 

@@ -13,14 +13,17 @@ coordinate identically: the kernels are built with --fmad=false), B1
 also at an odd width, with taps off the image, with every lane inactive
 and with a ragged mask; warp-accumulate max abs < 1e-3 and u8 source ==
 f32 source bitwise; slice: equal ok flags, warps within 0.03, stacked
-interior within 0.02; FAST (B8) and patch extraction (B3) bitwise equal
-to their plain versions, B8 also with every pixel a candidate, with
+interior within 0.02; FAST (B8), patch extraction (B3), Harris at the
+candidates (B3h) and the angle and descriptor at the kept keypoints
+(B3d) bitwise equal to their plain versions, B8 also with every pixel a
+candidate, with
 none, with corners on the tile and warp edges and at the pyramid's
 widths; keypoint slice: equal ``dropped``, homographies mapping the
 image corners within 0.5 px, stacked interior within 0.02.  B1's masked
 form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
-the compiler reorders); B5 in every border mode and B9 bitwise; the
+the compiler reorders); B5 in every border mode (its planar form, and its
+frames and accumulate forms on u8, u16 and f32 frames) and B9 bitwise; the
 sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
 on the card against the CPU path at the slice bars above.  B7 at B1's
 bar; B6 within 1e-5 of the largest value (the taps are the same, the
@@ -424,6 +427,90 @@ def test_warp_kernel_matches_plain(dev, mode, quant_affine):
                                                  quant_affine, mode)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("mode", ["constant", "transparent", "replicate",
+                                  "reflect", "reflect101", "wrap"])
+@pytest.mark.parametrize("quant_affine", [False, True])
+def test_warp_frames_kernel_matches_plain(dev, dtype, mode, quant_affine):
+    """B5 on interleaved frames, both forms, bitwise against the plain
+    version: taps past every edge, a dropped frame with a non-finite map,
+    RGB and one-channel frames."""
+    frames, _ = _burst_of(dev, dtype, 3, 97, 150)
+    h, w = frames.shape[1:3]
+    persp = (0.0, 0.0) if quant_affine else (2e-4, -1e-4)
+    minv = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.1, 9.0 * a, -7.5, persp=persp)
+        for a in (8.0, -3.0, 0.5)
+    ])).to(dev)
+    valid = torch.tensor([True, False, True], device=dev)
+    wild = minv.clone()
+    wild[1] = float("nan")
+    bv = [0.1, 0.2, 0.3]
+    for src in (frames, frames[..., 1:2].contiguous()):
+        b = bv[: src.shape[-1]]
+        got = warp_cuda.warp_frames(src, minv, b, mode, quant_affine)
+        want = warp_cuda.warp_frames_reference(src, minv, b, mode,
+                                               quant_affine)
+        acc = warp_cuda.warp_frames(src, wild, b, mode, quant_affine, valid)
+        acc_want = warp_cuda.warp_frames_reference(src, wild, b, mode,
+                                                   quant_affine, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(acc, acc_want)
+
+
+def _orb_level(dev, nf, h, w, k, seed):
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(
+        rng.integers(0, 256, (nf, h, w)).astype(np.uint8)).to(dev)
+    ys = rng.integers(0, h, (nf, k)).astype(np.int32)
+    xs = rng.integers(0, w, (nf, k)).astype(np.int32)
+    ys[:, :6] = [0, 3, h - 1, h + 5, -7, 21]
+    xs[:, :6] = [w - 1, -4, 2, w + 9, 0, w - 22]
+    valid = np.ones((nf, k), bool)
+    valid[:, 6:9] = False
+    return (imgs, torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("shape", [(2, 120, 200), (3, 61, 1423), (1, 43, 43)])
+def test_orb_harris_and_describe_kernels_match_plain(dev, shape):
+    """B3h and B3d bitwise against their plain versions: centres at and
+    beyond every clamp edge, invalid candidates, odd pyramid widths and a
+    level of exactly one window."""
+    nf, h, w = shape
+    imgs, ys, xs, valid = _orb_level(dev, nf, h, w, 300, seed=h + w)
+    got = orb_cuda.candidate_harris(imgs, ys, xs, valid)
+    want = orb_cuda.candidate_harris_reference(imgs, ys, xs, valid)
+    ang, desc = orb_cuda.describe(imgs, ys, xs)
+    ang_want, desc_want = orb_cuda.describe_reference(imgs, ys, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ang, ang_want)
+    assert torch.equal(desc, desc_want)
+
+
+def test_orb_detect_builds_no_patch_tensor(dev):
+    """On a CUDA level the detector runs B3h and B3d, not B3."""
+    from libstacker_tpu_torch.ops import orb
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+    from libstacker_tpu_torch.models import keypoint
+
+    frames, _ = make_textured_burst(2, 270, 480, seed=2)
+    grey = keypoint._grey(frames.to(dev))
+    before = (orb_cuda.launch_count, orb_cuda.harris_launch_count,
+              orb_cuda.describe_launch_count)
+    gpu = orb.orb_detect_and_compute(grey)
+    cpu = orb.orb_detect_and_compute(grey.cpu())
+    torch.cuda.synchronize()
+    after = (orb_cuda.launch_count, orb_cuda.harris_launch_count,
+             orb_cuda.describe_launch_count)
+    assert after[0] == before[0]
+    assert after[1] > before[1] and after[2] > before[2]
+    for g, c in zip(gpu, cpu):
+        assert g.shape == c.shape
 
 
 def test_warp3_kernel_matches_plain(dev):

@@ -96,7 +96,7 @@ def test_extract_patches_match_pallas_interpret(radius):
 def test_orb_helpers_match(greys):
     assert orb._features_per_level(500, 8, 1.2) == \
         jorb._features_per_level(500, 8, 1.2)
-    for a, b in zip(orb._ic_angle_weights(), jorb._ic_angle_weights()):
+    for a, b in zip(orb_cuda._ic_angle_weights(), jorb._ic_angle_weights()):
         np.testing.assert_array_equal(a, b)
     rng = np.random.default_rng(4)
     ys = rng.integers(40, 200, (1, 30)).astype(np.int32)
@@ -104,15 +104,15 @@ def test_orb_helpers_match(greys):
     patches = n(orb_cuda.extract_patches(t(greys[:1]), t(ys), t(xs),
                                          orb_cuda.BLUR_RADIUS))[0]
     br = orb_cuda.BLUR_RADIUS
-    ang = n(orb._ic_angles_from_patches(t(patches), center=br))
+    ang = n(orb_cuda._ic_angles_from_patches(t(patches), center=br))
     jang = np.asarray(jorb._ic_angles_from_patches(jnp.asarray(patches),
                                                    center=br))
     np.testing.assert_allclose(ang, jang, atol=1e-3)
-    blur = n(orb._blur_patches_valid(t(patches)))
+    blur = n(orb_cuda._blur_patches_valid(t(patches)))
     jblur = np.asarray(jorb._blur_patches_valid(jnp.asarray(patches)))
     np.testing.assert_allclose(blur, jblur, rtol=0, atol=1e-4)
     # rBRIEF from identical patches and angles
-    desc = n(orb._rbrief_from_patches(t(jblur), t(jang)))
+    desc = n(orb_cuda._rbrief_from_patches(t(jblur), t(jang)))
     jdesc = np.asarray(jorb._rbrief_from_patches(jnp.asarray(jblur),
                                                  jnp.asarray(jang)))
     ham = np.unpackbits(desc ^ jdesc, axis=-1).sum(-1)
