@@ -53,7 +53,8 @@ Phases (each prints one line; any failure exits non-zero):
     timed both ways: the float32 widening, planes, planar B5 and
     ``torch.sum`` (PR 6's route), and the accumulate form;
 12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
-    of 3 shared 4K planes;
+    of 3 shared 4K planes (with ``--baseline``, timed against the earlier
+    design in turns, both also by ``torch.profiler``);
 13. B1's masked (4-plane) form against its plain version on 99 homography
     lanes of 2160x3840 with a quarter of the mask zero;
 14. ECC sigma-clip at full width: phase 5's burst with a bright 3-px
@@ -69,14 +70,21 @@ Phases (each prints one line; any failure exits non-zero):
     homography lanes of 2160x3840 (one inactive), with and without the
     Gram, plus one affine lane; and B1 without the Gram (the lazy
     solver's sweep) at the same shape;
-18. kernel B6 (``sr_deposit.cu``) against its plain version on frames 0-7
-    of phase 5's burst (near-identity homographies, one lane dropped) at
-    factors 2 and 3, sigma 0.3 and 0.1 (the hole-fallback form);
+18. kernel B6 (``sr_deposit.cu``) in both forms against their plain
+    versions on frames 0-7 of phase 5's burst (near-identity
+    homographies, one lane dropped) at factors 2 and 3, sigma 0.3 and 0.1
+    (the hole-fallback form): the deposit (``sr_deposit``) and the image
+    (``sr_image``); then at x2 and both sigmas the image form timed
+    against the deposit followed by the PyTorch normalisation (with
+    ``--baseline``, the earlier design's deposit), both
+    also by ``torch.profiler``;
 19. ECC super-resolution at full width: the first 8 frames of phase 5's
     burst, headline parameters, ``output_scale=2`` -> 4320x7680, held
-    against the mean stack of the same frames (2x2 box mean);
+    against the mean stack of the same frames (2x2 box mean), through one
+    launch of B6's image form and none of its deposit form;
 20. keypoint super-resolution at full width: phase 9's burst with
-    ``output_scale=2``, held against phase 9's mean stack;
+    ``output_scale=2``, held against phase 9's mean stack, through B6 as
+    phase 19;
 21. the opt-in ECC solvers at full width: phase 5's burst with
     ``solver="lazy"``, ``solver="ic"`` and ``phase_init_rotation=True``,
     at the headline bars and against phase 5's forward stack, with the
@@ -103,12 +111,12 @@ over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 10, 13 and 17 also print the registers and spills that
 ptxas gave each instance of B1, B2, B8, B4 and B7, the kernel's share of
-its bound, and, with ``--baseline DIR``, the time of an earlier design of
-B1, B2, B4 and B7 on the same inputs: ``DIR`` holds that design's
-``ecc_moments.cu``, ``ecc_ic_moments.cu``, ``ecc_moments_common.cuh`` and
-``warp_accum.cu`` (with the C interfaces they had: B1 on the ``[H,W,4]``
-texels, B7 with its pixels-a-block count), built beside the others, and
-each pair is timed in turns (new, earlier, earlier, new).
+its bound; phases 12 and 18 print B9's and B6's too, and, with
+``--baseline DIR``, the time of an earlier design of B6 and B9 on the
+same inputs: ``DIR`` holds that design's ``sr_deposit.cu`` and
+``warp.cu`` (with the C interfaces they had before their launch plans,
+each computing its own launch geometry), built beside the others, and each pair is timed in
+turns (new, earlier, earlier, new).
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -130,8 +138,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe")
-# the sources an earlier design is timed from (--baseline)
-BASELINE_KERNELS = ("ecc_moments", "ecc_ic_moments", "warp_accum")
+# the sources an earlier design is timed from (--baseline): B6 and B9
+BASELINE_KERNELS = ("sr_deposit", "warp")
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -148,7 +156,10 @@ B3_INSTANCE = "extract_kernelIhE"
 B3H_INSTANCE = "harris_kernel"
 B3D_INSTANCE = "describe_kernel"
 B9_INSTANCE = "warp3_kernel"
-B6_INSTANCE = "sr_deposit_kernelIhLb1ELb0E"  # u8, homography, no fallback
+# u8, 32-bit offsets, homography, no fallback: deposit and image forms
+B6_INSTANCE = "sr_kernelIhiLb1ELb0ELb0E"
+B6I_INSTANCE = "sr_kernelIhiLb1ELb0ELb1E"
+B6_EARLIER_INSTANCE = "sr_deposit_kernelIhLb1ELb0E"  # the first design
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -230,9 +241,11 @@ B7_OPS = 15 + 12 + 10 + 4 + 16 + 2 * 66
 B7_LITE_OPS = 15 + 12 + 10 + 4 + 16 + 2 * 30
 # B6 per fine pixel-frame (csrc/sr_deposit.cu): the coordinate, its
 # guarded reciprocal, rounding, the distance and the inside test; per
-# deposited sample the exp, its divide, 3 widened channels and 4 sums
+# deposited sample the exp, its divide, 3 widened channels and 4 sums;
+# the image form's finalise per fine pixel: the max and 3 divides
 B6_OPS_ANY = 28
 B6_OPS_DEPOSIT = 12
+B6_OPS_FINALISE = 4
 SR_FRAMES = 8
 # ECC / keypoint super-resolution bar (tests/test_stack.py:434-436): the
 # 2x2 box mean of the SR image against the mean stack, interior mean abs
@@ -328,6 +341,7 @@ def counters():
         "ecc_moments_masked": (ecc_cuda, "masked_launch_count"),
         "ecc_ic_moments": (ecc_cuda, "ic_launch_count"),
         "sr_deposit": (sr_cuda, "launch_count"),
+        "sr_image": (sr_cuda, "image_launch_count"),
         "warp_accum": (warp_accum_cuda, "launch_count"),
         "warp_moments": (warp_accum_cuda, "moments_launch_count"),
         "fast": (fast_cuda, "launch_count"),
@@ -387,18 +401,28 @@ def device_profile(fn, piece: str = "", reps: int = 10):
     """``(operations, device ms, ms of the kernels named with piece)``
     per ``fn()`` call, from ``torch.profiler`` over ``reps`` calls: the
     device's own time, which a CUDA-event loop around a kernel shorter
-    than its wrapper's host time cannot see."""
+    than its wrapper's host time cannot see.  The trace opens with one
+    call that is not counted (the tracer may lose its first operation)
+    and counts the device operations that start inside a host range
+    around the ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(3):  # a trace that came back empty is taken again
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
+            fn()
             torch.cuda.synchronize()
+            with torch.profiler.record_function("device_profile"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        start = min(ev.time_range.start for ev in prof.events()
+                    if ev.name == "device_profile")
         evs = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+               if ev.device_type == cuda and ev.name != "device_profile"
+               and ev.time_range.start >= start]
         named = sum(ev.time_range.elapsed_us() for ev in evs
                     if piece and piece in ev.name)
         if evs and (named or not piece):
@@ -409,7 +433,7 @@ def device_profile(fn, piece: str = "", reps: int = 10):
             f"three times; CUDA events instead: {ms:.4f} ms a call")
         return None, ms, ms
     total = sum(ev.time_range.elapsed_us() for ev in evs)
-    return len(evs) // reps, total / reps / 1e3, named / reps / 1e3
+    return round(len(evs) / reps), total / reps / 1e3, named / reps / 1e3
 
 
 # the earlier design's libraries and their directory (--baseline)
@@ -419,26 +443,21 @@ BASELINE_DIR: list = []
 
 def load_baseline(path: str) -> None:
     """Build the earlier design's sources in ``path`` and bind their C
-    entry points (the interfaces they had: B7 with a fixed number of
-    pixels a block)."""
+    entry points (the interfaces B6 and B9 had before their launch
+    plans)."""
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
     cuda_build.build(*BASELINE_KERNELS, csrc=d)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, fns in (
-        ("ecc_moments", (("ecc_moments", [vp] * 6 + [ci] * 7 + [vp]),
-                         ("ecc_moments_num_blocks", [ci, ci]))),
-        ("ecc_ic_moments", (("ecc_ic_moments", [vp] * 6 + [ci] * 6 + [vp]),
-                            ("ecc_ic_moments_pixels_per_block", []))),
-        ("warp_accum", (("warp_accum_rgb", [vp] * 5 + [ci] * 5 + [cf, vp]),
-                        ("warp_moments_rgb",
-                         [vp] * 8 + [ci] * 5 + [cf, vp]))),
+    for name, fn, argtypes in (
+        ("sr_deposit", "sr_deposit",
+         [vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf, vp]),
+        ("warp", "warp3_bilinear", [vp] * 3 + [ci] * 4 + [vp]),
     ):
         lib = cuda_build.load(name, d)
-        for fn, argtypes in fns:
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ci
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ci
         BASELINE[name] = lib
     BASELINE_DIR.append(d)
 
@@ -477,17 +496,19 @@ def paired_ms(fn, earlier, reps: int):
 
 
 def design_report(label: str, name: str, piece: str, ms: float,
-                  bound_ms: float, earlier_ms) -> dict:
+                  bound_ms: float, earlier_ms, earlier_piece=None) -> dict:
     """Print one line on an instance's registers, spills, bound share and
-    earlier-design time; return them for the kernel record."""
+    earlier-design time (``earlier_piece``: the earlier instance's name,
+    where it differs); return them for the kernel record
+    (``earlier_design_ms`` None where no earlier design was timed)."""
     res = resources(name, piece)
     line = (f"    {label}: {fmt_resources(res)}; {ms:.3f} ms, "
             f"{bound_ms / ms:.3f} of its bound")
     rec = dict(registers=res.get("registers"), smem_bytes=res.get("smem"),
                spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
-               if res else None)
+               if res else None, earlier_design_ms=None)
     if earlier_ms is not None:
-        old = resources(name, piece, BASELINE_DIR[0])
+        old = resources(name, earlier_piece or piece, BASELINE_DIR[0])
         line += (f"; earlier design {earlier_ms:.3f} ms ({fmt_resources(old)})"
                  f" -> new/earlier {ms / earlier_ms:.3f}")
         rec.update(earlier_design_ms=earlier_ms,
@@ -500,83 +521,49 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def b1_earlier(tex, tmpl, m3, motion, with_hessian=True, masked=False):
-    """The earlier B1 build on the ``[H,W,4]`` texels."""
-    from libstacker_tpu_torch.ops import ecc_cuda
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["ecc_moments"]
-    b, h, w = tmpl.shape
-    p, n_out = ecc_cuda.moments_layout(motion, with_hessian)
-    nblk = lib.ecc_moments_num_blocks(h, w)
-    act = torch.ones((b,), dtype=torch.uint8, device=tmpl.device)
-    partials = torch.empty((b, n_out, nblk), dtype=torch.float32,
-                           device=tmpl.device)
-    out = torch.empty((b, n_out), dtype=torch.float32, device=tmpl.device)
-    err = lib.ecc_moments(
-        tex.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
-        0, int(masked), _stream())
-    cuda_build.check(lib, err, "earlier ecc_moments")
-    return out
-
-
-def b7_earlier(src, tmpl, m3, motion, with_hessian=False):
-    """The earlier build of B7 (its source with the earlier header)."""
-    from libstacker_tpu_torch.ops import ecc_cuda
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["ecc_ic_moments"]
-    b, h, w = tmpl.shape
-    p, n_out = ecc_cuda.moments_layout(motion, with_hessian)
-    nblk = -(-(h * w) // lib.ecc_ic_moments_pixels_per_block())
-    act = torch.ones((b,), dtype=torch.uint8, device=tmpl.device)
-    partials = torch.empty((b, n_out, nblk), dtype=torch.float32,
-                           device=tmpl.device)
-    out = torch.empty((b, n_out), dtype=torch.float32, device=tmpl.device)
-    err = lib.ecc_ic_moments(
-        src.data_ptr(), tmpl.data_ptr(), m3.data_ptr(), act.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
-        0, _stream())
-    cuda_build.check(lib, err, "earlier ecc_ic_moments")
-    return out
-
-
-def b2_earlier(frames, minv, valid):
-    """The earlier B2 design (u8 frames, perspective maps, border 0)."""
+def b6_earlier(frames, minv, valid, factor, sigma, with_fallback):
+    """The earlier B6 design's deposit (u8 frames, perspective maps)."""
     from libstacker_tpu_torch.ops import color
     from libstacker_tpu_torch.utils import cuda_build
 
-    lib = BASELINE["warp_accum"]
+    lib = BASELINE["sr_deposit"]
     n, h, w, _ = frames.shape
-    vf = valid.to(torch.float32)
-    bv = torch.zeros(3, dtype=torch.float32, device=frames.device)
-    out = torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
-    err = lib.warp_accum_rgb(frames.data_ptr(), minv.data_ptr(),
-                             vf.data_ptr(), bv.data_ptr(), out.data_ptr(),
-                             n, h, w, 0, 1, color.U8_SCALE, _stream())
-    cuda_build.check(lib, err, "earlier warp_accum_rgb")
+    hf, wf = h * factor, w * factor
+    acc = [torch.empty((hf, wf, 3), dtype=torch.float32, device=frames.device),
+           torch.empty((hf, wf), dtype=torch.float32, device=frames.device)]
+    if with_fallback:
+        acc += [torch.empty_like(acc[0]), torch.empty_like(acc[1])]
+    ptrs = [a.data_ptr() for a in acc] + [None] * (4 - len(acc))
+    vb = valid.to(torch.uint8)
+    err = lib.sr_deposit(frames.data_ptr(), minv.data_ptr(), vb.data_ptr(),
+                         *ptrs, n, h, w, factor, 2.0 * sigma ** 2, 0, 1,
+                         int(with_fallback), color.U8_SCALE, _stream())
+    cuda_build.check(lib, err, "earlier sr_deposit")
+    return tuple(acc)
+
+
+def b9_earlier(srcs, minv):
+    """The earlier B9 design (perspective maps)."""
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["warp"]
+    b = minv.shape[0]
+    _, h, w = srcs.shape
+    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=srcs.device)
+    err = lib.warp3_bilinear(srcs.data_ptr(), minv.data_ptr(), out.data_ptr(),
+                             b, h, w, 1, _stream())
+    cuda_build.check(lib, err, "earlier warp3_bilinear")
     return out
 
 
-def b4_earlier(frames, minv, valid, mu=None, tol=None):
-    """The earlier B4 design (u8 frames, perspective maps)."""
-    from libstacker_tpu_torch.ops import color
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["warp_accum"]
-    n, h, w, _ = frames.shape
-    vf = valid.to(torch.float32)
-    s0, s1, s2 = (torch.empty((h, w, 3), dtype=torch.float32,
-                              device=frames.device) for _ in range(3))
-    err = lib.warp_moments_rgb(
-        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(),
-        None if mu is None else mu.data_ptr(),
-        None if tol is None else tol.data_ptr(), s0.data_ptr(),
-        s1.data_ptr(), s2.data_ptr(), n, h, w, 0, 1, color.U8_SCALE,
-        _stream())
-    cuda_build.check(lib, err, "earlier warp_moments_rgb")
-    return s0, s1, s2
+def profile_line(label: str, fn, piece: str) -> dict:
+    """Print ``fn``'s device operations, device ms and the ms of the
+    kernels named with ``piece`` per call (``torch.profiler``); return
+    them for the kernel record."""
+    ops, dev_ms, named_ms = device_profile(fn, piece)
+    log(f"    {label}: {ops} device operations, {dev_ms:.4f} ms of device "
+        f"time a call, {named_ms:.4f} ms in {piece}")
+    return dict(device_ops=ops, device_ms=dev_ms, kernel_device_ms=named_ms)
 
 
 def phase_device():
@@ -646,10 +633,8 @@ def phase_b1(dev):
         worst_rel = max(worst_rel, group_rel(g, wnt, p))
         max_abs = max(max_abs, float(np.abs(g - wnt).max()))
     hom = MotionType.Homography
-    ms, earlier_ms = paired_ms(
-        lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, hom,
-                                               texels=tex),
-        earlier("ecc_moments", lambda: b1_earlier(tex, tmpl, m3, hom)), 20)
+    ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, hom,
+                                                        texels=tex), 20)
     # the same sweep with 10 of the lanes active: what the blocks of the
     # 89 inactive lanes cost
     act10 = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -672,7 +657,7 @@ def phase_b1(dev):
     if not ok:
         fail("B1 disagrees with its plain version")
     rec = design_report("B1 P=8 with the Gram", "ecc_moments", B1_INSTANCE,
-                        ms, bound_ms, earlier_ms)
+                        ms, bound_ms, None)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ms_10_lanes_active=ms10, **rec)
@@ -717,9 +702,8 @@ def phase_b2(dev):
     torch.cuda.synchronize()
     rot_abs = float((rot_got - rot_want).abs().max())
     del rot_got, rot_want
-    ms, earlier_ms = paired_ms(
-        lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid),
-        earlier("warp_accum", lambda: b2_earlier(frames, minv, valid)), 20)
+    ms = time_ms(lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid),
+                 20)
     plain_ms = time_ms(
         lambda: warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid), 2)
     hw = FULL_H * FULL_W
@@ -735,7 +719,7 @@ def phase_b2(dev):
     if not ok:
         fail("B2 disagrees with its plain version")
     rec = design_report("B2 u8", "warp_accum", B2_INSTANCE, ms, bound_ms,
-                        earlier_ms)
+                        None)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
@@ -860,9 +844,7 @@ def phase_b8(dev, grey):
         equal &= bool(torch.equal(got, want))
         kept.append(int((want > 0).sum()))
         del got, want
-    ms, earlier_ms = paired_ms(
-        lambda: fast_cuda.fast_scores(grey, KP_T, KP_B),
-        None, 10)
+    ms = time_ms(lambda: fast_cuda.fast_scores(grey, KP_T, KP_B), 10)
     plain_ms = time_ms(
         lambda: fast_cuda.fast_scores_reference(grey, KP_T, KP_B), 2)
     # this run's data: every pixel runs the compass test, the pixels that
@@ -886,8 +868,7 @@ def phase_b8(dev, grey):
         f"-> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B8 disagrees with its plain version")
-    rec = design_report("B8 u8", "fast", B8_INSTANCE, ms, bound_ms,
-                        earlier_ms)
+    rec = design_report("B8 u8", "fast", B8_INSTANCE, ms, bound_ms, None)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
                 compass_pass_share=cand / (n * h * w), **rec)
@@ -1256,14 +1237,10 @@ def phase_b4(dev, frames, truth):
     rel = max(rel_err(a, b) for a, b in pairs)
     max_abs = max(float((a - b).abs().max()) for a, b in pairs)
     clipped = float((got[0] - got_c[0]).sum()) / max(float(got[0].sum()), 1.0)
-    ms_moments, earlier_moments_ms = paired_ms(
-        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid),
-        earlier("warp_accum", lambda: b4_earlier(frames, minv, valid)), 10)
-    ms, earlier_ms = paired_ms(
-        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu,
-                                                 tol),
-        earlier("warp_accum",
-                lambda: b4_earlier(frames, minv, valid, mu, tol)), 10)
+    ms_moments = time_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid), 10)
+    ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb(
+        frames, minv, valid, mu, tol), 10)
     plain_ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb_reference(
         frames, minv, valid, mu, tol), 1)
     hw = FULL_H * FULL_W
@@ -1287,12 +1264,7 @@ def phase_b4(dev, frames, truth):
     if not ok:
         fail("B4 disagrees with its plain version")
     rec = design_report("B4 u8 clip pass", "warp_accum", B4_INSTANCE, ms,
-                        bound_ms, earlier_ms)
-    if earlier_moments_ms is not None:
-        log(f"    B4 u8 moments pass: {ms_moments:.3f} ms; earlier design "
-            f"{earlier_moments_ms:.3f} ms -> new/earlier "
-            f"{ms_moments / earlier_moments_ms:.3f}")
-        rec.update(moments_pass_earlier_design_ms=earlier_moments_ms)
+                        bound_ms, None)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 moments_pass_ms=ms_moments,
@@ -1516,7 +1488,9 @@ def phase_b9(dev, frames):
     equal = bool(torch.equal(got, want))
     max_abs = float((got - want).abs().max())
     del got, want
-    ms = time_ms(lambda: warp_cuda.warp3_bilinear(srcs, minv), 10)
+    new = lambda: warp_cuda.warp3_bilinear(srcs, minv)  # noqa: E731
+    old = earlier("warp", lambda: b9_earlier(srcs, minv))
+    ms, earlier_ms = paired_ms(new, old, 10)
     plain_ms = time_ms(lambda: warp_cuda.warp3_bilinear_reference(srcs, minv), 1)
     grid = grid_for(minv, (h, w), (h, w))
     batch = srcs[None].expand(lanes, 3, h, w).contiguous()
@@ -1534,13 +1508,17 @@ def phase_b9(dev, frames):
         f"({bound_by}) -> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B9 disagrees with its plain version")
+    prof = profile_line("B9", new, "warp3_kernel")
+    if old is not None:
+        prof.update({f"earlier_design_{k}": v for k, v in profile_line(
+            "B9, earlier design", old, "warp3_kernel").items()})
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 library_note="grid_sample(bilinear, zeros, align_corners) "
                              "on a precomputed grid; it does not quantise "
-                             "to 1/32 px",
+                             "to 1/32 px", **prof,
                 **design_report("B9", "warp", B9_INSTANCE, ms, bound_ms,
-                                None))
+                                earlier_ms))
 
 
 def phase_b1_masked(dev):
@@ -1573,11 +1551,8 @@ def phase_b1_masked(dev):
     worst_rel = group_rel(g, wnt, motion.num_params)
     max_abs = float(np.abs(g - wnt).max())
     kept = float(wnt[active.cpu().numpy(), 0].mean()) / (h * w)
-    ms, earlier_ms = paired_ms(
-        lambda: ecc_cuda.ecc_iteration_moments(srcs, tmpl, m3, motion,
-                                               texels=tex),
-        earlier("ecc_moments",
-                lambda: b1_earlier(tex, tmpl, m3, motion, masked=True)), 20)
+    ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
+        srcs, tmpl, m3, motion, texels=tex), 20)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, motion), 2)
     bound_ms, bound_by = bound(4.0 * h * w * (4 + b) + 4.0 * b * 66,
@@ -1593,7 +1568,7 @@ def phase_b1_masked(dev):
     if not ok:
         fail("B1's masked form disagrees with its plain version")
     rec = design_report("B1m P=8 with the Gram", "ecc_moments",
-                        B1M_INSTANCE, ms, bound_ms, earlier_ms)
+                        B1M_INSTANCE, ms, bound_ms, None)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
@@ -1794,22 +1769,15 @@ def phase_b7(dev):
                 worst[key] = max(worst[key], group_rel(
                     g, wnt, motion.num_params, with_hessian=gram))
                 max_abs[key] = max(max_abs[key], float(np.abs(g - wnt).max()))
-    ms, earlier_ms = paired_ms(
-        lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom),
-        earlier("ecc_ic_moments", lambda: b7_earlier(src, tmpl, m3, hom)),
-        20)
-    ms_gram, earlier_gram_ms = paired_ms(
+    ms = time_ms(
+        lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom), 20)
+    ms_gram = time_ms(
         lambda: ecc_cuda.ecc_ic_iteration_moments(src, tmpl, m3, hom,
-                                                  with_hessian=True),
-        earlier("ecc_ic_moments",
-                lambda: b7_earlier(src, tmpl, m3, hom, True)), 10)
+                                                  with_hessian=True), 10)
     plain_ms = time_ms(lambda: ecc_cuda.ecc_ic_iteration_moments_reference(
         src, tmpl, m3, hom), 1)
-    lite_ms, earlier_lite_ms = paired_ms(
-        lambda: ecc_cuda.ecc_iteration_moments(
-            srcs, tmpl, m3, hom, with_hessian=False, texels=tex),
-        earlier("ecc_moments",
-                lambda: b1_earlier(tex, tmpl, m3, hom, False)), 20)
+    lite_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments(
+        srcs, tmpl, m3, hom, with_hessian=False, texels=tex), 20)
     lite_plain_ms = time_ms(lambda: ecc_cuda.ecc_iteration_moments_reference(
         srcs, tmpl, m3, hom, with_hessian=False), 1)
     torch.cuda.synchronize()
@@ -1834,12 +1802,11 @@ def phase_b7(dev):
     if not ok:
         fail("B7 or B1 without the Gram disagrees with its plain version")
     rec7 = design_report("B7 P=8", "ecc_ic_moments", B7_INSTANCE, ms,
-                         bound_ms, earlier_ms)
+                         bound_ms, None)
     rec7g = design_report("B7 P=8 with the Gram", "ecc_ic_moments",
-                          B7_GRAM_INSTANCE, ms_gram, gram_bound_ms,
-                          earlier_gram_ms)
+                          B7_GRAM_INSTANCE, ms_gram, gram_bound_ms, None)
     rec_lite = design_report("B1 lite P=8", "ecc_moments", B1_LITE_INSTANCE,
-                             lite_ms, lite_bound_ms, earlier_lite_ms)
+                             lite_ms, lite_bound_ms, None)
     b7 = dict(max_abs_err=max_abs["ic"], ms=ms, plain_ms=plain_ms,
               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
               ms_with_gram=ms_gram, bound_ms_with_gram=gram_bound_ms,
@@ -1852,16 +1819,6 @@ def phase_b7(dev):
                 library_note="no PyTorch call fuses a warp with 30 "
                              "reductions", **rec_lite)
     return b7, lite
-
-
-def sr_image(acc):
-    """The super-resolution image of a deposit (ops/stack.super_res_stack)."""
-    av, aw = acc[0], acc[1]
-    out = av / torch.clamp(aw, min=1e-6)[..., None]
-    if len(acc) == 4:
-        fallback = acc[2] / torch.clamp(acc[3], min=1.0)[..., None]
-        out = torch.where((aw > 1e-6)[..., None], out, fallback)
-    return out
 
 
 def sr_deposits(minv, valid, h, w, factor):
@@ -1883,8 +1840,20 @@ def sr_deposits(minv, valid, h, w, factor):
     return total
 
 
+def sr_parity(got, want):
+    """(bitwise, max abs) of a kernel's outputs against its plain
+    version's (a tuple of arrays or one image)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    bitwise = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+    max_abs = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    return bitwise, max_abs
+
+
 def phase_b6(dev, frames):
-    """B6 on frames 0-7 of phase 5's burst, as super_res_stack calls it."""
+    """B6 in both forms on frames 0-7 of phase 5's burst, as
+    super_res_stack calls it on CUDA (the image form) and as the JAX
+    package's counterpart returns it (the deposit)."""
     from libstacker_tpu_torch.ops import sr_cuda
 
     frames = frames[:SR_FRAMES]
@@ -1894,58 +1863,124 @@ def phase_b6(dev, frames):
     minv[0] = torch.eye(3, device=dev)  # frame 0 deposits as itself
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     valid[5] = False
-    lines, bitwise_all, max_abs, ok = [], True, 0.0, True
+    lines, ok = [], True
+    bitwise_all = {"deposit": True, "image": True}
+    max_abs = {"deposit": 0.0, "image": 0.0}
     for factor in (2, 3):
         for sigma in (0.3, 0.1):
             fb = sigma < 0.15
-            got = sr_cuda.sr_deposit(frames, minv, valid, factor, sigma,
-                                     True, fb)
-            want = sr_cuda.sr_deposit_reference(frames, minv, valid, factor,
-                                                sigma, True, fb)
+            args = (frames, minv, valid, factor, sigma, True, fb)
+            got = sr_cuda.sr_deposit(*args)
+            want = sr_cuda.sr_deposit_reference(*args)
+            gi = sr_cuda.sr_image(*args)
+            wi = sr_cuda.sr_image_reference(*args)
             torch.cuda.synchronize()
-            bitwise = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
-            max_abs = max(max_abs, max(float((a - c).abs().max())
-                                       for a, c in zip(got, want)))
-            d = (sr_image(got) - sr_image(want)).abs()
-            frac = float((d > 1e-4).float().mean())
-            med = float(d.median())
-            ok &= bitwise or (frac <= 1e-3 and med < 1e-6)
-            bitwise_all &= bitwise
-            lines.append(f"x{factor} sigma {sigma}: "
-                         + ("bitwise" if bitwise else
-                            f"not bitwise, image (d > 1e-4) {frac:.2e}, "
-                            f"median {med:.1e}"))
-            del got, want, d
+            # the deposit is held through the image it gives
+            d_img = sr_cuda.normalise(got)
+            parts = []
+            for form, bitwise, m_abs, a, b in (
+                ("deposit", *sr_parity(got, want), d_img, wi),
+                ("image", *sr_parity(gi, wi), gi, wi),
+            ):
+                d = (a - b).abs()
+                frac = float((d > 1e-4).float().mean())
+                med = float(d.median())
+                ok &= bitwise or (frac <= 1e-3 and med < 1e-6)
+                bitwise_all[form] &= bitwise
+                max_abs[form] = max(max_abs[form], m_abs)
+                parts.append(f"{form} " + ("bitwise" if bitwise else
+                             f"not bitwise, image (d > 1e-4) {frac:.2e}, "
+                             f"median {med:.1e}"))
+                del d
+            lines.append(f"x{factor} sigma {sigma}: {', '.join(parts)}")
+            del got, want, gi, wi, d_img
             torch.cuda.empty_cache()
-    ms = time_ms(lambda: sr_cuda.sr_deposit(frames, minv, valid, 2, 0.3), 20)
-    plain_ms = time_ms(lambda: sr_cuda.sr_deposit_reference(
-        frames, minv, valid, 2, 0.3), 2)
+    why = ("" if all(bitwise_all.values()) else
+           " (where not bitwise: the weights go through the two exp "
+           "implementations, the kernel's expf and PyTorch's)")
+    log(f"[18 B6 sr_deposit / sr_image] frames 0-{n - 1} of phase 5's burst "
+        f"({h}x{w} u8, near-identity homographies, lane 5 dropped): "
+        f"{'; '.join(lines)}{why}; max abs: deposit sums "
+        f"{max_abs['deposit']:.3e}, image {max_abs['image']:.3e} -> "
+        f"{'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("B6 disagrees with its plain version")
+
     fhw = 4.0 * h * w
     deposits = sr_deposits(minv, valid, h, w, 2)
     # the kernel skips a dropped frame whole: only the kept frames (and
     # their maps) are read and swept
     kept = int(valid.sum())
-    bound_ms, bound_by = bound(
-        kept * h * w * 3.0 + fhw * (3 + 1) * 4.0 + kept * 36.0 + n,
-        kept * fhw * B6_OPS_ANY + deposits * B6_OPS_DEPOSIT)
-    why = ("" if bitwise_all else
-           " (where not bitwise: the weights go through the two exp "
-           "implementations, the kernel's expf and PyTorch's)")
-    log(f"[18 B6 sr_deposit] frames 0-{n - 1} of phase 5's burst ({h}x{w} "
-        f"u8, near-identity homographies, lane 5 dropped): "
-        f"{'; '.join(lines)}{why}; max abs of the sums {max_abs:.3e}; "
-        f"kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (x2, sigma 0.3), "
-        f"bound {bound_ms:.3f} ms ({bound_by}; {kept} frames kept, "
-        f"{deposits / (kept * fhw):.3f} of their fine pixel-frames "
-        f"deposit) -> {'OK' if ok else 'MISMATCH'}")
-    if not ok:
-        fail("B6 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                library_note="no PyTorch call computes a nearest-tap "
-                             "Gaussian deposit over frames",
-                **design_report("B6 x2", "sr_deposit", B6_INSTANCE, ms,
-                                bound_ms, None))
+    read = kept * h * w * 3.0 + kept * 36.0 + n
+    ops = kept * fhw * B6_OPS_ANY + deposits * B6_OPS_DEPOSIT
+    bound_ms, bound_by = bound(read + fhw * (3 + 1) * 4.0, ops)
+    img_bound_ms, img_bound_by = bound(read + fhw * 3 * 4.0,
+                                       ops + fhw * B6_OPS_FINALISE)
+    log(f"    bounds at x2: deposit {bound_ms:.3f} ms ({bound_by}), image "
+        f"{img_bound_ms:.3f} ms ({img_bound_by}); {kept} frames kept, "
+        f"{deposits / (kept * fhw):.3f} of their fine pixel-frames deposit")
+    rec, rec_i = {}, {}
+    for sigma in (0.3, 0.1):
+        fb = sigma < 0.15
+        args = (frames, minv, valid, 2, sigma, True, fb)
+        dep = lambda: sr_cuda.sr_deposit(*args)  # noqa: E731
+        image = lambda: sr_cuda.sr_image(*args)  # noqa: E731
+        route = lambda: sr_cuda.normalise(sr_cuda.sr_deposit(*args))  # noqa: E731
+        old_dep = earlier("sr_deposit", lambda: b6_earlier(*args[:5], fb))
+        old_route = earlier("sr_deposit", lambda: sr_cuda.normalise(
+            b6_earlier(*args[:5], fb)))
+        ms, earlier_ms = paired_ms(dep, old_dep, 20)
+        # the image form against the route it replaces: the earlier
+        # design's deposit and the PyTorch normalisation (with --baseline),
+        # else this design's deposit and the normalisation
+        i_ms, route_ms = paired_ms(image, old_route or route, 20)
+        tag = ("earlier deposit + normalise" if old_route
+               else "deposit + normalise")
+        log(f"    x2 sigma {sigma}: deposit {ms:.3f} ms"
+            + (f" (earlier design {earlier_ms:.3f})" if earlier_ms else "")
+            + f"; image {i_ms:.3f} ms vs {tag} {route_ms:.3f} ms")
+        prof_i = profile_line(f"x2 sigma {sigma} image", image, "sr_kernel")
+        prof_r = profile_line(f"x2 sigma {sigma} {tag}", old_route or route,
+                              "sr_")
+        prof_d = profile_line(f"x2 sigma {sigma} deposit", dep, "sr_kernel")
+        if old_dep is not None:
+            prof_d.update({f"earlier_design_{k}": v for k, v in profile_line(
+                f"x2 sigma {sigma} deposit, earlier design", old_dep,
+                "sr_deposit_kernel").items()})
+        if sigma == 0.3:
+            plain_ms = time_ms(lambda: sr_cuda.sr_deposit_reference(*args), 2)
+            plain_i_ms = time_ms(lambda: sr_cuda.sr_image_reference(*args), 2)
+            rec = dict(max_abs_err=max_abs["deposit"], ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None,
+                       library_note="no PyTorch call computes a nearest-tap "
+                                    "Gaussian deposit over frames", **prof_d,
+                       **design_report("B6 deposit x2", "sr_deposit",
+                                       B6_INSTANCE, ms, bound_ms, earlier_ms,
+                                       B6_EARLIER_INSTANCE))
+            rec_i = dict(max_abs_err=max_abs["image"], ms=i_ms,
+                         plain_ms=plain_i_ms, bound_ms=img_bound_ms,
+                         bound_by=img_bound_by, library_ms=None,
+                         library_note="no PyTorch call computes a "
+                                      "nearest-tap Gaussian deposit over "
+                                      "frames",
+                         replaced_route=tag, replaced_route_ms=route_ms,
+                         **prof_i,
+                         **{f"replaced_route_{k}": v
+                            for k, v in prof_r.items()},
+                         **design_report("B6 image x2", "sr_deposit",
+                                         B6I_INSTANCE, i_ms, img_bound_ms,
+                                         route_ms if old_route else None,
+                                         B6_EARLIER_INSTANCE))
+        else:
+            rec_i.update(fallback_ms=i_ms,
+                         fallback_replaced_route_ms=route_ms,
+                         **{f"fallback_{k}": v for k, v in prof_i.items()},
+                         **{f"fallback_replaced_route_{k}": v
+                            for k, v in prof_r.items()})
+            rec.update(fallback_ms=ms, fallback_earlier_design_ms=earlier_ms,
+                       **{f"fallback_{k}": v for k, v in prof_d.items()})
+    return rec, rec_i
 
 
 def box2(img):
@@ -1971,8 +2006,8 @@ def phase_ecc_sr(dev, frames):
     splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
     ok = (stats.frames_kept == n and bool(torch.isfinite(out).all())
           and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
-          and box_err < SR_BOX_BAR and launches["sr_deposit"] == 1
-          and launches["warp_accum"] == 0
+          and box_err < SR_BOX_BAR and launches["sr_image"] == 1
+          and launches["sr_deposit"] == 0 and launches["warp_accum"] == 0
           and not missing(launches, ("ecc_moments",)))
     log(f"[19 ECC super-resolution] {n}x{FULL_H}x{FULL_W} u8, headline "
         f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
@@ -1998,8 +2033,8 @@ def phase_kp_sr(dev, frames, mean_out):
     splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
     ok = (dropped == 0 and bool(torch.isfinite(out).all())
           and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
-          and box_err < SR_BOX_BAR and launches["sr_deposit"] == 1
-          and launches["warp_accum"] == 0
+          and box_err < SR_BOX_BAR and launches["sr_image"] == 1
+          and launches["sr_deposit"] == 0 and launches["warp_accum"] == 0
           and not missing(launches, KP_DETECT) and not stray(launches))
     log(f"[20 keypoint super-resolution] {n}x{FULL_H}x{FULL_W} u8, default "
         f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
@@ -2007,7 +2042,8 @@ def phase_kp_sr(dev, frames, mean_out):
         f"{stats.frames_kept}/{n} | 2x2 box mean vs phase 9's mean stack "
         f"mean abs {box_err:.3e} (bar {SR_BOX_BAR}) | launches B8 "
         f"{launches['fast']}, B3h {launches['orb_harris']}, B3d "
-        f"{launches['orb_describe']}, B6 {launches['sr_deposit']}: "
+        f"{launches['orb_describe']}, B6 image {launches['sr_image']}, "
+        f"B6 deposit {launches['sr_deposit']}: "
         f"{launches} -> {'OK' if ok else 'FAILED'}")
     if not ok:
         fail("the full-size keypoint super-resolution missed a bar")
@@ -2181,8 +2217,8 @@ def phase_files(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time an earlier design of B1, B2, B4 and B7 from "
-                         "the sources in DIR beside the current one")
+                    help="time an earlier design of B6 and B9 from the "
+                         "sources in DIR beside the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2235,7 +2271,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     b7, b1_lite = phase_b7(dev)
     torch.cuda.empty_cache()
-    b6 = phase_b6(dev, ecc_frames)
+    b6, b6i = phase_b6(dev, ecc_frames)
     torch.cuda.empty_cache()
     ecc_sr = phase_ecc_sr(dev, ecc_frames)
     torch.cuda.empty_cache()
@@ -2346,7 +2382,16 @@ def main(argv=None) -> int:
         dict(name="sr_deposit", route="cuda",
              source="libstacker_tpu_torch/csrc/sr_deposit.cu",
              replaces="libstacker_tpu/ops/sr_pallas.py:47",
+             replaces_note="the deposit form: on no entry point's CUDA "
+                           "path since the image form",
              **counts("sr_deposit"), **b6),
+        dict(name="sr_image", route="cuda",
+             source="libstacker_tpu_torch/csrc/sr_deposit.cu",
+             replaces="libstacker_tpu/ops/sr_pallas.py:47",
+             replaces_note="_sr_kernel's sweep with the normalisation the "
+                           "JAX package runs after it "
+                           "(libstacker_tpu/ops/stack.py:474)",
+             **counts("sr_image"), **b6i),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -30,9 +30,22 @@
 // (8,128)-aligned window DMAs and dynamic rolls of the TPU kernels exist
 // only for VMEM windows; a thread here reads any source pixel.
 //
-// Design: one thread per output pixel and slot (B5) or per output pixel
-// and lane covering the three planes (B9); coordinates exactly as
-// warp_accum.cu and ops/warp.py evaluate them.  Build with --fmad=false
+// Design: one thread per output pixel and slot (B5) or per four output
+// pixels of a row and one lane covering the three planes (B9);
+// coordinates exactly as warp_accum.cu and ops/warp.py evaluate them.
+//
+// B9's bound is its bytes: the three planes read once (3 x 33 MB at 4K)
+// and B x 3 planes written once (1.59 GB at 16 lanes, ~0.5 ms at 3.35
+// TB/s), against ~65 operations a pixel-lane (~0.13 ms).  The first
+// design ran the pixels fastest in its grid, so each lane swept the
+// whole image before the next began and the 100 MB of planes, twice the
+// 50 MB L2, came from DRAM once per lane (~1.6 GB more reads at 16
+// lanes).  Its grid now runs the lanes fastest (block = tile * B +
+// lane): the B lanes of one tile run side by side, and the planes come
+// from DRAM about once (B1 on texels does the same, ecc_moments.cu).
+// The output is written once and never read here, so its four pixels
+// per plane leave as one 16-byte streaming store (__stcs, evict-first)
+// that does not push the planes out of L2.  Build with --fmad=false
 // (utils/cuda_build.py): the float expressions follow the plain PyTorch
 // versions (ops/warp_cuda.py, built on ops/warp.py) term for term, so
 // both land in the same 1/32-px bin and equal each other bitwise.
@@ -261,32 +274,64 @@ warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
   out[(size_t)g * ohw + p] = lerp2(t00, t01, t10, t11, fx, fy);
 }
 
+// B9: one thread per W3PX consecutive pixels of a row and one lane, the
+// lane fastest in the grid (block = tile * B + lane), so the B lanes of a
+// tile run side by side and read the shared planes from L2; each output
+// plane's W3PX values leave as one 16-byte streaming store where vector
+// (W % 4 == 0), as scalar streaming stores elsewhere.
+constexpr int W3PX = 4;
+
 __global__ void __launch_bounds__(THREADS)
 warp3_kernel(const float* __restrict__ srcs, const float* __restrict__ minv,
-             float* __restrict__ out, int H, int W, int perspective) {
+             float* __restrict__ out, int B, int H, int W, int perspective,
+             int vector) {
+  const int lane = (int)(blockIdx.x % (unsigned)B);
+  const size_t tile = blockIdx.x / (unsigned)B;
+  const int qpr = (W + W3PX - 1) / W3PX;  // quads per row
+  const size_t q = tile * THREADS + threadIdx.x;
+  if (q >= (size_t)H * qpr) return;
+  const int y = (int)(q / qpr);
+  const int x0 = (int)(q - (size_t)y * qpr) * W3PX;
+  const int npx = min(W3PX, W - x0);
   const size_t hw = (size_t)H * W;
-  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= hw) return;
-  const int b = blockIdx.y;
-  const int y = (int)(p / W);
-  const int x = (int)(p - (size_t)y * W);
-  float x0f, y0f, fx, fy;
-  coords(minv + 9 * b, (float)x, (float)y, perspective, x0f, y0f, fx, fy);
-  const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
-  const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
-  const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
-  const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
-  const int x0 = (vx0 || vx1) ? (int)x0f : 0;
-  const int y0 = (vy0 || vy1) ? (int)y0f : 0;
-  const size_t i00 = (size_t)y0 * W + x0;
+  const float* m = minv + 9 * lane;
+  float o[3][W3PX];
+#pragma unroll
+  for (int j = 0; j < W3PX; ++j) {
+    if (j >= npx) break;
+    float x0f, y0f, fx, fy;
+    coords(m, (float)(x0 + j), (float)y, perspective, x0f, y0f, fx, fy);
+    const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+    const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+    const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+    const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+    const int tx = (vx0 || vx1) ? (int)x0f : 0;
+    const int ty = (vy0 || vy1) ? (int)y0f : 0;
+    const size_t i00 = (size_t)ty * W + tx;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float* s = srcs + (size_t)c * hw;
+      const float t00 = (vy0 && vx0) ? s[i00] : 0.0f;
+      const float t01 = (vy0 && vx1) ? s[i00 + 1] : 0.0f;
+      const float t10 = (vy1 && vx0) ? s[i00 + W] : 0.0f;
+      const float t11 = (vy1 && vx1) ? s[i00 + W + 1] : 0.0f;
+      o[c][j] = lerp2(t00, t01, t10, t11, fx, fy);
+    }
+  }
+  const size_t p = (size_t)y * W + x0;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float* s = srcs + (size_t)c * hw;
-    const float t00 = (vy0 && vx0) ? s[i00] : 0.0f;
-    const float t01 = (vy0 && vx1) ? s[i00 + 1] : 0.0f;
-    const float t10 = (vy1 && vx0) ? s[i00 + W] : 0.0f;
-    const float t11 = (vy1 && vx1) ? s[i00 + W + 1] : 0.0f;
-    out[((size_t)b * 3 + c) * hw + p] = lerp2(t00, t01, t10, t11, fx, fy);
+    float* dst = out + ((size_t)lane * 3 + c) * hw + p;
+    if (vector) {
+#pragma unroll
+      for (int k = 0; k < W3PX; k += 4)
+        __stcs(reinterpret_cast<float4*>(dst + k),
+               make_float4(o[c][k], o[c][k + 1], o[c][k + 2], o[c][k + 3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < W3PX; ++j)
+        if (j < npx) __stcs(dst + j, o[c][j]);
+    }
   }
 }
 
@@ -417,14 +462,22 @@ int warp_bilinear(const void* src, const void* minv, const void* border,
 }
 
 // srcs [3,H,W] f32, minv [B,3,3] f32 inverse maps, out [B,3,H,W] f32.
+// tiles and vector are ops/warp_cuda.warp3_plan's: tiles of THREADS
+// threads of W3PX pixels cover the image, vector only where W % 4 == 0;
+// a plan that does not fit the shapes is refused.
 int warp3_bilinear(const void* srcs, const void* minv, void* out, int B,
-                   int H, int W, int perspective, void* stream) {
+                   int H, int W, int perspective, unsigned tiles, int vector,
+                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const size_t hw = (size_t)H * W;
-  const dim3 grid((unsigned)((hw + THREADS - 1) / THREADS), (unsigned)B);
-  warp3_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long quads = (long long)H * ((W + W3PX - 1) / W3PX);
+  if ((long long)tiles != (quads + THREADS - 1) / THREADS ||
+      (vector && W % W3PX != 0) ||
+      (unsigned long long)tiles * B > 0x7fffffffULL)
+    return (int)cudaErrorInvalidValue;
+  warp3_kernel<<<tiles * (unsigned)B, THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(srcs), static_cast<const float*>(minv),
-      static_cast<float*>(out), H, W, perspective);
+      static_cast<float*>(out), B, H, W, perspective, vector);
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,15 @@ with matrix ``minv @ T(c_p)``, ``sr_pallas.py:9-16``,
 ``stack.py:541-568``), ``_sr_interleave_phases`` (``stack.py:493-515``)
 and ``_sr_pick_config``.  A CUDA thread writes its own fine pixel.
 
+:func:`sr_image` runs the same sweep and ends it with the stack's
+normalisation (``av / max(aw, 1e-6)``, with the bilinear fallback where
+no sample landed), so the card's super-resolution stack is one launch
+that writes only the image (``libstacker_tpu/ops/stack.py:474``
+normalises right after its sweep too).
+
 CUDA tensors launch ``csrc/sr_deposit.cu`` (one launch over all frames)
-or raise; CPU tensors take :func:`sr_deposit_reference`.
+or raise; CPU tensors take :func:`sr_deposit_reference` /
+:func:`sr_image_reference`.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..utils import cuda_build
@@ -33,10 +41,28 @@ from . import color
 
 #: launches of B6 (``sr_deposit``) since the last reset
 launch_count = 0
+#: launches of B6's image form (``sr_image``) since the last reset
+image_launch_count = 0
 
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 _SCALE = {torch.uint8: color.U8_SCALE, torch.uint16: color.U16_SCALE,
           torch.float32: 1.0}
+# csrc/sr_deposit.cu: threads a block, fine pixels a thread along X
+_THREADS, _PX = 256, 4
+# the float32 2 sigma^2 the kernel takes: normal and below 2^126
+_C_MIN, _C_MAX = np.finfo(np.float32).tiny, np.float32(2.0 ** 126)
+
+
+def launch_plan(h: int, w: int, factor: int):
+    """``(blocks, vector, wide)`` of a B6 launch on ``[H,W,3]`` frames:
+    one thread per ``_PX`` consecutive fine pixels of a row, ``_THREADS``
+    a block; 16-byte stores where every row starts 16-byte aligned
+    (``fW % 4 == 0``); 64-bit tap offsets only where a frame's
+    ``H * W * 3`` values do not fit 31 bits."""
+    hf, wf = h * factor, w * factor
+    quads = hf * -(-wf // _PX)
+    blocks = -(-quads // _THREADS)
+    return blocks, wf % _PX == 0, h * w * 3 >= 2 ** 31
 
 
 def _scalar(x: float, device) -> torch.Tensor:
@@ -125,6 +151,86 @@ def sr_deposit_reference(
     return tuple(acc)
 
 
+def normalise(acc) -> torch.Tensor:
+    """The super-resolution image of a deposit ``(acc_v, acc_w[, bl,
+    cnt])``: the weighted mean per fine pixel and, with the fallback
+    sums, their bilinear mean where no sample landed (the tail of
+    ``libstacker_tpu/ops/stack.py super_res_stack``, :474, :481-490).  Every
+    divisor is a tensor, so CUDA divides exactly as the CPU does."""
+    av, aw = acc[0], acc[1]
+    out = av / torch.clamp(aw, min=1e-6)[..., None]
+    if len(acc) == 4:
+        bl, cnt = acc[2], acc[3]
+        fallback = bl / torch.clamp(cnt, min=1.0)[..., None]
+        out = torch.where((aw > 1e-6)[..., None], out, fallback)
+    return out
+
+
+def sr_image_reference(
+    frames: torch.Tensor,
+    minv: torch.Tensor,
+    valid: torch.Tensor,
+    factor: int,
+    kernel_sigma: float,
+    perspective: bool = True,
+    with_fallback: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sr_image`: the deposit over all
+    frames in one sum, then :func:`normalise`."""
+    return normalise(sr_deposit_reference(frames, minv, valid, factor,
+                                          kernel_sigma, perspective,
+                                          with_fallback))
+
+
+def _checked(frames, minv, valid, factor, kernel_sigma):
+    """Raise on arguments neither form takes; -> the burst's (n, h, w)."""
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"frames must be [N,H,W,3], got {tuple(frames.shape)}")
+    if frames.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported frame dtype {frames.dtype}")
+    n, h, w, _ = frames.shape
+    if tuple(minv.shape) != (n, 3, 3) or tuple(valid.shape) != (n,):
+        raise ValueError(
+            f"minv must be [{n},3,3] and valid [{n}], got "
+            f"{tuple(minv.shape)} and {tuple(valid.shape)}"
+        )
+    if not 1 <= factor <= 4:
+        raise ValueError(f"factor must be in 1..4, got {factor}")
+    if not kernel_sigma > 0.0:
+        raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
+    # the kernel divides by float32(2 sigma^2) as a normal number below
+    # 2^126 (csrc/sr_deposit.cu make_div): sigma in ~[7.7e-20, 6.5e18]
+    if not _C_MIN <= np.float32(2.0 * kernel_sigma ** 2) < _C_MAX:
+        raise ValueError(f"kernel_sigma out of range, got {kernel_sigma}")
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {frames.device}")
+    if frames.device.type == "cuda":
+        if not frames.is_contiguous():
+            raise ValueError("frames must be contiguous")
+        if minv.dtype != torch.float32 or minv.device != frames.device:
+            raise ValueError(f"minv must be float32 on {frames.device}")
+    return n, h, w
+
+
+def _launch(entry, frames, minv, valid, outs, factor, kernel_sigma,
+            perspective, with_fallback):
+    """One launch of ``csrc/sr_deposit.cu``'s ``entry`` over the burst,
+    writing ``outs`` (pointers, None where unused)."""
+    n, h, w, _ = frames.shape
+    dev = frames.device
+    minv = minv.contiguous()
+    vb = valid.to(device=dev, dtype=torch.uint8).contiguous()
+    blocks, vector, wide = launch_plan(h, w, factor)
+    lib = _lib()
+    err = getattr(lib, entry)(
+        frames.data_ptr(), minv.data_ptr(), vb.data_ptr(), *outs, n, h, w,
+        factor, 2.0 * kernel_sigma ** 2, _DTYPE_CODE[frames.dtype],
+        int(perspective), int(with_fallback), _SCALE[frames.dtype], blocks,
+        int(vector), int(wide), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, err, entry)
+
+
 def sr_deposit(
     frames: torch.Tensor,
     minv: torch.Tensor,
@@ -143,59 +249,59 @@ def sr_deposit(
     tensors take the plain version; CUDA tensors launch
     ``csrc/sr_deposit.cu`` or raise."""
     global launch_count
-    if frames.ndim != 4 or frames.shape[-1] != 3:
-        raise ValueError(f"frames must be [N,H,W,3], got {tuple(frames.shape)}")
-    if frames.dtype not in _DTYPE_CODE:
-        raise ValueError(f"unsupported frame dtype {frames.dtype}")
-    n, h, w, _ = frames.shape
-    if tuple(minv.shape) != (n, 3, 3) or tuple(valid.shape) != (n,):
-        raise ValueError(
-            f"minv must be [{n},3,3] and valid [{n}], got "
-            f"{tuple(minv.shape)} and {tuple(valid.shape)}"
-        )
-    if not 1 <= factor <= 4:
-        raise ValueError(f"factor must be in 1..4, got {factor}")
-    if not kernel_sigma > 0.0:
-        raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
+    _, h, w = _checked(frames, minv, valid, factor, kernel_sigma)
     if frames.device.type == "cpu":
         return sr_deposit_reference(frames, minv, valid, factor,
                                     kernel_sigma, perspective, with_fallback)
-    if frames.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames.device}")
     dev = frames.device
-    if not frames.is_contiguous():
-        raise ValueError("frames must be contiguous")
-    if minv.dtype != torch.float32 or minv.device != dev:
-        raise ValueError(f"minv must be float32 on {dev}")
-    minv = minv.contiguous()
-    vb = valid.to(device=dev, dtype=torch.uint8).contiguous()
     hf, wf = h * factor, w * factor
-    av = torch.empty((hf, wf, 3), dtype=torch.float32, device=dev)
-    aw = torch.empty((hf, wf), dtype=torch.float32, device=dev)
-    bl = cnt = None
+    acc = [torch.empty((hf, wf, 3), dtype=torch.float32, device=dev),
+           torch.empty((hf, wf), dtype=torch.float32, device=dev)]
     if with_fallback:
-        bl = torch.empty((hf, wf, 3), dtype=torch.float32, device=dev)
-        cnt = torch.empty((hf, wf), dtype=torch.float32, device=dev)
-    lib = _lib()
-    err = lib.sr_deposit(
-        frames.data_ptr(), minv.data_ptr(), vb.data_ptr(), av.data_ptr(),
-        aw.data_ptr(), None if bl is None else bl.data_ptr(),
-        None if cnt is None else cnt.data_ptr(), n, h, w, factor,
-        2.0 * kernel_sigma ** 2, _DTYPE_CODE[frames.dtype], int(perspective),
-        int(with_fallback), _SCALE[frames.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check(lib, err, "sr_deposit")
+        acc += [torch.empty((hf, wf, 3), dtype=torch.float32, device=dev),
+                torch.empty((hf, wf), dtype=torch.float32, device=dev)]
+    ptrs = [a.data_ptr() for a in acc] + [None] * (4 - len(acc))
+    _launch("sr_deposit", frames, minv, valid, ptrs, factor, kernel_sigma,
+            perspective, with_fallback)
     launch_count += 1
-    return (av, aw, bl, cnt) if with_fallback else (av, aw)
+    return tuple(acc)
+
+
+def sr_image(
+    frames: torch.Tensor,
+    minv: torch.Tensor,
+    valid: torch.Tensor,
+    factor: int,
+    kernel_sigma: float,
+    perspective: bool = True,
+    with_fallback: bool = False,
+) -> torch.Tensor:
+    """Super-resolution image of a burst -> ``[fH,fW,3]`` float32: the
+    deposit of :func:`sr_deposit` normalised as :func:`normalise` does,
+    the sums kept in the kernel's registers (no ``acc_w``, ``bl`` or
+    ``cnt`` array is written).  Arguments as :func:`sr_deposit`; CPU
+    tensors take :func:`sr_image_reference`, CUDA tensors launch
+    ``csrc/sr_deposit.cu`` once or raise."""
+    global image_launch_count
+    _, h, w = _checked(frames, minv, valid, factor, kernel_sigma)
+    if frames.device.type == "cpu":
+        return sr_image_reference(frames, minv, valid, factor, kernel_sigma,
+                                  perspective, with_fallback)
+    out = torch.empty((h * factor, w * factor, 3), dtype=torch.float32,
+                      device=frames.device)
+    _launch("sr_image", frames, minv, valid, [out.data_ptr()], factor,
+            kernel_sigma, perspective, with_fallback)
+    image_launch_count += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("sr_deposit")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sr_deposit.argtypes = (
-        [vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf, vp]
-    )
-    lib.sr_deposit.restype = ci
+    vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    plan = [cu, ci, ci, vp]  # blocks, vector, wide, stream
+    lib.sr_deposit.argtypes = ([vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf]
+                               + plan)
+    lib.sr_image.argtypes = [vp] * 4 + [ci] * 4 + [cf] + [ci] * 3 + [cf] + plan
+    lib.sr_deposit.restype = lib.sr_image.restype = ci
     return lib

@@ -23,9 +23,12 @@ launch of kernel B4 on CUDA, which keeps no per-frame intermediate, so
 the JAX package's frame chunks are not needed there.
 
 Super-resolution: every frame deposits its nearest samples on the
-``factor``-times-finer grid with Gaussian sub-pixel weights, one call of
-``ops/sr_cuda.sr_deposit`` over the burst (one launch of kernel B6 on
-CUDA); fine pixels no sample lands near fall back to the bilinear mean.
+``factor``-times-finer grid with Gaussian sub-pixel weights; fine pixels
+no sample lands near fall back to the bilinear mean.  On CUDA that is
+one call of ``ops/sr_cuda.sr_image`` over the burst (one launch of
+kernel B6 that writes only the image); on the CPU ``sr_deposit`` sums
+chunks of frames and ``sr_cuda.normalise`` divides, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from . import warp
-from .sr_cuda import sr_deposit
+from .sr_cuda import normalise, sr_deposit, sr_image
 from .warp_accum_cuda import coverage, warp_moments_rgb
 
 # half an 8-bit LSB in the [0,1] value domain: keeps bit-identical
@@ -177,26 +180,23 @@ def super_res_stack(
     samples, and pixels with no weight take their bilinear mean.
     ``chunk`` bounds the frames per call of the plain CPU version (the
     sums add per chunk, as the JAX package's do); CUDA deposits all
-    frames in one launch."""
+    frames and normalises in one launch."""
     if factor < 2 or factor > 4:
         raise ValueError(f"factor must be in 2..4, got {factor}")
     if not kernel_sigma > 0.0:
         raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
     mats_all, oks_all = _prepare_lanes(frames, mats, oks)
     minv = warp.invert_3x3(mats_all).contiguous()
-    n = frames.shape[0]
-    step = n if frames.device.type == "cuda" else max(1, min(chunk, n))
     with_fallback = kernel_sigma < 0.15
+    if frames.device.type == "cuda":
+        return sr_image(frames, minv, oks_all, factor, kernel_sigma,
+                        perspective, with_fallback)
+    n = frames.shape[0]
+    step = max(1, min(chunk, n))
     acc = None
     for s in range(0, n, step):
         part = sr_deposit(frames[s : s + step], minv[s : s + step],
                           oks_all[s : s + step], factor, kernel_sigma,
                           perspective, with_fallback)
         acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
-    av, aw = acc[0], acc[1]
-    out = av / torch.clamp(aw, min=1e-6)[..., None]
-    if with_fallback:
-        bl, cnt = acc[2], acc[3]
-        fallback = bl / torch.clamp(cnt, min=1.0)[..., None]
-        out = torch.where((aw > 1e-6)[..., None], out, fallback)
-    return out
+    return normalise(acc)

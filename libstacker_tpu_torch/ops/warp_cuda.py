@@ -286,6 +286,20 @@ def warp3_bilinear_reference(
     return out
 
 
+# csrc/warp.cu's B9: threads a block, pixels a thread along x
+_W3_THREADS, _W3_PX = 256, 4
+
+
+def warp3_plan(h: int, w: int):
+    """``(tiles, vector)`` of a B9 launch on ``[3,H,W]`` planes: a tile is
+    ``_W3_THREADS`` threads of ``_W3_PX`` consecutive pixels of a row (in
+    row-major order of the quads), the grid ``tiles * B`` blocks with the
+    lane fastest (block ``tile * B + lane``); 16-byte stores where every
+    row starts 16-byte aligned (``W % 4 == 0``)."""
+    quads = h * -(-w // _W3_PX)
+    return -(-quads // _W3_THREADS), w % _W3_PX == 0
+
+
 def warp3_bilinear(
     srcs: torch.Tensor, minv: torch.Tensor, quant_affine: bool = False
 ) -> torch.Tensor:
@@ -310,10 +324,12 @@ def warp3_bilinear(
     out = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
     if b == 0:
         return out
+    tiles, vector = warp3_plan(h, w)
     lib = _lib()
     err = lib.warp3_bilinear(
         srcs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w,
-        int(not quant_affine), torch.cuda.current_stream(dev).cuda_stream,
+        int(not quant_affine), tiles, int(vector),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "warp3_bilinear")
     warp3_launch_count += 1
@@ -333,7 +349,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.warp_bilinear.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.warp_bilinear.restype = ci
-    lib.warp3_bilinear.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+    lib.warp3_bilinear.argtypes = ([vp] * 3 + [ci] * 4
+                                   + [ctypes.c_uint, ci, vp])
     lib.warp3_bilinear.restype = ci
     lib.warp_frames.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
                                  vp, vp] + [ci] * 7 + [ctypes.c_float, vp])

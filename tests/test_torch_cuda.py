@@ -34,7 +34,13 @@ draws differ between devices, at a mean abs of 0.01); the n == 1
 upsample of both entry points within 1e-6 of the CPU path.  B2 and B4
 bitwise for u8, u16 and f32 sources, affine, perspective, 30-degree and
 strongly perspective maps, odd sizes, N = 1 and every frame dropped; B7
-across its tile and warp edges; the native loader where it builds.
+across its tile and warp edges; the native loader where it builds.  B6's
+image form (``sr_image``) bitwise for u8 / u16 / f32, factors 2-4, sigma
+0.3 and 0.1, affine and perspective maps, scalar and 16-byte stores, and
+over more frames than a block stages at once; B6's deposit form with
+16-byte stores at its bar, and the CUDA SR stack through one image
+launch; B9 bitwise for 1, 3 and 17 lanes, odd and aligned widths, both
+map forms.
 """
 
 import numpy as np
@@ -623,6 +629,137 @@ def test_sr_deposit_kernel_matches_plain(dev, dtype, perspective, sigma):
         assert a.shape == b.shape
         d = (a - b).abs()
         assert float(d.max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
+def _sr_burst(dev, dtype, n_frames, h, w, seed=29):
+    """A random ``[N,H,W,3]`` burst in ``dtype`` on the card."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n_frames, h, w, 3))
+    if dtype == torch.uint16:
+        frames = frames * 257
+    np_dtype = {torch.uint8: np.uint8, torch.uint16: np.uint16,
+                torch.float32: np.float32}[dtype]
+    frames = torch.from_numpy(frames.astype(np_dtype)).to(dev)
+    return frames / 255.0 if dtype == torch.float32 else frames
+
+
+def _sr_maps(dev, kind, n_frames, h, w):
+    """Inverse maps: frame 0 the identity, the others rotated, scaled,
+    shifted by fractions of a pixel, with a perspective row or not."""
+    persp = (1e-4, -5e-5) if kind == "homography" else (0.0, 0.0)
+    mats = [np.eye(3, dtype=np.float32)] + [
+        rotation_inverse_map(h, w, a, 1.0 + 0.01 * a, 0.37 * a, -0.6,
+                             persp=persp)
+        for a in np.linspace(-1.3, 2.1, n_frames - 1)]
+    return torch.from_numpy(np.stack(mats)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("factor", [2, 3, 4])
+@pytest.mark.parametrize("sigma", [0.3, 0.1])
+@pytest.mark.parametrize("kind", ["affine", "homography"])
+@pytest.mark.parametrize("w", [131, 128])
+def test_sr_image_kernel_matches_plain(dev, dtype, factor, sigma, kind, w):
+    """B6's image form (``sr_image``) bitwise against its plain version:
+    u8 / u16 / f32 frames, factors 2-4, sigma 0.3 and 0.1 (the fallback
+    form), affine and perspective maps, frame 2 dropped; at w = 131 the
+    fine widths 262 and 393 take the scalar stores, 524 and every fine
+    width of w = 128 the 16-byte ones."""
+    from libstacker_tpu_torch.ops import sr_cuda
+
+    h = 45
+    frames = _sr_burst(dev, dtype, 5, h, w)
+    minv = _sr_maps(dev, kind, 5, h, w)
+    valid = torch.tensor([True, True, False, True, True], device=dev)
+    args = (frames, minv, valid, factor, sigma, kind == "homography",
+            sigma < 0.15)
+    before = sr_cuda.image_launch_count
+    got = sr_cuda.sr_image(*args)
+    want = sr_cuda.sr_image_reference(*args)
+    torch.cuda.synchronize()
+    assert sr_cuda.image_launch_count == before + 1
+    assert got.shape == want.shape == (h * factor, w * factor, 3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sigma", [0.3, 0.1])
+def test_sr_kernels_stage_frames_twice(dev, sigma):
+    """More frames than a block stages at once (64): both forms sweep
+    them in two stages, a dropped frame in each; the deposit at its
+    bar, the image bitwise."""
+    from libstacker_tpu_torch.ops import sr_cuda
+
+    n_frames, h, w = 70, 24, 40
+    frames = _sr_burst(dev, torch.uint8, n_frames, h, w, seed=30)
+    minv = _sr_maps(dev, "homography", n_frames, h, w)
+    valid = torch.ones(n_frames, dtype=torch.bool, device=dev)
+    valid[[7, 66]] = False
+    args = (frames, minv, valid, 2, sigma, True, sigma < 0.15)
+    got_i = sr_cuda.sr_image(*args)
+    want_i = sr_cuda.sr_image_reference(*args)
+    got = sr_cuda.sr_deposit(*args)
+    want = sr_cuda.sr_deposit_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i, want_i)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()),
+                                                        1.0)
+
+
+@pytest.mark.parametrize("sigma", [0.3, 0.1])
+def test_sr_deposit_kernel_vector_stores(dev, sigma):
+    """B6's deposit form where fW % 4 == 0 (16-byte stores of the
+    interleaved sums, the weights and the fallback sums) at the deposit's
+    bar, and the CUDA super-resolution stack through one image launch
+    and no deposit launch, bitwise to the image's plain version."""
+    from libstacker_tpu_torch.ops import sr_cuda, stack
+
+    h, w = 40, 64
+    frames = _sr_burst(dev, torch.uint8, 4, h, w, seed=31)
+    minv = _sr_maps(dev, "homography", 4, h, w)
+    valid = torch.tensor([True, False, True, True], device=dev)
+    args = (frames, minv, valid, 2, sigma, True, sigma < 0.15)
+    got = sr_cuda.sr_deposit(*args)
+    want = sr_cuda.sr_deposit_reference(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()),
+                                                        1.0)
+    mats = torch.linalg.inv(minv[1:])
+    dep, img = sr_cuda.launch_count, sr_cuda.image_launch_count
+    out = stack.super_res_stack(frames, mats, valid[1:], factor=2,
+                                kernel_sigma=sigma)
+    assert sr_cuda.launch_count == dep
+    assert sr_cuda.image_launch_count == img + 1
+    mats_all, oks_all = stack._prepare_lanes(frames, mats, valid[1:])
+    minv_all = warp.invert_3x3(mats_all).contiguous()
+    assert torch.equal(out, sr_cuda.sr_image_reference(
+        frames, minv_all, oks_all, 2, sigma, True, sigma < 0.15))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 17])
+@pytest.mark.parametrize("w", [181, 256])
+@pytest.mark.parametrize("quant_affine", [False, True])
+def test_warp3_kernel_bitwise(dev, lanes, w, quant_affine):
+    """B9 bitwise against its plain version for 1, 3 and 17 lanes, an
+    odd width (scalar stores) and a width of 256 (16-byte stores), the
+    homography form and the quantised affine one."""
+    rng = np.random.default_rng(40 + lanes)
+    h = 67
+    srcs = torch.from_numpy(np.stack([smooth(rng, (h, w)) for _ in range(3)]))
+    srcs = srcs.to(dev)
+    persp = (0.0, 0.0) if quant_affine else (1e-4, -3e-5)
+    m = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0 + 0.02 * a, 1.7 * a, -0.8,
+                             persp=persp)
+        for a in np.linspace(-3.0, 3.0, lanes)
+    ])).to(dev)
+    before = warp_cuda.warp3_launch_count
+    got = warp_cuda.warp3_bilinear(srcs, m, quant_affine)
+    want = warp_cuda.warp3_bilinear_reference(srcs, m, quant_affine)
+    torch.cuda.synchronize()
+    assert warp_cuda.warp3_launch_count == before + 1
+    assert torch.equal(got, want)
 
 
 def test_opt_in_paths_cuda_match_cpu(dev):

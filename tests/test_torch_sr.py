@@ -21,7 +21,14 @@ tests/test_stack.py:413-442):
   there the two SR images are held to a mean abs of 0.01); ``n == 1``
   upsamples frame 0 as the JAX package does (1e-6); the
   SR + BORDER_REPLICATE guard and the SR + sigma-clip ``validate()``
-  error carry the JAX package's messages.
+  error carry the JAX package's messages;
+- the image form's plain version (``sr_cuda.sr_image_reference``, what
+  CUDA's one launch computes) against ``super_res_stack``'s CPU route:
+  bitwise where both sum the frames in one chunk, within 4 ulp of 1.0
+  where the CPU route adds chunks; against the JAX package at the bars
+  above (x2 and the fallback form);
+- B6's launch plan (``sr_cuda.launch_plan``) covers every fine pixel once
+  and picks 16-byte stores only where aligned.
 """
 
 import numpy as np
@@ -40,7 +47,7 @@ from _torch_parity import n, t  # noqa: E402
 from libstacker_tpu import errors as jerrors  # noqa: E402
 from libstacker_tpu.ops import stack as jstack  # noqa: E402
 from libstacker_tpu_torch import constants, errors  # noqa: E402
-from libstacker_tpu_torch.ops import color, sr_cuda, stack  # noqa: E402
+from libstacker_tpu_torch.ops import color, sr_cuda, stack, warp  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -165,6 +172,114 @@ def test_sr_deposit_plain_version(sr_case):
         sr_cuda.sr_deposit(fr, minv[:2], oks_all, 2, 0.3)
     with pytest.raises(ValueError, match="factor"):
         stack.super_res_stack(fr, t(mats), t(oks), factor=5)
+
+
+def _sr_inputs(sr_case, n_frames=None):
+    """The burst, inverse maps and flags ``super_res_stack`` hands B6."""
+    frames, mats, oks = sr_case
+    fr = t(frames[:n_frames])
+    k = fr.shape[0] - 1
+    mats_all, oks_all = stack._prepare_lanes(fr, t(mats[:k]), t(oks[:k]))
+    return fr, mats, oks, warp.invert_3x3(mats_all).contiguous(), oks_all
+
+
+@pytest.mark.parametrize("sigma", [0.3, 0.1])
+@pytest.mark.parametrize("n_frames,chunk", [(3, 3), (5, 5), (5, 2)])
+def test_sr_image_reference_matches_cpu_route(sr_case, sigma, n_frames,
+                                              chunk):
+    """The image form's plain version (one sum over the burst, then the
+    normalisation) against ``super_res_stack``'s CPU route (sums added
+    per chunk of frames, then the same normalisation).  One chunk sums
+    the frames in the same order: bitwise.  Several chunks regroup the
+    float32 sums of at most 5 weights per fine pixel (each <= 1) and of
+    their weighted values: within 4 ulp of 1.0 (4.8e-7)."""
+    fr, mats, oks, minv, oks_all = _sr_inputs(sr_case, n_frames)
+    k = n_frames - 1
+    want = stack.super_res_stack(fr, t(mats[:k]), t(oks[:k]), factor=2,
+                                 kernel_sigma=sigma, perspective=True,
+                                 chunk=chunk)
+    got = sr_cuda.sr_image_reference(fr, minv, oks_all, 2, sigma, True,
+                                     sigma < 0.15)
+    assert got.shape == want.shape == (2 * 192, 2 * 512, 3)
+    if chunk >= n_frames:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 4 * 2.0 ** -23
+    # the wrapper on CPU tensors is the plain version
+    assert torch.equal(sr_cuda.sr_image(fr, minv, oks_all, 2, sigma, True,
+                                        sigma < 0.15), got)
+
+
+@pytest.mark.parametrize("path,sigma", [("xla", 0.3), ("pallas", 0.3),
+                                        ("xla-fallback", 0.1)])
+def test_sr_image_reference_matches_jax(sr_case, jax_sr, path, sigma):
+    """The image form's plain version against the JAX package's
+    ``super_res_stack`` at x2, at ``_flip_bounded``'s bar."""
+    fr, _, _, minv, oks_all = _sr_inputs(sr_case)
+    got = sr_cuda.sr_image_reference(fr, minv, oks_all, 2, sigma, True,
+                                     sigma < 0.15)
+    _flip_bounded(got, jax_sr[path, 2])
+
+
+@pytest.mark.parametrize("sigma,ok", [(0.3, True), (1e-19, True),
+                                      (5e-20, False), (1e19, False)])
+def test_sr_sigma_range(sr_case, sigma, ok):
+    """Both B6 forms take a sigma whose float32 2 sigma^2 is a normal
+    number below 2^126 (the kernel's divide relies on it) and refuse
+    others on every device."""
+    fr, _, _, minv, oks_all = _sr_inputs(sr_case, 2)
+    for fn in (sr_cuda.sr_deposit, sr_cuda.sr_image):
+        if ok:
+            fn(fr[:, :8, :8], minv, oks_all, 2, sigma)
+        else:
+            with pytest.raises(ValueError, match="kernel_sigma out of range"):
+                fn(fr[:, :8, :8], minv, oks_all, 2, sigma)
+
+
+def _covered(blocks, rows, cols, px, threads=256):
+    """Emulate a thread -> (row, first column, pixels) map of a plan: ->
+    (rows, first columns, pixel counts) of the active threads, and how
+    often each pixel of the ``rows x cols`` grid is written."""
+    qpr = -(-cols // px)
+    q = np.arange(blocks * threads)
+    q = q[q < rows * qpr]
+    y = q // qpr
+    x0 = (q - y * qpr) * px
+    npx = np.minimum(px, cols - x0)
+    hits = np.zeros((rows, cols), np.int64)
+    for j in range(px):
+        on = npx > j
+        np.add.at(hits, (y[on], x0[on] + j), 1)
+    return y, x0, npx, hits
+
+
+@pytest.mark.parametrize("h,w,factor", [(97, 131, 2), (97, 131, 3),
+                                        (97, 131, 4), (20, 33, 3),
+                                        (24, 64, 2)])
+def test_sr_launch_plan(h, w, factor):
+    """B6's launch plan: one thread per 4 fine pixels of a row covers
+    every fine pixel once; 16-byte stores only where every quad starts
+    16-byte aligned in the interleaved image and in ``acc_w``."""
+    blocks, vector, wide = sr_cuda.launch_plan(h, w, factor)
+    hf, wf = h * factor, w * factor
+    y, x0, npx, hits = _covered(blocks, hf, wf, 4)
+    assert (hits == 1).all()
+    assert blocks == -(-len(y) // 256)  # no block without work
+    assert vector == (wf % 4 == 0) and not wide
+    if vector:
+        p0 = y * wf + x0
+        assert (npx == 4).all()
+        assert ((p0 * 3 * 4) % 16 == 0).all() and ((p0 * 4) % 16 == 0).all()
+
+
+def test_sr_launch_plan_at_scale():
+    """The plan at the SR paths' shape (4K frames, x2) and where a frame's
+    tap offsets need 64 bits."""
+    assert sr_cuda.launch_plan(2160, 3840, 2) == (32400, True, False)
+    assert sr_cuda.launch_plan(2160, 3843, 3) == (
+        -(-(6480 * -(-11529 // 4)) // 256), False, False)
+    assert sr_cuda.launch_plan(26800, 26800, 2)[2]  # 2.15e9 values a frame
+    assert not sr_cuda.launch_plan(26700, 26700, 2)[2]
 
 
 def test_super_res_recovers_contrast():

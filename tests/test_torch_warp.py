@@ -16,7 +16,9 @@ Bars:
   shared sources (``src_index``) and an output grid other than the
   source's: tests/test_warp_pallas.py's bar (under 1e-3 of values off by
   more than 1e-5, max < 0.02): the TPU kernel evaluates its coordinates
-  in another order, so a few pixels on exact 1/32 boundaries change bin.
+  in another order, so a few pixels on exact 1/32 boundaries change bin;
+- B9's launch plan (``warp3_plan``): the lanes-fastest grid writes every
+  output pixel of every lane once, 16-byte stores only where aligned.
 """
 
 import numpy as np
@@ -165,6 +167,48 @@ def test_warp3_matches_pallas_interpret():
     one = warp_cuda.warp_bilinear(t(srcs), t(m).repeat_interleave(3, 0),
                                   src_index=torch.tensor([0, 1, 2] * 2))
     np.testing.assert_array_equal(n(got).reshape(6, h, w), n(one))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 17])
+@pytest.mark.parametrize("h,w", [(9, 181), (12, 256), (1, 3)])
+def test_warp3_plan_lanes_fastest(lanes, h, w):
+    """B9's launch plan with the grid as csrc/warp.cu reads it (block =
+    tile * B + lane; 256 threads of 4 pixels of a row a tile): every
+    output pixel of every lane is written once, the B lanes of a tile
+    are consecutive blocks, and 16-byte stores only where every quad of
+    every output plane starts 16-byte aligned."""
+    tiles, vector = warp_cuda.warp3_plan(h, w)
+    blocks = np.arange(tiles * lanes)
+    lane, tile = blocks % lanes, blocks // lanes
+    assert (tile[::lanes] == np.arange(tiles)).all()
+    assert all((lane[i * lanes:(i + 1) * lanes] == np.arange(lanes)).all()
+               for i in range(tiles))
+    qpr = -(-w // 4)
+    hits = np.zeros((lanes, h, w), np.int64)
+    for b, tl in zip(lane, tile):
+        q = tl * 256 + np.arange(256)
+        q = q[q < h * qpr]
+        y = q // qpr
+        x0 = (q - y * qpr) * 4
+        npx = np.minimum(4, w - x0)
+        for j in range(4):
+            on = npx > j
+            np.add.at(hits[b], (y[on], x0[on] + j), 1)
+        if vector:
+            assert (npx == 4).all()
+            for c in range(3):
+                p0 = (b * 3 + c) * h * w + y * w + x0
+                assert ((p0 * 4) % 16 == 0).all()
+    assert (hits == 1).all()
+    assert vector == (w % 4 == 0)
+    assert tiles == -(-(h * qpr) // 256)
+
+
+def test_warp3_plan_at_scale():
+    """The plan on 4K planes: 8100 tiles, 16 lanes -> 129600 blocks."""
+    assert warp_cuda.warp3_plan(2160, 3840) == (8100, True)
+    assert warp_cuda.warp3_plan(2160, 3841) == (-(-(2160 * 961) // 256),
+                                                False)
 
 
 @pytest.mark.parametrize("mode", MODES[1:])
