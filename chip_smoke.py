@@ -96,12 +96,33 @@ Phases (each prints one line; any failure exits non-zero):
     ``keypoint_match(files)`` bitwise against their ``_arrays`` forms on
     the decoded arrays; whether the native loader built, and if not, the
     compiler's reason on a line of its own (a 48-bit PNG then decodes at
-    full depth nowhere, and the phase checks the reference's refusal).
+    full depth nowhere, and the phase checks the reference's refusal);
+23. sharpness at full width: ``sharpness_all`` on the grey of phase 5's
+    burst (100x2160x3840), ms a burst by CUDA events and peak memory,
+    held against the port's CPU path on its first 4 frames (rel 1e-5,
+    the same TENG ranking);
+24. the streams at full width: 24 frames of 2160x3840 (``make_burst``, a
+    streak in frame 8) and phase 9's 20 textured frames written as PNGs
+    under ``build/``, through ``ecc_match_stream`` (headline parameters,
+    ``chunk_size=8``; mean and sigma-clip) and ``keypoint_match_stream``,
+    each held against the whole-burst file entry point on the same files
+    (ECC mean: interior max < 0.02; sigma-clip: within 1e-4 on > 0.999
+    of values, max < 0.05; keypoint: interior p99 < 0.02, max < 0.2),
+    with each stream's wall, the decode seconds on the host thread, the
+    whole-burst wall, and the share of the host-to-device copies (from
+    pinned memory) that ran under kernels by ``torch.profiler``; then an
+    ECC stream killed after two chunks and resumed from its checkpoint,
+    bitwise equal to the uninterrupted run;
+25. the example workflow in process (``stack_burst.main``) on 6 textured
+    frames of 2160x3840 with frame 3 blurred, headline ECC flags: the
+    blurred frame ranked worst and dropped, keypoint dropping none, the
+    four PNGs written.
 
-Phases 5, 9, 14-16 and 19-22 drive the entry points with every launch
-counter set to 0 just before the run and read just after it, and fail if
-a kernel of that path was not launched; the keypoint phases also fail if
-B3 (``orb_extract``) ran, and BORDER_REPLICATE if the planar B5 did.
+Phases 5, 9, 14-16, 19-22, 24 and 25 drive the entry points with every
+launch counter set to 0 just before the run and read just after it, and
+fail if a kernel of that path was not launched; the keypoint phases also
+fail if B3 (``orb_extract``) ran, and BORDER_REPLICATE if the planar B5
+did.  Phases 23-25 print their own seconds.
 
 Each kernel record carries its time (CUDA events around a batch of
 calls; for B3, B3h and B3d, whose kernels are shorter than their
@@ -2214,6 +2235,338 @@ def phase_files(dev):
     return results
 
 
+# the streams and the CLI at full width (phases 24-25)
+STREAM_N = 24
+STREAM_CHUNK = 8
+CLI_N = 6
+# phase 23: frames held against the CPU path, and its bar
+SHARP_CPU_FRAMES = 4
+SHARP_REL_BAR = 1e-5
+
+
+def phase_sharpness(dev, frames):
+    """Phase 23: ``sharpness_all`` on the grey of phase 5's burst, timed
+    by CUDA events, with its peak memory; held against the port's CPU
+    path on the first frames."""
+    from libstacker_tpu_torch import sharpness_all
+    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import sharpness
+
+    t_phase = time.perf_counter()
+    grey = keypoint._grey(frames)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = sharpness_all(grey)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = time_ms(lambda: sharpness_all(grey), 3)
+    k = SHARP_CPU_FRAMES
+    t0 = time.perf_counter()
+    cpu = sharpness_all(grey[:k].cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = max(float(((gpu[m][:k].cpu().double() - cpu[m].double())
+                     / cpu[m].double()).abs().max()) for m in cpu)
+    rank_gpu = np.argsort(gpu["teng"][:k].cpu().numpy(), kind="stable")
+    rank_cpu = np.argsort(cpu["teng"].numpy(), kind="stable")
+    finite = all(bool(torch.isfinite(v).all()) and v.shape == (FULL_N,)
+                 for v in gpu.values())
+    ok = rel <= SHARP_REL_BAR and np.array_equal(rank_gpu, rank_cpu) and finite
+    n, h, w = grey.shape
+    log(f"[23 sharpness] sharpness_all on the grey of phase 5's burst "
+        f"({n}x{h}x{w} u8, {sharpness._SCORE_CHUNK} frames a pass): "
+        f"{ms:.3f} ms a burst ({ms / n:.4f} ms a frame), peak memory "
+        f"{peak / 2**30:.3f} GiB above the burst | frames 0-{k - 1} vs the "
+        f"port's CPU path ({cpu_s:.1f} s on the CPU): max rel {rel:.3e} (bar "
+        f"{SHARP_REL_BAR}), TENG ranking equal "
+        f"{np.array_equal(rank_gpu, rank_cpu)} | phase "
+        f"{time.perf_counter() - t_phase:.1f} s -> {'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("sharpness on the card disagrees with the CPU path")
+
+
+def write_pngs(d, frames) -> list:
+    """u8 [N,H,W,3] -> PNG files in ``d`` (zlib level 1, one thread a
+    file)."""
+    import concurrent.futures
+    import shutil
+
+    from PIL import Image
+
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    paths = [d / f"f{i:03d}.png" for i in range(frames.shape[0])]
+
+    def one(i):
+        Image.fromarray(frames[i]).save(paths[i], compress_level=1)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(len(paths))))
+    return [str(p) for p in paths]
+
+
+def copy_overlap(fn):
+    """Run ``fn`` under ``torch.profiler`` -> (host-to-device copy ms from
+    pinned memory, ms of it overlapping kernels, kernel ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == cuda]
+    copies = [(ev.time_range.start, ev.time_range.end) for ev in evs
+              if "HtoD" in ev.name and "Pinned" in ev.name]
+    kernels = sorted((ev.time_range.start, ev.time_range.end) for ev in evs
+                     if "Memcpy" not in ev.name and "Memset" not in ev.name)
+    union = []
+    for a, b in kernels:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    over = sum(max(0, min(b, d) - max(a, c))
+               for a, b in copies for c, d in union)
+    return (sum(b - a for a, b in copies) / 1e3, over / 1e3,
+            sum(b - a for a, b in union) / 1e3)
+
+
+class DecodeClock:
+    """Sums the seconds spent in ``utils.io.load_frames`` (the streams'
+    decode thread and the whole-burst decode) while installed."""
+
+    def __init__(self):
+        from libstacker_tpu_torch.utils import io
+
+        self.io, self.orig, self.s = io, io.load_frames, 0.0
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+
+        self.io.load_frames = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.io.load_frames = self.orig
+
+
+def timed_run(fn):
+    """-> (result, wall s, launch counts, decode s), counters zeroed
+    just before the run and read just after."""
+    reset_counts()
+    torch.cuda.synchronize()
+    with DecodeClock() as clock:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return result, wall, read_counts(), clock.s
+
+
+def phase_streams(dev):
+    """Phase 24: the streams at full width from PNG files, each held
+    against the whole-burst entry point on the same files, with its
+    kernels' launches, wall, decode seconds and copy overlap; then one
+    kill-and-resume, bitwise."""
+    import dataclasses
+
+    from libstacker_tpu_torch import (
+        KeyPointMatchParameters, ecc_match, ecc_match_stream, keypoint_match,
+        keypoint_match_stream,
+    )
+    from libstacker_tpu_torch.utils import io
+    from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
+
+    t_phase = time.perf_counter()
+    frames, _ = make_burst(STREAM_N, FULL_H, FULL_W, seed=7, device=dev)
+    draw_streak(frames, STREAM_N // 3)
+    frames = frames.cpu().numpy()
+    t0 = time.perf_counter()
+    ecc_files = write_pngs(REPO / "build" / "smoke_stream_ecc", frames)
+    kp = make_textured_burst(KP_N, FULL_H, FULL_W, seed=0, device=dev)[0]
+    kp_files = write_pngs(REPO / "build" / "smoke_stream_kp", kp.cpu().numpy())
+    write_s = time.perf_counter() - t0
+    del frames, kp
+    params = headline_params()
+    sigma_p = dataclasses.replace(params, stacking="sigma_clip")
+    c = 64
+    results, lines, checks = {}, [], {}
+
+    def record(label, stream_run, whole_run, need, compare):
+        (got, wall, launches, dec) = timed_run(stream_run)
+        (want, wall_w, _, dec_w) = timed_run(whole_run)
+        good, note = compare(got, want)
+        checks[label] = (good and not missing(launches, need)
+                         and not stray(launches))
+        results[label] = launches
+        lines.append(
+            f"{label}: stream {wall:.3f} s (decode {dec:.3f} s on the host "
+            f"thread) vs whole-burst {wall_w:.3f} s (decode {dec_w:.3f} s) | "
+            f"launches " + ", ".join(f"{k} {launches[k]}" for k in need)
+            + f", orb_extract {launches['orb_extract']} | {note}")
+        return got
+
+    def ecc_mean_cmp(got, want):
+        d = np.abs(got[0][c:-c, c:-c] - want[0][c:-c, c:-c])
+        note = (f"kept {got[1].frames_kept}/{STREAM_N}, vs ecc_match(files) "
+                f"interior max {d.max():.3e} (bar {STACK_MAX_BAR})")
+        return (got[1].frames_kept == STREAM_N and d.max() < STACK_MAX_BAR
+                and bool(np.isfinite(got[0]).all())
+                and got[0].shape == (FULL_H, FULL_W, 3)), note
+
+    def ecc_sigma_cmp(got, want):
+        d = np.abs(got[0] - want[0])
+        frac = float((d <= 1e-4).mean())
+        note = (f"clipped {got[1].clipped_sample_frac:.3e} of samples (whole "
+                f"{want[1].clipped_sample_frac:.3e}), vs ecc_match(files, "
+                f"sigma_clip) within 1e-4 on {frac:.6f} (bar 0.999), max "
+                f"{d.max():.3e} (bar 0.05)")
+        return (frac > 0.999 and d.max() < 0.05
+                and got[1].clipped_sample_frac > 0.0), note
+
+    def kp_cmp(got, want):
+        d = np.abs(got[1][c:-c, c:-c] - want[1][c:-c, c:-c])
+        q = float(np.quantile(d, 0.99))
+        note = (f"dropped {got[0]}, vs keypoint_match(files) interior p99 "
+                f"{q:.4f} (bar 0.02), max {d.max():.3f} (bar 0.2)")
+        return got[0] == want[0] == 0 and q < 0.02 and d.max() < 0.2, note
+
+    mean = record(
+        "ecc_match_stream",
+        lambda: ecc_match_stream(ecc_files, params, chunk_size=STREAM_CHUNK,
+                                 return_stats=True, device=dev),
+        lambda: ecc_match(ecc_files, params, return_stats=True, device=dev),
+        ("ecc_moments", "warp_accum"), ecc_mean_cmp)
+    record(
+        "ecc_match_stream sigma_clip",
+        lambda: ecc_match_stream(ecc_files, sigma_p, chunk_size=STREAM_CHUNK,
+                                 return_stats=True, device=dev),
+        lambda: ecc_match(ecc_files, sigma_p, return_stats=True, device=dev),
+        ("ecc_moments", "warp_moments"), ecc_sigma_cmp)
+    record(
+        "keypoint_match_stream",
+        lambda: keypoint_match_stream(kp_files, KeyPointMatchParameters(),
+                                      chunk_size=STREAM_CHUNK, device=dev),
+        lambda: keypoint_match(kp_files, KeyPointMatchParameters(),
+                               device=dev),
+        KP_DETECT + ("warp_accum",), kp_cmp)
+    if results["ecc_match_stream sigma_clip"]["warp_accum"]:
+        checks["ecc sigma stream without B2"] = False
+
+    # the host-to-device copies of the ECC mean stream against its kernels
+    copy_ms, over_ms, kern_ms = copy_overlap(
+        lambda: ecc_match_stream(ecc_files, params, chunk_size=STREAM_CHUNK,
+                                 device=dev))
+
+    # kill after two chunks, resume from the checkpoint: bitwise
+    ck = REPO / "build" / "smoke_stream_ck.npz"
+    ck.unlink(missing_ok=True)
+    orig = io.prefetched_chunks
+
+    def crashing(*a, **kw):
+        for i, chunk in enumerate(orig(*a, **kw)):
+            if i == 2:
+                raise RuntimeError("simulated crash")
+            yield chunk
+
+    io.prefetched_chunks = crashing
+    try:
+        ecc_match_stream(ecc_files, params, chunk_size=STREAM_CHUNK,
+                         checkpoint_path=ck, checkpoint_every=1, device=dev)
+        crashed = False
+    except RuntimeError:
+        crashed = True
+    finally:
+        io.prefetched_chunks = orig
+    saved = ck.exists()
+    resumed = ecc_match_stream(ecc_files, params, chunk_size=STREAM_CHUNK,
+                               checkpoint_path=ck, checkpoint_every=1,
+                               device=dev)
+    checks["kill-and-resume bitwise"] = (crashed and saved and not ck.exists()
+                                         and np.array_equal(resumed, mean[0]))
+    ok = all(checks.values())
+    log(f"[24 streams] {STREAM_N}x{FULL_H}x{FULL_W} (a streak in frame "
+        f"{STREAM_N // 3}) and {KP_N}x{FULL_H}x{FULL_W} textured u8 as PNG "
+        f"(written in {write_s:.1f} s), chunk_size={STREAM_CHUNK}, headline / "
+        f"default parameters; host-to-device copies of the ECC mean stream "
+        f"{copy_ms:.2f} ms, {over_ms:.2f} ms of them under kernels "
+        f"({over_ms / max(copy_ms, 1e-9):.2f}; kernels {kern_ms:.1f} ms); "
+        f"kill after 2 chunks and resume: bitwise "
+        f"{checks['kill-and-resume bitwise']} | phase "
+        f"{time.perf_counter() - t_phase:.1f} s -> {'OK' if ok else 'FAILED'}")
+    for line in lines:
+        log(f"    {line}")
+    if not ok:
+        fail("a full-width stream missed a bar: "
+             + ", ".join(k for k, v in checks.items() if not v))
+    return results
+
+
+def phase_cli(dev):
+    """Phase 25: ``stack_burst.main`` in process on full-width frames,
+    one blurred: it is ranked worst and dropped, keypoint drops none and
+    the four PNGs are written."""
+    import contextlib
+    import io as pyio
+    import shutil
+
+    from libstacker_tpu_torch import stack_burst
+    from libstacker_tpu_torch.ops import filters
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    t_phase = time.perf_counter()
+    frames, _ = make_textured_burst(CLI_N, FULL_H, FULL_W, seed=9, device=dev)
+    blurred = 3
+    f = frames[blurred].permute(2, 0, 1).float()
+    frames[blurred] = filters.gaussian_blur(f, 9, 3.0).round().clamp(
+        0, 255).to(torch.uint8).permute(1, 2, 0)
+    d = REPO / "build" / "smoke_cli"
+    write_pngs(d / "in", frames.cpu().numpy())
+    del frames
+    out = d / "out"
+    args = [str(d / "in"), "--out", str(out), "--device", dev.type,
+            "--max-count", "50",
+            "--epsilon", "1e-4", "--coarse-levels", "1"]
+    text = pyio.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = stack_burst.main(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    lines = text.getvalue().splitlines()
+    table = lines[lines.index("Files ordered by TENG (low quality first)") + 1:]
+    worst = table[0].split()[0]
+    written = sorted(p.name for p in out.iterdir())
+    want = sorted(f"{m}_{t}.png" for m in ("keypoint", "ecc")
+                  for t in ("full", "w400"))
+    kp_dropped = [ln for ln in lines if ln.startswith("keypoint_match(")]
+    ok = (rc == 0 and worst.endswith(f"f{blurred:03d}.png")
+          and f"stacking {CLI_N - 1} frames" in text.getvalue()
+          and written == want and len(kp_dropped) == 2
+          and all(ln.endswith(": 0") for ln in kp_dropped)
+          and not missing(launches, KP_DETECT + ("ecc_moments", "warp_accum"))
+          and not stray(launches))
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[25 stack_burst CLI] {CLI_N}x{FULL_H}x{FULL_W} PNGs, frame "
+        f"{blurred} blurred, headline ECC flags: rc {rc}, ranked worst "
+        f"{Path(worst).name}, {'; '.join(kp_dropped)}, wrote {written}, in "
+        f"{wall:.2f} s | launches B1 {launches['ecc_moments']}, B2 "
+        f"{launches['warp_accum']}, B8 {launches['fast']}, B3h "
+        f"{launches['orb_harris']}, B3d {launches['orb_describe']}, B3 "
+        f"{launches['orb_extract']} | phase {time.perf_counter() - t_phase:.1f}"
+        f" s -> {'OK' if ok else 'FAILED'}")
+    if not ok:
+        fail("the CLI on the card missed a check:\n" + text.getvalue())
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
@@ -2276,6 +2629,8 @@ def main(argv=None) -> int:
     ecc_sr = phase_ecc_sr(dev, ecc_frames)
     torch.cuda.empty_cache()
     solvers = phase_solvers(dev, ecc_frames, ecc_clean)
+    torch.cuda.empty_cache()
+    phase_sharpness(dev, ecc_frames)
     del ecc_frames, ecc_clean
     torch.cuda.empty_cache()
     kp_var = phase_kp_variants(dev, frames, truth, kp_ref)
@@ -2285,6 +2640,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     files = phase_files(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    streams = phase_streams(dev)
+    torch.cuda.empty_cache()
+    cli = phase_cli(dev)
+    torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
                **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
                "ecc_match_arrays sigma_clip": sigma,
@@ -2293,7 +2653,7 @@ def main(argv=None) -> int:
                "ecc_match_arrays output_scale=2": ecc_sr,
                **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
                "keypoint_match_arrays output_scale=2": kp_sr,
-               **files}
+               **files, **streams, "stack_burst": cli}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}

@@ -4,11 +4,15 @@ A second package beside ``libstacker_tpu`` (the JAX reference, which it
 never imports): the same public surface, written as plain PyTorch
 functions on tensors, with the TPU's Pallas kernels rewritten by hand in
 CUDA for Hopper (``csrc/``, built on first use by
-``utils/cuda_build.py``).  Two paths are ported: the ECC-homography
-align-and-stack path (``ecc_match`` / ``ecc_match_arrays``) and the
-ORB-keypoint path (``keypoint_match`` / ``keypoint_match_arrays``:
-ORB, Hamming 2-NN, RANSAC), both with the mean stack; ROADMAP.md lists
-what follows.
+``utils/cuda_build.py``).  Ported: the ECC align-and-stack path
+(``ecc_match`` / ``ecc_match_arrays`` / ``ecc_match_stream``) and the
+ORB-keypoint path (``keypoint_match`` / ``keypoint_match_arrays`` /
+``keypoint_match_stream``: ORB, Hamming 2-NN, RANSAC), each with the
+mean, sigma-clip and (whole-burst) super-resolution stacks; the
+resumable chunked streams (``utils/checkpoint.py``); the four
+``sharpness_*`` metrics; image I/O; and the reference's example
+workflow (``python -m libstacker_tpu_torch.stack_burst``).  ``mesh=``
+is not ported (ROADMAP.md Queue A item 16).
 """
 
 from . import constants  # noqa: F401
@@ -36,6 +40,13 @@ from .utils.io import (  # noqa: F401
     imread_unchanged,
     load_frames,
     save_image,
+)
+from .ops.sharpness import (  # noqa: F401
+    sharpness_all,
+    sharpness_modified_laplacian,
+    sharpness_normalized_gray_level_variance,
+    sharpness_tenengrad,
+    sharpness_variance_of_laplacian,
 )
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """``ecc_match`` pipeline — ECC-aligned burst stacking.
 
 Counterpart of ``libstacker_tpu/models/ecc.py`` (``_adjust_warp_for_scale``
-:49, stages of ``ecc_match_arrays`` :507, ``ecc_match`` :735), in the
+:49, ``_stream_sigma_stack`` :170, stages of ``ecc_match_arrays`` :507,
+``ecc_match`` :735, ``ecc_match_stream`` :763), in the
 reference's convention: template = current frame's grey, input = frame
 0's grey (ref src/lib.rs:769-777); the solved warp is applied forward to
 the current frame with BORDER_CONSTANT 0 (src/lib.rs:780-803); the sum
@@ -23,8 +24,11 @@ Stages, all on one device:
    or, with ``output_scale > 1``, the super-resolution stack
    (``ops/stack.super_res_stack``, kernel B6) on the finer grid.
 
-Options this slice does not port raise ``NotImplementedError`` naming
-the ROADMAP.md item that will port them.
+``ecc_match_stream`` runs stages 1-4 chunk by chunk over decoded files
+(the same kernels per chunk) and keeps only the running sum, or, for
+sigma-clip, the warps and then the per-pixel moments; it is resumable
+from a checkpoint file.  ``mesh=`` is not ported and raises
+``NotImplementedError`` naming ROADMAP.md Queue A item 16.
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ from ..params import EccMatchParameters, MotionType
 from ..ops import color, ecc as ecc_ops, phasecorr, resize
 from ..ops import stack as stack_ops
 from ..ops.warp_batch import warp_accumulate_rgb
+from ..utils import checkpoint as ckpt_mod
 from ..utils import io
-from ..utils.device import resolve_device
+from ..utils.device import ChunkUploader, resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
@@ -84,21 +89,48 @@ def _ecc_grey(frames: torch.Tensor, scale_hw=None) -> torch.Tensor:
     return torch.cat(out).to(torch.float32)
 
 
-def _ecc_warp_accumulate(
+def _warp_lanes(
     frames: torch.Tensor, warps: torch.Tensor, oks: torch.Tensor,
     motion_type: MotionType, scale_hw=None,
 ) -> torch.Tensor:
-    """Stage 3: rescale warps solved on scaled greys, warp every kept
-    frame onto frame 0's grid and sum (frame 0 enters as itself)."""
+    """Stage 3 without frame 0: rescale warps solved on scaled greys,
+    give failed lanes the identity (NaN * 0 is NaN) and warp-and-sum the
+    kept frames onto frame 0's grid (kernel B2)."""
     h, w = frames.shape[1], frames.shape[2]
     if scale_hw is not None:
         warps = _adjust_warp_for_scale(warps, motion_type, scale_hw, (h, w))
     eye = torch.eye(3, dtype=warps.dtype, device=warps.device)
     warps = torch.where(oks[:, None, None], warps, eye[: warps.shape[1]])
-    return color.to_unit_f32(frames[0]) + warp_accumulate_rgb(
-        frames[1:], warps, oks,
-        perspective=motion_type == MotionType.Homography,
+    return warp_accumulate_rgb(
+        frames, warps, oks, perspective=motion_type == MotionType.Homography,
     )
+
+
+def _ecc_warp_accumulate(
+    frames: torch.Tensor, warps: torch.Tensor, oks: torch.Tensor,
+    motion_type: MotionType, scale_hw=None,
+) -> torch.Tensor:
+    """Stage 3: frame 0 as itself plus the warped kept frames 1..N-1."""
+    return color.to_unit_f32(frames[0]) + _warp_lanes(
+        frames[1:], warps, oks, motion_type, scale_hw)
+
+
+def _scale_hw(h: int, w: int, scale_down_width, min_width: bool = True):
+    """The solve grid of the scaled path, or None; raises the reference's
+    errors for a width >= the frame's and, on the ECC path
+    (``min_width``), <= 10 (src/lib.rs:377, :883)."""
+    if scale_down_width is None:
+        return None
+    if scale_down_width >= w:
+        raise InvalidParamsError(
+            "scale_down_to was larger (or equal) to the full image "
+            f"width: full_size:{w}, scale_down_to:{scale_down_width}"
+        )
+    if min_width and scale_down_width <= 10.0:
+        raise InvalidParamsError(
+            f"scale_down_to was too small scale_down_to:{scale_down_width}"
+        )
+    return resize.scale_image_size(h, w, scale_down_width)
 
 
 def _ecc_mask(mask, hw, scale_hw=None, device="cpu") -> torch.Tensor:
@@ -207,18 +239,7 @@ def ecc_match_arrays(
         raise NotEnoughFilesError()
     num_iters, eps = params.resolve_criteria()
 
-    scale_hw = None
-    if scale_down_width is not None:
-        if scale_down_width >= w:
-            raise InvalidParamsError(
-                "scale_down_to was larger (or equal) to the full image "
-                f"width: full_size:{w}, scale_down_to:{scale_down_width}"
-            )
-        if scale_down_width <= 10.0:
-            raise InvalidParamsError(
-                f"scale_down_to was too small scale_down_to:{scale_down_width}"
-            )
-        scale_hw = resize.scale_image_size(h, w, scale_down_width)
+    scale_hw = _scale_hw(h, w, scale_down_width)
 
     if n == 1:
         # reference: stacked = sum / 1 = frame 0 (src/lib.rs:836-843)
@@ -330,9 +351,317 @@ def ecc_match(
     )
 
 
-def ecc_match_stream(*args, **kwargs):
-    """Streaming ``ecc_match`` — not ported yet."""
-    raise NotImplementedError(
-        "ecc_match_stream is not ported to libstacker_tpu_torch yet "
-        "(ROADMAP.md Queue A item 14b)"
+def _mask_key(mask):
+    """The user's mask as numpy, for the checkpoint's key."""
+    if mask is None:
+        return None
+    return mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+
+
+def _stream_guards(params, files, mesh):
+    """The checks both streams make before decoding anything ->
+    normalised file list."""
+    params.validate()
+    _check_mesh(mesh)
+    if params.output_scale != 1:
+        raise InvalidParamsError(
+            "output_scale stacking is not available in the"
+            " streaming pipelines; use the whole-burst entry points"
+        )
+    files = io.normalize_files(files)
+    if not files:
+        raise NotEnoughFilesError()
+    return files
+
+
+def _sigma_resume(state: dict, cursor: int) -> dict:
+    """The sweep state a phase=1 checkpoint holds."""
+    return dict(
+        pass_idx=int(state["pass_idx"]),
+        cursor=int(cursor),
+        part=(state["part0"], state["part1"], state["part2"]),
+        base=((state["base0"], state["base1"], state["base2"])
+              if int(state["has_base"]) else None),
+        total_s0=float(state["total_s0"]),
     )
+
+
+def _stream_sigma_stack(
+    files,
+    mats_full: np.ndarray,  # [N-1,2|3,3] full-res forward maps, frames 1..
+    oks: np.ndarray,  # [N-1] bool
+    perspective: bool,
+    kappa: float,
+    iters: int,
+    chunk_size: int,
+    hw,
+    device: torch.device,
+    preserve_depth: bool = False,
+    ckpt=None,
+    checkpoint_every: int = 4,
+    align_save: Optional[dict] = None,
+    resume: Optional[dict] = None,
+):
+    """Streaming kappa-sigma stack: the S0/S1/S2 moments of
+    ``ops/stack.py`` summed over decoded chunks of the files, ``1 +
+    iters`` decode passes after the align pass; only the per-pixel
+    moments stay resident.  Each chunk is one call of
+    ``stack.moments_chunk`` (one launch of B4 on CUDA) on the lane rows
+    it holds, lanes indexed from file 0 (frame 0 the identity lane);
+    chunks are the real frames, never padded.
+
+    ``ckpt`` makes the sweeps resumable: every ``checkpoint_every``
+    chunks the pass index, chunk cursor, partial moments, the pass's
+    entry state and the pass-0 sample total are written (phase=1
+    records; ``align_save`` carries the align pass's products, saved as
+    ``al_*``).  ``resume`` is :func:`_sigma_resume` of such a record.
+
+    Returns ``(image [H,W,3] float32 tensor, clipped_sample_frac)``."""
+    h, w = int(hw[0]), int(hw[1])
+    minv, oks_all = stack_ops.sweep_lanes(
+        torch.from_numpy(np.asarray(mats_full, np.float32)),
+        torch.from_numpy(np.asarray(oks, bool)), device)
+    n_all = minv.shape[0]
+    up = ChunkUploader(device)
+    # the pass running (0 = initial moments, 1..iters = clip passes), the
+    # state ENTERING the current clip pass, the pass-0 sample total
+    cell = {"pass": 0, "base": None,
+            "total_s0": None if resume is None else resume["total_s0"]}
+
+    def host(x):
+        return x.cpu().numpy()
+
+    def save_state(cursor, acc):
+        state = dict(
+            phase=np.int64(1), pass_idx=np.int64(cell["pass"]),
+            part0=host(acc[0]), part1=host(acc[1]), part2=host(acc[2]),
+            has_base=np.int64(cell["base"] is not None),
+            total_s0=np.float64(cell["total_s0"] or 0.0),
+        )
+        if cell["base"] is not None:
+            b = cell["base"]
+            state.update(base0=host(b[0]), base1=host(b[1]), base2=host(b[2]))
+        if align_save:
+            state.update({f"al_{k}": v for k, v in align_save.items()})
+        ckpt.save(cursor, **state)
+
+    def sweep(mu=None, tol=None):
+        acc = None
+        start_chunk = 0
+        if resume is not None and resume["pass_idx"] == cell["pass"]:
+            start_chunk = resume["cursor"]
+            acc = tuple(torch.from_numpy(x).to(device) for x in resume["part"])
+        lane = start_chunk * chunk_size
+        chunk_i = start_chunk
+        for frames in io.prefetched_chunks(
+            files, chunk_size, h, w, start=lane,
+            preserve_depth=preserve_depth,
+        ):
+            sl = slice(lane, lane + frames.shape[0])
+            part = stack_ops.moments_chunk(
+                up.ready(up.put(frames)), minv[sl], oks_all[sl], mu, tol,
+                perspective)
+            acc = part if acc is None else tuple(
+                a + p for a, p in zip(acc, part))
+            lane = sl.stop
+            chunk_i += 1
+            if (ckpt is not None and lane < n_all
+                    and chunk_i % max(checkpoint_every, 1) == 0):
+                save_state(chunk_i, acc)
+        return acc
+
+    def clip_cb(mu, tol):
+        res = sweep(mu, tol)
+        cell["pass"] += 1
+        return res
+
+    def pass_hook(i, s0c, s1, s2):
+        cell["base"] = (s0c, s1, s2)
+
+    if resume is not None and resume["pass_idx"] >= 1:
+        cell["pass"] = resume["pass_idx"]
+        entry = tuple(torch.from_numpy(x).to(device) for x in resume["base"])
+        cell["base"] = entry
+        out, kept = stack_ops.clip_iterate(
+            None, None, None, kappa, iters, clip_cb, start_pass=cell["pass"],
+            entry_state=entry, pass_hook=pass_hook,
+        )
+    else:
+        s0, s1, s2 = sweep()
+        cell["total_s0"] = float(s0.sum())
+        cell["pass"] = 1
+        cell["base"] = (s0[..., None], s1, s2)
+        out, kept = stack_ops.clip_iterate(
+            s0, s1, s2, kappa, iters, clip_cb, pass_hook=pass_hook,
+        )
+    kept_frac = float(kept.sum()) / max(cell["total_s0"] * 3.0, 1.0)
+    return out, max(0.0, 1.0 - kept_frac)
+
+
+def ecc_match_stream(
+    files: Sequence,
+    params: EccMatchParameters,
+    scale_down_width: Optional[float] = None,
+    chunk_size: int = 16,
+    on_failure: str = "raise",
+    mask: Optional[np.ndarray] = None,
+    preserve_depth: bool = False,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 4,
+    return_stats: bool = False,
+    mesh=None,
+    device="cuda",
+):
+    """Streaming ``ecc_match`` for bursts larger than device memory:
+    frames are decoded (one chunk ahead on a host thread,
+    ``utils.io.prefetched_chunks``), aligned against frame 0 and summed
+    in chunks of ``chunk_size``; only frame 0's grey and the running sum
+    stay resident.  On CUDA each decoded chunk is copied through pinned
+    memory on a side stream while the previous chunk's kernels run
+    (``utils.device.ChunkUploader``).  Chunks hold the real frames only
+    (each ECC lane stops on its own, so the JAX package's pad lanes
+    change nothing and are not made).
+
+    ``checkpoint_path`` makes the run resumable: every
+    ``checkpoint_every`` chunks the sum, ok flags, iterations and rho
+    (the warps, for sigma-clip) are written atomically
+    (``utils.checkpoint``), and a rerun of the same burst resumes at the
+    last saved chunk.  The file is keyed to the files, parameters, chunk
+    size and mask (a mismatched one is ignored) and removed on success.
+
+    ``params.stacking = "sigma_clip"`` streams too: the align pass keeps
+    the warps, then :func:`_stream_sigma_stack` sums the moments over
+    ``1 + sigma_iters`` more decode passes.  ``output_scale != 1``
+    raises.  Returns the ``[H,W,3]`` float32 stack as numpy (plus a
+    ``PipelineStats`` with ``return_stats``); the divisor is the frame
+    count, or ``1 + kept`` under ``on_failure="drop"``."""
+    files = _stream_guards(params, files, mesh)
+    dev = resolve_device(device)
+    sigma = params.stacking == "sigma_clip"
+    motion = params.motion_type
+    num_iters, eps = params.resolve_criteria()
+
+    ref = io.load_frames(files[:1], preserve_depth=preserve_depth)
+    n_total = len(files)
+    h, w = ref.shape[1:3]
+    scale_hw = _scale_hw(h, w, scale_down_width)
+    ref_t = torch.from_numpy(ref).to(dev)
+    ref_grey = _ecc_grey(ref_t, scale_hw)[0]
+    input_mask = None
+    if mask is not None:
+        input_mask = _ecc_mask(mask, (h, w), scale_hw, dev)
+    acc = color.to_unit_f32(ref_t[0])
+    all_ok, all_iters, all_rho, all_warps = [], [], [], []
+    ckpt = None
+    chunks_done = 0
+    sigma_resume = None
+    if checkpoint_path is not None:
+        ckpt = ckpt_mod.StreamCheckpoint(
+            checkpoint_path,
+            ckpt_mod.burst_key(files, params, scale_down_width, chunk_size,
+                               extra="ecc", mask=_mask_key(mask)),
+        )
+        chunks_done, state = ckpt.load()
+        if state is not None and int(state.get("phase", 0)) == 1:
+            # inside the sigma-clip sweeps: the align pass is done
+            sigma_resume = _sigma_resume(state, chunks_done)
+            all_warps.append(state["al_warps"].astype(np.float32))
+            all_ok.append(state["al_ok"].astype(bool))
+            all_iters.append(state["al_iters"])
+            all_rho.append(state["al_rho"])
+            chunks_done = 0
+        elif state is not None and chunks_done > 0:
+            if "acc" in state:
+                acc = torch.from_numpy(state["acc"]).to(dev)
+            all_ok.append(state["ok"].astype(bool))
+            all_iters.append(state["iters"])
+            all_rho.append(state["rho"])
+            if sigma:
+                all_warps.append(state["warps"].astype(np.float32))
+
+    def save_align():
+        st = dict(ok=np.concatenate(all_ok), iters=np.concatenate(all_iters),
+                  rho=np.concatenate(all_rho))
+        if sigma:
+            st["warps"] = np.concatenate(all_warps)
+        else:
+            st["acc"] = acc.cpu().numpy()
+        ckpt.save(chunks_done, **st)
+
+    chunks = () if sigma_resume is not None else io.prefetched_chunks(
+        files, chunk_size, h, w, start=1 + chunks_done * chunk_size,
+        preserve_depth=preserve_depth,
+    )
+    for frames_t, last in ChunkUploader(dev).staged(chunks):
+        grey = _ecc_grey(frames_t, scale_hw)
+        warp_init = None
+        if params.phase_init and input_mask is None:
+            warp_init = phasecorr.phase_init_warps(
+                grey, ref_grey, motion_type=motion,
+                rotation=params.phase_init_rotation,
+            )
+        result = ecc_ops.find_transform_ecc_batched(
+            grey, ref_grey, motion_type=motion, num_iters=num_iters,
+            eps=eps, gauss_filt_size=params.gauss_filt_size,
+            coarse_levels=params.coarse_levels, warp_init=warp_init,
+            mode=params.solver, input_mask=input_mask,
+        )
+        del grey
+        if sigma:
+            warps = result.warp_matrix
+            if scale_hw is not None:
+                warps = _adjust_warp_for_scale(warps, motion, scale_hw, (h, w))
+            all_warps.append(warps.cpu().numpy())
+        else:
+            acc = acc + _warp_lanes(frames_t, result.warp_matrix, result.ok,
+                                    motion, scale_hw)
+        all_ok.append(result.ok.cpu().numpy())
+        all_iters.append(result.num_iters.cpu().numpy())
+        all_rho.append(result.rho.cpu().numpy())
+        chunks_done += 1
+        if ckpt is not None and (
+            chunks_done % max(checkpoint_every, 1) == 0 or last
+        ):
+            save_align()
+
+    ok = np.concatenate(all_ok) if all_ok else np.zeros(0, bool)
+    iters = np.concatenate(all_iters) if all_iters else np.zeros(0, np.int32)
+    rho = np.concatenate(all_rho) if all_rho else np.zeros(0, np.float32)
+    if ckpt is not None and not sigma:
+        ckpt.remove()
+    if not ok.all() and on_failure == "raise":
+        bad = np.nonzero(~ok)[0] + 1
+        raise ProcessingError(
+            f"findTransformECC failed to converge for frames {bad.tolist()}"
+        )
+    clip_frac = None
+    if sigma:
+        mats = (np.concatenate(all_warps) if all_warps
+                else np.zeros((0, 3, 3), np.float32))
+        stacked, clip_frac = _stream_sigma_stack(
+            files, mats, ok, perspective=motion == MotionType.Homography,
+            kappa=params.sigma_kappa, iters=params.sigma_iters,
+            chunk_size=chunk_size, hw=(h, w), device=dev,
+            preserve_depth=preserve_depth, ckpt=ckpt,
+            checkpoint_every=checkpoint_every,
+            align_save=(None if ckpt is None
+                        else dict(warps=mats, ok=ok, iters=iters, rho=rho)),
+            resume=sigma_resume,
+        )
+        out = stacked.cpu().numpy()
+        if ckpt is not None:
+            ckpt.remove()
+    else:
+        count = n_total if ok.all() else 1 + int(ok.sum())
+        out = acc.cpu().numpy() / count
+    if return_stats:
+        stats = PipelineStats(
+            frames_total=n_total,
+            frames_kept=1 + int(ok.sum()),
+            frames_dropped=int((~ok).sum()),
+            ecc_iterations=iters.tolist(),
+            ecc_rho=rho.tolist(),
+            clipped_sample_frac=clip_frac,
+        )
+        return out, stats
+    return out

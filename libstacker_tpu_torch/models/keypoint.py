@@ -2,7 +2,8 @@
 
 Counterpart of ``libstacker_tpu/models/keypoint.py`` (``_adjust_h_for_scale``
 :39, ``_match_and_estimate`` :181, ``_warp_and_accumulate`` :295,
-``keypoint_match_arrays`` :466, ``keypoint_match`` :674), itself the
+``keypoint_match_arrays`` :466, ``keypoint_match`` :674,
+``keypoint_match_stream`` :697), itself the
 counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
 146-601).  Stages, all on one device:
 
@@ -24,8 +25,10 @@ Drop bookkeeping follows the JAX package (SURVEY.md §3.1): frames with
 fewer than 5 kept matches, a failed estimate or |det H| < 1e-6 are
 dropped, contribute nothing, and the divisor is ``1 + kept``.  The JAX
 package's detection chunk budget and speculative warp exist for the
-TPU and have no counterpart.  Options this slice does not port raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+TPU and have no counterpart.  ``keypoint_match_stream`` runs stages
+1-4 chunk by chunk over decoded files against frame 0's features and is
+resumable from a checkpoint file.  ``mesh=`` is not ported and raises
+``NotImplementedError`` naming ROADMAP.md Queue A item 16.
 """
 
 from __future__ import annotations
@@ -43,10 +46,14 @@ from ..ops import stack as stack_ops
 from ..ops.ecc import _phase
 from ..ops.warp_batch import warp_accumulate_rgb
 from ..ops.warp_cuda import warp_frames
+from ..utils import checkpoint as ckpt_mod
 from ..utils import io
-from ..utils.device import resolve_device
+from ..utils.device import ChunkUploader, resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
-from .ecc import _check_mesh, _ecc_mask, _f32, _single_frame_out
+from .ecc import (
+    _check_mesh, _ecc_mask, _f32, _mask_key, _scale_hw, _sigma_resume,
+    _single_frame_out, _stream_guards, _stream_sigma_stack,
+)
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
 _GREY_CHUNK = 16
@@ -109,13 +116,13 @@ def _match_and_estimate(
     return res.h, ok, filt.count, res.num_inliers
 
 
-def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
-                         border_mode=constants.BORDER_CONSTANT):
-    """Stage 4: frame 0 plus the masked sum of the aligned frames
-    1..N-1.  BORDER_CONSTANT (and BORDER_TRANSPARENT over the zero base,
-    a zero border) runs the fused warp-and-sum (kernel B2); the
-    index-mapping modes run B5's accumulate form on the raw burst, which
-    skips the dropped frames."""
+def _warp_lanes(frames, hs, oks, border_value, scale_hw=None,
+                border_mode=constants.BORDER_CONSTANT):
+    """Stage 4 without frame 0: the masked sum of the aligned frames.
+    BORDER_CONSTANT (and BORDER_TRANSPARENT over the zero base, a zero
+    border) runs the fused warp-and-sum (kernel B2); the index-mapping
+    modes run B5's accumulate form on the raw frames, which skips the
+    dropped ones."""
     h, w = frames.shape[1], frames.shape[2]
     if scale_hw is not None:
         hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
@@ -123,18 +130,25 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
     # non-finite) matrices must not reach the warp: NaN * 0 == NaN
     eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
     hs = torch.where(oks[:, None, None], hs, eye)
-    base = color.to_unit_f32(frames[0])
     border = constants.border_mode_name(border_mode)
     if border in ("constant", "transparent"):
         if border == "transparent":
             border_value = [0.0] * 3
-        return base + warp_accumulate_rgb(
-            frames[1:], hs, oks, perspective=True, border_value=border_value,
+        return warp_accumulate_rgb(
+            frames, hs, oks, perspective=True, border_value=border_value,
         )
-    return base + warp_frames(
-        frames[1:], warp.invert_3x3(hs), border_value=border_value,
+    return warp_frames(
+        frames, warp.invert_3x3(hs), border_value=border_value,
         border_mode=border, valid=oks,
     )
+
+
+def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
+                         border_mode=constants.BORDER_CONSTANT):
+    """Stage 4: frame 0 plus the masked sum of the aligned frames
+    1..N-1 (:func:`_warp_lanes`)."""
+    return color.to_unit_f32(frames[0]) + _warp_lanes(
+        frames[1:], hs, oks, border_value, scale_hw, border_mode)
 
 
 def _check_ported(params: KeyPointMatchParameters, mesh) -> None:
@@ -206,15 +220,8 @@ def keypoint_match_arrays(
     if n == 0:
         raise NotEnoughFilesError()
 
-    scale_hw = None
-    if scale_down_width is not None:
-        # the keypoint path has no minimum-width guard (src/lib.rs:377)
-        if scale_down_width >= w:
-            raise InvalidParamsError(
-                "scale_down_to was larger (or equal) to the full image "
-                f"width: full_size:{w}, scale_down_to:{scale_down_width}"
-            )
-        scale_hw = resize.scale_image_size(h, w, scale_down_width)
+    # the keypoint path has no minimum-width guard (src/lib.rs:377)
+    scale_hw = _scale_hw(h, w, scale_down_width, min_width=False)
 
     if n == 1:
         # the single-frame stack is frame 0 itself (src/lib.rs:306-343)
@@ -313,9 +320,174 @@ def keypoint_match(
     )
 
 
-def keypoint_match_stream(*args, **kwargs):
-    """Streaming ``keypoint_match`` — not ported yet."""
-    raise NotImplementedError(
-        "keypoint_match_stream is not ported to libstacker_tpu_torch yet "
-        "(ROADMAP.md Queue A item 14b)"
+def _chunk_generator(seed: int, chunk: int, device) -> torch.Generator:
+    """RANSAC's generator for stream chunk ``chunk``: seeded from
+    ``(seed, chunk)``, so a resumed run draws what an uninterrupted one
+    draws with no replay."""
+    gen = torch.Generator(device=device)
+    state = np.random.SeedSequence([int(seed) % 2 ** 64, chunk])
+    gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return gen
+
+
+def keypoint_match_stream(
+    files: Sequence,
+    params: KeyPointMatchParameters = KeyPointMatchParameters(),
+    scale_down_width: Optional[float] = None,
+    seed: int = 0,
+    chunk_size: int = 16,
+    mask: Optional[np.ndarray] = None,
+    preserve_depth: bool = False,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 4,
+    return_stats: bool = False,
+    mesh=None,
+    device="cuda",
+):
+    """Streaming ``keypoint_match`` for bursts larger than device memory:
+    frames are decoded (one chunk ahead on a host thread), ORB-matched
+    against frame 0 and summed in chunks of ``chunk_size`` of real frames
+    (no pad lanes); only frame 0's features and the running sum stay
+    resident, and on CUDA each chunk's copy runs on a side stream while
+    the previous chunk's kernels do (``utils.device.ChunkUploader``).
+    Returns ``(dropped_count, stacked [H,W,3] float32 numpy)`` like
+    :func:`keypoint_match`; the divisor is ``1 + kept``.
+
+    RANSAC draws from a generator seeded per chunk from ``(seed, chunk
+    index)``, so the draws differ from the whole-burst path's (as the JAX
+    package's do) and a run resumed from ``checkpoint_path`` (see
+    :func:`libstacker_tpu_torch.models.ecc.ecc_match_stream`) equals an
+    uninterrupted one bitwise.  ``params.stacking = "sigma_clip"``
+    (BORDER_CONSTANT or BORDER_TRANSPARENT only) keeps the homographies,
+    then sums the moments over ``1 + sigma_iters`` more decode passes.
+    ``output_scale != 1`` raises."""
+    files = _stream_guards(params, files, mesh)
+    sigma = params.stacking == "sigma_clip"
+    if sigma:
+        border = constants.border_mode_name(params.border_mode)
+        if border not in ("constant", "transparent"):
+            raise InvalidParamsError(
+                "stacking='sigma_clip' requires BORDER_CONSTANT or "
+                "BORDER_TRANSPARENT (sample inclusion is defined by "
+                f"warp coverage), got border mode {border!r}"
+            )
+    dev = resolve_device(device)
+
+    ref = io.load_frames(files[:1], preserve_depth=preserve_depth)
+    h, w = ref.shape[1:3]
+    scale_hw = _scale_hw(h, w, scale_down_width, min_width=False)
+    if len(files) == 1:
+        scale = 65535.0 if ref.dtype == np.uint16 else 255.0
+        out = ref[0].astype(np.float32) / scale
+        if return_stats:
+            return 0, out, PipelineStats(frames_total=1, frames_kept=1,
+                                         frames_dropped=0)
+        return 0, out
+
+    ref_t = torch.from_numpy(ref).to(dev)
+    det_mask = None if mask is None else _ecc_mask(mask, (h, w), scale_hw, dev)
+    feats0 = orb.orb_detect_and_compute(_grey(ref_t, scale_hw), mask=det_mask)
+    acc = color.to_unit_f32(ref_t[0])
+    all_ok, all_mc, all_ic, all_hs = [], [], [], []
+    ckpt = None
+    chunks_done = 0
+    sigma_resume = None
+    if checkpoint_path is not None:
+        ckpt = ckpt_mod.StreamCheckpoint(
+            checkpoint_path,
+            ckpt_mod.burst_key(files, params, scale_down_width, chunk_size,
+                               extra=f"kp|{seed}", mask=_mask_key(mask)),
+        )
+        chunks_done, state = ckpt.load()
+        if state is not None and int(state.get("phase", 0)) == 1:
+            # inside the sigma-clip sweeps: the align pass is done
+            sigma_resume = _sigma_resume(state, chunks_done)
+            all_hs.append(state["al_warps"].astype(np.float32))
+            all_ok.append(state["al_ok"].astype(bool))
+            all_mc.append(state["al_mc"])
+            all_ic.append(state["al_ic"])
+            chunks_done = 0
+        elif state is not None and chunks_done > 0:
+            if "acc" in state:
+                acc = torch.from_numpy(state["acc"]).to(dev)
+            all_ok.append(state["ok"].astype(bool))
+            all_mc.append(state["mc"])
+            all_ic.append(state["ic"])
+            if sigma:
+                all_hs.append(state["hs"].astype(np.float32))
+
+    def save_align():
+        st = dict(ok=np.concatenate(all_ok), mc=np.concatenate(all_mc),
+                  ic=np.concatenate(all_ic))
+        if sigma:
+            st["hs"] = np.concatenate(all_hs)
+        else:
+            st["acc"] = acc.cpu().numpy()
+        ckpt.save(chunks_done, **st)
+
+    chunks = () if sigma_resume is not None else io.prefetched_chunks(
+        files, chunk_size, h, w, start=1 + chunks_done * chunk_size,
+        preserve_depth=preserve_depth,
     )
+    for frames_t, last in ChunkUploader(dev).staged(chunks):
+        feats = orb.orb_detect_and_compute(_grey(frames_t, scale_hw),
+                                           mask=det_mask)
+        feats_all = orb.OrbFeatures(*(torch.cat([a, b])
+                                      for a, b in zip(feats0, feats)))
+        hs, oks, mcounts, icounts = _match_and_estimate(
+            feats_all, _chunk_generator(seed, chunks_done, dev),
+            method=params.method,
+            ransac_reproj_threshold=params.ransac_reproj_threshold,
+            match_keep_ratio=params.match_keep_ratio,
+            match_ratio=params.match_ratio,
+            max_iters=params.max_iters, confidence=params.confidence,
+        )
+        if sigma:
+            hs_full = hs if scale_hw is None else _adjust_h_for_scale(
+                hs, scale_hw, (h, w))
+            all_hs.append(hs_full.cpu().numpy())
+        else:
+            acc = acc + _warp_lanes(
+                frames_t, hs, oks, list(params.border_value[:3]), scale_hw,
+                params.border_mode,
+            )
+        all_ok.append(oks.cpu().numpy())
+        all_mc.append(mcounts.cpu().numpy())
+        all_ic.append(icounts.cpu().numpy())
+        chunks_done += 1
+        if ckpt is not None and (
+            chunks_done % max(checkpoint_every, 1) == 0 or last
+        ):
+            save_align()
+
+    ok = np.concatenate(all_ok)
+    mc, ic = np.concatenate(all_mc), np.concatenate(all_ic)
+    if ckpt is not None and not sigma:
+        ckpt.remove()
+    kept = 1 + int(ok.sum())
+    dropped = int((~ok).sum())
+    clip_frac = None
+    if sigma:
+        mats = np.concatenate(all_hs)
+        stacked, clip_frac = _stream_sigma_stack(
+            files, mats, ok, perspective=True, kappa=params.sigma_kappa,
+            iters=params.sigma_iters, chunk_size=chunk_size, hw=(h, w),
+            device=dev, preserve_depth=preserve_depth, ckpt=ckpt,
+            checkpoint_every=checkpoint_every,
+            align_save=(None if ckpt is None
+                        else dict(warps=mats, ok=ok, mc=mc, ic=ic)),
+            resume=sigma_resume,
+        )
+        out = stacked.cpu().numpy()
+        if ckpt is not None:
+            ckpt.remove()
+    else:
+        out = acc.cpu().numpy() / kept
+    if return_stats:
+        stats = PipelineStats(
+            frames_total=len(files), frames_kept=kept, frames_dropped=dropped,
+            match_counts=mc.tolist(), inlier_counts=ic.tolist(),
+            clipped_sample_frac=clip_frac,
+        )
+        return dropped, out, stats
+    return dropped, out

@@ -1,7 +1,8 @@
 """Color conversion and dtype normalisation.
 
 Counterpart of ``libstacker_tpu/ops/color.py`` (``rgb_to_gray_u8`` :26,
-``u8_to_f32`` :50, ``depth_reduce_u8`` :56, ``to_unit_f32`` :70).  The
+``rgb_to_gray_f32`` :40, ``u8_to_f32`` :50, ``depth_reduce_u8`` :56,
+``to_unit_f32`` :70).  The
 grey is OpenCV's shift-15 fixed-point Rec.601 luma, bit-exact; the unit
 scale multiplies by the float32 constant 1/255 (or 1/65535), which the
 warp-accumulate kernel repeats per tap so that its u8-source path equals
@@ -41,6 +42,17 @@ def rgb_to_gray_u8(rgb: torch.Tensor) -> torch.Tensor:
     acc += rgb[..., 2].to(torch.int32) * _B2Y
     acc += 1 << (_SHIFT - 1)
     return (acc >> _SHIFT).to(torch.uint8)
+
+
+def rgb_to_gray_f32(rgb: torch.Tensor) -> torch.Tensor:
+    """Float Rec.601 luma for float inputs (no fixed-point rounding):
+    each channel times its float32 weight, summed R, G, B in order."""
+    scale = 1.0 / (1 << _SHIFT)
+    x = rgb.to(torch.float32)
+    out = x[..., 0] * float(np.float32(_R2Y * scale))
+    out += x[..., 1] * float(np.float32(_G2Y * scale))
+    out += x[..., 2] * float(np.float32(_B2Y * scale))
+    return out
 
 
 def u8_to_f32(img: torch.Tensor) -> torch.Tensor:

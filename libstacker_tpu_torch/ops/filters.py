@@ -1,12 +1,11 @@
 """Separable correlation filters with OpenCV border semantics.
 
 Counterpart of ``libstacker_tpu/ops/filters.py`` (``pad2d`` :34,
-``sep_filter2d`` :71, ``gaussian_kernel`` :89, ``gaussian_blur`` :112):
-small kernels applied as shifted-slice float32 multiply-adds over a
-border-padded image, in the reference's term order (no convolution
-library, so no TF32 question).  Operates on the trailing two axes of
-``[..., H, W]``.  Sobel and Laplacian wait for the sharpness port
-(ROADMAP.md Queue A item 11).
+``sep_filter2d`` :71, ``gaussian_kernel`` :89, ``gaussian_blur`` :112,
+``deriv_kernel`` :121, ``sobel`` :136, ``laplacian`` :151): small kernels
+applied as shifted-slice float32 multiply-adds over a border-padded
+image, in the reference's term order (no convolution library, so no
+TF32 question).  Operates on the trailing two axes of ``[..., H, W]``.
 """
 
 from __future__ import annotations
@@ -131,3 +130,42 @@ def gaussian_blur(
     """OpenCV GaussianBlur(ksize, sigmaX=sigma, sigmaY=sigma)."""
     k = gaussian_kernel(ksize, sigma)
     return sep_filter2d(img, k, k, border)
+
+
+@functools.lru_cache(maxsize=64)
+def deriv_kernel(order: int, ksize: int) -> Tuple[float, ...]:
+    """OpenCV getDerivKernels 1D factor: binomial smoothing of order
+    (ksize-1-order) composed with ``order`` discrete derivatives.
+    ksize==1 with order>0 uses a 3-tap kernel (no smoothing)."""
+    if ksize == 1 and order > 0:
+        ksize = 3
+    k = np.array([1.0])
+    for _ in range(ksize - 1 - order):
+        k = np.convolve(k, [1.0, 1.0])
+    for _ in range(order):
+        k = np.convolve(k, [-1.0, 1.0])
+    return tuple(k.tolist())
+
+
+def sobel(
+    img: torch.Tensor, dx: int, dy: int, ksize: int = 3, scale: float = 1.0,
+    border: str = "reflect101",
+) -> torch.Tensor:
+    """OpenCV Sobel on ``[..., H, W]`` (ref src/lib.rs:1111-1132)."""
+    out = sep_filter2d(img, deriv_kernel(dx, ksize), deriv_kernel(dy, ksize),
+                       border)
+    if scale != 1.0:
+        out = out * float(np.float32(scale))
+    return out
+
+
+def laplacian(img: torch.Tensor, ksize: int = 3,
+              border: str = "replicate") -> torch.Tensor:
+    """OpenCV Laplacian: ksize=1 uses the 4-neighbour stencil; ksize>=3
+    sums the two smoothed second derivatives (ref src/lib.rs:1076-1084
+    calls it with ksize=3, BORDER_REPLICATE)."""
+    if ksize == 1:
+        d2, sm = (1.0, -2.0, 1.0), (1.0,)
+    else:
+        d2, sm = deriv_kernel(2, ksize), deriv_kernel(0, ksize)
+    return sep_filter2d(img, d2, sm, border) + sep_filter2d(img, sm, d2, border)

@@ -3,7 +3,8 @@ fast path.
 
 Counterpart of ``libstacker_tpu/ops/resize.py`` (``_area_weights`` :35,
 ``_linear_weights`` :55, ``_banded_weights`` :79, ``_nearest_index``
-:136, ``resize`` :142, ``scale_image_size`` :206) and of the 2x box-mean octave reduction in
+:136, ``resize`` :142, ``scale_image_size`` :206, ``scale_image`` :217)
+and of the 2x box-mean octave reduction in
 ``libstacker_tpu/ops/ecc.py:1019-1037``.  The per-axis weights are the
 reference's, and ``resize`` makes the reference's choice per axis (rows
 first, then columns) between the dense ``[dst, src]`` product and the
@@ -249,3 +250,14 @@ def scale_image_size(height: int, width: int, scale_down: float) -> Tuple[int, i
     else:
         factor = float(scale_down) / float(height)
     return int(height * factor), int(width * factor)
+
+
+def scale_image(img: torch.Tensor, scale_down: float) -> torch.Tensor:
+    """INTER_AREA rescale with the reference's smaller-dimension semantics
+    (ref src/utils.rs:186-214) on ``[..., H, W]`` or ``[..., H, W, C]``
+    (C <= 4)."""
+    has_channels = img.ndim >= 3 and img.shape[-1] <= 4
+    x = img.movedim(-1, -3) if has_channels else img
+    nh, nw = scale_image_size(x.shape[-2], x.shape[-1], scale_down)
+    out = resize(x, (nh, nw), constants.INTER_AREA)
+    return out.movedim(-3, -1).contiguous() if has_channels else out

@@ -2,8 +2,9 @@
 "sigma_clip"``) and super-resolution (``output_scale > 1``).
 
 Counterpart of ``libstacker_tpu/ops/stack.py`` (``_CLIP_TOL`` :59,
-``clip_iterate`` :62, ``_coverage`` :112, ``kappa_sigma_stack`` :240,
-``_prepare_lanes`` :292, ``super_res_stack`` :418).
+``clip_iterate`` :62, ``_coverage`` :112, ``_moments_chunk`` :166,
+``_clipped_chunk`` :203, ``kappa_sigma_stack`` :240, ``_prepare_lanes``
+:292, ``super_res_stack`` :418).
 
 Sigma-clip: per pixel and channel, samples further than
 ``kappa`` standard deviations from the mean are excluded and the mean
@@ -20,7 +21,9 @@ coordinate lies inside the frame (coverage), so per-pixel denominators
 replace the mean stack's divide-by-count.  Each pass is one call of
 ``ops/warp_accum_cuda.warp_moments_rgb`` over the whole burst: one
 launch of kernel B4 on CUDA, which keeps no per-frame intermediate, so
-the JAX package's frame chunks are not needed there.
+the JAX package's frame chunks are not needed there.  The streams sweep
+the files chunk by chunk through :func:`moments_chunk` on the rows of
+:func:`sweep_lanes` that the chunk holds.
 
 Super-resolution: every frame deposits its nearest samples on the
 ``factor``-times-finer grid with Gaussian sub-pixel weights; fine pixels
@@ -98,21 +101,38 @@ def _coverage(mats3: torch.Tensor, h: int, w: int,
     return torch.stack([coverage(m, (h, w), perspective) for m in minv])
 
 
-def _prepare_lanes(frames, mats, oks):
+def _prepare_lanes(mats, oks, device):
     """Prologue of the re-warping stackers: 2x3 affine -> 3x3, frame 0
     prepended as the identity lane, failed lanes given the identity (a
     NaN matrix must not reach the inverse).  -> (mats_all [N,3,3],
     oks_all [N] bool)."""
-    dev = frames.device
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    mats3 = torch.as_tensor(mats, device=dev).to(torch.float32)
+    eye = torch.eye(3, dtype=torch.float32, device=device)
+    mats3 = torch.as_tensor(mats, device=device).to(torch.float32)
     if mats3.shape[-2] == 2:
         mats3 = warp.affine_to_3x3(mats3)
     mats_all = torch.cat([eye[None], mats3])
-    oks_all = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                         torch.as_tensor(oks, device=dev).to(torch.bool)])
+    oks_all = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                         torch.as_tensor(oks, device=device).to(torch.bool)])
     mats_all = torch.where(oks_all[:, None, None], mats_all, eye)
     return mats_all, oks_all
+
+
+def sweep_lanes(mats, oks, device):
+    """The lane tables of a sigma-clip sweep over the whole burst, frame
+    0 the identity lane: (inverse maps [N,3,3], oks [N] bool).  A stream
+    slices them per chunk of files."""
+    mats_all, oks_all = _prepare_lanes(mats, oks, device)
+    return warp.invert_3x3(mats_all).contiguous(), oks_all
+
+
+def moments_chunk(frames, minv, oks, mu=None, tol=None, perspective=True):
+    """One re-warp sweep over a chunk of frames (``minv`` / ``oks`` the
+    chunk's rows of :func:`sweep_lanes`) -> (S0 [H,W], S1, S2 [H,W,3]),
+    or with ``mu`` / ``tol`` the clipped moments (C0, C1, C2 [H,W,3]).
+    One launch of kernel B4 on CUDA."""
+    s0, s1, s2 = warp_moments_rgb(frames, minv, oks, mu, tol,
+                                  quant_affine=not perspective)
+    return (s0[..., 0], s1, s2) if mu is None else (s0, s1, s2)
 
 
 def kappa_sigma_stack(
@@ -134,25 +154,20 @@ def kappa_sigma_stack(
     package's do); CUDA sweeps all frames in one launch."""
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
-    mats_all, oks_all = _prepare_lanes(frames, mats, oks)
-    minv = warp.invert_3x3(mats_all).contiguous()
+    minv, oks_all = sweep_lanes(mats, oks, frames.device)
     n = frames.shape[0]
     step = n if frames.device.type == "cuda" else max(1, min(chunk, n))
 
     def sweep(mu=None, tol=None):
         acc = None
         for s in range(0, n, step):
-            part = warp_moments_rgb(
-                frames[s : s + step], minv[s : s + step],
-                oks_all[s : s + step], mu, tol,
-                quant_affine=not perspective,
-            )
+            part = moments_chunk(frames[s : s + step], minv[s : s + step],
+                                 oks_all[s : s + step], mu, tol, perspective)
             acc = part if acc is None else tuple(
                 a + p for a, p in zip(acc, part))
         return acc
 
     s0, s1, s2 = sweep()
-    s0 = s0[..., 0]  # coverage is per pixel: the channels agree
     out, kept = clip_iterate(s0, s1, s2, kappa, iters, sweep)
     tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
     kept_frac = tk / max(ts * 3.0, 1.0)
@@ -185,8 +200,7 @@ def super_res_stack(
         raise ValueError(f"factor must be in 2..4, got {factor}")
     if not kernel_sigma > 0.0:
         raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
-    mats_all, oks_all = _prepare_lanes(frames, mats, oks)
-    minv = warp.invert_3x3(mats_all).contiguous()
+    minv, oks_all = sweep_lanes(mats, oks, frames.device)
     with_fallback = kernel_sigma < 0.15
     if frames.device.type == "cuda":
         return sr_image(frames, minv, oks_all, factor, kernel_sigma,

@@ -4,11 +4,11 @@ and write stacked images.
 A copy of ``libstacker_tpu/utils/io.py`` (``collect_image_files`` :34,
 ``normalize_files`` :50, ``imread_unchanged`` :62, ``imread_rgb`` :80,
 ``imread_gray`` :111, ``save_image`` :129, ``_write_png16_py`` :179,
-``_load_frames_u16`` :265, ``load_frames`` :339).  Decoding prefers the
-native C++ loader (``utils/native_loader.py``, built on first use into
-``build/``) and falls back to PIL, as the reference does.  The 16-bit
-PNG writer needs only ``zlib``.  The streams' ``pad_chunk`` and
-``prefetched_chunks`` are not ported yet (ROADMAP.md Queue A item 14b).
+``pad_chunk`` :213, ``_load_frames_u16`` :265, ``prefetched_chunks`` :313,
+``load_frames`` :339).  Decoding prefers the native C++ loader
+(``utils/native_loader.py``, built on first use into ``build/``) and
+falls back to PIL, as the reference does.  The 16-bit PNG writer needs
+only ``zlib``.
 
 Channel order is RGB in memory, as in the reference.
 """
@@ -16,6 +16,7 @@ Channel order is RGB in memory, as in the reference.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import os
 from pathlib import Path
 from typing import List, Sequence, Union
@@ -207,6 +208,21 @@ def _write_png16_py(path: PathLike, rgb16: np.ndarray) -> None:
         raise StackerIoError(f"{path}: {e}") from e
 
 
+def pad_chunk(
+    frames: np.ndarray, chunk_size: int, fill: np.ndarray | None = None
+) -> np.ndarray:
+    """Pad a final partial chunk to ``chunk_size`` lanes (``fill``, by
+    default the last frame, repeated).  The JAX package pads so that XLA
+    compiles one chunk shape; the port's streams need no pad and feed
+    their kernels the real frames only."""
+    n = frames.shape[0]
+    if n == chunk_size:
+        return frames
+    src = frames[-1:] if fill is None else np.asarray(fill)[None]
+    reps = np.repeat(src, chunk_size - n, axis=0)
+    return np.concatenate([frames, reps], axis=0)
+
+
 def _png_bit_depth(path: PathLike) -> int | None:
     """IHDR bit depth of a PNG file (header sniff), or None if the file
     is not a PNG.  Used to refuse a silent 16->8 reduction when the
@@ -283,6 +299,32 @@ def _load_frames_u16(files, num_threads, use_native: bool) -> np.ndarray:
                 f"expected {shape0}"
             )
     return np.stack(frames, axis=0)
+
+
+def prefetched_chunks(files, chunk_size: int, h: int, w: int,
+                      start: int = 1, preserve_depth: bool = False):
+    """Yield decoded ``[<=chunk_size, H, W, 3]`` numpy frame chunks of
+    ``files[start:]``, decoding the NEXT chunk on a background thread
+    while the caller's device work runs.  The streams call it through
+    this module's attribute at run time."""
+    spans = [
+        files[s0 : s0 + chunk_size]
+        for s0 in range(start, len(files), chunk_size)
+    ]
+    if not spans:
+        return
+    load = functools.partial(load_frames, preserve_depth=preserve_depth)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(load, spans[0])
+        for i, span in enumerate(spans):
+            frames = fut.result()
+            if i + 1 < len(spans):
+                fut = pool.submit(load, spans[i + 1])
+            if frames.shape[1:3] != (h, w):
+                raise StackerIoError(
+                    f"frame size mismatch in chunk starting at {span[0]}"
+                )
+            yield frames
 
 
 def load_frames(

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Phases 2-4, 6-8, 10-14 and 17-21 of chip_smoke.py at small sizes.  Every test needs CUDA and
+Phases 2-4, 6-8, 10-14, 17-21 and 23-24 of chip_smoke.py at small sizes.  Every test needs CUDA and
 the ``nvcc`` toolchain, is marked ``cuda`` and skips without a card.
 This file imports no JAX, so on a machine with the card run it without
 the suite's JAX-configuring conftest:
@@ -40,7 +40,12 @@ image form (``sr_image``) bitwise for u8 / u16 / f32, factors 2-4, sigma
 over more frames than a block stages at once; B6's deposit form with
 16-byte stores at its bar, and the CUDA SR stack through one image
 launch; B9 bitwise for 1, 3 and 17 lanes, odd and aligned widths, both
-map forms.
+map forms.  The sharpness metrics on the card within rel 1e-5 of the
+CPU path; the chunk uploader's copies equal their chunks; the ECC and
+keypoint streams (mean and sigma-clip) on the card against the CPU
+streams at the slice bars (keypoint: p99 < 0.02 and mean < 0.01, the
+draws differing), through their kernels; a sigma-clip stream killed and
+resumed on the card bitwise equal to an uninterrupted one.
 """
 
 import numpy as np
@@ -731,7 +736,7 @@ def test_sr_deposit_kernel_vector_stores(dev, sigma):
                                 kernel_sigma=sigma)
     assert sr_cuda.launch_count == dep
     assert sr_cuda.image_launch_count == img + 1
-    mats_all, oks_all = stack._prepare_lanes(frames, mats, valid[1:])
+    mats_all, oks_all = stack._prepare_lanes(mats, valid[1:], frames.device)
     minv_all = warp.invert_3x3(mats_all).contiguous()
     assert torch.equal(out, sr_cuda.sr_image_reference(
         frames, minv_all, oks_all, 2, sigma, True, sigma < 0.15))
@@ -917,3 +922,134 @@ def test_native_loader_on_card(tmp_path, dev):
     io.save_image(tmp_path / "a.png", rgb16, bit_depth=16)
     got = io.load_frames([tmp_path / "a.png"], preserve_depth=True)
     np.testing.assert_array_equal(got[0], rgb16)
+
+
+def _png_files(d, frames):
+    from PIL import Image
+
+    d.mkdir(parents=True, exist_ok=True)
+    files = []
+    for i, f in enumerate(frames):
+        Image.fromarray(np.ascontiguousarray(f)).save(d / f"f{i:02d}.png")
+        files.append(str(d / f"f{i:02d}.png"))
+    return files
+
+
+def test_sharpness_cuda_matches_cpu(dev):
+    from libstacker_tpu_torch import sharpness_all, sharpness_tenengrad
+
+    rng = np.random.default_rng(5)
+    grey = rng.integers(0, 256, (3, 270, 481), np.uint8)
+    cpu = sharpness_all(grey, device="cpu")
+    gpu = sharpness_all(grey, device=dev)
+    for k in cpu:
+        assert gpu[k].device.type == "cuda"
+        rel = ((gpu[k].cpu().double() - cpu[k].double()).abs()
+               / cpu[k].double().abs()).max()
+        assert float(rel) <= 1e-5, k
+    for k in (1, 5, 7):
+        a = sharpness_tenengrad(torch.from_numpy(grey).to(dev), k).cpu()
+        b = sharpness_tenengrad(torch.from_numpy(grey), k)
+        assert float(((a.double() - b.double()) / b.double()).abs().max()) <= 1e-5
+
+
+def test_chunk_uploader_cuda(dev):
+    from libstacker_tpu_torch.utils.device import ChunkUploader
+
+    rng = np.random.default_rng(6)
+    up = ChunkUploader(dev)
+    chunks = [rng.integers(0, 256, (n, 33, 47, 3), np.uint8) for n in (4, 4, 3, 4)]
+    handles, outs = [], []
+    for c in chunks:  # three puts in flight before the first is read
+        handles.append(up.put(c))
+        if len(handles) > 1:
+            outs.append(up.ready(handles[-2]))
+    outs.append(up.ready(handles[-1]))
+    for c, o in zip(chunks, outs):
+        assert o.device.type == "cuda"
+        np.testing.assert_array_equal(o.cpu().numpy(), c)
+
+
+def test_ecc_streams_cuda_match_cpu(dev, tmp_path):
+    """Mean and sigma-clip ECC streams on the card against the port's CPU
+    streams at the slice bars, through B1 + B2 and B1 + B4."""
+    import dataclasses
+
+    from libstacker_tpu_torch import ecc_match_stream
+
+    frames, _ = burst(9, 6, 192, 256, max_shift=4.0, max_angle=0.4)
+    files = _png_files(tmp_path, frames)
+    p = EccMatchParameters(MotionType.Homography, max_count=50, epsilon=1e-4,
+                           gauss_filt_size=5, coarse_levels=1)
+    for params, kernel in (
+        (p, "launch_count"),
+        (dataclasses.replace(p, stacking="sigma_clip", sigma_iters=2),
+         "moments_launch_count"),
+    ):
+        b1 = ecc_cuda.launch_count
+        stack_launches = getattr(warp_accum_cuda, kernel)
+        gpu, st_gpu = ecc_match_stream(files, params, chunk_size=2,
+                                       return_stats=True, device=dev)
+        torch.cuda.synchronize()
+        assert ecc_cuda.launch_count > b1
+        assert getattr(warp_accum_cuda, kernel) > stack_launches
+        cpu, st_cpu = ecc_match_stream(files, params, chunk_size=2,
+                                       return_stats=True, device="cpu")
+        assert st_cpu.frames_kept == st_gpu.frames_kept == 6
+        np.testing.assert_allclose(st_gpu.ecc_rho, st_cpu.ecc_rho, atol=1e-3)
+        assert np.abs(gpu[8:-8, 8:-8] - cpu[8:-8, 8:-8]).max() < 0.02
+
+
+def test_keypoint_streams_cuda_match_cpu(dev, tmp_path):
+    """Mean and sigma-clip keypoint streams on the card against the CPU
+    streams (RANSAC's draws differ between devices: p99 and mean bars),
+    detecting through B8, B3h and B3d and never B3."""
+    from libstacker_tpu_torch import KeyPointMatchParameters, keypoint_match_stream
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames = make_textured_burst(5, 270, 480, seed=2)[0].numpy()
+    files = _png_files(tmp_path, frames)
+    for params in (KeyPointMatchParameters(),
+                   KeyPointMatchParameters(stacking="sigma_clip")):
+        before = (fast_cuda.launch_count, orb_cuda.harris_launch_count,
+                  orb_cuda.describe_launch_count, orb_cuda.launch_count)
+        d_gpu, gpu = keypoint_match_stream(files, params, chunk_size=2,
+                                           device=dev)
+        torch.cuda.synchronize()
+        after = (fast_cuda.launch_count, orb_cuda.harris_launch_count,
+                 orb_cuda.describe_launch_count, orb_cuda.launch_count)
+        assert all(a > b for a, b in zip(after[:3], before[:3]))
+        assert after[3] == before[3]
+        d_cpu, cpu = keypoint_match_stream(files, params, chunk_size=2,
+                                           device="cpu")
+        assert d_cpu == d_gpu == 0
+        diff = np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16])
+        assert np.quantile(diff, 0.99) < 0.02 and diff.mean() < 0.01
+
+
+def test_stream_resume_cuda_bitwise(dev, tmp_path, monkeypatch):
+    """A stream killed inside the sigma-clip sweeps on the card resumes
+    from its checkpoint and equals the uninterrupted run bitwise."""
+    from libstacker_tpu_torch import ecc_match_stream
+    from libstacker_tpu_torch.utils import io as io_mod
+    from test_torch_stream_resume import _CallCrasher
+
+    frames, _ = burst(4, 7, 96, 128, max_shift=3.0, max_angle=0.3)
+    files = _png_files(tmp_path / "b", frames)
+    p = EccMatchParameters(MotionType.Homography, max_count=50, epsilon=1e-4,
+                           stacking="sigma_clip", sigma_iters=2)
+    ref = ecc_match_stream(files, p, chunk_size=2, device=dev)
+    ck = tmp_path / "ck.npz"
+    monkeypatch.setattr(io_mod, "prefetched_chunks",
+                        _CallCrasher(crash_call=2, limit=2))
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        ecc_match_stream(files, p, chunk_size=2, checkpoint_path=ck,
+                         checkpoint_every=1, device=dev)
+    assert ck.exists()
+    resume = _CallCrasher()
+    monkeypatch.setattr(io_mod, "prefetched_chunks", resume)
+    out = ecc_match_stream(files, p, chunk_size=2, checkpoint_path=ck,
+                           checkpoint_every=1, device=dev)
+    assert resume.starts == [4, 0]
+    np.testing.assert_array_equal(out, ref)
+    assert not ck.exists()

@@ -201,12 +201,16 @@ def test_lifted_options_match_jax(frames, opt):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """The stream is not ported yet; ``preserve_depth`` is (item 14a) and
-    raises the reference's errors."""
+    """``mesh=`` is not ported yet (item 16) on any entry point, the
+    stream included; ``preserve_depth`` (item 14a) and the stream (item
+    14b) are, and raise the reference's errors."""
     with pytest.raises(errors.NotEnoughFilesError):
         P.ecc_match([], _params(P), preserve_depth=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        P.ecc_match_stream([], _params(P))
+    with pytest.raises(errors.NotEnoughFilesError):
+        P.ecc_match_stream([], _params(P), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        P.ecc_match_stream([tmp_path / "a.png"], _params(P), mesh="auto",
+                           device="cpu")
 
 
 def _fields(cls):

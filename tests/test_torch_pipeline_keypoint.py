@@ -210,9 +210,13 @@ def test_output_scale_matches_jax(burst, truth):
 
 
 def test_unported_entry_points_raise(burst):
-    """The stream is not ported yet; ``preserve_depth`` is (item 14a) and
-    raises the reference's error for a file that does not exist."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        P.keypoint_match_stream(["a.png", "b.png"])
+    """``mesh=`` is not ported yet (item 16), the stream included;
+    ``preserve_depth`` (item 14a) and the stream (item 14b) are, and
+    raise the reference's error for a file that does not exist."""
+    with pytest.raises(NotImplementedError, match="item 16"):
+        P.keypoint_match_stream(["a.png", "b.png"], mesh="auto",
+                                device="cpu")
+    with pytest.raises(errors.StackerIoError):
+        P.keypoint_match_stream(["a.png", "b.png"], device="cpu")
     with pytest.raises(errors.StackerIoError):
         P.keypoint_match(["a.png"], preserve_depth=True, device="cpu")

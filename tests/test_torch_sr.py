@@ -156,7 +156,7 @@ def test_sr_deposit_plain_version(sr_case):
     raise."""
     frames, mats, oks = sr_case
     fr = t(frames)
-    mats_all, oks_all = stack._prepare_lanes(fr, t(mats), t(oks))
+    mats_all, oks_all = stack._prepare_lanes(t(mats), t(oks), fr.device)
     minv = torch.linalg.inv(mats_all)
     a = sr_cuda.sr_deposit(fr, minv, oks_all, 2, 0.3, True, True)
     b = sr_cuda.sr_deposit(color.to_unit_f32(fr), minv, oks_all, 2, 0.3,
@@ -179,7 +179,7 @@ def _sr_inputs(sr_case, n_frames=None):
     frames, mats, oks = sr_case
     fr = t(frames[:n_frames])
     k = fr.shape[0] - 1
-    mats_all, oks_all = stack._prepare_lanes(fr, t(mats[:k]), t(oks[:k]))
+    mats_all, oks_all = stack._prepare_lanes(t(mats[:k]), t(oks[:k]), fr.device)
     return fr, mats, oks, warp.invert_3x3(mats_all).contiguous(), oks_all
 
 
