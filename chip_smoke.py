@@ -116,13 +116,31 @@ Phases (each prints one line; any failure exits non-zero):
 25. the example workflow in process (``stack_burst.main``) on 6 textured
     frames of 2160x3840 with frame 3 blurred, headline ECC flags: the
     blurred frame ranked worst and dropped, keypoint dropping none, the
-    four PNGs written.
+    four PNGs written;
+26. ``mesh=`` at full width on shards of the one card
+    (``parallel/mesh.py``), each case against the port's dense path at
+    the JAX package's mesh bars: phase 5's burst over 3 shards (2 pad
+    lanes; kept set equal, max abs 2e-4, and whether the sharded warps
+    are the dense ones bitwise), ``mesh="auto"`` (one device), the
+    streaked burst's sigma-clip over 4 shards (within 2e-4 on > 0.99 of
+    values, max < 0.05), SR x2 of its first 8 frames over 4 (mean < 2e-4,
+    0.999 quantile < 5e-3; B6's deposit form, never its image form), a
+    one-process NCCL group (``init_distributed`` at world size 1,
+    ``make_global_mesh``, ``shard_frames_global``, ``ecc_stack_step`` on 8
+    frames, equal to the one-process mesh), phase 9's keypoint burst over
+    4 (equal drops, mean < 5e-3, max < 0.06), the ECC mean stream over 4
+    on phase 24's PNGs (phase 24's bar), and 4 row bands of the card:
+    ``warp_rows_sharded`` on one 2160x3840x3 float32 frame (planar B5),
+    ``sharpness_teng_spatial`` on 100 greys (data 2 x spatial 2, rel
+    1e-5) and ``ecc_stack_step_spatial`` on 16 frames solved at 540x960
+    (B5's accumulate form; interior max 1e-5 against the dense scaled
+    path, p99 0.005 against the known shifts).
 
-Phases 5, 9, 14-16, 19-22, 24 and 25 drive the entry points with every
+Phases 5, 9, 14-16, 19-22 and 24-26 drive the entry points with every
 launch counter set to 0 just before the run and read just after it, and
 fail if a kernel of that path was not launched; the keypoint phases also
 fail if B3 (``orb_extract``) ran, and BORDER_REPLICATE if the planar B5
-did.  Phases 23-25 print their own seconds.
+did.  Phases 23-26 print their own seconds.
 
 Each kernel record carries its time (CUDA events around a batch of
 calls; for B3, B3h and B3d, whose kernels are shorter than their
@@ -2567,6 +2585,321 @@ def phase_cli(dev):
     return launches
 
 
+# phase 26: the mesh at full width (bars: tests/test_mesh_public_api.py
+# and tests/test_parallel.py)
+MESH_ECC_ATOL = 2e-4
+MESH_NCCL_N = 8
+MESH_SPATIAL_N = 16
+MESH_SOLVE_HW = (540, 960)
+MESH_HALO = 64
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_mesh(dev):
+    """Phase 26: ``mesh=`` at full width on shards of the one card: the
+    ECC headline over 3 shards, sigma-clip and SR x2 over 4, the keypoint
+    path over 4, ``mesh="auto"``, a one-process NCCL group, the ECC mean
+    stream over 4 shards, and the row bands (4 bands of the card).  Each
+    case against the port's dense path; walls of shards that share one
+    card are no speed figure."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from libstacker_tpu_torch import (
+        KeyPointMatchParameters, MotionType, ecc_match, ecc_match_arrays,
+        ecc_match_stream, keypoint_match_arrays, sharpness_tenengrad,
+    )
+    from libstacker_tpu_torch.models import ecc as ecc_models
+    from libstacker_tpu_torch.ops import color, ecc as ecc_ops, phasecorr
+    from libstacker_tpu_torch.ops import warp, warp_cuda
+    from libstacker_tpu_torch.parallel import mesh as pmesh
+    from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
+
+    t_phase = time.perf_counter()
+    card = [dev] * 4
+    mesh3, mesh4 = pmesh.make_mesh(card[:3]), pmesh.make_mesh(card)
+    params = headline_params()
+    lines, checks, results = [], {}, {}
+
+    def case(label, run, need, judge):
+        """Run ``run`` cold, then warm with the counters zeroed just
+        before and read just after; ``judge(result) -> (good, note)``."""
+        result, cold_s, warm_s, launches = drive(run)
+        good, note = judge(result)
+        checks[label] = good and not missing(launches, need) \
+            and not stray(launches)
+        results[f"mesh {label}"] = launches
+        lines.append(
+            f"{label}: cold {cold_s:.3f} s, warm {warm_s:.3f} s | launches "
+            + ", ".join(f"{k} {launches[k]}" for k in need)
+            + f" | {note} -> {'OK' if checks[label] else 'FAILED'}")
+        return result
+
+    # the ECC headline over 3 shards: 100 lanes + 2 pad lanes
+    frames, _ = make_burst(FULL_N, FULL_H, FULL_W, seed=0, device=dev)
+    dense, dstats = ecc_match_arrays(frames, params, return_stats=True,
+                                     device_output=True)
+
+    def ecc_cmp(res):
+        out, st = res
+        d = float((out - dense).abs().max())
+        note = (f"kept {st.frames_kept}/{FULL_N} (dense "
+                f"{dstats.frames_kept}), vs dense max abs {d:.3e} (bar "
+                f"{MESH_ECC_ATOL}), iterations equal "
+                f"{st.ecc_iterations == dstats.ecc_iterations}")
+        return (st.frames_kept == dstats.frames_kept == FULL_N
+                and d <= MESH_ECC_ATOL), note
+
+    case("ecc headline, 3 shards",
+         lambda: ecc_match_arrays(frames, params, return_stats=True,
+                                  device_output=True, mesh=mesh3),
+         ("ecc_moments", "warp_accum"), ecc_cmp)
+    # are the sharded solves' warps the dense ones, bit for bit?
+    grey = ecc_models._ecc_grey(frames)
+    solve = dict(motion_type=params.motion_type, num_iters=50, eps=1e-4,
+                 gauss_filt_size=5, coarse_levels=1)
+    init = phasecorr.phase_init_warps(grey[1:], grey[0], params.motion_type)
+    dres = ecc_ops.find_transform_ecc_batched(
+        grey[1:], grey[0], warp_init=init, **solve)
+    padded, _ = ecc_models._pad_burst(frames, 3)
+    mw = pmesh._ecc_solve_gathered(
+        pmesh.shard_frames(padded, mesh3), grey[0], mesh3, phase_init=True,
+        phase_init_rotation=False, scale_hw=None, input_mask=None,
+        mode=None, **solve)[0]
+    dw = dres.warp_matrix.cpu().numpy()
+    warp_bitwise = bool(np.array_equal(mw[1:FULL_N], dw))
+    warp_diff = float(np.abs(mw[1:FULL_N] - dw).max())
+    del grey, init, dres, padded
+    lines.append(f"    the sharded warps bitwise the dense ones: "
+                 f"{warp_bitwise} (max diff {warp_diff:.3e})")
+
+    # mesh="auto" on the card: a one-device mesh
+    def auto_cmp(res):
+        out, st = res
+        same = bool(torch.equal(out, dense))
+        d = float((out - dense).abs().max())
+        return (same or d <= MESH_ECC_ATOL) and st.frames_kept == FULL_N, (
+            f"bitwise the dense path {same} (max abs {d:.3e}; bar "
+            f"{MESH_ECC_ATOL} where not bitwise)")
+
+    case("ecc mesh='auto'",
+         lambda: ecc_match_arrays(frames, params, return_stats=True,
+                                  device_output=True, mesh="auto"),
+         ("ecc_moments", "warp_accum"), auto_cmp)
+
+    # sigma-clip over 4 shards on the streaked burst
+    dirty = frames.clone()
+    for i in STREAK_FRAMES:
+        draw_streak(dirty, i)
+    sig_p = dataclasses.replace(params, stacking="sigma_clip",
+                                sigma_kappa=2.5, sigma_iters=1)
+    sig_dense = ecc_match_arrays(dirty, sig_p, device_output=True)
+
+    def sig_cmp(out):
+        d = (out - sig_dense).abs()
+        frac = float((d <= MESH_ECC_ATOL).float().mean())
+        return frac > 0.99 and float(d.max()) < 0.05, (
+            f"vs dense within 2e-4 on {frac:.6f} (bar 0.99), max "
+            f"{float(d.max()):.3e} (bar 0.05)")
+
+    case("ecc sigma-clip, 4 shards",
+         lambda: ecc_match_arrays(dirty, sig_p, device_output=True,
+                                  mesh=mesh4),
+         ("ecc_moments", "warp_moments"), sig_cmp)
+    del dirty, sig_dense
+
+    # super-resolution x2 over 4 shards: B6's deposit form per shard
+    sr_p = dataclasses.replace(params, output_scale=2)
+    sr_frames = frames[:SR_FRAMES].contiguous()
+    sr_dense = ecc_match_arrays(sr_frames, sr_p, device_output=True)
+
+    def sr_cmp(out):
+        d = (out - sr_dense).abs()
+        mean, q = float(d.mean()), float(torch.quantile(
+            d.flatten()[::7], 0.999))
+        return mean < 2e-4 and q < 5e-3, (
+            f"vs dense mean {mean:.3e} (bar 2e-4), 0.999 quantile "
+            f"{q:.3e} (bar 5e-3, every 7th value)")
+
+    case("ecc SR x2, 4 shards",
+         lambda: ecc_match_arrays(sr_frames, sr_p, device_output=True,
+                                  mesh=mesh4),
+         ("ecc_moments", "sr_deposit"), sr_cmp)
+    checks["SR without the image form"] = results[
+        "mesh ecc SR x2, 4 shards"]["sr_image"] == 0
+    del sr_frames, sr_dense
+
+    # one-process NCCL: init, global mesh, global shards, the step
+    ref_grey = color.rgb_to_gray_u8(frames[0]).to(torch.float32)
+    local = frames[:MESH_NCCL_N].contiguous()
+    kw = dict(motion_type=params.motion_type, num_iters=50, eps=1e-4,
+              coarse_levels=1)
+    one, one_ok = pmesh.ecc_stack_step(local, ref_grey,
+                                       pmesh.make_mesh([dev]), **kw)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+
+        def nccl_run():
+            gm = pmesh.make_global_mesh()
+            return pmesh.ecc_stack_step(pmesh.shard_frames_global(local, gm),
+                                        ref_grey, gm, **kw)
+
+        res, cold_s, warm_s, launches = drive(nccl_run)
+        same = bool(torch.equal(res[0], one)) and np.array_equal(res[1],
+                                                                  one_ok)
+        checks["nccl"] = (backend == "nccl" and same and bool(one_ok.all())
+                          and not missing(launches,
+                                          ("ecc_moments", "warp_accum")))
+        results["mesh one-process NCCL"] = launches
+        lines.append(
+            f"one-process {backend} group ({MESH_NCCL_N} frames, world 1): "
+            f"cold {cold_s:.3f} s, warm {warm_s:.3f} s | launches "
+            f"ecc_moments {launches['ecc_moments']}, warp_accum "
+            f"{launches['warp_accum']} | equal to the one-process mesh "
+            f"{same} -> {'OK' if checks['nccl'] else 'FAILED'}")
+    finally:
+        dist.destroy_process_group()
+    del frames, local, dense
+
+    # the keypoint path over 4 shards
+    kp, _ = make_textured_burst(KP_N, FULL_H, FULL_W, seed=0, device=dev)
+    kd_drop, kdense = keypoint_match_arrays(kp, KeyPointMatchParameters(),
+                                            device_output=True)
+
+    def kp_cmp(res):
+        drop, out = res
+        d = (out - kdense).abs()
+        mean, mx = float(d.mean()), float(d.max())
+        return drop == kd_drop and mean < 5e-3 and mx < 0.06, (
+            f"dropped {drop} (dense {kd_drop}), vs dense mean {mean:.3e} "
+            f"(bar 5e-3), max {mx:.3e} (bar 0.06)")
+
+    case("keypoint, 4 shards",
+         lambda: keypoint_match_arrays(kp, KeyPointMatchParameters(),
+                                       device_output=True, mesh=mesh4),
+         KP_DETECT + ("warp_accum",), kp_cmp)
+    del kp, kdense
+
+    # the ECC mean stream over 4 shards on phase 24's PNG files
+    files = sorted(str(p) for p in
+                   (REPO / "build" / "smoke_stream_ecc").glob("*.png"))
+    whole = ecc_match(files, params, device=dev)
+    c = 64
+
+    def stream_cmp(res):
+        out, st = res
+        d = float(np.abs(out[c:-c, c:-c] - whole[c:-c, c:-c]).max())
+        return len(files) == STREAM_N and st.frames_kept == STREAM_N and \
+            d < STACK_MAX_BAR, (
+                f"{len(files)} files, kept {st.frames_kept}, vs "
+                f"ecc_match(files) interior max {d:.3e} (bar "
+                f"{STACK_MAX_BAR})")
+
+    case(f"ecc stream, 4 shards, chunk_size={STREAM_CHUNK}",
+         lambda: ecc_match_stream(files, params, chunk_size=STREAM_CHUNK,
+                                  return_stats=True, mesh=mesh4),
+         ("ecc_moments", "warp_accum"), stream_cmp)
+
+    # the row bands: 4 bands of the card
+    rows = pmesh.make_mesh(card, data=1, spatial=4)
+    rng = np.random.default_rng(7)
+    img = smoothed_image(rng, FULL_H, FULL_W)
+    rgb = torch.from_numpy(np.stack([img, img * 0.5, 255.0 - img], -1)).to(dev)
+    ang = np.radians(1.0)
+    a, b = 1.002 * np.cos(ang), 1.002 * np.sin(ang)
+    cx, cy = FULL_W / 2.0, FULL_H / 2.0
+    m3 = np.array([[a, b, (1 - a) * cx - b * cy + 3.5],
+                   [-b, a, b * cx + (1 - a) * cy - 12.0],
+                   [0, 0, 1]], np.float32)
+    minv = warp.invert_3x3(torch.from_numpy(m3).to(dev))
+    want = warp_cuda.warp_bilinear(
+        rgb.permute(2, 0, 1).contiguous(), minv.expand(3, 3, 3).contiguous()
+    ).permute(1, 2, 0)
+
+    def rows_cmp(out):
+        d = (out - want).abs()
+        frac = float((d > 1e-4).float().mean())
+        return frac < 1e-3 and float(d.max()) < 3.0, (
+            f"vs the dense warp: > 1e-4 on {frac:.2e} (bar 1e-3), max "
+            f"{float(d.max()):.3e} (bar 3.0), bitwise "
+            f"{bool(torch.equal(out, want))}")
+
+    case(f"warp_rows_sharded, {FULL_H}x{FULL_W}x3 f32, halo {MESH_HALO}",
+         lambda: pmesh.warp_rows_sharded(rgb, m3, rows, halo=MESH_HALO),
+         ("warp",), rows_cmp)
+    del rgb, want
+
+    greys = color.rgb_to_gray_u8(make_burst(FULL_N, FULL_H, FULL_W, seed=0,
+                                            device=dev)[0]).to(torch.float32)
+    teng = sharpness_tenengrad(greys).cpu().numpy()
+    grid = pmesh.make_mesh(card, data=2, spatial=2)
+
+    def teng_cmp(got):
+        rel = float(np.abs(got / teng - 1.0).max())
+        return rel < 1e-5, f"vs sharpness_tenengrad max rel {rel:.2e} " \
+            f"(bar 1e-5)"
+
+    case(f"sharpness_teng_spatial, {FULL_N} greys, data 2 x spatial 2",
+         lambda: pmesh.sharpness_teng_spatial(greys, grid), (), teng_cmp)
+    del greys
+
+    burst, truth = make_burst(MESH_SPATIAL_N, FULL_H, FULL_W, seed=3,
+                              device=dev, max_shift=2.0, max_angle=0.0)
+    tp = dataclasses.replace(params, motion_type=MotionType.Translation,
+                             coarse_levels=0, epsilon=1e-5)
+    sdense = ecc_match_arrays(burst, tp, scale_down_width=min(MESH_SOLVE_HW),
+                              device_output=True)
+    tw = torch.from_numpy(truth[1:, :2].astype(np.float32)).to(dev)
+    tstack = ecc_models._ecc_warp_accumulate(
+        burst, tw, torch.ones(MESH_SPATIAL_N - 1, dtype=torch.bool,
+                              device=dev), MotionType.Translation)
+    tstack = tstack / MESH_SPATIAL_N
+    mg = 4
+
+    def spatial_cmp(res):
+        total, ok = res
+        got = total / (1 + int(ok.sum()))
+        d = float((got - sdense)[mg:-mg, mg:-mg].abs().max())
+        q = float(torch.quantile(
+            (got - tstack)[mg:-mg, mg:-mg].abs().flatten()[::5], 0.99))
+        return bool(ok.all()) and d < 1e-5 and q < 0.005, (
+            f"kept {int(ok.sum())}/{MESH_SPATIAL_N - 1}, vs the dense scaled "
+            f"path interior max {d:.3e} (bar 1e-5), vs the known shifts p99 "
+            f"{q:.3e} (bar 0.005)")
+
+    case(f"ecc_stack_step_spatial, {MESH_SPATIAL_N} frames, solve grid "
+         f"{MESH_SOLVE_HW[0]}x{MESH_SOLVE_HW[1]}, halo {MESH_HALO}",
+         lambda: pmesh.ecc_stack_step_spatial(
+             burst[1:], burst[0], rows, MESH_SOLVE_HW,
+             motion_type=MotionType.Translation, num_iters=50, eps=1e-5,
+             halo=MESH_HALO),
+         ("ecc_moments", "warp_frames_accum"), spatial_cmp)
+    del burst, sdense, tstack
+
+    ok = all(checks.values())
+    log(f"[26 mesh] shards of one {torch.cuda.get_device_name(0)} "
+        f"(walls of shards sharing one card are no speed figure) | phase "
+        f"{time.perf_counter() - t_phase:.1f} s -> "
+        f"{'OK' if ok else 'FAILED'}")
+    for line in lines:
+        log(f"    {line}")
+    if not ok:
+        fail("a mesh case missed a bar: "
+             + ", ".join(k for k, v in checks.items() if not v))
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
@@ -2645,6 +2978,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cli = phase_cli(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev)
+    torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
                **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
                "ecc_match_arrays sigma_clip": sigma,
@@ -2653,7 +2989,7 @@ def main(argv=None) -> int:
                "ecc_match_arrays output_scale=2": ecc_sr,
                **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
                "keypoint_match_arrays output_scale=2": kp_sr,
-               **files, **streams, "stack_burst": cli}
+               **files, **streams, "stack_burst": cli, **mesh}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}
@@ -2701,8 +3037,9 @@ def main(argv=None) -> int:
         dict(name="warp", route="cuda",
              source="libstacker_tpu_torch/csrc/warp.cu",
              replaces="libstacker_tpu/ops/warp_pallas.py:217",
-             replaces_note="the planar form: on no entry point's path "
-                           "since the interleaved forms",
+             replaces_note="the planar form: on the row-band warp "
+                           "(parallel.warp_rows_sharded); the entry points "
+                           "run the interleaved forms",
              **counts("warp"), **b5),
         dict(name="warp_frames", route="cuda",
              source="libstacker_tpu_torch/csrc/warp.cu",
@@ -2742,8 +3079,10 @@ def main(argv=None) -> int:
         dict(name="sr_deposit", route="cuda",
              source="libstacker_tpu_torch/csrc/sr_deposit.cu",
              replaces="libstacker_tpu/ops/sr_pallas.py:47",
-             replaces_note="the deposit form: on no entry point's CUDA "
-                           "path since the image form",
+             replaces_note="the deposit form: on the mesh's "
+                           "super-resolution path (each shard deposits, the "
+                           "sums are reduced, then normalised once); the "
+                           "one-device path runs the image form",
              **counts("sr_deposit"), **b6),
         dict(name="sr_image", route="cuda",
              source="libstacker_tpu_torch/csrc/sr_deposit.cu",

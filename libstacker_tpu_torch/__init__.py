@@ -11,8 +11,11 @@ ORB-keypoint path (``keypoint_match`` / ``keypoint_match_arrays`` /
 mean, sigma-clip and (whole-burst) super-resolution stacks; the
 resumable chunked streams (``utils/checkpoint.py``); the four
 ``sharpness_*`` metrics; image I/O; and the reference's example
-workflow (``python -m libstacker_tpu_torch.stack_burst``).  ``mesh=``
-is not ported (ROADMAP.md Queue A item 16).
+workflow (``python -m libstacker_tpu_torch.stack_burst``).  Every
+entry point and stream takes ``mesh=``: the burst sharded over a device
+mesh, its sums reduced across devices and processes
+(``libstacker_tpu_torch.parallel``: ``make_mesh``, ``init_distributed``,
+the sharded steps and the row-band functions).
 """
 
 from . import constants  # noqa: F401

@@ -34,6 +34,17 @@
 // pixels of a row and one lane covering the three planes (B9);
 // coordinates exactly as warp_accum.cu and ops/warp.py evaluate them.
 //
+// Row origins (oy0, sy0; 0 and 0 on every whole-frame path).  A row band
+// of a larger frame (parallel/mesh.py: warp_rows_sharded and
+// ecc_stack_step_spatial) warps from its strip of source rows: output row
+// y is global row y + oy0, and global source row r is row r - sy0 of the
+// strip.  The coordinates are evaluated at the GLOBAL row, as the whole
+// frame's warp evaluates them, and the integer origin is subtracted from
+// the tap row after the 1/32 binning, so a band equals the rows of the
+// whole frame's warp bitwise wherever its taps stay in the strip (the JAX
+// package folds the origins into shifted float32 maps instead, which
+// moves 1/32 bins at large row offsets).
+//
 // B9's bound is its bytes: the three planes read once (3 x 33 MB at 4K)
 // and B x 3 planes written once (1.59 GB at 16 lanes, ~0.5 ms at 3.35
 // TB/s), against ~65 operations a pixel-lane (~0.13 ms).  The first
@@ -176,10 +187,12 @@ struct Taps {
 
 template <int MODE>
 __device__ __forceinline__ Taps frame_taps(const float* m, float xs, float ys,
-                                           int H, int W, int perspective) {
+                                           int H, int W, int perspective,
+                                           float sy0) {
   Taps t;
   float x0f, y0f;
   coords(m, xs, ys, perspective, x0f, y0f, t.fx, t.fy);
+  y0f -= sy0;
   if constexpr (MODE == CONSTANT) {
     const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
     const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
@@ -235,7 +248,7 @@ __global__ void __launch_bounds__(THREADS)
 warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
             const float* __restrict__ border,
             const int32_t* __restrict__ src_index, float* __restrict__ out,
-            int H, int W, int OH, int OW, int perspective) {
+            int H, int W, int OH, int OW, int perspective, int oy0, int sy0) {
   const size_t ohw = (size_t)OH * OW;
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= ohw) return;
@@ -245,7 +258,8 @@ warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
   const float* m = minv + 9 * g;
   const float* s = src + (size_t)src_index[g] * H * W;
   float x0f, y0f, fx, fy;
-  coords(m, (float)x, (float)y, perspective, x0f, y0f, fx, fy);
+  coords(m, (float)x, (float)(y + oy0), perspective, x0f, y0f, fx, fy);
+  y0f -= (float)sy0;
   float t00, t01, t10, t11;
   if constexpr (MODE == CONSTANT) {
     const float bv = border[g];
@@ -340,15 +354,15 @@ template <int MODE, typename T>
 __global__ void __launch_bounds__(THREADS)
 frames_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
               Border4 border, float* __restrict__ out, int H, int W, int C,
-              int perspective, float scale) {
+              int perspective, float scale, int oy0, int sy0) {
   const size_t hw = (size_t)H * W;
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= hw) return;
   const int n = blockIdx.y;
   const int y = (int)(p / W);
   const int x = (int)(p - (size_t)y * W);
-  const Taps t =
-      frame_taps<MODE>(minv + 9 * n, (float)x, (float)y, H, W, perspective);
+  const Taps t = frame_taps<MODE>(minv + 9 * n, (float)x, (float)(y + oy0),
+                                  H, W, perspective, (float)sy0);
   const T* f = frames + (size_t)n * hw * C;
   float* o = out + ((size_t)n * hw + p) * C;
 #pragma unroll
@@ -363,18 +377,19 @@ __global__ void __launch_bounds__(THREADS)
 accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
              const float* __restrict__ valid, Border4 border,
              float* __restrict__ out, int N, int H, int W, int C,
-             int perspective, float scale) {
+             int perspective, float scale, int oy0, int sy0) {
   const size_t hw = (size_t)H * W;
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= hw) return;
   const int y = (int)(p / W);
   const int x = (int)(p - (size_t)y * W);
-  const float xs = (float)x, ys = (float)y;
+  const float xs = (float)x, ys = (float)(y + oy0), sy0f = (float)sy0;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int n = 0; n < N; ++n) {
     const float vn = valid[n];
     if (vn == 0.0f) continue;
-    const Taps t = frame_taps<MODE>(minv + 9 * n, xs, ys, H, W, perspective);
+    const Taps t =
+        frame_taps<MODE>(minv + 9 * n, xs, ys, H, W, perspective, sy0f);
     const T* f = frames + (size_t)n * hw * C;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -391,16 +406,18 @@ template <int MODE, typename T>
 cudaError_t launch_frames(const void* frames, const float* minv,
                           const Border4& border, const float* valid,
                           float* out, int N, int H, int W, int C,
-                          int perspective, float scale, cudaStream_t st) {
+                          int perspective, float scale, int oy0, int sy0,
+                          cudaStream_t st) {
   const size_t hw = (size_t)H * W;
   const unsigned blocks = (unsigned)((hw + THREADS - 1) / THREADS);
   const T* f = static_cast<const T*>(frames);
   if (valid) {
     accum_kernel<MODE, T><<<blocks, THREADS, 0, st>>>(
-        f, minv, valid, border, out, N, H, W, C, perspective, scale);
+        f, minv, valid, border, out, N, H, W, C, perspective, scale, oy0,
+        sy0);
   } else {
     frames_kernel<MODE, T><<<dim3(blocks, (unsigned)N), THREADS, 0, st>>>(
-        f, minv, border, out, H, W, C, perspective, scale);
+        f, minv, border, out, H, W, C, perspective, scale, oy0, sy0);
   }
   return cudaGetLastError();
 }
@@ -409,13 +426,14 @@ template <typename T>
 cudaError_t frames_by_mode(int mode, const void* frames, const float* minv,
                            const Border4& border, const float* valid,
                            float* out, int N, int H, int W, int C,
-                           int perspective, float scale, cudaStream_t st) {
+                           int perspective, float scale, int oy0, int sy0,
+                           cudaStream_t st) {
   switch (mode) {
-    case CONSTANT: return launch_frames<CONSTANT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
-    case REPLICATE: return launch_frames<REPLICATE, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
-    case REFLECT: return launch_frames<REFLECT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
-    case WRAP: return launch_frames<WRAP, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
-    case REFLECT101: return launch_frames<REFLECT101, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, st);
+    case CONSTANT: return launch_frames<CONSTANT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case REPLICATE: return launch_frames<REPLICATE, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case REFLECT: return launch_frames<REFLECT, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case WRAP: return launch_frames<WRAP, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case REFLECT101: return launch_frames<REFLECT101, T>(frames, minv, border, valid, out, N, H, W, C, perspective, scale, oy0, sy0, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -423,11 +441,13 @@ cudaError_t frames_by_mode(int mode, const void* frames, const float* minv,
 template <int MODE>
 cudaError_t launch(const float* src, const float* minv, const float* border,
                    const int32_t* sidx, float* out, int G, int H, int W,
-                   int OH, int OW, int perspective, cudaStream_t st) {
+                   int OH, int OW, int perspective, int oy0, int sy0,
+                   cudaStream_t st) {
   const size_t ohw = (size_t)OH * OW;
   const dim3 grid((unsigned)((ohw + THREADS - 1) / THREADS), (unsigned)G);
   warp_kernel<MODE><<<grid, THREADS, 0, st>>>(src, minv, border, sidx, out,
-                                              H, W, OH, OW, perspective);
+                                              H, W, OH, OW, perspective, oy0,
+                                              sy0);
   return cudaGetLastError();
 }
 
@@ -438,11 +458,12 @@ extern "C" {
 // src [S,H,W] f32, minv [G,3,3] f32 inverse maps, border [G] f32 (read in
 // BORDER_CONSTANT only), src_index [G] i32 (each in 0..S-1, checked by
 // the wrapper), out [G,OH,OW] f32.  border_mode is OpenCV's integer
-// (0 constant, 1 replicate, 2 reflect, 3 wrap, 4 reflect101).
+// (0 constant, 1 replicate, 2 reflect, 3 wrap, 4 reflect101); oy0 / sy0
+// the row origins (header).
 int warp_bilinear(const void* src, const void* minv, const void* border,
                   const void* src_index, void* out, int G, int H, int W,
-                  int OH, int OW, int border_mode, int perspective,
-                  void* stream) {
+                  int OH, int OW, int border_mode, int perspective, int oy0,
+                  int sy0, void* stream) {
   if (G <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<const float*>(src);
@@ -452,11 +473,11 @@ int warp_bilinear(const void* src, const void* minv, const void* border,
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (border_mode) {
-    case CONSTANT: return (int)launch<CONSTANT>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
-    case REPLICATE: return (int)launch<REPLICATE>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
-    case REFLECT: return (int)launch<REFLECT>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
-    case WRAP: return (int)launch<WRAP>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
-    case REFLECT101: return (int)launch<REFLECT101>(s, m, b, i, o, G, H, W, OH, OW, perspective, st);
+    case CONSTANT: return (int)launch<CONSTANT>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REPLICATE: return (int)launch<REPLICATE>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REFLECT: return (int)launch<REFLECT>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case WRAP: return (int)launch<WRAP>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REFLECT101: return (int)launch<REFLECT101>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -485,11 +506,12 @@ int warp3_bilinear(const void* srcs, const void* minv, void* out, int B,
 // minv [N,3,3] f32 inverse maps, border [C] f32 in HOST memory (read in
 // BORDER_CONSTANT only), scale the widening factor of integer taps.  valid == NULL: the
 // frames form, out [N,H,W,C] f32.  valid [N] f32: the accumulate form,
-// out [H,W,C] f32 (N may be 0: zeros).
+// out [H,W,C] f32 (N may be 0: zeros); oy0 / sy0 the row origins
+// (header).
 int warp_frames(const void* frames, const void* minv, const float* border,
                 const void* valid, void* out, int N, int H, int W, int C,
                 int dtype_code, int border_mode, int perspective,
-                float scale, void* stream) {
+                float scale, int oy0, int sy0, void* stream) {
   if (N < 0 || (N == 0 && !valid) || N > 65535 || H <= 0 || W <= 0 ||
       C < 1 || C > 4)
     return (int)cudaErrorInvalidValue;
@@ -500,9 +522,9 @@ int warp_frames(const void* frames, const void* minv, const float* border,
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return (int)frames_by_mode<uint8_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
-    case 1: return (int)frames_by_mode<uint16_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
-    case 2: return (int)frames_by_mode<float>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, st);
+    case 0: return (int)frames_by_mode<uint8_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case 1: return (int)frames_by_mode<uint16_t>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, oy0, sy0, st);
+    case 2: return (int)frames_by_mode<float>(border_mode, frames, m, b, v, o, N, H, W, C, perspective, scale, oy0, sy0, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

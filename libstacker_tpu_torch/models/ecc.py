@@ -9,7 +9,7 @@ the current frame with BORDER_CONSTANT 0 (src/lib.rs:780-803); the sum
 divides by the total frame count (src/lib.rs:837), and a failed frame
 raises ``ProcessingError`` — or is dropped with ``on_failure="drop"``.
 
-Stages, all on one device:
+Stages, all on one device (or per shard of a mesh):
 
 1. fixed-point grey (``ops/color``), INTER_AREA-scaled on the scaled path;
 2. phase-correlation start (``ops/phasecorr``; translation, or with
@@ -27,8 +27,10 @@ Stages, all on one device:
 ``ecc_match_stream`` runs stages 1-4 chunk by chunk over decoded files
 (the same kernels per chunk) and keeps only the running sum, or, for
 sigma-clip, the warps and then the per-pixel moments; it is resumable
-from a checkpoint file.  ``mesh=`` is not ported and raises
-``NotImplementedError`` naming ROADMAP.md Queue A item 16.
+from a checkpoint file.  ``mesh=`` runs every entry point over a device
+mesh (``parallel/mesh.py``): the burst's frames are sharded over the
+mesh's ``'data'`` axis, each shard runs the stages above on its own
+device, and the sums are reduced across devices and processes.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ..ops import stack as stack_ops
 from ..ops.warp_batch import warp_accumulate_rgb
 from ..utils import checkpoint as ckpt_mod
 from ..utils import io
-from ..utils.device import ChunkUploader, resolve_device
+from ..utils.device import resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
@@ -155,13 +157,129 @@ def _ecc_mask(mask, hw, scale_hw=None, device="cpu") -> torch.Tensor:
     return m
 
 
-def _check_mesh(mesh) -> None:
-    """Raise for the option this package does not port yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to libstacker_tpu_torch yet (ROADMAP.md "
-            "Queue A item 16)"
+def _resolve_mesh(mesh, device):
+    """The public ``mesh=`` argument -> a ``parallel.Mesh`` or None:
+    ``"auto"`` is a data mesh over every visible CUDA device, or a
+    one-device CPU mesh when ``device`` is the CPU (it never becomes a
+    CPU mesh when a card was asked for); a mesh with a ``'data'`` axis
+    passes through (``libstacker_tpu/models/ecc.py`` :381-406)."""
+    if mesh is None:
+        return None
+    from ..parallel import mesh as pmesh
+
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise InvalidParamsError(
+                "mesh must be None, 'auto' or a "
+                f"libstacker_tpu_torch.parallel Mesh, got {mesh!r}"
+            )
+        dev = resolve_device(device)
+        return pmesh.make_mesh([dev] if dev.type == "cpu" else None)
+    if "data" not in getattr(mesh, "axis_names", ()):
+        raise InvalidParamsError(
+            "mesh must have a 'data' axis (parallel.make_mesh builds one)"
         )
+    return mesh
+
+
+def _numpy_device(device, mesh) -> torch.device:
+    """Where an entry point puts a numpy burst: ``device``, or the first
+    device of an explicit mesh (the shards then go to theirs)."""
+    if isinstance(mesh, str) or "data" not in getattr(mesh, "axis_names", ()):
+        return resolve_device(device)
+    return mesh.devices[0, 0]
+
+
+def _pad_burst(frames, ndata: int):
+    """Pad the frame axis to a multiple of the ``'data'`` axis with
+    copies of frame 0 -> ``(frames, lane_valid [N'] bool)``; the pad
+    lanes are left out through ``lane_valid``
+    (``libstacker_tpu/models/ecc.py`` :409-422)."""
+    n = frames.shape[0]
+    pad = (-n) % ndata
+    if pad == 0:
+        return frames, np.ones(n, bool)
+    if isinstance(frames, torch.Tensor):
+        frames = torch.cat([frames, frames[:1].expand(pad, *frames.shape[1:])])
+    else:
+        frames = np.concatenate([frames, np.repeat(frames[:1], pad, axis=0)])
+    return frames, np.arange(n + pad) < n
+
+
+def _frame0_lanes(n: int, final_sr: bool, sigma: bool):
+    """How frame 0 (lane 0) enters a mesh stack -> ``(exclude, identity)``
+    lane masks: the mean leaves lane 0 out of the sum and adds frame 0
+    after the reduction, as the dense path adds it; sigma-clip stacks it
+    with the exact identity; super-resolution uses its solved lane, as
+    the JAX package's mesh does."""
+    exclude = np.zeros(n, bool)
+    identity = np.zeros(n, bool)
+    if sigma:
+        identity[0] = True
+    elif not final_sr:
+        exclude[0] = True
+    return exclude, identity
+
+
+def _ecc_match_arrays_sharded(frames, params, scale_hw, on_failure,
+                              return_stats, mask, mesh, device_output):
+    """``ecc_match_arrays`` over a mesh (``libstacker_tpu/models/ecc.py``
+    :425-504): every frame (frame 0 included) is a lane of
+    ``parallel.mesh``'s sharded step, the burst padded to the ``'data'``
+    axis with copies of frame 0.  Returns as the dense path does."""
+    from ..parallel import mesh as pmesh
+
+    n, h, w = frames.shape[:3]
+    dev0 = mesh.devices[0, 0]
+    num_iters, eps = params.resolve_criteria()
+    f0 = frames[:1]
+    with pmesh._on(dev0):
+        f0 = (f0 if isinstance(f0, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(f0))).to(dev0)
+        input_mask = None
+        if mask is not None:
+            input_mask = _ecc_mask(mask, (h, w), scale_hw, dev0)
+        ref_grey = _ecc_grey(f0, scale_hw)[0]
+    sigma = params.stacking == "sigma_clip"
+    sr_factor = params.output_scale
+    final = sigma or sr_factor > 1
+    frames_p, lane_valid = _pad_burst(frames, mesh.shape["data"])
+    exclude, identity = _frame0_lanes(len(lane_valid), sr_factor > 1, sigma)
+    total, ok, rho, iters, clip_frac = pmesh._ecc_step(
+        frames_p, ref_grey, mesh, motion_type=params.motion_type,
+        num_iters=num_iters, eps=eps, gauss_filt_size=params.gauss_filt_size,
+        phase_init=params.phase_init,
+        phase_init_rotation=params.phase_init_rotation,
+        stacking=params.stacking, sigma_kappa=params.sigma_kappa,
+        sigma_iters=params.sigma_iters, scale_hw=scale_hw,
+        coarse_levels=params.coarse_levels, input_mask=input_mask,
+        lane_valid=lane_valid & ~exclude, output_scale=sr_factor,
+        mode=params.solver, identity=identity,
+    )
+    ok = ok[:n].copy()
+    if not final:
+        ok[0] = True
+        total = color.to_unit_f32(f0[0]) + total
+    stats = None
+    if return_stats:
+        stats = PipelineStats(
+            frames_total=n,
+            frames_kept=int(ok.sum()),
+            frames_dropped=int((~ok).sum()),
+            ecc_iterations=iters[1:n].tolist(),
+            ecc_rho=rho[1:n].tolist(),
+            clipped_sample_frac=clip_frac,
+        )
+    if not ok.all() and on_failure == "raise":
+        bad = np.nonzero(~ok)[0]
+        raise ProcessingError(
+            "findTransformECC failed to converge for frames "
+            f"{bad.tolist()} (NaN correlation or non-positive lambda "
+            "denominator)"
+        )
+    fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
+    out = fetch(total) if final else fetch(total) / int(ok.sum())
+    return (out, stats) if return_stats else out
 
 
 def _single_frame_out(frame, params, device, device_output=False):
@@ -216,15 +334,22 @@ def ecc_match_arrays(
     ``params.solver`` picks the ECC formulation ('forward', 'lazy',
     'ic') and ``params.phase_init_rotation`` the rotation/scale start.
     The super-resolution and sigma-clip images are final: failed frames
-    are left out of them under ``on_failure="drop"``."""
+    are left out of them under ``on_failure="drop"``.
+
+    ``mesh``: None (one device), ``"auto"`` (every visible CUDA device;
+    one CPU shard with ``device="cpu"``) or a ``parallel.Mesh`` with a
+    ``'data'`` axis (``parallel.make_mesh``, ``make_global_mesh``): the
+    frames are sharded over it (padded with copies of frame 0) and each
+    shard is solved and stacked on its own device, the sums reduced
+    across devices and processes; the result and stats are the dense
+    path's."""
     params.validate()
-    _check_mesh(mesh)
     if isinstance(frames, torch.Tensor):
         dev = resolve_device(frames.device)
         dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
     else:
         frames = np.asarray(frames)
-        dev = resolve_device(device)
+        dev = _numpy_device(device, mesh)
         dtype_ok = frames.dtype in (np.uint8, np.uint16)
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise InvalidParamsError(
@@ -249,6 +374,12 @@ def ecc_match_arrays(
                                       frames_dropped=0)
         return out
 
+    mesh = _resolve_mesh(mesh, dev)
+    if mesh is not None:
+        return _ecc_match_arrays_sharded(
+            frames, params, scale_hw, on_failure, return_stats, mask, mesh,
+            device_output,
+        )
     if isinstance(frames, torch.Tensor):
         frames_t = frames.contiguous()
     else:
@@ -358,11 +489,10 @@ def _mask_key(mask):
     return mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
 
 
-def _stream_guards(params, files, mesh):
+def _stream_guards(params, files):
     """The checks both streams make before decoding anything ->
     normalised file list."""
     params.validate()
-    _check_mesh(mesh)
     if params.output_scale != 1:
         raise InvalidParamsError(
             "output_scale stacking is not available in the"
@@ -372,6 +502,21 @@ def _stream_guards(params, files, mesh):
     if not files:
         raise NotEnoughFilesError()
     return files
+
+
+def _stream_mesh(mesh, device, chunk_size: int):
+    """A stream's mesh and chunk size: the ``mesh`` argument, or without
+    one a one-device mesh on ``device``; the stream runs on its devices
+    (``devices[0, 0]`` holds the running sum) and ``chunk_size`` rounds
+    up to a multiple of the ``'data'`` axis, which the checkpoint's key
+    then holds (``libstacker_tpu/models/ecc.py`` :808-811)."""
+    from ..parallel import mesh as pmesh
+
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is None:
+        mesh = pmesh.make_mesh([resolve_device(device)])
+    ndata = mesh.shape["data"]
+    return mesh, -(-chunk_size // ndata) * ndata
 
 
 def _sigma_resume(state: dict, cursor: int) -> dict:
@@ -395,7 +540,7 @@ def _stream_sigma_stack(
     iters: int,
     chunk_size: int,
     hw,
-    device: torch.device,
+    mesh,
     preserve_depth: bool = False,
     ckpt=None,
     checkpoint_every: int = 4,
@@ -405,10 +550,12 @@ def _stream_sigma_stack(
     """Streaming kappa-sigma stack: the S0/S1/S2 moments of
     ``ops/stack.py`` summed over decoded chunks of the files, ``1 +
     iters`` decode passes after the align pass; only the per-pixel
-    moments stay resident.  Each chunk is one call of
-    ``stack.moments_chunk`` (one launch of B4 on CUDA) on the lane rows
-    it holds, lanes indexed from file 0 (frame 0 the identity lane);
-    chunks are the real frames, never padded.
+    moments stay resident.  Each chunk of files is padded to a multiple
+    of the ``mesh``'s ``'data'`` axis (pad lanes ``oks=False``; no pad on
+    one device), sharded, and each shard's moments (one launch of B4 on
+    CUDA, ``stack.moments_chunk``) reduced over ``'data'``
+    (``parallel.mesh.stream_moments``); lanes are indexed from file 0
+    (frame 0 the identity lane).
 
     ``ckpt`` makes the sweeps resumable: every ``checkpoint_every``
     chunks the pass index, chunk cursor, partial moments, the pass's
@@ -417,12 +564,19 @@ def _stream_sigma_stack(
     ``al_*``).  ``resume`` is :func:`_sigma_resume` of such a record.
 
     Returns ``(image [H,W,3] float32 tensor, clipped_sample_frac)``."""
+    from ..parallel import mesh as pmesh
+
     h, w = int(hw[0]), int(hw[1])
+    device = mesh.devices[0, 0]
     minv, oks_all = stack_ops.sweep_lanes(
         torch.from_numpy(np.asarray(mats_full, np.float32)),
         torch.from_numpy(np.asarray(oks, bool)), device)
     n_all = minv.shape[0]
-    up = ChunkUploader(device)
+    up = pmesh.ShardUploader(mesh)
+    pad = (-n_all) % mesh.shape["data"]
+    eye = torch.eye(3, dtype=torch.float32, device=device)
+    minv = torch.cat([minv, eye.expand(pad, 3, 3)])
+    oks_all = torch.cat([oks_all, oks_all.new_zeros(pad)])
     # the pass running (0 = initial moments, 1..iters = clip passes), the
     # state ENTERING the current clip pass, the pass-0 sample total
     cell = {"pass": 0, "base": None,
@@ -457,13 +611,13 @@ def _stream_sigma_stack(
             files, chunk_size, h, w, start=lane,
             preserve_depth=preserve_depth,
         ):
-            sl = slice(lane, lane + frames.shape[0])
-            part = stack_ops.moments_chunk(
-                up.ready(up.put(frames)), minv[sl], oks_all[sl], mu, tol,
-                perspective)
+            sf = up.ready(up.put(up.padded(frames)))
+            rows = slice(lane, lane + sf.n_global)
+            part = pmesh.stream_moments(sf, minv[rows], oks_all[rows], mesh,
+                                        mu, tol, perspective)
             acc = part if acc is None else tuple(
                 a + p for a, p in zip(acc, part))
-            lane = sl.stop
+            lane += frames.shape[0]
             chunk_i += 1
             if (ckpt is not None and lane < n_all
                     and chunk_i % max(checkpoint_every, 1) == 0):
@@ -498,6 +652,40 @@ def _stream_sigma_stack(
     return out, max(0.0, 1.0 - kept_frac)
 
 
+def _ecc_stream_chunks(chunks, mesh, ref, ref_grey, params, scale_hw,
+                       input_mask, hw):
+    """The align pass of ``ecc_match_stream``: per chunk -> ``(sum of its
+    kept frames, or for sigma-clip its full-resolution warps; ok;
+    iterations; rho; is_last)``.  Each chunk is padded with frame 0 to a
+    multiple of the mesh's ``'data'`` axis (no pad on one device),
+    sharded (``parallel.mesh.ShardUploader``: each shard's rows copied to
+    its own device), solved and summed per shard and the sums reduced;
+    the pad lanes are left out and sliced off."""
+    from ..parallel import mesh as pmesh
+
+    num_iters, eps = params.resolve_criteria()
+    solve = dict(
+        motion_type=params.motion_type, num_iters=num_iters, eps=eps,
+        gauss_filt_size=params.gauss_filt_size, phase_init=params.phase_init,
+        phase_init_rotation=params.phase_init_rotation, scale_hw=scale_hw,
+        coarse_levels=params.coarse_levels, input_mask=input_mask,
+        mode=params.solver)
+    for sf, n_real, last in pmesh.ShardUploader(mesh).staged(chunks,
+                                                              fill=ref[0]):
+        if params.stacking == "sigma_clip":
+            part, rho, iters, ok = pmesh._ecc_solve_gathered(
+                sf, ref_grey, mesh, full_hw=hw, **solve)
+            part = part[:n_real]
+        else:
+            part, ok, rho, iters, _ = pmesh._ecc_step(
+                sf, ref_grey, mesh, stacking="mean",
+                sigma_kappa=params.sigma_kappa,
+                sigma_iters=params.sigma_iters,
+                lane_valid=np.arange(sf.n_global) < n_real, output_scale=1,
+                **solve)
+        yield part, ok[:n_real], iters[:n_real], rho[:n_real], last
+
+
 def ecc_match_stream(
     files: Sequence,
     params: EccMatchParameters,
@@ -520,7 +708,7 @@ def ecc_match_stream(
     memory on a side stream while the previous chunk's kernels run
     (``utils.device.ChunkUploader``).  Chunks hold the real frames only
     (each ECC lane stops on its own, so the JAX package's pad lanes
-    change nothing and are not made).
+    change nothing and are not made on one device).
 
     ``checkpoint_path`` makes the run resumable: every
     ``checkpoint_every`` chunks the sum, ok flags, iterations and rho
@@ -534,23 +722,32 @@ def ecc_match_stream(
     ``1 + sigma_iters`` more decode passes.  ``output_scale != 1``
     raises.  Returns the ``[H,W,3]`` float32 stack as numpy (plus a
     ``PipelineStats`` with ``return_stats``); the divisor is the frame
-    count, or ``1 + kept`` under ``on_failure="drop"``."""
-    files = _stream_guards(params, files, mesh)
-    dev = resolve_device(device)
+    count, or ``1 + kept`` under ``on_failure="drop"``.
+
+    Over a ``mesh`` (see :func:`ecc_match_arrays`) ``chunk_size`` rounds
+    up to a multiple of its ``'data'`` axis; each chunk is padded with
+    frame 0, sharded, and solved and summed per shard, the sums (or, for
+    sigma-clip, each sweep's moments) reduced per chunk.  Without one the
+    stream runs the same code on a one-device mesh."""
+    from ..parallel import mesh as pmesh
+
+    files = _stream_guards(params, files)
+    mesh, chunk_size = _stream_mesh(mesh, device, chunk_size)
+    dev = mesh.devices[0, 0]
     sigma = params.stacking == "sigma_clip"
     motion = params.motion_type
-    num_iters, eps = params.resolve_criteria()
 
     ref = io.load_frames(files[:1], preserve_depth=preserve_depth)
     n_total = len(files)
     h, w = ref.shape[1:3]
     scale_hw = _scale_hw(h, w, scale_down_width)
-    ref_t = torch.from_numpy(ref).to(dev)
-    ref_grey = _ecc_grey(ref_t, scale_hw)[0]
-    input_mask = None
-    if mask is not None:
-        input_mask = _ecc_mask(mask, (h, w), scale_hw, dev)
-    acc = color.to_unit_f32(ref_t[0])
+    with pmesh._on(dev):
+        ref_t = torch.from_numpy(ref).to(dev)
+        ref_grey = _ecc_grey(ref_t, scale_hw)[0]
+        input_mask = None
+        if mask is not None:
+            input_mask = _ecc_mask(mask, (h, w), scale_hw, dev)
+        acc = color.to_unit_f32(ref_t[0])
     all_ok, all_iters, all_rho, all_warps = [], [], [], []
     ckpt = None
     chunks_done = 0
@@ -592,32 +789,16 @@ def ecc_match_stream(
         files, chunk_size, h, w, start=1 + chunks_done * chunk_size,
         preserve_depth=preserve_depth,
     )
-    for frames_t, last in ChunkUploader(dev).staged(chunks):
-        grey = _ecc_grey(frames_t, scale_hw)
-        warp_init = None
-        if params.phase_init and input_mask is None:
-            warp_init = phasecorr.phase_init_warps(
-                grey, ref_grey, motion_type=motion,
-                rotation=params.phase_init_rotation,
-            )
-        result = ecc_ops.find_transform_ecc_batched(
-            grey, ref_grey, motion_type=motion, num_iters=num_iters,
-            eps=eps, gauss_filt_size=params.gauss_filt_size,
-            coarse_levels=params.coarse_levels, warp_init=warp_init,
-            mode=params.solver, input_mask=input_mask,
-        )
-        del grey
+    for part, ok_c, iters_c, rho_c, last in _ecc_stream_chunks(
+            chunks, mesh, ref, ref_grey, params, scale_hw, input_mask,
+            (h, w)):
         if sigma:
-            warps = result.warp_matrix
-            if scale_hw is not None:
-                warps = _adjust_warp_for_scale(warps, motion, scale_hw, (h, w))
-            all_warps.append(warps.cpu().numpy())
+            all_warps.append(part)
         else:
-            acc = acc + _warp_lanes(frames_t, result.warp_matrix, result.ok,
-                                    motion, scale_hw)
-        all_ok.append(result.ok.cpu().numpy())
-        all_iters.append(result.num_iters.cpu().numpy())
-        all_rho.append(result.rho.cpu().numpy())
+            acc = acc + part
+        all_ok.append(ok_c)
+        all_iters.append(iters_c)
+        all_rho.append(rho_c)
         chunks_done += 1
         if ckpt is not None and (
             chunks_done % max(checkpoint_every, 1) == 0 or last
@@ -641,7 +822,7 @@ def ecc_match_stream(
         stacked, clip_frac = _stream_sigma_stack(
             files, mats, ok, perspective=motion == MotionType.Homography,
             kappa=params.sigma_kappa, iters=params.sigma_iters,
-            chunk_size=chunk_size, hw=(h, w), device=dev,
+            chunk_size=chunk_size, hw=(h, w), mesh=mesh,
             preserve_depth=preserve_depth, ckpt=ckpt,
             checkpoint_every=checkpoint_every,
             align_save=(None if ckpt is None

@@ -27,8 +27,10 @@ dropped, contribute nothing, and the divisor is ``1 + kept``.  The JAX
 package's detection chunk budget and speculative warp exist for the
 TPU and have no counterpart.  ``keypoint_match_stream`` runs stages
 1-4 chunk by chunk over decoded files against frame 0's features and is
-resumable from a checkpoint file.  ``mesh=`` is not ported and raises
-``NotImplementedError`` naming ROADMAP.md Queue A item 16.
+resumable from a checkpoint file.  ``mesh=`` runs every entry point
+over a device mesh (``parallel/mesh.py``): each shard detects, matches
+against frame 0's features and runs RANSAC from its own generator, and
+the sums are reduced across devices and processes.
 """
 
 from __future__ import annotations
@@ -48,11 +50,13 @@ from ..ops.warp_batch import warp_accumulate_rgb
 from ..ops.warp_cuda import warp_frames
 from ..utils import checkpoint as ckpt_mod
 from ..utils import io
-from ..utils.device import ChunkUploader, resolve_device
+from ..utils.device import resolve_device
 from ..utils.tracing import PhaseTimer, PipelineStats
 from .ecc import (
-    _check_mesh, _ecc_mask, _f32, _mask_key, _scale_hw, _sigma_resume,
-    _single_frame_out, _stream_guards, _stream_sigma_stack,
+    _ecc_mask, _f32, _frame0_lanes, _mask_key, _numpy_device, _pad_burst,
+    _resolve_mesh,
+    _scale_hw, _sigma_resume, _single_frame_out, _stream_guards,
+    _stream_mesh, _stream_sigma_stack,
 )
 
 # frames per chunk of the grey conversion (bounds its int32 transients)
@@ -151,10 +155,9 @@ def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
         frames[1:], hs, oks, border_value, scale_hw, border_mode)
 
 
-def _check_ported(params: KeyPointMatchParameters, mesh) -> None:
-    """Raise for the option this package does not port yet, and for
-    sigma-clip or super-resolution with a border mode that has no
-    coverage (``libstacker_tpu/models/keypoint.py`` :568-577)."""
+def _check_border(params: KeyPointMatchParameters) -> None:
+    """Raise for sigma-clip or super-resolution with a border mode that
+    has no coverage (``libstacker_tpu/models/keypoint.py`` :568-577)."""
     border = constants.border_mode_name(params.border_mode)
     if ((params.stacking == "sigma_clip" or params.output_scale > 1)
             and border not in ("constant", "transparent")):
@@ -163,7 +166,67 @@ def _check_ported(params: KeyPointMatchParameters, mesh) -> None:
             "BORDER_CONSTANT or BORDER_TRANSPARENT (sample inclusion is "
             f"defined by warp coverage), got border mode {border!r}"
         )
-    _check_mesh(mesh)
+
+
+def _solve_args(params, seed, scale_hw, det_mask) -> dict:
+    """The keywords of ``parallel.mesh``'s sharded keypoint solve."""
+    return dict(
+        method=params.method,
+        ransac_reproj_threshold=params.ransac_reproj_threshold,
+        match_ratio=params.match_ratio,
+        match_keep_ratio=params.match_keep_ratio, max_iters=params.max_iters,
+        confidence=params.confidence, seed=seed, scale_hw=scale_hw,
+        det_mask=det_mask)
+
+
+def _keypoint_match_arrays_sharded(frames, params, scale_hw, seed,
+                                   return_stats, mask, mesh, device_output):
+    """``keypoint_match_arrays`` over a mesh
+    (``libstacker_tpu/models/keypoint.py`` :378-465): frame 0's features
+    detected once on ``devices[0, 0]``; every frame (frame 0 included) a
+    lane of ``parallel.mesh``'s sharded step, the burst padded to the
+    ``'data'`` axis with copies of frame 0.  Returns as the dense path
+    does."""
+    from ..parallel import mesh as pmesh
+
+    n, h, w = frames.shape[:3]
+    dev0 = mesh.devices[0, 0]
+    f0 = frames[:1]
+    with pmesh._on(dev0):
+        f0 = (f0 if isinstance(f0, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(f0))).to(dev0)
+        det_mask = None if mask is None else _ecc_mask(mask, (h, w),
+                                                       scale_hw, dev0)
+        feats0 = orb.orb_detect_and_compute(_grey(f0, scale_hw),
+                                            mask=det_mask)
+    sigma = params.stacking == "sigma_clip"
+    sr_factor = params.output_scale
+    final = sigma or sr_factor > 1
+    frames_p, lane_valid = _pad_burst(frames, mesh.shape["data"])
+    exclude, identity = _frame0_lanes(len(lane_valid), sr_factor > 1, sigma)
+    total, ok, mc, ic, clip_frac = pmesh._kp_step(
+        frames_p, feats0, mesh, stacking=params.stacking,
+        sigma_kappa=params.sigma_kappa, sigma_iters=params.sigma_iters,
+        border_mode=params.border_mode, border_value=params.border_value,
+        lane_valid=lane_valid & ~exclude, output_scale=sr_factor,
+        identity=identity, **_solve_args(params, seed, scale_hw, det_mask),
+    )
+    ok = ok[:n].copy()
+    if not final:
+        ok[0] = True
+        total = color.to_unit_f32(f0[0]) + total
+    kept = int(ok.sum())
+    dropped = n - kept
+    fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
+    out = fetch(total) if final else fetch(total) / kept
+    if return_stats:
+        stats = PipelineStats(
+            frames_total=n, frames_kept=kept, frames_dropped=dropped,
+            match_counts=mc[1:n].tolist(), inlier_counts=ic[1:n].tolist(),
+            clipped_sample_frac=clip_frac,
+        )
+        return dropped, out, stats
+    return dropped, out
 
 
 def keypoint_match_arrays(
@@ -198,15 +261,20 @@ def keypoint_match_arrays(
     "sigma_clip"`` (BORDER_CONSTANT or BORDER_TRANSPARENT only) stacks
     by per-pixel kappa-sigma clipping over the covered samples;
     ``params.output_scale = f`` (2-4, the same border modes) returns the
-    ``[f*H, f*W, 3]`` super-resolution stack.  Both images are final."""
+    ``[f*H, f*W, 3]`` super-resolution stack.  Both images are final.
+
+    ``mesh`` as in ``ecc_match_arrays``: each shard detects, matches
+    against frame 0's features and runs RANSAC from a generator seeded by
+    ``(seed, global shard index)``, so the draws differ from the dense
+    path's (the same drops, the stack within its statistical bars)."""
     params.validate()
-    _check_ported(params, mesh)
+    _check_border(params)
     if isinstance(frames, torch.Tensor):
         dev = resolve_device(frames.device)
         dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
     else:
         frames = np.asarray(frames)
-        dev = resolve_device(device)
+        dev = _numpy_device(device, mesh)
         dtype_ok = frames.dtype in (np.uint8, np.uint16)
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise InvalidParamsError(
@@ -231,6 +299,12 @@ def keypoint_match_arrays(
                                          frames_dropped=0)
         return 0, out
 
+    mesh = _resolve_mesh(mesh, dev)
+    if mesh is not None:
+        return _keypoint_match_arrays_sharded(
+            frames, params, scale_hw, seed, return_stats, mask, mesh,
+            device_output,
+        )
     if isinstance(frames, torch.Tensor):
         frames_t = frames.contiguous()
     else:
@@ -320,14 +394,34 @@ def keypoint_match(
     )
 
 
-def _chunk_generator(seed: int, chunk: int, device) -> torch.Generator:
-    """RANSAC's generator for stream chunk ``chunk``: seeded from
-    ``(seed, chunk)``, so a resumed run draws what an uninterrupted one
-    draws with no replay."""
-    gen = torch.Generator(device=device)
-    state = np.random.SeedSequence([int(seed) % 2 ** 64, chunk])
-    gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-    return gen
+def _kp_stream_chunks(chunks, mesh, feats0, params, seed, scale_hw,
+                      det_mask, chunk0):
+    """The align pass of ``keypoint_match_stream``: per chunk -> ``(sum
+    of its kept frames, or for sigma-clip its full-resolution
+    homographies; ok; match counts; inlier counts; is_last)``; chunk
+    ``chunk0`` is the first.  Each chunk is padded to a multiple of the
+    mesh's ``'data'`` axis (no pad on one device), sharded and matched
+    per shard and the sums reduced; the pad lanes are left out and
+    sliced off."""
+    from ..parallel import mesh as pmesh
+
+    solve = _solve_args(params, seed, scale_hw, det_mask)
+    staged = pmesh.ShardUploader(mesh).staged(chunks)
+    for c, (sf, n_real, last) in enumerate(staged, chunk0):
+        real = np.arange(sf.n_global) < n_real
+        if params.stacking == "sigma_clip":
+            part, ok, mc, ic = pmesh.keypoint_solve_step(
+                sf, feats0, mesh, lane_valid=real, chunk=c, **solve)
+            part = part[:n_real]
+        else:
+            part, ok, mc, ic, _ = pmesh._kp_step(
+                sf, feats0, mesh, stacking="mean",
+                sigma_kappa=params.sigma_kappa,
+                sigma_iters=params.sigma_iters,
+                border_mode=params.border_mode,
+                border_value=params.border_value, lane_valid=real,
+                output_scale=1, chunk=c, **solve)
+        yield part, ok[:n_real], mc[:n_real], ic[:n_real], last
 
 
 def keypoint_match_stream(
@@ -347,21 +441,29 @@ def keypoint_match_stream(
     """Streaming ``keypoint_match`` for bursts larger than device memory:
     frames are decoded (one chunk ahead on a host thread), ORB-matched
     against frame 0 and summed in chunks of ``chunk_size`` of real frames
-    (no pad lanes); only frame 0's features and the running sum stay
-    resident, and on CUDA each chunk's copy runs on a side stream while
-    the previous chunk's kernels do (``utils.device.ChunkUploader``).
+    (no pad lanes on one device); only frame 0's features and the running
+    sum stay resident, and on CUDA each chunk's copy runs on a side stream
+    while the previous chunk's kernels do (``utils.device.ChunkUploader``).
     Returns ``(dropped_count, stacked [H,W,3] float32 numpy)`` like
     :func:`keypoint_match`; the divisor is ``1 + kept``.
 
     RANSAC draws from a generator seeded per chunk from ``(seed, chunk
-    index)``, so the draws differ from the whole-burst path's (as the JAX
+    index)`` (and the global shard index on a mesh of several data
+    shards), so the draws differ from the whole-burst path's (as the JAX
     package's do) and a run resumed from ``checkpoint_path`` (see
     :func:`libstacker_tpu_torch.models.ecc.ecc_match_stream`) equals an
     uninterrupted one bitwise.  ``params.stacking = "sigma_clip"``
     (BORDER_CONSTANT or BORDER_TRANSPARENT only) keeps the homographies,
     then sums the moments over ``1 + sigma_iters`` more decode passes.
-    ``output_scale != 1`` raises."""
-    files = _stream_guards(params, files, mesh)
+    ``output_scale != 1`` raises.
+
+    Over a ``mesh`` ``chunk_size`` rounds up to a multiple of its
+    ``'data'`` axis; each chunk is padded, sharded and matched per shard,
+    and its sums (or sigma-clip moments) are reduced per chunk.  Without
+    one the stream runs the same code on a one-device mesh."""
+    from ..parallel import mesh as pmesh
+
+    files = _stream_guards(params, files)
     sigma = params.stacking == "sigma_clip"
     if sigma:
         border = constants.border_mode_name(params.border_mode)
@@ -371,7 +473,8 @@ def keypoint_match_stream(
                 "BORDER_TRANSPARENT (sample inclusion is defined by "
                 f"warp coverage), got border mode {border!r}"
             )
-    dev = resolve_device(device)
+    mesh, chunk_size = _stream_mesh(mesh, device, chunk_size)
+    dev = mesh.devices[0, 0]
 
     ref = io.load_frames(files[:1], preserve_depth=preserve_depth)
     h, w = ref.shape[1:3]
@@ -384,10 +487,13 @@ def keypoint_match_stream(
                                          frames_dropped=0)
         return 0, out
 
-    ref_t = torch.from_numpy(ref).to(dev)
-    det_mask = None if mask is None else _ecc_mask(mask, (h, w), scale_hw, dev)
-    feats0 = orb.orb_detect_and_compute(_grey(ref_t, scale_hw), mask=det_mask)
-    acc = color.to_unit_f32(ref_t[0])
+    with pmesh._on(dev):
+        ref_t = torch.from_numpy(ref).to(dev)
+        det_mask = None if mask is None else _ecc_mask(mask, (h, w),
+                                                       scale_hw, dev)
+        feats0 = orb.orb_detect_and_compute(_grey(ref_t, scale_hw),
+                                            mask=det_mask)
+        acc = color.to_unit_f32(ref_t[0])
     all_ok, all_mc, all_ic, all_hs = [], [], [], []
     ckpt = None
     chunks_done = 0
@@ -429,31 +535,16 @@ def keypoint_match_stream(
         files, chunk_size, h, w, start=1 + chunks_done * chunk_size,
         preserve_depth=preserve_depth,
     )
-    for frames_t, last in ChunkUploader(dev).staged(chunks):
-        feats = orb.orb_detect_and_compute(_grey(frames_t, scale_hw),
-                                           mask=det_mask)
-        feats_all = orb.OrbFeatures(*(torch.cat([a, b])
-                                      for a, b in zip(feats0, feats)))
-        hs, oks, mcounts, icounts = _match_and_estimate(
-            feats_all, _chunk_generator(seed, chunks_done, dev),
-            method=params.method,
-            ransac_reproj_threshold=params.ransac_reproj_threshold,
-            match_keep_ratio=params.match_keep_ratio,
-            match_ratio=params.match_ratio,
-            max_iters=params.max_iters, confidence=params.confidence,
-        )
+    for part, oks_c, mc_c, ic_c, last in _kp_stream_chunks(
+            chunks, mesh, feats0, params, seed, scale_hw, det_mask,
+            chunks_done):
         if sigma:
-            hs_full = hs if scale_hw is None else _adjust_h_for_scale(
-                hs, scale_hw, (h, w))
-            all_hs.append(hs_full.cpu().numpy())
+            all_hs.append(part)
         else:
-            acc = acc + _warp_lanes(
-                frames_t, hs, oks, list(params.border_value[:3]), scale_hw,
-                params.border_mode,
-            )
-        all_ok.append(oks.cpu().numpy())
-        all_mc.append(mcounts.cpu().numpy())
-        all_ic.append(icounts.cpu().numpy())
+            acc = acc + part
+        all_ok.append(oks_c)
+        all_mc.append(mc_c)
+        all_ic.append(ic_c)
         chunks_done += 1
         if ckpt is not None and (
             chunks_done % max(checkpoint_every, 1) == 0 or last
@@ -472,7 +563,7 @@ def keypoint_match_stream(
         stacked, clip_frac = _stream_sigma_stack(
             files, mats, ok, perspective=True, kappa=params.sigma_kappa,
             iters=params.sigma_iters, chunk_size=chunk_size, hw=(h, w),
-            device=dev, preserve_depth=preserve_depth, ckpt=ckpt,
+            mesh=mesh, preserve_depth=preserve_depth, ckpt=ckpt,
             checkpoint_every=checkpoint_every,
             align_save=(None if ckpt is None
                         else dict(warps=mats, ok=ok, mc=mc, ic=ic)),

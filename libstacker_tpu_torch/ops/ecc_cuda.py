@@ -230,13 +230,12 @@ def ecc_iteration_moments(
     nblk = lib.ecc_moments_num_blocks(h, w)
     partials = torch.empty((b, n_out, nblk), dtype=torch.float32, device=dev)
     out = torch.empty((b, n_out), dtype=torch.float32, device=dev)
-    err = lib.ecc_moments(
+    cuda_build.launch(
+        lib, "ecc_moments", dev,
         texels.data_ptr(), templates.data_ptr(), m3.data_ptr(), act.data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
         int(quant_affine), int(masked),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, err, "ecc_moments")
     if masked:
         masked_launch_count += 1
     elif with_hessian:
@@ -367,12 +366,12 @@ def ecc_ic_iteration_moments(
     nblk = lib.ecc_ic_moments_num_blocks(h, w)
     partials = torch.empty((b, n_out, nblk), dtype=torch.float32, device=dev)
     out = torch.empty((b, n_out), dtype=torch.float32, device=dev)
-    err = lib.ecc_ic_moments(
+    cuda_build.launch(
+        lib, "ecc_ic_moments", dev,
         src.data_ptr(), templates.data_ptr(), m3.data_ptr(), act.data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
-        int(quant_affine), torch.cuda.current_stream(dev).cuda_stream,
+        int(quant_affine),
     )
-    cuda_build.check(lib, err, "ecc_ic_moments")
     ic_launch_count += 1
     return out
 

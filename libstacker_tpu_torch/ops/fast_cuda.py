@@ -65,12 +65,11 @@ def fast_scores(
     if n == 0:
         return out
     lib = _lib()
-    err = lib.fast_scores(
+    cuda_build.launch(
+        lib, "fast_scores", imgs.device,
         imgs.data_ptr(), out.data_ptr(), n, h, w, _DTYPE_CODE[imgs.dtype],
         float(threshold), border,
-        torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    cuda_build.check(lib, err, "fast_scores")
     launch_count += 1
     return out
 

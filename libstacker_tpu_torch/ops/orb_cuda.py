@@ -120,12 +120,11 @@ def extract_patches(
     ys32 = ys.to(device=imgs.device, dtype=torch.int32).contiguous()
     xs32 = xs.to(device=imgs.device, dtype=torch.int32).contiguous()
     lib = _lib()
-    err = lib.extract_patches(
+    cuda_build.launch(
+        lib, "extract_patches", imgs.device,
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), out.data_ptr(),
         n, k, h, w, radius, _DTYPE_CODE[imgs.dtype],
-        torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    cuda_build.check(lib, err, "extract_patches")
     launch_count += 1
     return out
 
@@ -306,12 +305,11 @@ def candidate_harris(
     ys32, xs32 = _cuda_args(imgs, ys, xs)
     vb = valid.to(device=imgs.device, dtype=torch.bool).contiguous()
     lib = _lib("orb_describe")
-    err = lib.candidate_harris(
+    cuda_build.launch(
+        lib, "candidate_harris", imgs.device,
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), vb.data_ptr(),
         out.data_ptr(), n, k, h, w, HARRIS_K, fast.harris_scale4(),
-        torch.cuda.current_stream(imgs.device).cuda_stream,
     )
-    cuda_build.check(lib, err, "candidate_harris")
     harris_launch_count += 1
     return out
 
@@ -348,14 +346,13 @@ def describe(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
         return angle, desc
     ys32, xs32 = _cuda_args(imgs, ys, xs)
     lib = _lib("orb_describe")
-    err = lib.orb_describe(
+    cuda_build.launch(
+        lib, "orb_describe", dev,
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(),
         _describe_constants_on(dev).data_ptr(), _blur_taps(),
         angle.data_ptr(),
         desc.data_ptr(), n, q, h, w, 180.0 / math.pi, math.pi / 180.0,
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, err, "orb_describe")
     describe_launch_count += 1
     return angle, desc
 

@@ -197,6 +197,44 @@ def _resize_axis(x: torch.Tensor, axis: int, dst: int,
     return out
 
 
+def row_span(src: int, dst: int, first: int, last: int,
+             interpolation: int = constants.INTER_AREA) -> Tuple[int, int]:
+    """The source rows ``[lo, hi)`` that output rows ``[first, last)`` of
+    a ``src`` -> ``dst`` row pass read."""
+    full = _full_weights(src, dst, interpolation)[first:last]
+    cols = np.nonzero(full.any(axis=0))[0]
+    return int(cols[0]), int(cols[-1]) + 1
+
+
+def resize_rows(x: torch.Tensor, src: int, dst: int, first: int, last: int,
+                origin: int,
+                interpolation: int = constants.INTER_AREA) -> torch.Tensor:
+    """Output rows ``[first, last)`` of :func:`resize`'s row pass of a
+    ``[..., src, W]`` image to ``dst`` rows, from ``x``, the image's rows
+    from ``origin`` on (holding every row :func:`row_span` names): the
+    same taps, products and sums as the whole image's row pass, so a row
+    band's rows equal the whole image's bitwise."""
+    out = torch.empty((*x.shape[:-2], last - first, x.shape[-1]),
+                      dtype=torch.float32, device=x.device)
+    xf = x.to(torch.float32)
+    for tree, rows, idx, wt in _tap_plan(src, dst, interpolation):
+        sel = (rows >= first) & (rows < last)
+        if not sel.any():
+            continue
+        at = torch.from_numpy(rows[sel] - first).to(x.device)
+        prods = [xf.index_select(-2, torch.from_numpy(i - origin).to(x.device))
+                 * torch.from_numpy(w).to(x.device)[:, None]
+                 for i, w in zip(idx[sel].T, wt[sel].T)]
+
+        def total(node):
+            if isinstance(node, tuple):
+                return total(node[0]) + total(node[1])
+            return prods[node]
+
+        out.index_copy_(-2, at, total(tree))
+    return out
+
+
 @functools.lru_cache(maxsize=256)
 def _nearest_index(src: int, dst: int) -> np.ndarray:
     scale = src / dst

@@ -222,13 +222,13 @@ def _launch(entry, frames, minv, valid, outs, factor, kernel_sigma,
     vb = valid.to(device=dev, dtype=torch.uint8).contiguous()
     blocks, vector, wide = launch_plan(h, w, factor)
     lib = _lib()
-    err = getattr(lib, entry)(
+    cuda_build.launch(
+        lib, entry, dev,
         frames.data_ptr(), minv.data_ptr(), vb.data_ptr(), *outs, n, h, w,
         factor, 2.0 * kernel_sigma ** 2, _DTYPE_CODE[frames.dtype],
         int(perspective), int(with_fallback), _SCALE[frames.dtype], blocks,
-        int(vector), int(wide), torch.cuda.current_stream(dev).cuda_stream,
+        int(vector), int(wide),
     )
-    cuda_build.check(lib, err, entry)
 
 
 def sr_deposit(

@@ -43,13 +43,15 @@ def invert_3x3(m: torch.Tensor) -> torch.Tensor:
 
 
 def _dst_coords(
-    m3: torch.Tensor, dsize: Tuple[int, int], perspective: bool
+    m3: torch.Tensor, dsize: Tuple[int, int], perspective: bool,
+    oy0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Map every dst pixel (x, y) through ``m3`` to source coords
-    ``[dh, dw]`` (float32; ``a*x + b*y + c`` evaluated left to right)."""
+    ``[dh, dw]`` (float32; ``a*x + b*y + c`` evaluated left to right);
+    dst row y is row ``y + oy0`` of a larger grid."""
     dh, dw = dsize
     dev = m3.device
-    ys = torch.arange(dh, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.arange(oy0, oy0 + dh, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(dw, dtype=torch.float32, device=dev)[None, :]
     sx = m3[0, 0] * xs + m3[0, 1] * ys + m3[0, 2]
     sy = m3[1, 0] * xs + m3[1, 1] * ys + m3[1, 2]
@@ -130,9 +132,11 @@ def _sample_bilinear(
     fixed_point_1024: bool = False,
     border: str = "constant",
     dst_base=None,
+    sy0: int = 0,
 ) -> torch.Tensor:
     """Bilinear sample ``img`` ([H,W] or [H,W,C] float32) at (sx, sy)
-    with the 1/32 quantisation and the border mode's taps."""
+    with the 1/32 quantisation and the border mode's taps; ``img`` holds
+    the rows from ``sy0`` of a larger frame."""
     h, w = img.shape[0], img.shape[1]
     if fixed_point_1024:
         xq = torch.floor((torch.round(sx * 1024.0) + 16.0) / 32.0)
@@ -145,7 +149,7 @@ def _sample_bilinear(
     fx = (xq - x0f * _INTER_TAB_SIZE) * (1.0 / _INTER_TAB_SIZE)
     fy = (yq - y0f * _INTER_TAB_SIZE) * (1.0 / _INTER_TAB_SIZE)
     x0 = _to_index(x0f, w, border)
-    y0 = _to_index(y0f, h, border)
+    y0 = _to_index(y0f - float(sy0), h, border)
     if img.ndim == 3:
         fx = fx[..., None]
         fy = fy[..., None]
@@ -181,7 +185,7 @@ def _resolve_border(border_mode) -> str:
 
 
 def _warp(img, m3, dsize, border_mode, border_value, inverse_map,
-          interpolation, dst, fixed_point_1024):
+          interpolation, dst, fixed_point_1024, rows=(0, 0)):
     if interpolation not in (constants.INTER_LINEAR, constants.INTER_NEAREST):
         raise ValueError(
             f"interpolation {interpolation} is not supported (INTER_LINEAR "
@@ -194,11 +198,14 @@ def _warp(img, m3, dsize, border_mode, border_value, inverse_map,
         dsize = (img.shape[0], img.shape[1])
     if not inverse_map:
         m3 = invert_3x3(m3)
-    sx, sy = _dst_coords(m3, dsize, perspective=not fixed_point_1024)
+    sx, sy = _dst_coords(m3, dsize, perspective=not fixed_point_1024,
+                         oy0=rows[0])
     if interpolation == constants.INTER_NEAREST:
+        if rows != (0, 0):
+            raise ValueError("row origins take INTER_LINEAR only")
         return _sample_nearest(img, sx, sy, border, border_value, dst)
     return _sample_bilinear(img, sx, sy, border_value, fixed_point_1024,
-                            border, dst)
+                            border, dst, sy0=rows[1])
 
 
 def warp_perspective(
@@ -245,15 +252,22 @@ def warp_inverse(
     minv: torch.Tensor,
     dsize: Tuple[int, int],
     quant_affine: bool = False,
-    **kw,
+    rows: Tuple[int, int] = (0, 0),
+    border_mode=constants.BORDER_CONSTANT,
+    border_value=0.0,
+    interpolation: int = constants.INTER_LINEAR,
 ) -> torch.Tensor:
-    """Warp by an inverse map ``minv`` [3,3]: :func:`warp_affine` on its
-    top two rows (the 1/1024 fixed-point coordinates) when
-    ``quant_affine``, else :func:`warp_perspective` — how the kernels'
-    plain versions warp one frame.  ``kw`` as those take."""
-    if quant_affine:
-        return warp_affine(img, minv[:2], dsize, inverse_map=True, **kw)
-    return warp_perspective(img, minv, dsize, inverse_map=True, **kw)
+    """Warp by an inverse map ``minv`` [3,3] — how the kernels' plain
+    versions warp one frame: OpenCV's warpAffine on its top two rows
+    (the 1/1024 fixed-point coordinates) when ``quant_affine``, else
+    warpPerspective.  ``rows = (oy0, sy0)``: output row y is row ``y +
+    oy0`` of a larger frame and ``img`` holds that frame's rows from
+    ``sy0`` (a row band; ``csrc/warp.cu``'s row origins)."""
+    m3 = minv.to(torch.float32)
+    m3 = m3 if m3.shape[-2] == 3 else affine_to_3x3(m3)
+    return _warp(img, m3, dsize, border_mode, border_value, True,
+                 interpolation, None, quant_affine,
+                 (int(rows[0]), int(rows[1])))
 
 
 def warp_valid_mask(

@@ -112,13 +112,12 @@ def warp_accum_rgb(
     bv = _border3(border_value, dev)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.warp_accum_rgb(
+    cuda_build.launch(
+        lib, "warp_accum_rgb", dev,
         frames.data_ptr(), minv.data_ptr(), vf.data_ptr(), bv.data_ptr(),
         out.data_ptr(), n, h, w, _DTYPE_CODE[frames.dtype],
         int(not quant_affine), _SCALE[frames.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, err, "warp_accum_rgb")
     launch_count += 1
     return out
 
@@ -211,15 +210,15 @@ def warp_moments_rgb(
     s0, s1, s2 = (torch.empty((h, w, 3), dtype=torch.float32, device=dev)
                   for _ in range(3))
     lib = _lib()
-    err = lib.warp_moments_rgb(
+    cuda_build.launch(
+        lib, "warp_moments_rgb", dev,
         frames.data_ptr(), minv.data_ptr(), vf.data_ptr(),
         None if mu is None else mu.data_ptr(),
         None if tol is None else tol.data_ptr(),
         s0.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, h, w,
         _DTYPE_CODE[frames.dtype], int(not quant_affine),
-        _SCALE[frames.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        _SCALE[frames.dtype],
     )
-    cuda_build.check(lib, err, "warp_moments_rgb")
     moments_launch_count += 1
     return s0, s1, s2
 

@@ -92,6 +92,7 @@ def warp_bilinear_reference(
     out_hw: Optional[Tuple[int, int]] = None,
     quant_affine: bool = False,
     border_mode="constant",
+    rows: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`warp_bilinear`: one
     ``ops/warp.py`` warp per slot."""
@@ -102,7 +103,7 @@ def warp_bilinear_reference(
     out = torch.empty((g, *out_hw), dtype=torch.float32, device=src.device)
     for i, s in enumerate(idx):
         out[i] = warp.warp_inverse(src[s].to(torch.float32), minv[i], out_hw,
-                                   quant_affine, border_mode=border,
+                                   quant_affine, rows, border_mode=border,
                                    border_value=bv[i])
     return out
 
@@ -115,6 +116,7 @@ def warp_bilinear(
     out_hw: Optional[Tuple[int, int]] = None,
     quant_affine: bool = False,
     border_mode="constant",
+    rows: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Warp ``G`` slots: ``out[g] = warp(src[src_index[g]], minv[g])``
     -> ``[G, *out_hw]`` float32.
@@ -123,14 +125,17 @@ def warp_bilinear(
     ``border_value`` scalar or [G] (BORDER_CONSTANT), ``src_index`` [G]
     (default ``arange(G)``), ``out_hw`` the output grid (default the
     source extent), ``border_mode`` an OpenCV integer or mode name
-    (BORDER_TRANSPARENT reads the zero base: CONSTANT 0).  CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/warp.cu`` or
-    raise."""
+    (BORDER_TRANSPARENT reads the zero base: CONSTANT 0).  ``rows =
+    (oy0, sy0)``: output row y is row ``y + oy0`` of a larger frame whose
+    rows from ``sy0`` the sources hold (a row band, ``csrc/warp.cu``).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/warp.cu`` or raise."""
     global launch_count
     g, out_hw = _check_args(src, minv, src_index, out_hw)
     if src.device.type == "cpu":
         return warp_bilinear_reference(src, minv, border_value, src_index,
-                                       out_hw, quant_affine, border_mode)
+                                       out_hw, quant_affine, border_mode,
+                                       rows)
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     dev = src.device
@@ -151,12 +156,12 @@ def warp_bilinear(
     if g == 0:
         return out
     lib = _lib()
-    err = lib.warp_bilinear(
+    cuda_build.launch(
+        lib, "warp_bilinear", dev,
         src.data_ptr(), minv.data_ptr(), bv.data_ptr(), sidx.data_ptr(),
         out.data_ptr(), g, h, w, out_hw[0], out_hw[1], _MODE_CODE[border],
-        int(not quant_affine), torch.cuda.current_stream(dev).cuda_stream,
+        int(not quant_affine), int(rows[0]), int(rows[1]),
     )
-    cuda_build.check(lib, err, "warp_bilinear")
     launch_count += 1
     return out
 
@@ -182,6 +187,7 @@ def warp_frames_reference(
     border_mode="constant",
     quant_affine: bool = False,
     valid: Optional[torch.Tensor] = None,
+    rows: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`warp_frames`: per frame,
     ``color.to_unit_f32`` and :func:`warp_bilinear_reference` on its
@@ -203,7 +209,7 @@ def warp_frames_reference(
         planes = color.to_unit_f32(frames[i]).permute(2, 0, 1)
         wp = warp_bilinear_reference(
             planes, minv[i].expand(c, 3, 3), bv, quant_affine=quant_affine,
-            border_mode=border_mode).permute(1, 2, 0)
+            border_mode=border_mode, rows=rows).permute(1, 2, 0)
         if valid is None:
             out[i] = wp
         else:
@@ -218,6 +224,7 @@ def warp_frames(
     border_mode="constant",
     quant_affine: bool = False,
     valid: Optional[torch.Tensor] = None,
+    rows: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Warp each frame of ``frames`` [N,H,W,C] (u8, u16 or float32, C in
     1..4) by its inverse map ``minv`` [N,3,3] onto its own grid, integer
@@ -227,13 +234,14 @@ def warp_frames(
     frame order (a frame with ``valid[n] == 0`` adds nothing).
     ``border_value`` is a scalar or one value per channel
     (BORDER_CONSTANT), ``border_mode`` an OpenCV integer or mode name
-    (BORDER_TRANSPARENT reads the zero base).  CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/warp.cu`` or raise."""
+    (BORDER_TRANSPARENT reads the zero base), ``rows`` the row origins
+    of a band as in :func:`warp_bilinear`.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/warp.cu`` or raise."""
     global frames_launch_count, accum_launch_count
     _check_frames(frames, minv, valid)
     if frames.device.type == "cpu":
         return warp_frames_reference(frames, minv, border_value, border_mode,
-                                     quant_affine, valid)
+                                     quant_affine, valid, rows)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
     if not frames.is_contiguous():
@@ -257,13 +265,13 @@ def warp_frames(
         vf = valid.to(device=dev, dtype=torch.float32).contiguous()
         vptr = vf.data_ptr()
     lib = _lib()
-    err = lib.warp_frames(
+    cuda_build.launch(
+        lib, "warp_frames", dev,
         frames.data_ptr(), minv.data_ptr(), bv, vptr,
         out.data_ptr(), n, h, w, c, _DTYPE_CODE[frames.dtype],
         _MODE_CODE[border], int(not quant_affine), _SCALE[frames.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(rows[0]), int(rows[1]),
     )
-    cuda_build.check(lib, err, "warp_frames")
     if valid is None:
         frames_launch_count += 1
     else:
@@ -326,12 +334,11 @@ def warp3_bilinear(
         return out
     tiles, vector = warp3_plan(h, w)
     lib = _lib()
-    err = lib.warp3_bilinear(
+    cuda_build.launch(
+        lib, "warp3_bilinear", dev,
         srcs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w,
         int(not quant_affine), tiles, int(vector),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, err, "warp3_bilinear")
     warp3_launch_count += 1
     return out
 
@@ -347,12 +354,13 @@ def _check_cuda(dev, **tensors) -> None:
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("warp")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.warp_bilinear.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+    lib.warp_bilinear.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.warp_bilinear.restype = ci
     lib.warp3_bilinear.argtypes = ([vp] * 3 + [ci] * 4
                                    + [ctypes.c_uint, ci, vp])
     lib.warp3_bilinear.restype = ci
     lib.warp_frames.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
-                                 vp, vp] + [ci] * 7 + [ctypes.c_float, vp])
+                                 vp, vp] + [ci] * 7 + [ctypes.c_float, ci, ci,
+                                                       vp])
     lib.warp_frames.restype = ci
     return lib

@@ -1,0 +1,1217 @@
+"""Device-mesh scale-out for burst stacking.
+
+Counterpart of ``libstacker_tpu/parallel/mesh.py`` (``make_mesh`` :43,
+``shard_frames`` :60, ``init_distributed`` :74, ``make_global_mesh`` :92,
+``shard_frames_global`` :101, ``ecc_stack_step`` :111,
+``keypoint_stack_step`` :896, ``keypoint_solve_step`` :1091,
+``ecc_stack_step_spatial`` :1379, ``warp_rows_sharded`` :1595,
+``sharpness_teng_spatial`` :1684), built from PyTorch's own parts:
+
+- **the mesh**: a :class:`Mesh` names this process's devices as a
+  ``[data_local, spatial]`` array; its ``'data'`` axis is ``data_local *
+  world`` long when several processes join one ``torch.distributed``
+  group.  A device may appear more than once (``make_mesh(["cpu"] * 4)``
+  is four shards on the CPU, ``make_mesh(["cuda:0"] * 4)`` four shards of
+  one card); it adds no behaviour the JAX package lacks, whose tests run
+  on 8 virtual CPU devices.
+- **the shards**: :func:`shard_frames` gives data shard ``i`` the frames
+  ``[i*n_loc, (i+1)*n_loc)`` on its own device (a :class:`ShardedFrames`).
+  One host thread per distinct device runs that device's shards (solve,
+  stack) under ``torch.cuda.device(dev)``, in shard order.  The kernels
+  launch on the CUDA runtime's current device, and every wrapper makes
+  its tensors' card current for the launch (``utils/cuda_build.launch``),
+  so no kernel runs with another card current, from a shard's thread or
+  from the entry point's own (frame 0's grey and ORB).
+- **the psum**: the partials of one process add as a pairwise tree in
+  shard order on ``devices[0, 0]``, then ``dist.all_reduce(SUM)`` over
+  the group of a global mesh (the tree makes one process of four shards
+  and two processes of two add in the same order).  ``ok``, ``rho`` and
+  ``iters`` are gathered in lane order (``dist.all_gather``).  A CUDA
+  mesh uses NCCL, a CPU mesh gloo.
+- **the spatial axis**: row bands of one data shard live on the devices
+  of its mesh row; halos are rows copied from the neighbouring band's
+  device, zero (or, for the Sobel, reflect-101) at the global top and
+  bottom.  A band warps with the global inverse map and its integer row
+  origins (``csrc/warp.cu``), where the JAX package shifts the map in
+  float32 (``shift_src @ minv @ shift_out``, ``mesh.py:1656-1665``),
+  which moves 1/32-px bins at large row offsets; a band equals the rows
+  of the whole frame's warp bitwise.  A spatial group never spans
+  processes: a mesh that would need it raises (ROADMAP.md lists it as
+  what the port still lacks).
+
+Every shard runs the kernels of the dense path: the batched ECC solver
+(B1, its masked and Gram-less forms, B7 for ``mode="ic"``), the grey and
+phase start, B2 for the mean stack, B4 for sigma-clip, B6's deposit form
+for super-resolution (a shard cannot normalise before the reduction, so
+``sr_cuda.normalise`` runs once on the reduced sums), B8 / B3h / B3d and
+RANSAC on the keypoint path with B5's accumulate form for its
+index-mapping borders, B5's planar form for the row-band warp.
+
+Not ported, because it exists for the TPU: the slab programs and the
+watchdog bound, the k-escalation ladder and its XLA rescue (each lane of
+the port's solver stops on its own, so a shard runs the dense solver on
+its lanes), ``jit(shard_map)`` caching, and the residual-band gates.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import socket
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models import ecc as ecc_models
+from ..models import keypoint as kp_models
+from .. import constants
+from ..ops import color, ecc as ecc_ops, filters, orb, phasecorr, resize, warp
+from ..ops import stack as stack_ops
+from ..ops.sr_cuda import normalise, sr_deposit
+from ..ops.warp_cuda import warp_bilinear, warp_frames
+from ..params import MotionType
+from ..utils import io
+from ..utils.device import ChunkUploader, resolve_device
+
+# frames per plain-version call on the CPU (the dense stackers' chunks)
+_CPU_SIGMA_CHUNK = 8
+_CPU_SR_CHUNK = 4
+# the super-resolution stack's deposit width (ops/stack.super_res_stack)
+_SR_SIGMA = 0.3
+
+
+class Mesh:
+    """A ``('data', 'spatial')`` mesh over this process's devices.
+
+    ``devices`` is a ``[data_local, spatial]`` object array of
+    ``torch.device``; ``shape`` is ``{"data": data_local * world,
+    "spatial": spatial}``; ``group`` the ``torch.distributed`` group of a
+    ``distributed`` mesh (None in one process), ``rank`` / ``world`` this
+    process's place in it.  Process ``rank`` holds the data shards ``rank
+    * data_local ...``."""
+
+    axis_names = ("data", "spatial")
+
+    def __init__(self, devices: np.ndarray, rank: int = 0, world: int = 1,
+                 distributed: bool = False):
+        self.devices = devices
+        self.rank = int(rank)
+        self.world = int(world)
+        self.distributed = bool(distributed)
+        self.shape = {"data": devices.shape[0] * self.world,
+                      "spatial": devices.shape[1]}
+
+    @property
+    def group(self):
+        """The default group, looked up at each use: a mesh that outlives
+        ``destroy_process_group()`` must not hold the group, whose gloo
+        threads would then be torn down at the interpreter's exit (an
+        abort, "terminate called without an active exception")."""
+        if not self.distributed:
+            return None
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "the process group of this global mesh was destroyed")
+        return dist.group.WORLD
+
+    @property
+    def data_local(self) -> int:
+        return self.devices.shape[0]
+
+    def __repr__(self) -> str:
+        return (f"Mesh(shape={self.shape}, devices={self.devices.tolist()}, "
+                f"rank={self.rank}, world={self.world})")
+
+
+def _device(d) -> torch.device:
+    """A device of a mesh: resolved (no CPU fallback), with its index."""
+    dev = resolve_device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _visible_cuda() -> List[torch.device]:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
+              spatial: int = 1) -> Mesh:
+    """Build a ``('data', 'spatial')`` mesh over ``devices`` (default:
+    every visible CUDA device; without a card that raises, it never
+    becomes a CPU mesh).  A device may be named more than once:
+    ``make_mesh(["cpu"] * 4, data=4)`` runs four shards on the CPU,
+    ``make_mesh(["cuda:0"] * 4)`` four shards of one card."""
+    if devices is None:
+        devices = _visible_cuda()
+        if not devices:
+            raise RuntimeError(
+                "make_mesh() needs a CUDA device (torch.cuda.is_available() "
+                "is False); pass devices=['cpu'] * k for a CPU mesh")
+    devs = [_device(d) for d in devices]
+    n = len(devs)
+    if data is None:
+        data = n // spatial
+    if data * spatial != n:
+        raise ValueError(f"data({data}) * spatial({spatial}) != devices({n})")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(data, spatial))
+
+
+# --- multi-process scale-out ----------------------------------------------
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     backend: Optional[str] = None) -> None:
+    """Join a multi-process run: ``dist.init_process_group`` over
+    ``tcp://coordinator_address`` ("host:port") with world size
+    ``num_processes`` and rank ``process_id``.  With no arguments it
+    reads ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``
+    from the environment.  ``backend`` defaults to NCCL when a card is
+    visible, else gloo."""
+    if backend is None:
+        backend = "nccl" if _visible_cuda() else "gloo"
+    if coordinator_address is None:
+        dist.init_process_group(backend, init_method="env://")
+        return
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id))
+
+
+def _rank_card() -> torch.device:
+    """This process's card in a multi-process run: the one ``LOCAL_RANK``
+    names (as ``torchrun`` sets it) where that card is visible, else the
+    current device."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None and 0 <= int(local) < torch.cuda.device_count():
+        return torch.device("cuda", int(local))
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _card_id(dev: torch.device) -> str:
+    """A name of a card that two processes on one host agree on (its
+    UUID where PyTorch reports one)."""
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    return str(uuid) if uuid is not None else \
+        f"{socket.gethostname()}/cuda:{dev.index}"
+
+
+def _check_cards(cards_by_rank: Sequence[Sequence[str]]) -> None:
+    """Raise if a card is in the mesh of more than one rank (NCCL runs
+    one rank on a card; the ranks would also shard onto each other's
+    lanes' devices)."""
+    owner: dict = {}
+    for rank, cards in enumerate(cards_by_rank):
+        for card in set(cards):
+            if card in owner:
+                raise ValueError(
+                    f"card {card} is in the meshes of ranks {owner[card]} "
+                    f"and {rank}: give each process its own cards "
+                    "(devices=, or LOCAL_RANK / torch.cuda.set_device)")
+            owner[card] = rank
+
+
+def make_global_mesh(data: Optional[int] = None, spatial: int = 1,
+                     devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh over every process of the default group (after
+    :func:`init_distributed`): this process's ``devices`` form rows
+    ``rank * data_local ...`` of the global ``'data'`` axis of length
+    ``data`` (default ``data_local * world``).  By default they are one
+    card under NCCL, the one ``LOCAL_RANK`` names (else the current
+    device), and one CPU shard under gloo; several cards a process are
+    passed as ``devices``.  A card in the meshes of two processes
+    raises (the processes exchange their cards' UUIDs), as does a
+    spatial group that would span processes."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if devices is None:
+        devices = ([_rank_card()] if dist.get_backend() == "nccl"
+                   else [torch.device("cpu")])
+    devs = [_device(d) for d in devices]
+    if spatial < 1 or len(devs) % spatial:
+        raise ValueError(
+            f"spatial({spatial}) must divide this process's {len(devs)} "
+            "devices: a spatial group across processes is not ported "
+            "(ROADMAP.md)")
+    local = make_mesh(devs, spatial=spatial)
+    if data is not None and data != local.data_local * world:
+        raise ValueError(
+            f"data({data}) != {local.data_local} local rows * {world} "
+            "processes")
+    cards = [d for d in devs if d.type == "cuda"]
+    everyone: list = [None] * world
+    with _on(cards[0] if cards else devs[0]):
+        dist.all_gather_object(everyone, [_card_id(d) for d in cards])
+    _check_cards(everyone)
+    return Mesh(local.devices, rank=rank, world=world, distributed=True)
+
+
+# --- sharded bursts --------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedFrames:
+    """This process's part of a burst sharded over ``'data'``:
+    ``shards[i]`` holds global lanes ``offset + i*n_loc ...`` on
+    ``mesh.devices[i, 0]``; ``n_global`` lanes in all."""
+
+    shards: List[torch.Tensor]
+    offset: int
+    n_global: int
+
+    @property
+    def n_loc(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def shape(self):
+        return (self.n_global,) + tuple(self.shards[0].shape[1:])
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+
+def _to(x, dev: torch.device) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev).contiguous()
+
+
+def _place(local, mesh: Mesh, offset: int, n_global: int) -> ShardedFrames:
+    n_loc = local.shape[0] // mesh.data_local
+    shards = [_to(local[i * n_loc : (i + 1) * n_loc], mesh.devices[i, 0])
+              for i in range(mesh.data_local)]
+    return ShardedFrames(shards, offset, n_global)
+
+
+def shard_frames(frames, mesh: Mesh) -> ShardedFrames:
+    """Place a ``[N,...]`` burst (numpy or tensor) with the frame axis
+    sharded over ``'data'``: data shard ``i`` gets frames ``[i*n_loc,
+    (i+1)*n_loc)`` on ``mesh.devices[i, 0]``.  With several processes
+    each keeps its own rows of the full burst it was given."""
+    if isinstance(frames, ShardedFrames):
+        return frames
+    n = frames.shape[0]
+    ndata = mesh.shape["data"]
+    if n % ndata != 0:
+        raise ValueError(f"N={n} must divide the data axis ({ndata})")
+    per = n // mesh.world
+    lo = mesh.rank * per
+    return _place(frames[lo : lo + per], mesh, lo, n)
+
+
+def shard_frames_global(frames_local, mesh: Mesh) -> ShardedFrames:
+    """Assemble the global burst from each process's own frames (every
+    process passes its ``n_local`` frames; ``N = world * n_local``):
+    this process's lanes start at ``rank * n_local``."""
+    n_local = frames_local.shape[0]
+    if n_local % mesh.data_local != 0:
+        raise ValueError(
+            f"n_local={n_local} must divide this process's "
+            f"{mesh.data_local} data shards")
+    return _place(frames_local, mesh, mesh.rank * n_local,
+                  n_local * mesh.world)
+
+
+# --- running shards and reducing them ---------------------------------------
+
+
+def _on(dev: torch.device):
+    """The context that makes ``dev`` current for its kernels."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _run(devs: Sequence[torch.device], fn) -> list:
+    """``[fn(k) for k in range(len(devs))]``, each call under
+    ``torch.cuda.device(devs[k])``: one host thread per distinct device,
+    which runs its calls in order (one device runs on this thread)."""
+    groups: dict = {}
+    for k, d in enumerate(devs):
+        groups.setdefault(str(d), []).append(k)
+    out = [None] * len(devs)
+
+    def work(ks):
+        for k in ks:
+            with _on(devs[k]):
+                out[k] = fn(k)
+
+    if len(groups) == 1:
+        work(list(range(len(devs))))
+        return out
+    with ThreadPoolExecutor(len(groups)) as pool:
+        for fut in [pool.submit(work, ks) for ks in groups.values()]:
+            fut.result()
+    return out
+
+
+def _map_shards(mesh: Mesh, fn) -> list:
+    """``fn(i, dev)`` for every local data shard ``i`` (see :func:`_run`)."""
+    devs = [mesh.devices[i, 0] for i in range(mesh.data_local)]
+    return _run(devs, lambda i: fn(i, devs[i]))
+
+
+def _tree_sum(parts, dev: torch.device) -> torch.Tensor:
+    """Pairwise sum of ``parts`` in order, on ``dev``."""
+    xs = [p.to(dev) for p in parts]
+    while len(xs) > 1:
+        xs = [xs[k] + xs[k + 1] if k + 1 < len(xs) else xs[k]
+              for k in range(0, len(xs), 2)]
+    return xs[0]
+
+
+def _psum(parts, mesh: Mesh) -> torch.Tensor:
+    """The sum over ``'data'`` of one partial per local shard -> a tensor
+    on ``devices[0, 0]``, equal on every process."""
+    dev0 = mesh.devices[0, 0]
+    with _on(dev0):
+        total = _tree_sum(parts, dev0).contiguous()
+        if mesh.group is not None:
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
+    return total
+
+
+def _psum_each(parts, mesh: Mesh) -> tuple:
+    """:func:`_psum` of each member of per-shard tuples."""
+    return tuple(_psum([p[k] for p in parts], mesh)
+                 for k in range(len(parts[0])))
+
+
+def _gather(parts, mesh: Mesh) -> np.ndarray:
+    """Per-shard ``[n_loc, ...]`` -> the global ``[N, ...]`` numpy array
+    in lane order (``dist.all_gather`` across processes)."""
+    local = torch.cat([p.detach().cpu() for p in parts])
+    if mesh.group is None:
+        return local.numpy()
+    dtype = local.dtype
+    x = local.to(torch.uint8) if dtype == torch.bool else local
+    comm = mesh.devices[0, 0] if dist.get_backend(mesh.group) == "nccl" \
+        else torch.device("cpu")
+    with _on(comm):
+        x = x.to(comm).contiguous()
+        bufs = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(bufs, x, group=mesh.group)
+        out = torch.cat(bufs).cpu()
+    return (out.to(torch.bool) if dtype == torch.bool else out).numpy()
+
+
+def _lanes(x, sf: ShardedFrames, i: int, dev) -> Optional[torch.Tensor]:
+    """Shard ``i``'s rows of a global ``[N]`` lane array, on ``dev``."""
+    if x is None:
+        return None
+    lo = sf.offset + i * sf.n_loc
+    return _to(np.asarray(x)[lo : lo + sf.n_loc], dev)
+
+
+def _lane_minv(mats: torch.Tensor, oks: torch.Tensor) -> torch.Tensor:
+    """FORWARD maps of a shard -> inverse maps, failed lanes the identity
+    (a NaN matrix must not reach the inverse)."""
+    m3 = mats.to(torch.float32)
+    if m3.shape[-2] == 2:
+        m3 = warp.affine_to_3x3(m3)
+    eye = torch.eye(3, dtype=torch.float32, device=m3.device)
+    m3 = torch.where(oks[:, None, None], m3, eye)
+    return warp.invert_3x3(m3).contiguous()
+
+
+def _chunks(frames, minv, oks, step):
+    for s in range(0, frames.shape[0], step):
+        yield frames[s : s + step], minv[s : s + step], oks[s : s + step]
+
+
+def _sigma_stack(sf: ShardedFrames, minvs, okss, mesh: Mesh,
+                 perspective: bool, kappa: float, iters: int):
+    """Distributed kappa-sigma clip: each shard's moments (B4) reduced
+    over ``'data'``, ``stack.clip_iterate`` on the reduced sums, each clip
+    pass's clipped moments reduced the same way -> (image, clipped
+    sample fraction)."""
+
+    def sweep(mu=None, tol=None):
+        def one(i, dev):
+            x = sf.shards[i]
+            step = x.shape[0] if dev.type == "cuda" else _CPU_SIGMA_CHUNK
+            m = None if mu is None else mu.to(dev)
+            t = None if tol is None else tol.to(dev)
+            acc = None
+            for fr, mi, ok in _chunks(x, minvs[i], okss[i], step):
+                part = stack_ops.moments_chunk(fr, mi, ok, m, t, perspective)
+                acc = part if acc is None else tuple(
+                    a + p for a, p in zip(acc, part))
+            return acc
+
+        return _psum_each(_map_shards(mesh, one), mesh)
+
+    s0, s1, s2 = sweep()
+    out, kept = stack_ops.clip_iterate(s0, s1, s2, kappa, iters, sweep)
+    tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
+    return out, max(0.0, 1.0 - tk / max(ts * 3.0, 1.0))
+
+
+def _sr_stack(sf: ShardedFrames, minvs, okss, mesh: Mesh, factor: int,
+              perspective: bool) -> torch.Tensor:
+    """Distributed super-resolution: each shard's deposit (B6's deposit
+    form), ``acc_v`` / ``acc_w`` reduced over ``'data'``, then
+    ``sr_cuda.normalise`` once."""
+
+    def one(i, dev):
+        x = sf.shards[i]
+        step = x.shape[0] if dev.type == "cuda" else _CPU_SR_CHUNK
+        acc = None
+        for fr, mi, ok in _chunks(x, minvs[i], okss[i], step):
+            part = sr_deposit(fr, mi, ok, factor, _SR_SIGMA, perspective)
+            acc = part if acc is None else tuple(
+                a + p for a, p in zip(acc, part))
+        return acc
+
+    return normalise(_psum_each(_map_shards(mesh, one), mesh))
+
+
+# --- ECC ------------------------------------------------------------------
+
+
+def _check_stacking(stacking: str, output_scale: int) -> None:
+    if stacking not in ("mean", "sigma_clip"):
+        raise ValueError(
+            f"stacking must be 'mean' or 'sigma_clip', got {stacking!r}")
+    if output_scale > 1 and stacking != "mean":
+        raise ValueError("output_scale > 1 cannot be combined with sigma_clip")
+
+
+def ecc_stack_step(
+    frames_u8,
+    reference_grey,
+    mesh: Mesh,
+    motion_type: MotionType = MotionType.Homography,
+    num_iters: int = 50,
+    eps: float = 1e-4,
+    gauss_filt_size: int = 5,
+    phase_init: bool = True,
+    stacking: str = "mean",
+    sigma_kappa: float = 2.5,
+    sigma_iters: int = 1,
+    scale_hw=None,
+    coarse_levels: int = 0,
+    input_mask=None,
+    lane_valid=None,
+    return_extras: bool = False,
+    output_scale: int = 1,
+    mode: Optional[str] = None,
+    phase_init_rotation: bool = False,
+):
+    """One sharded align+stack step.
+
+    ``frames_u8``: ``[N,H,W,3]`` uint8 / uint16 (numpy, a tensor, or the
+    :class:`ShardedFrames` of :func:`shard_frames` /
+    :func:`shard_frames_global`), N divisible by the ``'data'`` axis;
+    every lane is solved against ``reference_grey`` ([H,W] float32, the
+    grey of the reference frame; at the solve grid ``scale_hw`` when
+    given).  Each shard runs the dense path's solver on its lanes
+    (``ops/ecc.find_transform_ecc_batched``: octaves with
+    ``coarse_levels``, ``input_mask`` at the solve grid, which turns the
+    phase start off, ``mode``), then stacks them: the warp-and-sum of
+    the kept lanes (B2) reduced over ``'data'`` (divide by ``ok.sum()``
+    for the mean); with ``stacking="sigma_clip"`` the FINAL kappa-sigma
+    image; with ``output_scale > 1`` the FINAL ``[f*H, f*W, 3]``
+    super-resolution image.  ``lane_valid`` ([N] bool) marks pad lanes,
+    excluded and reported ``ok=False``.
+
+    Returns ``(total, ok [N] numpy)`` (``total`` on ``devices[0, 0]``),
+    plus ``(rho [N], iters [N])`` with ``return_extras``.
+    ``phase_init_rotation`` (not in the JAX package's step) asks the
+    phase start for rotation and scale too, as the dense path does."""
+    total, ok, rho, iters, _ = _ecc_step(
+        frames_u8, reference_grey, mesh, motion_type=motion_type,
+        num_iters=num_iters, eps=eps, gauss_filt_size=gauss_filt_size,
+        phase_init=phase_init, phase_init_rotation=phase_init_rotation,
+        stacking=stacking, sigma_kappa=sigma_kappa, sigma_iters=sigma_iters,
+        scale_hw=scale_hw, coarse_levels=coarse_levels,
+        input_mask=input_mask, lane_valid=lane_valid,
+        output_scale=output_scale, mode=mode)
+    return (total, ok, rho, iters) if return_extras else (total, ok)
+
+
+def _ecc_solve(sf: ShardedFrames, reference_grey, mesh: Mesh, *,
+               motion_type, num_iters, eps, gauss_filt_size, phase_init,
+               phase_init_rotation, scale_hw, coarse_levels, input_mask,
+               mode) -> list:
+    """Each shard's ``EccResult`` (warps at the solve grid)."""
+    ref = torch.as_tensor(reference_grey).to(torch.float32)
+    if input_mask is not None:
+        input_mask = torch.as_tensor(input_mask)
+        phase_init = False  # a whole-frame FFT would see the masked content
+
+    def one(i, dev):
+        grey = ecc_models._ecc_grey(sf.shards[i], scale_hw)
+        r = ref.to(dev)
+        init = None
+        if phase_init:
+            init = phasecorr.phase_init_warps(
+                grey, r, motion_type=motion_type,
+                rotation=phase_init_rotation)
+        return ecc_ops.find_transform_ecc_batched(
+            grey, r, motion_type=motion_type, num_iters=num_iters, eps=eps,
+            gauss_filt_size=gauss_filt_size, coarse_levels=coarse_levels,
+            warp_init=init, mode=mode,
+            input_mask=None if input_mask is None else input_mask.to(dev))
+
+    return _map_shards(mesh, one)
+
+
+def _ecc_step(frames_u8, reference_grey, mesh, *, motion_type, num_iters,
+              eps, gauss_filt_size, phase_init, phase_init_rotation,
+              stacking, sigma_kappa, sigma_iters, scale_hw, coarse_levels,
+              input_mask, lane_valid, output_scale, mode, identity=None):
+    """:func:`ecc_stack_step` -> ``(total, ok, rho, iters, clip_frac)``
+    (keywords only: the entry points and streams call it too).
+    ``identity`` ([N] bool) marks lanes stacked with the exact identity
+    and kept whatever their solve gave (the entry points' frame 0 in the
+    sigma-clip stack)."""
+    _check_stacking(stacking, output_scale)
+    sf = shard_frames(frames_u8, mesh)
+    h, w = sf.shape[1], sf.shape[2]
+    if scale_hw is not None:
+        scale_hw = (int(scale_hw[0]), int(scale_hw[1]))
+        if tuple(reference_grey.shape) != scale_hw:
+            raise ValueError(
+                f"reference_grey must be at the solve grid {scale_hw}, "
+                f"got {tuple(reference_grey.shape)}")
+    results = _ecc_solve(
+        sf, reference_grey, mesh, motion_type=motion_type,
+        num_iters=int(num_iters), eps=float(eps),
+        gauss_filt_size=int(gauss_filt_size), phase_init=bool(phase_init),
+        phase_init_rotation=bool(phase_init_rotation), scale_hw=scale_hw,
+        coarse_levels=int(coarse_levels), input_mask=input_mask, mode=mode)
+    oks, warps = [], []
+    for i, r in enumerate(results):
+        ok = r.ok
+        dev = ok.device
+        if lane_valid is not None:
+            ok = ok & _lanes(np.asarray(lane_valid, bool), sf, i, dev)
+        wm = r.warp_matrix
+        if identity is not None:
+            ident = _lanes(np.asarray(identity, bool), sf, i, dev)
+            ok = ok | ident
+            eye = ecc_ops.identity_warp(motion_type, dev)
+            wm = torch.where(ident[:, None, None], eye, wm)
+        oks.append(ok)
+        warps.append(wm)
+    motion = motion_type
+    perspective = motion == MotionType.Homography
+    clip_frac = None
+    if output_scale > 1 or stacking == "sigma_clip":
+        minvs = []
+        for wm, ok in zip(warps, oks):
+            if scale_hw is not None:
+                wm = ecc_models._adjust_warp_for_scale(wm, motion, scale_hw,
+                                                       (h, w))
+            minvs.append(_lane_minv(wm, ok))
+        if output_scale > 1:
+            total = _sr_stack(sf, minvs, oks, mesh, int(output_scale),
+                              perspective)
+        else:
+            total, clip_frac = _sigma_stack(sf, minvs, oks, mesh, perspective,
+                                            float(sigma_kappa),
+                                            int(sigma_iters))
+    else:
+        total = _psum(_map_shards(mesh, lambda i, dev: ecc_models._warp_lanes(
+            sf.shards[i], warps[i], oks[i], motion, scale_hw)), mesh)
+    ok = _gather(oks, mesh)
+    rho = _gather([r.rho for r in results], mesh)
+    iters = _gather([r.num_iters for r in results], mesh)
+    return total, ok, rho, iters, clip_frac
+
+
+# --- keypoint -------------------------------------------------------------
+
+
+def _shard_generator(seed: int, shard: Optional[int], device,
+                     chunk: Optional[int] = None) -> torch.Generator:
+    """RANSAC's generator for global data shard ``shard`` (of stream
+    chunk ``chunk``): seeded from ``(seed[, chunk][, shard])`` through
+    ``np.random.SeedSequence``, so one burst draws the same hypotheses
+    whatever the process layout of its ``'data'`` axis.  ``shard`` is
+    None on a data axis of one shard, whose stream chunks then draw what
+    the one-device stream always drew (``(seed, chunk)``)."""
+    key = [int(seed) % 2 ** 64] + ([] if chunk is None else [int(chunk)])
+    state = np.random.SeedSequence(key + ([] if shard is None
+                                          else [int(shard)]))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return gen
+
+
+def _ref_features(ref_feats) -> orb.OrbFeatures:
+    """Frame 0's features with a leading axis of 1 (the JAX package's
+    step takes them without it)."""
+    feats = orb.OrbFeatures(*ref_feats)
+    if feats.descriptors.ndim == 2:
+        feats = orb.OrbFeatures(*(t[None] for t in feats))
+    return feats
+
+
+def _kp_solve(sf: ShardedFrames, ref_feats, mesh: Mesh, *, method,
+              ransac_reproj_threshold, match_ratio, match_keep_ratio,
+              max_iters, confidence, seed, scale_hw, det_mask, lane_valid,
+              chunk=None) -> list:
+    """Each shard's ``(hs [n,3,3] full-res, failed lanes the identity;
+    oks; match counts; inlier counts)``: ORB (B8, B3h, B3d) on its
+    frames, 2-NN against frame 0's features, RANSAC from its own
+    generator."""
+    ref = _ref_features(ref_feats)
+    h, w = sf.shape[1], sf.shape[2]
+    dmask = None if det_mask is None else torch.as_tensor(det_mask)
+    shard0 = sf.offset // sf.n_loc
+    several = mesh.shape["data"] > 1
+
+    def one(i, dev):
+        grey = kp_models._grey(sf.shards[i], scale_hw)
+        feats = orb.orb_detect_and_compute(
+            grey, mask=None if dmask is None else dmask.to(dev))
+        both = orb.OrbFeatures(*(torch.cat([a.to(dev), b])
+                                 for a, b in zip(ref, feats)))
+        hs, oks, mc, ic = kp_models._match_and_estimate(
+            both, _shard_generator(seed, shard0 + i if several else None,
+                                   dev, chunk),
+            method=method, ransac_reproj_threshold=ransac_reproj_threshold,
+            match_keep_ratio=match_keep_ratio, match_ratio=match_ratio,
+            max_iters=max_iters, confidence=confidence)
+        if lane_valid is not None:
+            oks = oks & _lanes(np.asarray(lane_valid, bool), sf, i, dev)
+        if scale_hw is not None:
+            hs = kp_models._adjust_h_for_scale(hs, scale_hw, (h, w))
+        eye = torch.eye(3, dtype=hs.dtype, device=dev)
+        return torch.where(oks[:, None, None], hs, eye), oks, mc, ic
+
+    return _map_shards(mesh, one)
+
+
+def _kp_check(stacking, border_mode, output_scale) -> str:
+    _check_stacking(stacking, 1)
+    border = warp._resolve_border(border_mode)
+    if stacking == "sigma_clip" and border not in ("constant", "transparent"):
+        raise ValueError(
+            "stacking='sigma_clip' requires BORDER_CONSTANT or "
+            f"BORDER_TRANSPARENT, got border mode {border!r}")
+    if output_scale > 1 and (
+            stacking != "mean" or border not in ("constant", "transparent")):
+        raise ValueError(
+            "output_scale > 1 requires stacking='mean' and "
+            "BORDER_CONSTANT/TRANSPARENT")
+    return border
+
+
+def keypoint_stack_step(
+    frames_u8,
+    ref_feats,
+    mesh: Mesh,
+    method: int = 8,
+    ransac_reproj_threshold: float = 5.0,
+    match_ratio: float = 0.9,
+    match_keep_ratio: float = 0.8,
+    max_iters: int = 2000,
+    confidence: float = 0.995,
+    seed: int = 0,
+    stacking: str = "mean",
+    sigma_kappa: float = 2.5,
+    sigma_iters: int = 1,
+    scale_hw=None,
+    det_mask=None,
+    border_mode: int = 0,
+    border_value=(0.0, 0.0, 0.0, 0.0),
+    lane_valid=None,
+    return_extras: bool = False,
+    output_scale: int = 1,
+):
+    """One sharded ORB/RANSAC align+stack step, the keypoint counterpart
+    of :func:`ecc_stack_step`.
+
+    ``frames_u8``: ``[N,H,W,3]`` (as :func:`ecc_stack_step` takes it);
+    ``ref_feats``: frame 0's ``ops.orb.OrbFeatures`` (with or without the
+    leading axis), detected on the ``scale_hw`` grid when given and with
+    ``det_mask``.  Each shard detects, matches every lane against them
+    and runs RANSAC from a generator seeded by ``(seed, global shard
+    index)``; dropped lanes add nothing.  The mean path's sum (B2 for
+    BORDER_CONSTANT / TRANSPARENT, B5's accumulate form for the
+    index-mapping modes) is reduced over ``'data'``: divide by
+    ``ok.sum()``.  ``stacking="sigma_clip"`` and ``output_scale > 1``
+    return the FINAL image, as in :func:`ecc_stack_step`.
+
+    Returns ``(total, ok [N])``, plus ``(match_counts [N],
+    inlier_counts [N])`` with ``return_extras``."""
+    total, ok, mc, ic, _ = _kp_step(
+        frames_u8, ref_feats, mesh, method=method,
+        ransac_reproj_threshold=ransac_reproj_threshold,
+        match_ratio=match_ratio, match_keep_ratio=match_keep_ratio,
+        max_iters=max_iters, confidence=confidence, seed=seed,
+        stacking=stacking, sigma_kappa=sigma_kappa, sigma_iters=sigma_iters,
+        scale_hw=scale_hw, det_mask=det_mask, border_mode=border_mode,
+        border_value=border_value, lane_valid=lane_valid,
+        output_scale=output_scale)
+    return (total, ok, mc, ic) if return_extras else (total, ok)
+
+
+def _kp_solve_args(method, ransac_reproj_threshold, match_ratio,
+                   match_keep_ratio, max_iters, confidence, seed,
+                   scale_hw) -> dict:
+    """The solve's keywords of :func:`_kp_solve`, typed."""
+    return dict(
+        method=int(method), ransac_reproj_threshold=float(
+            ransac_reproj_threshold), match_ratio=float(match_ratio),
+        match_keep_ratio=float(match_keep_ratio), max_iters=int(max_iters),
+        confidence=float(confidence), seed=int(seed),
+        scale_hw=None if scale_hw is None else (int(scale_hw[0]),
+                                                int(scale_hw[1])))
+
+
+def _kp_step(frames_u8, ref_feats, mesh, *, method, ransac_reproj_threshold,
+             match_ratio, match_keep_ratio, max_iters, confidence, seed,
+             stacking, sigma_kappa, sigma_iters, scale_hw, det_mask,
+             border_mode, border_value, lane_valid, output_scale,
+             identity=None, chunk=None):
+    """:func:`keypoint_stack_step` -> ``(total, ok, mc, ic, clip_frac)``
+    (keywords only: the entry points and streams call it too);
+    ``identity`` as in :func:`_ecc_step`, ``chunk`` the stream chunk the
+    generators are seeded with."""
+    _kp_check(stacking, border_mode, output_scale)
+    sf = shard_frames(frames_u8, mesh)
+    solved = _kp_solve(sf, ref_feats, mesh, det_mask=det_mask,
+                       lane_valid=lane_valid, chunk=chunk, **_kp_solve_args(
+                           method, ransac_reproj_threshold, match_ratio,
+                           match_keep_ratio, max_iters, confidence, seed,
+                           scale_hw))
+    hss, okss = [], []
+    for i, (hs, oks, _, _) in enumerate(solved):
+        if identity is not None:
+            ident = _lanes(np.asarray(identity, bool), sf, i, oks.device)
+            oks = oks | ident
+            eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
+            hs = torch.where(ident[:, None, None], eye, hs)
+        hss.append(hs)
+        okss.append(oks)
+    bv = list(tuple(border_value)[:3])
+    clip_frac = None
+    if output_scale > 1 or stacking == "sigma_clip":
+        minvs = [_lane_minv(hs, oks) for hs, oks in zip(hss, okss)]
+        if output_scale > 1:
+            total = _sr_stack(sf, minvs, okss, mesh, int(output_scale), True)
+        else:
+            total, clip_frac = _sigma_stack(sf, minvs, okss, mesh, True,
+                                            float(sigma_kappa),
+                                            int(sigma_iters))
+    else:
+        total = _psum(_map_shards(mesh, lambda i, dev: kp_models._warp_lanes(
+            sf.shards[i], hss[i], okss[i], bv, None, border_mode)), mesh)
+    ok = _gather(okss, mesh)
+    mc = _gather([s[2] for s in solved], mesh)
+    ic = _gather([s[3] for s in solved], mesh)
+    return total, ok, mc, ic, clip_frac
+
+
+def keypoint_solve_step(
+    frames_u8,
+    ref_feats,
+    mesh: Mesh,
+    method: int = 8,
+    ransac_reproj_threshold: float = 5.0,
+    match_ratio: float = 0.9,
+    match_keep_ratio: float = 0.8,
+    max_iters: int = 2000,
+    confidence: float = 0.995,
+    seed: int = 0,
+    scale_hw=None,
+    det_mask=None,
+    lane_valid=None,
+    chunk: Optional[int] = None,
+):
+    """The sharded keypoint solve alone (the streams' sigma-clip sweeps
+    warp the burst later) -> ``(hs [N,3,3] full-res, ok [N],
+    match_counts [N], inlier_counts [N])`` as numpy.  ``chunk`` (not in
+    the JAX package's step) seeds the generators as a stream chunk."""
+    sf = shard_frames(frames_u8, mesh)
+    solved = _kp_solve(sf, ref_feats, mesh, det_mask=det_mask,
+                       lane_valid=lane_valid, chunk=chunk, **_kp_solve_args(
+                           method, ransac_reproj_threshold, match_ratio,
+                           match_keep_ratio, max_iters, confidence, seed,
+                           scale_hw))
+    return tuple(_gather([s[k] for s in solved], mesh) for k in range(4))
+
+
+def _ecc_solve_gathered(sf: ShardedFrames, reference_grey, mesh: Mesh, *,
+                        full_hw=None, **solve):
+    """The sharded ECC solve alone (keywords of :func:`_ecc_solve`) ->
+    ``(warps [N,r,3], rho [N], iters [N], ok [N])`` as numpy (the ECC
+    stream's sigma-clip align pass).  The warps are at the solve grid,
+    or rescaled on each shard's device to ``full_hw`` when given."""
+    res = _ecc_solve(sf, reference_grey, mesh, **solve)
+    warps = [r.warp_matrix for r in res]
+    if full_hw is not None and solve["scale_hw"] is not None:
+        warps = [ecc_models._adjust_warp_for_scale(
+            w, solve["motion_type"], solve["scale_hw"], full_hw)
+            for w in warps]
+    return (_gather(warps, mesh),) + tuple(
+        _gather([getattr(r, k) for r in res], mesh)
+        for k in ("rho", "num_iters", "ok"))
+
+
+def stream_moments(sf: ShardedFrames, minv, oks, mesh: Mesh, mu=None,
+                   tol=None, perspective: bool = True) -> tuple:
+    """One chunk of a stream's sigma-clip sweep over the mesh: ``sf``
+    the chunk (:meth:`ShardUploader.padded`), ``minv`` / ``oks``
+    its lane rows of ``stack.sweep_lanes`` (pad lanes ``oks=False``);
+    each shard's moments (B4) reduced over ``'data'`` -> (S0, S1, S2),
+    or the clipped (C0, C1, C2) with ``mu`` / ``tol``."""
+
+    def one(i, dev):
+        lo = sf.offset + i * sf.n_loc
+        sl = slice(lo, lo + sf.n_loc)
+        return stack_ops.moments_chunk(
+            sf.shards[i], minv[sl].to(dev), oks[sl].to(dev),
+            None if mu is None else mu.to(dev),
+            None if tol is None else tol.to(dev), perspective)
+
+    return _psum_each(_map_shards(mesh, one), mesh)
+
+
+class ShardUploader:
+    """The streams' copies over a mesh: each shard's rows of a decoded
+    chunk go to its own device through its own
+    ``utils.device.ChunkUploader`` (pinned memory and a side stream on
+    CUDA)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.ups = [ChunkUploader(mesh.devices[i, 0])
+                    for i in range(mesh.data_local)]
+
+    def put(self, frames):
+        """Start the copies of ``frames`` ([chunk_size,H,W,3] numpy, the
+        whole chunk, as every process decodes it) -> a handle for
+        :meth:`ready`."""
+        n = frames.shape[0]
+        per = n // self.mesh.world
+        lo = self.mesh.rank * per
+        n_loc = per // self.mesh.data_local
+        handles = []
+        for i, up in enumerate(self.ups):
+            part = np.ascontiguousarray(
+                frames[lo + i * n_loc : lo + (i + 1) * n_loc])
+            with _on(up.device):
+                handles.append(up.put(part))
+        return handles, lo, n
+
+    def ready(self, handle) -> ShardedFrames:
+        """The chunk of a :meth:`put`, safe to use on the current
+        streams."""
+        handles, lo, n = handle
+        return ShardedFrames([up.ready(h) for up, h in zip(self.ups, handles)],
+                             lo, n)
+
+    def padded(self, frames, fill=None):
+        """``frames`` padded at the tail to a multiple of the ``'data'``
+        axis (``fill``, by default the last frame; nothing to pad on a
+        data axis of one shard)."""
+        ndata = self.mesh.shape["data"]
+        return io.pad_chunk(frames, -(-frames.shape[0] // ndata) * ndata,
+                            fill)
+
+    def staged(self, chunks, fill=None):
+        """Yield ``(ShardedFrames, n_real, is_last)`` for numpy
+        ``chunks``, each :meth:`padded`, the next chunk's copies started
+        before the current one is yielded."""
+        it = iter(chunks)
+
+        def put_next():
+            frames = next(it, None)
+            if frames is None:
+                return None
+            return self.put(self.padded(frames, fill)), frames.shape[0]
+
+        cur = put_next()
+        while cur is not None:
+            sf, n_real = self.ready(cur[0]), cur[1]
+            cur = put_next()
+            yield sf, n_real, cur is None
+
+
+# --- the spatial axis -------------------------------------------------------
+
+
+def _check_rows(h: int, nsp: int, halo: int) -> int:
+    if h % nsp != 0:
+        raise ValueError(f"H={h} must divide the spatial axis ({nsp})")
+    h_loc = h // nsp
+    if halo > h_loc:
+        raise ValueError(f"halo {halo} exceeds shard height {h_loc}")
+    return h_loc
+
+
+def _halo_ext(bands, halo: int, axis: int, edge=None) -> list:
+    """Each band with ``halo`` rows of its neighbours' on both sides
+    (copied to its device); at the global top and bottom the rows are
+    zero, or ``edge(band, top)`` when given."""
+    nsp = len(bands)
+    out = []
+    for j, b in enumerate(bands):
+        if j > 0:
+            top = bands[j - 1].narrow(axis, bands[j - 1].shape[axis] - halo,
+                                      halo).to(b.device)
+        else:
+            top = (torch.zeros_like(b.narrow(axis, 0, halo)) if edge is None
+                   else edge(b, True))
+        if j < nsp - 1:
+            bot = bands[j + 1].narrow(axis, 0, halo).to(b.device)
+        else:
+            bot = (torch.zeros_like(b.narrow(axis, 0, halo)) if edge is None
+                   else edge(b, False))
+        out.append(torch.cat([top, b, bot], dim=axis))
+    return out
+
+
+def warp_rows_sharded(frame, m3, mesh: Mesh, halo: int = 64,
+                      perspective: bool = True) -> torch.Tensor:
+    """Warp one large ``[H,W]`` or ``[H,W,C]`` float32 frame with its rows
+    split over ``'spatial'``: band ``j`` (rows ``j*H/S ...`` on
+    ``mesh.devices[0, j]``) takes ``halo`` rows from each neighbour and
+    resamples its own rows from the extended strip (B5's planar form,
+    BORDER_CONSTANT 0).  ``m3`` is the forward map ([3,3] or [2,3]).
+    B5 takes the band's row origins as integers (``csrc/warp.cu``), so
+    each band equals the rows of the whole frame's warp bitwise.
+
+    Correct while every output pixel's source row lies within ``halo``
+    rows of its own; taps beyond read zero, as off-frame pixels do.
+    ``perspective`` is kept for the JAX package's signature, which also
+    warps with the full perspective map.  Returns the frame on
+    ``devices[0, 0]``."""
+    nsp = mesh.shape["spatial"]
+    h, w = frame.shape[0], frame.shape[1]
+    h_loc = _check_rows(h, nsp, halo)
+    devs = [mesh.devices[0, j] for j in range(nsp)]
+    m = torch.as_tensor(np.asarray(m3, np.float32)).to(devs[0])
+    if m.shape == (2, 3):
+        m = warp.affine_to_3x3(m)
+    # inverted where the frame is (CPU and CUDA inverses differ in ulps)
+    minv = warp.invert_3x3(m)
+    bands = [_to(frame[j * h_loc : (j + 1) * h_loc], devs[j])
+             for j in range(nsp)]
+    exts = _halo_ext(bands, halo, 0)
+
+    def one(j):
+        ext = exts[j].to(torch.float32)
+        planes = ext[None] if ext.ndim == 2 else ext.permute(2, 0, 1)
+        planes = planes.contiguous()
+        mj = minv.to(devs[j]).expand(planes.shape[0], 3, 3).contiguous()
+        row0 = j * h_loc
+        out = warp_bilinear(planes, mj, border_value=0.0, out_hw=(h_loc, w),
+                            rows=(row0, row0 - halo))
+        return out[0] if ext.ndim == 2 else out.permute(1, 2, 0)
+
+    outs = _run(devs, one)
+    return torch.cat([o.to(devs[0]) for o in outs])
+
+
+def sharpness_teng_spatial(frames, mesh: Mesh, k_size: int = 3):
+    """Tenengrad sharpness with frames on ``'data'`` and rows on
+    ``'spatial'``: each band takes ``(k_size-1)/2`` rows of its
+    neighbours (reflect-101 of its own rows at the global top and
+    bottom), so the Sobel window is the dense one at every row.
+    ``frames``: ``[N,H,W]`` float32.  Returns ``[N]`` numpy scores."""
+    frames = frames if isinstance(frames, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(frames))
+    n, h, w = frames.shape
+    r = len(filters.deriv_kernel(1, k_size)) // 2
+    nsp = mesh.shape["spatial"]
+    h_loc = _check_rows(h, nsp, r)
+    ndata = mesh.shape["data"]
+    if n % ndata != 0:
+        raise ValueError(f"N={n} must divide the data axis ({ndata})")
+    per = n // mesh.world
+    n_loc = per // mesh.data_local
+    lo = mesh.rank * per
+
+    def edge(b, top):
+        rows = b[:, 1 : r + 1] if top else b[:, -r - 1 : -1]
+        return rows.flip(1)
+
+    cells = [(i, j) for i in range(mesh.data_local) for j in range(nsp)]
+    devs = [mesh.devices[i, j] for i, j in cells]
+    bands = {}
+    for (i, j), dev in zip(cells, devs):
+        f0 = lo + i * n_loc
+        bands[i, j] = _to(frames[f0 : f0 + n_loc, j * h_loc : (j + 1) * h_loc],
+                          dev).to(torch.float32)
+    exts = {}
+    for i in range(mesh.data_local):
+        row = _halo_ext([bands[i, j] for j in range(nsp)], r, 1, edge)
+        for j in range(nsp):
+            exts[i, j] = row[j]
+
+    def one(k):
+        x = exts[cells[k]]
+        gx = filters.sobel(x, 1, 0, ksize=k_size)[:, r:-r]
+        gy = filters.sobel(x, 0, 1, ksize=k_size)[:, r:-r]
+        return torch.sum(gx * gx + gy * gy, dim=(1, 2))
+
+    sums = _run(devs, one)
+    per_shard = [sum(sums[i * nsp + j].to(mesh.devices[i, 0])
+                     for j in range(nsp)) for i in range(mesh.data_local)]
+    return _gather(per_shard, mesh) / np.float32(h * w)
+
+
+def _vertical_disp_ok(minv: torch.Tensor, h: int, w: int,
+                      halo: int) -> torch.Tensor:
+    """Per lane: every output pixel's source row stays within ``halo -
+    2`` rows of its own (sampled on a 5x5 grid plus an 8-row margin,
+    ``mesh.py:1479-1496``)."""
+    dev = minv.device
+    ys = torch.linspace(0.0, h - 1.0, 5, device=dev)
+    xs = torch.linspace(0.0, w - 1.0, 5, device=dev)
+    py = ys.repeat_interleave(5)[None, :]
+    px = xs.repeat(5)[None, :]
+    den = (minv[:, 2, 0, None] * px + minv[:, 2, 1, None] * py
+           + minv[:, 2, 2, None])
+    inv = torch.where(den != 0.0, 1.0 / den, torch.zeros_like(den))
+    sy = (minv[:, 1, 0, None] * px + minv[:, 1, 1, None] * py
+          + minv[:, 1, 2, None]) * inv
+    dy = torch.amax(torch.abs(sy - py), dim=1)
+    return dy + 8.0 <= halo - 2.0
+
+
+def ecc_stack_step_spatial(
+    frames_u8,
+    ref_u8,
+    mesh: Mesh,
+    scale_hw,
+    motion_type: MotionType = MotionType.Homography,
+    num_iters: int = 50,
+    eps: float = 1e-4,
+    gauss_filt_size: int = 5,
+    halo: int = 64,
+    phase_init: bool = True,
+):
+    """Align and stack frames whose rows stay split over ``'spatial'``
+    for the whole step; no device holds a whole frame.
+
+    ``frames_u8``: ``[N,H,W,3]`` uint8 / uint16 (frames 1..; N divisible
+    by ``'data'``, H by ``'spatial'``), ``ref_u8``: ``[H,W,3]`` (frame 0).
+    Per band on ``mesh.devices[i, j]``: the grey; the INTER_AREA shrink to
+    ``scale_hw``, each band computing the output rows whose first source
+    row is its own (with the few rows they read of the next band) by the
+    whole image's taps and sums, gathered on the data shard's first
+    device for the column pass and the u8 rounding, so the small grid is
+    the dense path's bitwise (the JAX package adds the bands' partial row
+    sums, ``mesh.py:1460-1478``); the ECC solve once per data shard on
+    the small grid (B1); the warps scaled up and lanes
+    whose vertical motion leaves the halo dropped; the band's warp and
+    sum of the kept frames from its extended strip (B5's accumulate form
+    on float32 bands); the sums reduced over ``'data'``; frame 0 added.
+
+    Returns ``(stacked_sum [H,W,3] on devices[0, 0], ok [N] numpy)``:
+    divide by ``1 + ok.sum()`` for the mean."""
+    nsp = mesh.shape["spatial"]
+    n, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
+    hs, ws = int(scale_hw[0]), int(scale_hw[1])
+    h_loc = _check_rows(h, nsp, halo)
+    ndata = mesh.shape["data"]
+    if n % ndata != 0:
+        raise ValueError(f"N={n} must divide the data axis ({ndata})")
+    per = n // mesh.world
+    n_loc = per // mesh.data_local
+    lo = mesh.rank * per
+    cells = [(i, j) for i in range(mesh.data_local) for j in range(nsp)]
+    devs = [mesh.devices[i, j] for i, j in cells]
+
+    def rows_of(x, j):
+        return x[..., j * h_loc : (j + 1) * h_loc, :, :]
+
+    cur = {c: _to(rows_of(frames_u8[lo + c[0] * n_loc : lo + (c[0] + 1)
+                                    * n_loc], c[1]), d)
+           for c, d in zip(cells, devs)}
+    ref = {c: _to(rows_of(ref_u8, c[1]), d) for c, d in zip(cells, devs)}
+
+    # grey per band; the INTER_AREA row pass of the output rows whose
+    # first source row is the band's, from the band's rows and the next
+    # band's first few (the whole image's taps and sums: resize_rows)
+    first_tap = np.argmax(resize._area_weights(h, hs) != 0, axis=1)
+    owned = np.searchsorted(first_tap, np.arange(nsp + 1) * h_loc)
+    greys = {c: color.rgb_to_gray_u8(torch.cat([ref[c][None], cur[c]]))
+             for c in cells}
+
+    def mix(k):
+        i, j = cells[k]
+        a0, a1 = int(owned[j]), int(owned[j + 1])
+        if a0 == a1:
+            return None
+        top = j * h_loc
+        strip = greys[i, j]
+        need = resize.row_span(h, hs, a0, a1)[1] - (top + h_loc)
+        if need > 0:
+            if j + 1 == nsp or need > h_loc:
+                raise ValueError(
+                    f"INTER_AREA rows of band {j} reach {need} rows past it")
+            strip = torch.cat([strip, greys[i, j + 1][:, :need].to(devs[k])],
+                              dim=1)
+        return resize.resize_rows(strip, h, hs, a0, a1, top)
+
+    parts = _run(devs, mix)
+
+    def solve(i, dev):
+        rows = torch.cat([parts[i * nsp + j].to(dev) for j in range(nsp)
+                          if parts[i * nsp + j] is not None], dim=1)
+        small = resize._resize_axis(rows, -1, ws, constants.INTER_AREA)
+        small = torch.clamp(torch.floor(small + 0.5), 0.0, 255.0)
+        small_ref, small_cur = small[0], small[1:]
+        init = None
+        if phase_init:
+            init = phasecorr.phase_init_warps(small_cur, small_ref,
+                                              motion_type=motion_type)
+        res = ecc_ops.find_transform_ecc_batched(
+            small_cur, small_ref, motion_type=motion_type,
+            num_iters=num_iters, eps=eps, gauss_filt_size=gauss_filt_size,
+            warp_init=init)
+        warps = ecc_models._adjust_warp_for_scale(
+            res.warp_matrix, motion_type, (hs, ws), (h, w))
+        m3 = warps if warps.shape[1] == 3 else warp.affine_to_3x3(warps)
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        ok = res.ok
+        minv = warp.invert_3x3(torch.where(ok[:, None, None], m3, eye))
+        # a warp whose vertical motion leaves the halo would sample zeros
+        # from the strip's edge: drop it instead
+        ok = ok & _vertical_disp_ok(minv, h, w, halo)
+        return torch.where(ok[:, None, None], minv, eye), ok
+
+    solved = _map_shards(mesh, solve)
+    oks = [s[1] for s in solved]
+    exts = {}
+    for i in range(mesh.data_local):
+        f32 = [color.to_unit_f32(cur[i, j]) for j in range(nsp)]
+        row = _halo_ext(f32, halo, 1)
+        for j in range(nsp):
+            exts[i, j] = row[j]
+
+    def band_sum(k):
+        # B5's accumulate form writes the strip's own grid (global rows
+        # from row0 - halo): its row halo + y is the band's row y
+        i, j = cells[k]
+        top = j * h_loc - halo
+        out = warp_frames(exts[i, j].contiguous(), solved[i][0].to(devs[k]),
+                          valid=oks[i].to(devs[k]), rows=(top, top))
+        return out[halo : halo + h_loc]
+
+    sums = _run(devs, band_sum)
+    bands = []
+    for j in range(nsp):
+        total = _psum([sums[i * nsp + j] for i in range(mesh.data_local)],
+                      mesh)
+        bands.append(total + color.to_unit_f32(ref[0, j]).to(total.device))
+    dev0 = mesh.devices[0, 0]
+    return torch.cat([b.to(dev0) for b in bands]), _gather(oks, mesh)

@@ -24,11 +24,13 @@ Usage:  python -m libstacker_tpu_torch.stack_burst <image_dir>
         [--phase-init-rotation] [--coarse-levels N]
         [--stacking mean|sigma_clip] [--sigma-kappa K] [--sigma-iters I]
         [--output-scale 1|2|3|4] [--align-mask PATH] [--out-depth 8|16]
-        [--preserve-depth] [--checkpoint PATH]
+        [--preserve-depth] [--checkpoint PATH] [--mesh AUTO|N]
 
 The flags are ``examples/stack_burst.py``'s plus ``--device`` (default
-``cuda``; without a card pass ``--device cpu``).  ``--mesh`` is not
-ported (ROADMAP.md Queue A item 16) and exits with an error.
+``cuda``; without a card pass ``--device cpu``).  ``--mesh`` shards the
+burst over devices through the pipelines' ``mesh=`` argument: ``auto``
+is every visible CUDA device (one CPU shard with ``--device cpu``), N a
+data mesh over the first N visible devices.
 """
 
 from __future__ import annotations
@@ -126,16 +128,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="grayscale mask image (nonzero = valid) that "
                     "excludes pixels from the alignment")
     ap.add_argument("--mesh", metavar="AUTO|N", default=None,
-                    help="not ported (ROADMAP.md Queue A item 16): an error")
+                    help="shard the burst over devices via the pipelines' "
+                    "mesh= argument: 'auto' uses every visible device, an "
+                    "integer N builds a data-axis mesh over the first N")
     return ap
 
 
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh is not ported to libstacker_tpu_torch yet "
-                 "(ROADMAP.md Queue A item 16)")
     if args.stream > 0 and args.output_scale != 1:
         ap.error("--output-scale is not available with --stream (the "
                  "SR deposit needs whole-burst passes)")
@@ -154,6 +155,22 @@ def main(argv=None) -> int:
     from .utils.tracing import PhaseTimer
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        from .parallel import make_mesh
+
+        if args.mesh.lower() == "auto":
+            mesh = "auto"  # the pipelines resolve it
+        else:
+            ndev = int(args.mesh)
+            visible = ([dev] if dev.type == "cpu" else
+                       [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())])
+            if ndev > len(visible):
+                print(f"--mesh {ndev} exceeds the {len(visible)} visible "
+                      "devices", file=sys.stderr)
+                return 1
+            mesh = make_mesh(visible[:ndev], data=ndev, spatial=1)
     timer = PhaseTimer(dev)
     files = io.collect_image_files(args.image_dir)
     if len(files) < 2:
@@ -258,14 +275,14 @@ def main(argv=None) -> int:
                         kept_files, kp_params, sw, chunk_size=args.stream,
                         mask=align_mask, preserve_depth=args.preserve_depth,
                         checkpoint_path=ckpt_path("keypoint", tag),
-                        device=dev,
+                        mesh=mesh, device=dev,
                     )
                 print(f"keypoint stream({tag}) dropped: {dropped}")
             else:
                 with timer.phase(f"keypoint_match ({tag})"):
                     dropped, img, kstats = keypoint_match_arrays(
                         frames_t, kp_params, sw, return_stats=True,
-                        mask=align_mask,
+                        mask=align_mask, mesh=mesh,
                     )
                 print(f"keypoint_match({tag}) dropped frames: {dropped}"
                       + clip_note(kstats))
@@ -276,13 +293,14 @@ def main(argv=None) -> int:
                     img = ecc_match_stream(
                         kept_files, ecc_params, sw, chunk_size=args.stream,
                         mask=align_mask, preserve_depth=args.preserve_depth,
-                        checkpoint_path=ckpt_path("ecc", tag), device=dev,
+                        checkpoint_path=ckpt_path("ecc", tag), mesh=mesh,
+                        device=dev,
                     )
             else:
                 with timer.phase(f"ecc_match ({tag})"):
                     img, estats = ecc_match_arrays(
                         frames_t, ecc_params, sw, return_stats=True,
-                        mask=align_mask,
+                        mask=align_mask, mesh=mesh,
                     )
                 if sigma:
                     print(f"ecc_match({tag}){clip_note(estats)}")

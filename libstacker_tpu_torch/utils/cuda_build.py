@@ -8,10 +8,13 @@ package, keyed by a hash of its source, the shared headers
 seconds (``torch.utils.cpp_extension.load`` takes minutes per file).
 
 Contract of every C entry point: pointers and the stream are
-``ctypes.c_void_p``; the function returns ``cudaGetLastError()`` after
-its launches, and the Python wrapper raises on a non-zero code (a
-refused launch never runs, and ``torch.cuda.synchronize()`` would not
-report it).
+``ctypes.c_void_p``, the stream last; the function launches with
+``<<<...>>>`` on the CUDA runtime's current device and returns
+``cudaGetLastError()`` after its launches.  A wrapper calls it through
+:func:`launch`, which makes the tensors' card current around the call
+(another card's stream would be an invalid handle there) and raises on a
+non-zero code (a refused launch never runs, and
+``torch.cuda.synchronize()`` would not report it).
 
 ``--fmad=false`` keeps ``a*b+c`` as two rounded operations, the way
 PyTorch's elementwise ops evaluate the kernels' plain versions: source
@@ -30,6 +33,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -131,6 +136,16 @@ def kernel_resources(name: str, csrc: Path = CSRC) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(m.group(1)) if m else 0
     return {k: v for k, v in out.items() if "registers" in v}
+
+
+def launch(lib: ctypes.CDLL, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` of ``lib`` with ``args`` and the
+    current stream of ``device``, with ``device`` the current device for
+    the call, then raise on its error code (:func:`check`)."""
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, entry)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

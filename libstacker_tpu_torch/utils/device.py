@@ -83,16 +83,3 @@ class ChunkUploader:
             cur.wait_event(ev)
             out.record_stream(cur)
         return out
-
-    def staged(self, chunks):
-        """Yield ``(device chunk, is_last)`` for numpy ``chunks``, the
-        next chunk read and its copy started before the current one is
-        yielded, so that copy runs under the current chunk's work."""
-        it = iter(chunks)
-        nxt = next(it, None)
-        cur = None if nxt is None else self.put(nxt)
-        while cur is not None:
-            frames = self.ready(cur)
-            nxt = next(it, None)
-            cur = None if nxt is None else self.put(nxt)
-            yield frames, cur is None

@@ -213,8 +213,9 @@ def pad_chunk(
 ) -> np.ndarray:
     """Pad a final partial chunk to ``chunk_size`` lanes (``fill``, by
     default the last frame, repeated).  The JAX package pads so that XLA
-    compiles one chunk shape; the port's streams need no pad and feed
-    their kernels the real frames only."""
+    compiles one chunk shape; the port's streams pad only to a mesh's
+    ``'data'`` axis (``parallel.mesh.ShardUploader.padded``), so on one
+    device they feed their kernels the real frames only."""
     n = frames.shape[0]
     if n == chunk_size:
         return frames

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Phases 2-4, 6-8, 10-14, 17-21 and 23-24 of chip_smoke.py at small sizes.  Every test needs CUDA and
+Phases 2-4, 6-8, 10-14, 17-21, 23-24 and 26 of chip_smoke.py at small sizes.  Every test needs CUDA and
 the ``nvcc`` toolchain, is marked ``cuda`` and skips without a card.
 This file imports no JAX, so on a machine with the card run it without
 the suite's JAX-configuring conftest:
@@ -45,7 +45,12 @@ CPU path; the chunk uploader's copies equal their chunks; the ECC and
 keypoint streams (mean and sigma-clip) on the card against the CPU
 streams at the slice bars (keypoint: p99 < 0.02 and mean < 0.01, the
 draws differing), through their kernels; a sigma-clip stream killed and
-resumed on the card bitwise equal to an uninterrupted one.
+resumed on the card bitwise equal to an uninterrupted one.  B5's row
+origins (a strip of rows warped with the global map) bitwise against the
+plain version and the whole frame's rows; ``mesh=`` on shards of the
+card against the same mesh on the CPU (ECC mean and SR through B6's
+deposit form at the slice bars, the keypoint mean at p99 < 0.02), and
+the row-band warp bitwise against the dense one.
 """
 
 import numpy as np
@@ -1053,3 +1058,80 @@ def test_stream_resume_cuda_bitwise(dev, tmp_path, monkeypatch):
     assert resume.starts == [4, 0]
     np.testing.assert_array_equal(out, ref)
     assert not ck.exists()
+
+
+@pytest.mark.parametrize("quant_affine", [False, True])
+def test_warp_row_origins_kernels_match_plain(dev, quant_affine):
+    """B5's row origins on the card (planar and accumulate forms): a strip
+    of source rows warped with the global map equals the plain version
+    and the whole frame's rows bitwise."""
+    rng = np.random.default_rng(4)
+    h, w = 96, 130
+    src = torch.from_numpy(np.stack([smooth(rng, (h, w)) for _ in range(3)]))
+    persp = (0.0, 0.0) if quant_affine else (2e-4, -1e-4)
+    minv = torch.from_numpy(np.stack([
+        rotation_inverse_map(h, w, a, 1.0, 2.0 * a, -1.5, persp=persp)
+        for a in (1.5, -0.5, 0.25)]))
+    lo, hi, halo = 40, 64, 16
+    valid = torch.tensor([True, False, True])
+    frames = src.permute(1, 2, 0)[None].expand(3, h, w, 3).contiguous()
+    for d in (dev, torch.device("cpu")):
+        s, m, f, v = src.to(d), minv.to(d), frames.to(d), valid.to(d)
+        full = warp_cuda.warp_bilinear(s, m, quant_affine=quant_affine)
+        band = warp_cuda.warp_bilinear(
+            s[:, lo - halo : hi + halo].contiguous(), m, out_hw=(hi - lo, w),
+            quant_affine=quant_affine, rows=(lo, lo - halo))
+        acc = warp_cuda.warp_frames(f, m, quant_affine=quant_affine, valid=v)
+        bacc = warp_cuda.warp_frames(
+            f[:, lo - halo : hi + halo].contiguous(), m,
+            quant_affine=quant_affine, valid=v, rows=(lo - halo, lo - halo))
+        assert torch.equal(band, full[:, lo:hi])
+        assert torch.equal(bacc[halo:-halo], acc[lo:hi])
+        if d.type == "cuda":
+            on_card = (band.cpu(), bacc.cpu())
+    assert torch.equal(on_card[0], band) and torch.equal(on_card[1], bacc)
+
+
+def test_mesh_paths_cuda_match_cpu(dev):
+    """``mesh=`` on shards of the card against the same mesh on the CPU:
+    ECC mean and SR (B6's deposit form, never its image form), the
+    keypoint mean, and the row-band warp bitwise against the dense one."""
+    from libstacker_tpu_torch import (
+        KeyPointMatchParameters, ecc_match_arrays, keypoint_match_arrays,
+    )
+    from libstacker_tpu_torch.ops import sr_cuda
+    from libstacker_tpu_torch.parallel import make_mesh, warp_rows_sharded
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, _ = burst(6, 5, 96, 128, max_shift=3.0, max_angle=0.3)
+    gpu_mesh, cpu_mesh = make_mesh([dev] * 3), make_mesh(["cpu"] * 3)
+    for params in (EccMatchParameters(MotionType.Homography, max_count=50,
+                                      epsilon=1e-4),
+                   EccMatchParameters(MotionType.Homography, max_count=50,
+                                      epsilon=1e-4, output_scale=2)):
+        before = (sr_cuda.launch_count, sr_cuda.image_launch_count)
+        gpu = ecc_match_arrays(frames, params, mesh=gpu_mesh)
+        torch.cuda.synchronize()
+        if params.output_scale > 1:
+            assert sr_cuda.launch_count > before[0]
+            assert sr_cuda.image_launch_count == before[1]
+        cpu = ecc_match_arrays(frames, params, mesh=cpu_mesh)
+        c = 8 * params.output_scale
+        assert np.abs(gpu[c:-c, c:-c] - cpu[c:-c, c:-c]).max() < 0.02
+    kp = make_textured_burst(4, 240, 320, seed=1)[0].numpy()
+    d_gpu, k_gpu = keypoint_match_arrays(kp, KeyPointMatchParameters(),
+                                         mesh=make_mesh([dev] * 2))
+    d_cpu, k_cpu = keypoint_match_arrays(kp, KeyPointMatchParameters(),
+                                         mesh=make_mesh(["cpu"] * 2))
+    diff = np.abs(k_gpu[16:-16, 16:-16] - k_cpu[16:-16, 16:-16])
+    assert d_gpu == d_cpu == 0
+    assert np.quantile(diff, 0.99) < 0.02 and diff.mean() < 0.01
+    img = torch.from_numpy(smooth(np.random.default_rng(3), (128, 160)))
+    m3 = np.array([[1.0, 0.01, 2.5], [-0.01, 1.0, -6.0], [0, 0, 1]],
+                  np.float32)
+    got = warp_rows_sharded(img.to(dev), m3, make_mesh([dev] * 4, data=1,
+                                                         spatial=4), halo=16)
+    minv = warp.invert_3x3(torch.from_numpy(m3)).to(dev)
+    want = warp_cuda.warp_bilinear(img.to(dev)[None], minv[None])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

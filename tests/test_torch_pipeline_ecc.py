@@ -7,8 +7,8 @@ numpy burst with the headline parameters (Homography, max_count 50, eps
 stacked interiors within 0.02 (tests/test_pipeline_ecc.py:73-74).  Also
 the scaled path, the 1-frame path, the guards' error types and messages,
 ``on_failure``, ``ecc_match`` on files, ``output_scale``, ``solver`` and
-``phase_init_rotation``, the options that raise ``NotImplementedError``,
-and the copied host modules pinned to the originals.
+``phase_init_rotation``, ``mesh="auto"`` (once refused), and the copied
+host modules pinned to the originals.
 """
 
 import dataclasses
@@ -175,8 +175,16 @@ def test_ecc_match_files(frames, tmp_path, jax_headline):
     (dict(mesh="auto"), "item 16"),
 ])
 def test_unported_options_raise(frames, opt, item):
-    with pytest.raises(NotImplementedError, match=item):
-        P.ecc_match_arrays(frames, _params(P), device="cpu", **opt)
+    """The option this package once refused (ROADMAP.md ``item``), now
+    ported: ``mesh="auto"`` with ``device="cpu"`` is a one-shard CPU mesh
+    and equals the dense path bitwise, with the same stats."""
+    want, wst = P.ecc_match_arrays(frames, _params(P), device="cpu",
+                                   return_stats=True)
+    got, st = P.ecc_match_arrays(frames, _params(P), device="cpu",
+                                 return_stats=True, **opt)
+    np.testing.assert_array_equal(got, want)
+    assert st.frames_kept == wst.frames_kept == 4, item
+    assert st.ecc_iterations == wst.ecc_iterations
 
 
 @pytest.mark.parametrize("opt", [
@@ -201,14 +209,15 @@ def test_lifted_options_match_jax(frames, opt):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """``mesh=`` is not ported yet (item 16) on any entry point, the
-    stream included; ``preserve_depth`` (item 14a) and the stream (item
-    14b) are, and raise the reference's errors."""
+    """The entry points once refused: ``mesh=`` (item 16), the stream
+    included, ``preserve_depth`` (item 14a) and the stream (item 14b) are
+    ported and raise the reference's errors: a stream over
+    ``mesh="auto"`` gets as far as decoding its missing file."""
     with pytest.raises(errors.NotEnoughFilesError):
         P.ecc_match([], _params(P), preserve_depth=True, device="cpu")
     with pytest.raises(errors.NotEnoughFilesError):
         P.ecc_match_stream([], _params(P), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(errors.StackerIoError):
         P.ecc_match_stream([tmp_path / "a.png"], _params(P), mesh="auto",
                            device="cpu")
 

@@ -12,8 +12,7 @@ stacks within that file's p99 bars of the ground-truth-warp stack (0.04;
 0.02 of each other at the 99th percentile.  Also the featureless frame,
 ``n == 1``, the stats, BORDER_TRANSPARENT, the tiny scale width that
 drops every frame, the guards, ``keypoint_match`` on files, uint16
-bursts, ``output_scale=2`` and the options that raise
-``NotImplementedError``.
+bursts, ``output_scale=2`` and ``mesh="auto"`` (once refused).
 """
 
 import numpy as np
@@ -189,8 +188,14 @@ def test_files_and_uint16(burst, tmp_path):
     (dict(mesh="auto"), "item 16"),
 ])
 def test_unported_options_raise(burst, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        P.keypoint_match_arrays(burst[0], device="cpu", **kw)
+    """The option this package once refused (ROADMAP.md ``item``), now
+    ported: ``mesh="auto"`` with ``device="cpu"`` is a one-shard CPU
+    mesh; its RANSAC draws from the shard's generator, so it is held to
+    the dense path at the slice's p99 bar with equal drops."""
+    d_want, want = P.keypoint_match_arrays(burst[0], device="cpu")
+    d_got, got = P.keypoint_match_arrays(burst[0], device="cpu", **kw)
+    assert d_got == d_want, item
+    assert _p99(got, want) < 0.02
 
 
 def test_output_scale_matches_jax(burst, truth):
@@ -210,10 +215,11 @@ def test_output_scale_matches_jax(burst, truth):
 
 
 def test_unported_entry_points_raise(burst):
-    """``mesh=`` is not ported yet (item 16), the stream included;
-    ``preserve_depth`` (item 14a) and the stream (item 14b) are, and
-    raise the reference's error for a file that does not exist."""
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """The entry points once refused: ``mesh=`` (item 16), the stream
+    included, ``preserve_depth`` (item 14a) and the stream (item 14b) are
+    ported and raise the reference's error for a file that does not
+    exist."""
+    with pytest.raises(errors.StackerIoError):
         P.keypoint_match_stream(["a.png", "b.png"], mesh="auto",
                                 device="cpu")
     with pytest.raises(errors.StackerIoError):

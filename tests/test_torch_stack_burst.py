@@ -4,7 +4,9 @@ driven in process with ``--device cpu`` on a tiny burst with one blurred
 frame: the blurred frame is ranked worst and dropped, the ranking equals
 the JAX package's ``sharpness_all`` order on the same frames, the PNGs
 are written whole-burst and streamed (mean and sigma-clip), and
-``--mesh`` is refused naming ROADMAP.md item 16."""
+``--mesh auto`` writes what the run without ``--mesh`` writes, while
+``--mesh N`` above the visible devices exits with the JAX package's
+message."""
 
 import numpy as np
 import pytest
@@ -99,10 +101,11 @@ def test_writes_every_variant(tiny_burst, tmp_path, capsys, extra, names):
 
 
 def test_refusals(tiny_burst, tmp_path, capsys, monkeypatch):
-    with pytest.raises(SystemExit) as e:
-        stack_burst.main([str(tiny_burst), "--mesh", "2", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "item 16" in capsys.readouterr().err
+    # one CPU device is visible with --device cpu (examples/stack_burst.py
+    # :178-186 prints this and returns 1)
+    assert stack_burst.main([str(tiny_burst), "--mesh", "2", "--device",
+                             "cpu"]) == 1
+    assert "--mesh 2 exceeds the 1 visible devices" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         stack_burst.main([str(tiny_burst), "--stream", "2",
                           "--output-scale", "2", "--device", "cpu"])
@@ -113,6 +116,30 @@ def test_refusals(tiny_burst, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         stack_burst.main([str(tiny_burst), "--out", str(tmp_path / "o")])
+
+
+@pytest.mark.parametrize("extra", [[], ["--stream", "2"]])
+def test_mesh_auto_equals_no_mesh(tiny_burst, tmp_path, extra):
+    """``--mesh auto`` with ``--device cpu`` (a one-shard CPU mesh) and
+    ``--mesh 1``: the same PNGs as the run without ``--mesh``."""
+    base = [str(tiny_burst), "--device", "cpu", "--scale-width", "64",
+            "--match-ratio", "0.95"] + ECC_FAST + extra
+    outs = {}
+    for tag, mesh in (("none", []), ("auto", ["--mesh", "auto"]),
+                      ("one", ["--mesh", "1"])):
+        outs[tag] = tmp_path / tag
+        assert stack_burst.main(base + ["--out", str(outs[tag])] + mesh) == 0
+    names = sorted(p.name for p in outs["none"].iterdir())
+    assert names and names == sorted(p.name for p in outs["auto"].iterdir())
+    for name in names:
+        want = np.asarray(Image.open(outs["none"] / name))
+        for tag in ("auto", "one"):
+            got = np.asarray(Image.open(outs[tag] / name))
+            if name.startswith("ecc") or not extra:
+                np.testing.assert_array_equal(got, want)
+            else:
+                # the keypoint stream over a mesh draws per (chunk, shard)
+                assert np.abs(got.astype(int) - want).mean() < 2.0
 
 
 def test_runs_as_a_module():

@@ -20,8 +20,8 @@ its own whole-burst path on the decoded frames.  Bars:
   ``tests/test_stack.py:535-570``): RANSAC draws per chunk, so the
   streams agree statistically, not bitwise.
 
-Also the guards (``output_scale``, the sigma border, ``mesh=``), the
-failure modes and ``pad_chunk`` / ``prefetched_chunks`` against the
+Also the guards (``output_scale``, the sigma border), ``mesh="auto"``
+against the stream on one device, the failure modes and ``pad_chunk`` / ``prefetched_chunks`` against the
 JAX package's.  The resume scenarios are in
 ``tests/test_torch_stream_resume.py``.
 """
@@ -275,9 +275,18 @@ def test_stream_guards(ecc_burst, kp_burst):
         with pytest.raises(errors.InvalidParamsError) as pe:
             pstream(fl, pp, device="cpu")
         assert str(pe.value) == str(je.value)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            pstream(fl, dataclasses.replace(pp, output_scale=1), mesh="auto",
-                    device="cpu")
+        # mesh= (ROADMAP.md item 16, once refused here) runs: a one-shard
+        # CPU mesh streams what the device stream does, bit for bit (the
+        # stream without a mesh runs on a one-device mesh; one shard
+        # seeds RANSAC from (seed, chunk) alone)
+        p1 = dataclasses.replace(pp, output_scale=1)
+        meshed = pstream(fl, p1, chunk_size=4, mesh="auto", device="cpu")
+        plain = pstream(fl, p1, chunk_size=4, device="cpu")
+        if pstream is P.ecc_match_stream:
+            np.testing.assert_array_equal(meshed, plain)
+        else:
+            assert meshed[0] == plain[0]
+            np.testing.assert_array_equal(meshed[1], plain[1])
         with pytest.raises(errors.NotEnoughFilesError):
             pstream([], dataclasses.replace(pp, output_scale=1), device="cpu")
     jp = J.KeyPointMatchParameters(stacking="sigma_clip",
