@@ -134,13 +134,24 @@ Phases (each prints one line; any failure exits non-zero):
     ``sharpness_teng_spatial`` on 100 greys (data 2 x spatial 2, rel
     1e-5) and ``ecc_stack_step_spatial`` on 16 frames solved at 540x960
     (B5's accumulate form; interior max 1e-5 against the dense scaled
-    path, p99 0.005 against the known shifts).
+    path, p99 0.005 against the known shifts);
+27. a mesh row across processes: two worker processes of this script
+    (``--dcn-worker``), each with ``devices=["cuda:0"]`` under gloo, build
+    ``make_global_mesh(data=1, spatial=2)`` (halo rows by point-to-point,
+    the bands gathered over the row group) and run
+    ``warp_rows_sharded`` on phase 26's 2160x3840x3 frame,
+    ``sharpness_teng_spatial`` on the grey of the first 8 frames of phase
+    5's burst and ``ecc_stack_step_spatial`` on those frames solved at
+    540x960 (halo 64); each rank's results bitwise equal to the
+    one-process ``make_mesh([card] * 2, data=1, spatial=2)`` run here,
+    with each rank's launches of B1, B5 and B5a; a worker that fails or
+    passes 180 s fails the phase.
 
-Phases 5, 9, 14-16, 19-22 and 24-26 drive the entry points with every
+Phases 5, 9, 14-16, 19-22 and 24-27 drive the entry points with every
 launch counter set to 0 just before the run and read just after it, and
 fail if a kernel of that path was not launched; the keypoint phases also
 fail if B3 (``orb_extract``) ran, and BORDER_REPLICATE if the planar B5
-did.  Phases 23-26 print their own seconds.
+did.  Phases 23-27 print their own seconds.
 
 Each kernel record carries its time (CUDA events around a batch of
 calls; for B3, B3h and B3d, whose kernels are shorter than their
@@ -2604,6 +2615,21 @@ def free_port() -> int:
     return port
 
 
+def rows_frame(dev):
+    """The row-band warp's input: one smoothed 2160x3840x3 float32 frame
+    on ``dev`` (seed 7) and a forward map that rotates it by 1 degree,
+    scales by 1.002 and moves rows 12 px up, across band edges."""
+    img = smoothed_image(np.random.default_rng(7), FULL_H, FULL_W)
+    rgb = torch.from_numpy(np.stack([img, img * 0.5, 255.0 - img], -1)).to(dev)
+    ang = np.radians(1.0)
+    a, b = 1.002 * np.cos(ang), 1.002 * np.sin(ang)
+    cx, cy = FULL_W / 2.0, FULL_H / 2.0
+    m3 = np.array([[a, b, (1 - a) * cx - b * cy + 3.5],
+                   [-b, a, b * cx + (1 - a) * cy - 12.0],
+                   [0, 0, 1]], np.float32)
+    return rgb, m3
+
+
 def phase_mesh(dev):
     """Phase 26: ``mesh=`` at full width on shards of the one card: the
     ECC headline over 3 shards, sigma-clip and SR x2 over 4, the keypoint
@@ -2813,15 +2839,7 @@ def phase_mesh(dev):
 
     # the row bands: 4 bands of the card
     rows = pmesh.make_mesh(card, data=1, spatial=4)
-    rng = np.random.default_rng(7)
-    img = smoothed_image(rng, FULL_H, FULL_W)
-    rgb = torch.from_numpy(np.stack([img, img * 0.5, 255.0 - img], -1)).to(dev)
-    ang = np.radians(1.0)
-    a, b = 1.002 * np.cos(ang), 1.002 * np.sin(ang)
-    cx, cy = FULL_W / 2.0, FULL_H / 2.0
-    m3 = np.array([[a, b, (1 - a) * cx - b * cy + 3.5],
-                   [-b, a, b * cx + (1 - a) * cy - 12.0],
-                   [0, 0, 1]], np.float32)
+    rgb, m3 = rows_frame(dev)
     minv = warp.invert_3x3(torch.from_numpy(m3).to(dev))
     want = warp_cuda.warp_bilinear(
         rgb.permute(2, 0, 1).contiguous(), minv.expand(3, 3, 3).contiguous()
@@ -2900,11 +2918,173 @@ def phase_mesh(dev):
     return results
 
 
+# phase 27: a mesh row across two processes of the one card under gloo
+DCN_RANKS = 2
+DCN_N = 8  # the first 8 frames of phase 5's burst
+DCN_TIMEOUT_S = 180
+DCN_KERNELS = ("ecc_moments", "warp", "warp_frames_accum")
+
+
+def dcn_inputs(dev):
+    """Phase 27's inputs, rebuilt from their seeds in every process:
+    the row-band frame and its map, the grey of the first 8 frames of
+    phase 5's burst, and those frames."""
+    from libstacker_tpu_torch.ops import color
+    from libstacker_tpu_torch.utils.synth import make_burst
+
+    rgb, m3 = rows_frame(dev)
+    burst, _ = make_burst(DCN_N, FULL_H, FULL_W, seed=0, device=dev)
+    greys = color.rgb_to_gray_u8(burst).to(torch.float32)
+    return rgb, m3, greys, burst
+
+
+def dcn_run(mesh, inputs) -> dict:
+    """The three row-band functions on ``mesh``: ``warp_rows_sharded``,
+    ``sharpness_teng_spatial``, ``ecc_stack_step_spatial`` (frames 1-7
+    against frame 0, phase 5's motion model, solved at 540x960)."""
+    from libstacker_tpu_torch.parallel import mesh as pmesh
+
+    rgb, m3, greys, burst = inputs
+    warped = pmesh.warp_rows_sharded(rgb, m3, mesh, halo=MESH_HALO)
+    teng = pmesh.sharpness_teng_spatial(greys, mesh)
+    total, ok = pmesh.ecc_stack_step_spatial(
+        burst[1:], burst[0], mesh, MESH_SOLVE_HW,
+        motion_type=headline_params().motion_type, halo=MESH_HALO)
+    return dict(warp=warped, teng=torch.from_numpy(teng), ecc=total,
+                ok=torch.from_numpy(ok))
+
+
+def dcn_worker(rank: int, port: int, outdir: str) -> int:
+    """One rank of phase 27 (``chip_smoke.py --dcn-worker RANK PORT
+    DIR``): joins a gloo group of 2, builds ``make_global_mesh(data=1,
+    spatial=2)`` on ``cuda:0``, runs the three functions cold, then warm
+    with the launch counters zeroed just before and read just after, and
+    writes the warm results, the counts and the walls into ``DIR``."""
+    import torch.distributed as dist
+
+    from libstacker_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    pmesh.init_distributed(f"127.0.0.1:{port}", DCN_RANKS, rank,
+                           backend="gloo")
+    try:
+        mesh = pmesh.make_global_mesh(data=1, spatial=DCN_RANKS,
+                                      devices=[dev])
+        assert mesh.spans and mesh.s0 == rank, mesh
+        inputs = dcn_inputs(dev)
+        got, cold_s, warm_s, launches = drive(lambda: dcn_run(mesh, inputs))
+    finally:
+        dist.destroy_process_group()
+    out = Path(outdir) / f"rank{rank}"
+    out.mkdir(parents=True, exist_ok=True)
+    for k, v in got.items():
+        np.save(out / f"{k}.npy", v.cpu().numpy())
+    (out / "run.json").write_text(json.dumps(dict(
+        cold_s=cold_s, warm_s=warm_s, launches=launches,
+        shape=mesh.shape, s0=mesh.s0)))
+    return 0
+
+
+def phase_dcn(dev):
+    """Phase 27: a mesh row across processes.  Two worker processes of
+    this script, each with ``devices=["cuda:0"]`` under gloo, build
+    ``make_global_mesh(data=1, spatial=2)`` and run the three row-band
+    functions at full width; each result must equal this process's
+    one-process ``make_mesh([dev] * 2, data=1, spatial=2)`` and the
+    other rank's bitwise.  A worker that fails or passes its timeout
+    fails the phase."""
+    import shutil
+
+    from libstacker_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    inputs = dcn_inputs(dev)
+    one, cold_s, warm_s, one_launches = drive(
+        lambda: dcn_run(pmesh.make_mesh([dev] * 2, data=1, spatial=2),
+                        inputs))
+    del inputs
+    torch.cuda.empty_cache()
+    outdir = REPO / "build" / "smoke_dcn"
+    shutil.rmtree(outdir, ignore_errors=True)
+    port = free_port()
+    t_workers = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dcn-worker",
+         str(r), str(port), str(outdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DCN_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, DCN_TIMEOUT_S
+                            - (time.perf_counter() - t_workers)))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"phase 27: a worker passed its {DCN_TIMEOUT_S} s timeout")
+    workers_s = time.perf_counter() - t_workers
+    if any(p.returncode != 0 for p in procs):
+        fail("phase 27: a worker failed:\n" + "\n".join(
+            f"[rank {r} exit {p.returncode}] {o[-3000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    lines, good, results = [], True, {}
+    for r in range(DCN_RANKS):
+        d = outdir / f"rank{r}"
+        run = json.loads((d / "run.json").read_text())
+        equal = {}
+        for k, v in one.items():
+            got = torch.from_numpy(np.load(d / f"{k}.npy"))
+            want = v.cpu()
+            equal[k] = bool(torch.equal(got, want))
+            if not equal[k] and got.shape == want.shape \
+                    and got.is_floating_point():
+                equal[k] = f"max diff {float((got - want).abs().max()):.3e}"
+        launches = run["launches"]
+        results[f"mesh rank {r} of 2 processes"] = launches
+        ok_r = (all(v is True for v in equal.values())
+                and run["shape"] == {"data": 1, "spatial": 2}
+                and run["s0"] == r and not missing(launches, DCN_KERNELS))
+        good = good and ok_r
+        lines.append(
+            f"rank {r} (bands from {run['s0']}): cold {run['cold_s']:.3f} "
+            f"s, warm {run['warm_s']:.3f} s | launches "
+            + ", ".join(f"{k} {launches[k]}" for k in DCN_KERNELS)
+            + " | bitwise the one-process mesh: "
+            + ", ".join(f"{k} {v}" for k, v in equal.items())
+            + f" -> {'OK' if ok_r else 'FAILED'}")
+    one_ok = bool(one["ok"].all())
+    good = good and one_ok
+    shutil.rmtree(outdir, ignore_errors=True)
+    log(f"[27 spatial across processes] warp_rows_sharded "
+        f"({FULL_H}x{FULL_W}x3 f32), sharpness_teng_spatial ({DCN_N} "
+        f"greys), ecc_stack_step_spatial (frames 1-{DCN_N - 1} of phase "
+        f"5's burst, solve grid {MESH_SOLVE_HW[0]}x{MESH_SOLVE_HW[1]}, halo "
+        f"{MESH_HALO}) on make_global_mesh(data=1, spatial=2) of "
+        f"{DCN_RANKS} gloo processes on one "
+        f"{torch.cuda.get_device_name(0)} | one-process mesh: cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s, launches "
+        + ", ".join(f"{k} {one_launches[k]}" for k in DCN_KERNELS)
+        + f", kept {int(one['ok'].sum())}/{DCN_N - 1} | workers "
+        f"{workers_s:.1f} s | phase {time.perf_counter() - t_phase:.1f} s "
+        f"-> {'OK' if good else 'FAILED'}")
+    for line in lines:
+        log(f"    {line}")
+    if not good:
+        fail("phase 27: a rank's results differ from the one-process mesh "
+             "or a kernel of the path did not launch")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
                     help="time an earlier design of B6 and B9 from the "
                          "sources in DIR beside the current one")
+    ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2919,6 +3099,9 @@ def main(argv=None) -> int:
         return 1
     from libstacker_tpu_torch.utils.device import resolve_device
 
+    if args.dcn_worker:
+        rank, port, outdir = args.dcn_worker
+        return dcn_worker(int(rank), int(port), outdir)
     dev = resolve_device("cuda")
     smi = phase_device()
     if args.baseline:
@@ -2981,6 +3164,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh = phase_mesh(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dcn = phase_dcn(dev)
+    torch.cuda.synchronize()
     by_path = {"ecc_match_arrays": launches,
                **{f"keypoint_match_arrays {k}": v for k, v in kp.items()},
                "ecc_match_arrays sigma_clip": sigma,
@@ -2989,7 +3175,7 @@ def main(argv=None) -> int:
                "ecc_match_arrays output_scale=2": ecc_sr,
                **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
                "keypoint_match_arrays output_scale=2": kp_sr,
-               **files, **streams, "stack_burst": cli, **mesh}
+               **files, **streams, "stack_burst": cli, **mesh, **dcn}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}

@@ -69,6 +69,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..params import MotionType
+from ..utils import cuda_build
 from . import ecc_cuda, filters, resize, warp
 
 # Iterations between host convergence checks (the reference's
@@ -367,7 +368,6 @@ def _solve_lanes(
     """One resolution's solve: template prep, carry, masked GN loop, and
     with ``rescue`` the forward re-solve of the lanes an 'ic' / 'lazy'
     solve failed."""
-    global rescued_lane_count
     n, h, w = templates.shape
     dev = templates.device
     rows = 3 if motion_type == MotionType.Homography else 2
@@ -421,7 +421,8 @@ def _solve_lanes(
             # _reactivate_carry on the failed lanes, restarted from their
             # ORIGINAL init: a lane the 'ic' guard froze holds a
             # mid-divergence iterate (ecc.py:1517-1526)
-            rescued_lane_count += int(bad.sum())
+            cuda_build.count(globals(), "rescued_lane_count",
+                             int(bad.sum()))
             st = _Carry(
                 m=torch.where(bad[:, None, None], m, st.m),
                 rho=torch.where(bad, -1.0, st.rho),

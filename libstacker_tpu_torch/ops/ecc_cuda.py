@@ -189,7 +189,6 @@ def ecc_iteration_moments(
     or raise.  ``texels`` is ``pack_texels(srcs)``, made once by a caller
     that sweeps the same sources many times; without it a CUDA call
     packs its own."""
-    global launch_count, lite_launch_count, masked_launch_count
     if srcs.ndim != 3 or srcs.shape[0] not in (3, 4):
         raise ValueError(f"srcs must be [3,H,W] or [4,H,W], got "
                          f"{tuple(srcs.shape)}")
@@ -237,11 +236,11 @@ def ecc_iteration_moments(
         int(quant_affine), int(masked),
     )
     if masked:
-        masked_launch_count += 1
+        cuda_build.count(globals(), "masked_launch_count")
     elif with_hessian:
-        launch_count += 1
+        cuda_build.count(globals(), "launch_count")
     else:
-        lite_launch_count += 1
+        cuda_build.count(globals(), "lite_launch_count")
     return out
 
 
@@ -333,7 +332,6 @@ def ecc_ic_iteration_moments(
     [B] bool (inactive lanes return zero rows).  CPU tensors take the
     plain version; CUDA tensors launch ``csrc/ecc_ic_moments.cu`` or
     raise."""
-    global ic_launch_count
     if src.ndim != 2:
         raise ValueError(f"src must be [H,W], got {tuple(src.shape)}")
     b, ht, wt = templates.shape
@@ -372,7 +370,7 @@ def ecc_ic_iteration_moments(
         partials.data_ptr(), out.data_ptr(), b, h, w, p, int(with_hessian),
         int(quant_affine),
     )
-    ic_launch_count += 1
+    cuda_build.count(globals(), "ic_launch_count")
     return out
 
 

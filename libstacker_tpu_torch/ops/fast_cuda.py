@@ -48,7 +48,6 @@ def fast_scores(
     """``[N,H,W]`` uint8/float32 -> ``[N,H,W]`` float32 NMS'd FAST
     scores with the edge band ``border``.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/fast.cu`` or raise."""
-    global launch_count
     if imgs.ndim != 3:
         raise ValueError(f"imgs must be [N,H,W], got {tuple(imgs.shape)}")
     if imgs.dtype not in _DTYPE_CODE:
@@ -70,7 +69,7 @@ def fast_scores(
         imgs.data_ptr(), out.data_ptr(), n, h, w, _DTYPE_CODE[imgs.dtype],
         float(threshold), border,
     )
-    launch_count += 1
+    cuda_build.count(globals(), "launch_count")
     return out
 
 

@@ -102,7 +102,6 @@ def extract_patches(
     """``[N,H,W]`` uint8/float32 images, ``[N,K]`` keypoints ->
     ``[N,K,side,side]`` float32 patches.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/orb_extract.cu`` or raise."""
-    global launch_count
     _check(imgs, ys, xs, radius)
     if imgs.device.type == "cpu":
         return extract_patches_reference(imgs, ys, xs, radius)
@@ -125,7 +124,7 @@ def extract_patches(
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), out.data_ptr(),
         n, k, h, w, radius, _DTYPE_CODE[imgs.dtype],
     )
-    launch_count += 1
+    cuda_build.count(globals(), "launch_count")
     return out
 
 
@@ -288,7 +287,6 @@ def candidate_harris(
     float32, -inf where ``valid`` [N,K] is False.  ``imgs`` [N,H,W]
     uint8, ``ys`` / ``xs`` [N,K].  CPU tensors take the plain version;
     CUDA tensors launch ``csrc/orb_describe.cu`` or raise."""
-    global harris_launch_count
     _check_level(imgs, ys, xs)
     if tuple(valid.shape) != tuple(ys.shape):
         raise ValueError(f"valid must be {tuple(ys.shape)}, got "
@@ -310,7 +308,7 @@ def candidate_harris(
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), vb.data_ptr(),
         out.data_ptr(), n, k, h, w, HARRIS_K, fast.harris_scale4(),
     )
-    harris_launch_count += 1
+    cuda_build.count(globals(), "harris_launch_count")
     return out
 
 
@@ -331,7 +329,6 @@ def describe(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
     [N,Q,32] uint8)``, from its clamped 43x43 window.  ``imgs`` [N,H,W]
     uint8, ``ys`` / ``xs`` [N,Q].  CPU tensors take the plain version;
     CUDA tensors launch ``csrc/orb_describe.cu`` or raise."""
-    global describe_launch_count
     _check_level(imgs, ys, xs)
     if imgs.device.type == "cpu":
         return describe_reference(imgs, ys, xs)
@@ -353,7 +350,7 @@ def describe(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
         angle.data_ptr(),
         desc.data_ptr(), n, q, h, w, 180.0 / math.pi, math.pi / 180.0,
     )
-    describe_launch_count += 1
+    cuda_build.count(globals(), "describe_launch_count")
     return angle, desc
 
 

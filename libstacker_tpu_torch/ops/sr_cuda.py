@@ -248,7 +248,6 @@ def sr_deposit(
     inverse maps (frame-0 grid -> frame n), ``valid`` [N] bool.  CPU
     tensors take the plain version; CUDA tensors launch
     ``csrc/sr_deposit.cu`` or raise."""
-    global launch_count
     _, h, w = _checked(frames, minv, valid, factor, kernel_sigma)
     if frames.device.type == "cpu":
         return sr_deposit_reference(frames, minv, valid, factor,
@@ -263,7 +262,7 @@ def sr_deposit(
     ptrs = [a.data_ptr() for a in acc] + [None] * (4 - len(acc))
     _launch("sr_deposit", frames, minv, valid, ptrs, factor, kernel_sigma,
             perspective, with_fallback)
-    launch_count += 1
+    cuda_build.count(globals(), "launch_count")
     return tuple(acc)
 
 
@@ -282,7 +281,6 @@ def sr_image(
     ``cnt`` array is written).  Arguments as :func:`sr_deposit`; CPU
     tensors take :func:`sr_image_reference`, CUDA tensors launch
     ``csrc/sr_deposit.cu`` once or raise."""
-    global image_launch_count
     _, h, w = _checked(frames, minv, valid, factor, kernel_sigma)
     if frames.device.type == "cpu":
         return sr_image_reference(frames, minv, valid, factor, kernel_sigma,
@@ -291,7 +289,7 @@ def sr_image(
                       device=frames.device)
     _launch("sr_image", frames, minv, valid, [out.data_ptr()], factor,
             kernel_sigma, perspective, with_fallback)
-    image_launch_count += 1
+    cuda_build.count(globals(), "image_launch_count")
     return out
 
 

@@ -99,7 +99,6 @@ def warp_accum_rgb(
     maps, ``valid`` [N] (bool or float), ``border_value`` scalar or
     [3].  CPU tensors take the plain version; CUDA tensors launch
     ``csrc/warp_accum.cu`` or raise."""
-    global launch_count
     _check_burst(frames, minv, valid)
     n, h, w, _ = frames.shape
     if frames.device.type == "cpu":
@@ -118,7 +117,7 @@ def warp_accum_rgb(
         out.data_ptr(), n, h, w, _DTYPE_CODE[frames.dtype],
         int(not quant_affine), _SCALE[frames.dtype],
     )
-    launch_count += 1
+    cuda_build.count(globals(), "launch_count")
     return out
 
 
@@ -189,7 +188,6 @@ def warp_moments_rgb(
     ``|v_n - mu| <= tol``.  ``frames`` [N,H,W,3] uint8 / uint16 /
     float32.  CPU tensors take the plain version; CUDA tensors launch
     ``csrc/warp_accum.cu`` or raise."""
-    global moments_launch_count
     if (mu is None) != (tol is None):
         raise ValueError("mu and tol must be given together")
     _check_burst(frames, minv, valid)
@@ -219,7 +217,7 @@ def warp_moments_rgb(
         _DTYPE_CODE[frames.dtype], int(not quant_affine),
         _SCALE[frames.dtype],
     )
-    moments_launch_count += 1
+    cuda_build.count(globals(), "moments_launch_count")
     return s0, s1, s2
 
 

@@ -130,7 +130,6 @@ def warp_bilinear(
     rows from ``sy0`` the sources hold (a row band, ``csrc/warp.cu``).
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/warp.cu`` or raise."""
-    global launch_count
     g, out_hw = _check_args(src, minv, src_index, out_hw)
     if src.device.type == "cpu":
         return warp_bilinear_reference(src, minv, border_value, src_index,
@@ -162,7 +161,7 @@ def warp_bilinear(
         out.data_ptr(), g, h, w, out_hw[0], out_hw[1], _MODE_CODE[border],
         int(not quant_affine), int(rows[0]), int(rows[1]),
     )
-    launch_count += 1
+    cuda_build.count(globals(), "launch_count")
     return out
 
 
@@ -237,7 +236,6 @@ def warp_frames(
     (BORDER_TRANSPARENT reads the zero base), ``rows`` the row origins
     of a band as in :func:`warp_bilinear`.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/warp.cu`` or raise."""
-    global frames_launch_count, accum_launch_count
     _check_frames(frames, minv, valid)
     if frames.device.type == "cpu":
         return warp_frames_reference(frames, minv, border_value, border_mode,
@@ -273,9 +271,9 @@ def warp_frames(
         int(rows[0]), int(rows[1]),
     )
     if valid is None:
-        frames_launch_count += 1
+        cuda_build.count(globals(), "frames_launch_count")
     else:
-        accum_launch_count += 1
+        cuda_build.count(globals(), "accum_launch_count")
     return out
 
 
@@ -315,7 +313,6 @@ def warp3_bilinear(
     lane's inverse map ``minv`` [B,3,3] -> ``[B,3,H,W]`` float32,
     BORDER_CONSTANT 0.  CPU tensors take the plain version; CUDA tensors
     launch ``csrc/warp.cu`` or raise."""
-    global warp3_launch_count
     if srcs.ndim != 3 or srcs.shape[0] != 3:
         raise ValueError(f"srcs must be [3,H,W], got {tuple(srcs.shape)}")
     b = minv.shape[0]
@@ -339,7 +336,7 @@ def warp3_bilinear(
         srcs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w,
         int(not quant_affine), tiles, int(vector),
     )
-    warp3_launch_count += 1
+    cuda_build.count(globals(), "warp3_launch_count")
     return out
 
 

@@ -8,12 +8,17 @@ Counterpart of ``libstacker_tpu/parallel/mesh.py`` (``make_mesh`` :43,
 ``sharpness_teng_spatial`` :1684), built from PyTorch's own parts:
 
 - **the mesh**: a :class:`Mesh` names this process's devices as a
-  ``[data_local, spatial]`` array; its ``'data'`` axis is ``data_local *
-  world`` long when several processes join one ``torch.distributed``
-  group.  A device may appear more than once (``make_mesh(["cpu"] * 4)``
-  is four shards on the CPU, ``make_mesh(["cuda:0"] * 4)`` four shards of
-  one card); it adds no behaviour the JAX package lacks, whose tests run
-  on 8 virtual CPU devices.
+  ``[data_local, spatial_local]`` array of the global ``[data, spatial]``
+  mesh; several processes join one ``torch.distributed`` group and lay
+  their devices out rank-major, as the JAX package reshapes
+  ``jax.devices()``.  A process holds whole mesh rows, or, where its
+  devices are fewer than ``spatial``, a run of bands of one row that
+  spans ``spatial / spatial_local`` ranks (``make_global_mesh``; one
+  process group per mesh row and per band column).  A device may appear
+  more than once (``make_mesh(["cpu"] * 4)`` is four shards on the CPU,
+  ``make_mesh(["cuda:0"] * 4)`` four shards of one card); it adds no
+  behaviour the JAX package lacks, whose tests run on 8 virtual CPU
+  devices.
 - **the shards**: :func:`shard_frames` gives data shard ``i`` the frames
   ``[i*n_loc, (i+1)*n_loc)`` on its own device (a :class:`ShardedFrames`).
   One host thread per distinct device runs that device's shards (solve,
@@ -21,23 +26,33 @@ Counterpart of ``libstacker_tpu/parallel/mesh.py`` (``make_mesh`` :43,
   launch on the CUDA runtime's current device, and every wrapper makes
   its tensors' card current for the launch (``utils/cuda_build.launch``),
   so no kernel runs with another card current, from a shard's thread or
-  from the entry point's own (frame 0's grey and ORB).
+  from the entry point's own (frame 0's grey and ORB).  Collectives and
+  point-to-point transfers are issued from the calling thread only, in
+  one order on every rank.
 - **the psum**: the partials of one process add as a pairwise tree in
   shard order on ``devices[0, 0]``, then ``dist.all_reduce(SUM)`` over
-  the group of a global mesh (the tree makes one process of four shards
-  and two processes of two add in the same order).  ``ok``, ``rho`` and
-  ``iters`` are gathered in lane order (``dist.all_gather``).  A CUDA
-  mesh uses NCCL, a CPU mesh gloo.
+  the band column's group of a global mesh.  That equals the
+  one-process mesh's tree bitwise while the group has at most two
+  members (one process of four shards and two processes of two add in
+  the same order; a larger group adds in the backend's order).  ``ok``,
+  ``rho`` and ``iters`` are gathered in lane order (``dist.all_gather``).
+  A CUDA mesh uses NCCL, a CPU mesh gloo; under gloo a card's tensors
+  travel as CPU copies, so two processes may share a card.
 - **the spatial axis**: row bands of one data shard live on the devices
   of its mesh row; halos are rows copied from the neighbouring band's
-  device, zero (or, for the Sobel, reflect-101) at the global top and
-  bottom.  A band warps with the global inverse map and its integer row
-  origins (``csrc/warp.cu``), where the JAX package shifts the map in
-  float32 (``shift_src @ minv @ shift_out``, ``mesh.py:1656-1665``),
-  which moves 1/32-px bins at large row offsets; a band equals the rows
-  of the whole frame's warp bitwise.  A spatial group never spans
-  processes: a mesh that would need it raises (ROADMAP.md lists it as
-  what the port still lacks).
+  device, or, where the neighbour is in another rank of the row, sent by
+  point-to-point (``dist.batch_isend_irecv``, up then down); zero (or,
+  for the Sobel, reflect-101) at the global top and bottom.  A band
+  warps with the global inverse map and its integer row origins
+  (``csrc/warp.cu``), where the JAX package shifts the map in float32
+  (``shift_src @ minv @ shift_out``, ``mesh.py:1656-1665``), which moves
+  1/32-px bins at large row offsets; a band equals the rows of the whole
+  frame's warp bitwise.  Where a row spans processes the Tenengrad's
+  per-band sums are gathered over the row group and added in band order
+  (bitwise the one-process sum in any layout), the ECC step's small grid
+  is gathered over the row group and solved by every rank of the row,
+  and every function returns the whole row on ``devices[0, 0]`` of every
+  rank.
 
 Every shard runs the kernels of the dense path: the batched ECC solver
 (B1, its masked and Gram-less forms, B7 for ``mode="ic"``), the grey and
@@ -59,6 +74,7 @@ import contextlib
 import dataclasses
 import os
 import socket
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -85,25 +101,41 @@ _SR_SIGMA = 0.3
 
 
 class Mesh:
-    """A ``('data', 'spatial')`` mesh over this process's devices.
+    """A ``('data', 'spatial')`` mesh; ``devices`` is this process's part.
 
-    ``devices`` is a ``[data_local, spatial]`` object array of
-    ``torch.device``; ``shape`` is ``{"data": data_local * world,
-    "spatial": spatial}``; ``group`` the ``torch.distributed`` group of a
-    ``distributed`` mesh (None in one process), ``rank`` / ``world`` this
-    process's place in it.  Process ``rank`` holds the data shards ``rank
-    * data_local ...``."""
+    The global device list is rank-major (each process's devices are
+    contiguous) and reshaped to ``[data, spatial]``, as the JAX package
+    lays out ``jax.devices()``.  ``devices`` is this process's
+    ``[data_local, spatial_local]`` object array of ``torch.device``:
+    whole mesh rows from row ``data0`` (``spatial_local == spatial``), or
+    where a mesh row spans ``spatial / spatial_local`` processes, the
+    bands ``s0 ...`` of row ``data0``.  ``shape`` is the global ``{"data",
+    "spatial"}``; ``rank`` / ``world`` this process's place in the
+    ``torch.distributed`` group of a ``distributed`` mesh; ``row_ranks``
+    the ranks of its mesh row, ``col_ranks`` the ranks that hold its
+    bands in every row (the ``'data'`` axis of its bands)."""
 
     axis_names = ("data", "spatial")
 
     def __init__(self, devices: np.ndarray, rank: int = 0, world: int = 1,
-                 distributed: bool = False):
+                 distributed: bool = False, spatial: Optional[int] = None,
+                 groups: Optional[dict] = None):
         self.devices = devices
         self.rank = int(rank)
         self.world = int(world)
         self.distributed = bool(distributed)
-        self.shape = {"data": devices.shape[0] * self.world,
-                      "spatial": devices.shape[1]}
+        nsp = devices.shape[1] if spatial is None else int(spatial)
+        span = nsp // devices.shape[1]  # processes a mesh row spans
+        row = self.rank // span
+        self.shape = {"data": devices.shape[0] * self.world // span,
+                      "spatial": nsp}
+        self.data0 = row * devices.shape[0]
+        self.s0 = (self.rank % span) * devices.shape[1]
+        self.row_ranks = tuple(range(row * span, (row + 1) * span))
+        self.col_ranks = tuple(range(self.rank % span, self.world, span))
+        # weak references: a mesh must not keep a group alive past
+        # destroy_process_group() (see group)
+        self._groups = {k: weakref.ref(g) for k, g in (groups or {}).items()}
 
     @property
     def group(self):
@@ -111,20 +143,53 @@ class Mesh:
         ``destroy_process_group()`` must not hold the group, whose gloo
         threads would then be torn down at the interpreter's exit (an
         abort, "terminate called without an active exception")."""
+        return self._group(tuple(range(self.world)))
+
+    @property
+    def row_group(self):
+        """The group of this process's mesh row (the ``'spatial'`` sums
+        and the halo exchanges); None where the row is in one process."""
+        return self._group(self.row_ranks)
+
+    @property
+    def data_group(self):
+        """The group that holds this process's bands in every mesh row
+        (the ``'data'`` sums and gathers); None in one process."""
+        return self._group(self.col_ranks)
+
+    def _group(self, ranks: tuple):
         if not self.distributed:
             return None
         if not dist.is_initialized():
             raise RuntimeError(
                 "the process group of this global mesh was destroyed")
-        return dist.group.WORLD
+        if len(ranks) == self.world:
+            return dist.group.WORLD
+        if len(ranks) == 1:
+            return None
+        group = self._groups[ranks]()
+        if group is None:
+            raise RuntimeError(
+                "the process group of this global mesh was destroyed")
+        return group
 
     @property
     def data_local(self) -> int:
         return self.devices.shape[0]
 
+    @property
+    def spatial_local(self) -> int:
+        return self.devices.shape[1]
+
+    @property
+    def spans(self) -> bool:
+        """Whether a mesh row spans processes."""
+        return self.spatial_local < self.shape["spatial"]
+
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, devices={self.devices.tolist()}, "
-                f"rank={self.rank}, world={self.world})")
+                f"rank={self.rank}, world={self.world}, data0={self.data0}, "
+                f"s0={self.s0})")
 
 
 def _device(d) -> torch.device:
@@ -220,38 +285,77 @@ def _check_cards(cards_by_rank: Sequence[Sequence[str]]) -> None:
             owner[card] = rank
 
 
+def _span(local: int, spatial: int, world: int) -> int:
+    """The processes a mesh row spans: 1 where ``spatial`` divides the
+    ``local`` devices of a process (it holds whole rows), ``spatial /
+    local`` where ``local`` divides ``spatial`` (it holds a run of one
+    row's bands); any other layout raises."""
+    if spatial < 1 or (local % spatial and spatial % local):
+        raise ValueError(
+            f"spatial({spatial}) and this process's {local} devices: one "
+            "must divide the other (a process holds whole mesh rows, or a "
+            "run of bands of one row)")
+    span = max(1, spatial // local)
+    if world % span:
+        raise ValueError(
+            f"a mesh row of spatial({spatial}) spans {span} processes of "
+            f"{local} devices; {world} processes do not fill whole rows")
+    return span
+
+
 def make_global_mesh(data: Optional[int] = None, spatial: int = 1,
                      devices: Optional[Sequence] = None) -> Mesh:
     """A mesh over every process of the default group (after
-    :func:`init_distributed`): this process's ``devices`` form rows
-    ``rank * data_local ...`` of the global ``'data'`` axis of length
-    ``data`` (default ``data_local * world``).  By default they are one
-    card under NCCL, the one ``LOCAL_RANK`` names (else the current
-    device), and one CPU shard under gloo; several cards a process are
-    passed as ``devices``.  A card in the meshes of two processes
-    raises (the processes exchange their cards' UUIDs), as does a
-    spatial group that would span processes."""
+    :func:`init_distributed`), laid out as the JAX package lays out
+    ``jax.devices()``: the processes' ``devices`` in rank order, reshaped
+    to ``[data, spatial]`` (``data`` defaults to all devices / spatial).
+    By default a process's devices are one card under NCCL, the one
+    ``LOCAL_RANK`` names (else the current device), and one CPU shard
+    under gloo; several are passed as ``devices``, as many in every
+    process.  Where ``spatial`` exceeds them, a mesh row spans
+    ``spatial / len(devices)`` consecutive ranks and every rank calls
+    ``dist.new_group`` for each row's ranks, then each band column's, in
+    that order.  Under NCCL a card in the meshes of two processes raises
+    (the processes exchange their cards' UUIDs); under gloo, whose
+    collectives run on the host, two processes may share a card."""
     world, rank = dist.get_world_size(), dist.get_rank()
+    backend = dist.get_backend()
     if devices is None:
-        devices = ([_rank_card()] if dist.get_backend() == "nccl"
+        devices = ([_rank_card()] if backend == "nccl"
                    else [torch.device("cpu")])
     devs = [_device(d) for d in devices]
-    if spatial < 1 or len(devs) % spatial:
-        raise ValueError(
-            f"spatial({spatial}) must divide this process's {len(devs)} "
-            "devices: a spatial group across processes is not ported "
-            "(ROADMAP.md)")
-    local = make_mesh(devs, spatial=spatial)
-    if data is not None and data != local.data_local * world:
-        raise ValueError(
-            f"data({data}) != {local.data_local} local rows * {world} "
-            "processes")
     cards = [d for d in devs if d.type == "cuda"]
     everyone: list = [None] * world
     with _on(cards[0] if cards else devs[0]):
-        dist.all_gather_object(everyone, [_card_id(d) for d in cards])
-    _check_cards(everyone)
-    return Mesh(local.devices, rank=rank, world=world, distributed=True)
+        dist.all_gather_object(everyone, (len(devs),
+                                          [_card_id(d) for d in cards]))
+    counts = sorted({n for n, _ in everyone})
+    if len(counts) > 1:
+        raise ValueError(f"the processes hold {counts} devices: every "
+                         "process must pass as many")
+    span = _span(len(devs), spatial, world)
+    ndata = len(devs) * world // spatial
+    if data is not None and data != ndata:
+        raise ValueError(
+            f"data({data}) * spatial({spatial}) != {len(devs)} devices * "
+            f"{world} processes")
+    if backend == "nccl":
+        _check_cards([ids for _, ids in everyone])
+    groups = {}
+    if span > 1:
+        rows = [tuple(range(r * span, (r + 1) * span))
+                for r in range(world // span)]
+        cols = [tuple(range(p, world, span)) for p in range(span)]
+        for ranks in rows + cols:  # every rank, in this order
+            if 1 < len(ranks) < world:
+                group = dist.new_group(list(ranks))
+                if rank in ranks:  # a non-member gets a sentinel
+                    groups[ranks] = group
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    local = arr.reshape(-1, min(spatial, len(devs)))
+    return Mesh(local, rank=rank, world=world, distributed=True,
+                spatial=spatial, groups=groups)
 
 
 # --- sharded bursts --------------------------------------------------------
@@ -297,29 +401,38 @@ def shard_frames(frames, mesh: Mesh) -> ShardedFrames:
     """Place a ``[N,...]`` burst (numpy or tensor) with the frame axis
     sharded over ``'data'``: data shard ``i`` gets frames ``[i*n_loc,
     (i+1)*n_loc)`` on ``mesh.devices[i, 0]``.  With several processes
-    each keeps its own rows of the full burst it was given."""
+    each keeps its own rows of the full burst it was given (the ranks of
+    one mesh row the same ones)."""
     if isinstance(frames, ShardedFrames):
         return frames
     n = frames.shape[0]
+    lo, per = _data_rows(n, mesh)
+    return _place(frames[lo : lo + per], mesh, lo, n)
+
+
+def _data_rows(n: int, mesh: Mesh) -> tuple:
+    """``(first, count)`` of this process's frames of a global ``[N]``
+    burst sharded over ``'data'``."""
     ndata = mesh.shape["data"]
     if n % ndata != 0:
         raise ValueError(f"N={n} must divide the data axis ({ndata})")
-    per = n // mesh.world
-    lo = mesh.rank * per
-    return _place(frames[lo : lo + per], mesh, lo, n)
+    n_loc = n // ndata
+    return mesh.data0 * n_loc, mesh.data_local * n_loc
 
 
 def shard_frames_global(frames_local, mesh: Mesh) -> ShardedFrames:
     """Assemble the global burst from each process's own frames (every
-    process passes its ``n_local`` frames; ``N = world * n_local``):
-    this process's lanes start at ``rank * n_local``."""
+    process passes the ``n_local`` frames of its data shards, the ranks
+    of one mesh row the same ones; ``N = n_local * data / data_local``):
+    this process's lanes start at ``data0 * n_local / data_local``."""
     n_local = frames_local.shape[0]
     if n_local % mesh.data_local != 0:
         raise ValueError(
             f"n_local={n_local} must divide this process's "
             f"{mesh.data_local} data shards")
-    return _place(frames_local, mesh, mesh.rank * n_local,
-                  n_local * mesh.world)
+    n_loc = n_local // mesh.data_local
+    return _place(frames_local, mesh, mesh.data0 * n_loc,
+                  n_loc * mesh.shape["data"])
 
 
 # --- running shards and reducing them ---------------------------------------
@@ -370,14 +483,26 @@ def _tree_sum(parts, dev: torch.device) -> torch.Tensor:
     return xs[0]
 
 
+def _comm_device(mesh: Mesh, group) -> torch.device:
+    """Where a collective's tensors live: the card under NCCL, the host
+    under gloo (which then moves CPU copies, as two processes may share a
+    card there)."""
+    return (mesh.devices[0, 0] if dist.get_backend(group) == "nccl"
+            else torch.device("cpu"))
+
+
 def _psum(parts, mesh: Mesh) -> torch.Tensor:
     """The sum over ``'data'`` of one partial per local shard -> a tensor
-    on ``devices[0, 0]``, equal on every process."""
+    on ``devices[0, 0]``, equal on every process of its band column."""
     dev0 = mesh.devices[0, 0]
+    group = mesh.data_group
     with _on(dev0):
         total = _tree_sum(parts, dev0).contiguous()
-        if mesh.group is not None:
-            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
+        if group is not None:
+            comm = _comm_device(mesh, group)
+            x = total.to(comm)
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+            total = x.to(dev0)
     return total
 
 
@@ -389,18 +514,18 @@ def _psum_each(parts, mesh: Mesh) -> tuple:
 
 def _gather(parts, mesh: Mesh) -> np.ndarray:
     """Per-shard ``[n_loc, ...]`` -> the global ``[N, ...]`` numpy array
-    in lane order (``dist.all_gather`` across processes)."""
+    in lane order (``dist.all_gather`` over the band column)."""
     local = torch.cat([p.detach().cpu() for p in parts])
-    if mesh.group is None:
+    group = mesh.data_group
+    if group is None:
         return local.numpy()
     dtype = local.dtype
     x = local.to(torch.uint8) if dtype == torch.bool else local
-    comm = mesh.devices[0, 0] if dist.get_backend(mesh.group) == "nccl" \
-        else torch.device("cpu")
+    comm = _comm_device(mesh, group)
     with _on(comm):
         x = x.to(comm).contiguous()
-        bufs = [torch.empty_like(x) for _ in range(mesh.world)]
-        dist.all_gather(bufs, x, group=mesh.group)
+        bufs = [torch.empty_like(x) for _ in mesh.col_ranks]
+        dist.all_gather(bufs, x, group=group)
         out = torch.cat(bufs).cpu()
     return (out.to(torch.bool) if dtype == torch.bool else out).numpy()
 
@@ -898,8 +1023,7 @@ class ShardUploader:
         whole chunk, as every process decodes it) -> a handle for
         :meth:`ready`."""
         n = frames.shape[0]
-        per = n // self.mesh.world
-        lo = self.mesh.rank * per
+        lo, per = _data_rows(n, self.mesh)
         n_loc = per // self.mesh.data_local
         handles = []
         for i, up in enumerate(self.ups):
@@ -955,23 +1079,103 @@ def _check_rows(h: int, nsp: int, halo: int) -> int:
     return h_loc
 
 
-def _halo_ext(bands, halo: int, axis: int, edge=None) -> list:
+def _row_p2p(mesh: Mesh, up=None, down=None, above=None,
+             below=None) -> tuple:
+    """Point-to-point along this process's mesh row: send ``up`` to the
+    rank holding the band above its first band and ``down`` to the rank
+    holding the band below its last; receive tensors shaped and typed
+    like ``above`` (from the rank above) and ``below`` (from the rank
+    below).  Every rank posts up, then down, in one
+    ``dist.batch_isend_irecv``; a direction without a neighbour, or with
+    None, posts nothing.  Under gloo the rows travel as CPU copies, under
+    NCCL on the card.  -> ``(from above, from below)`` on
+    ``devices[0, 0]``, None where nothing was received."""
+    group = mesh.row_group
+    ranks, pos = mesh.row_ranks, mesh.row_ranks.index(mesh.rank)
+    peers = (ranks[pos - 1] if pos > 0 else None,
+             ranks[pos + 1] if pos + 1 < len(ranks) else None)
+    comm = _comm_device(mesh, group)
+    ops, got = [], [None, None]
+    with _on(comm):
+        for k, (send, like) in enumerate(((up, above), (down, below))):
+            if peers[k] is None:
+                continue
+            if send is not None:
+                ops.append(dist.P2POp(dist.isend, send.to(comm).contiguous(),
+                                      peers[k], group))
+            if like is not None:
+                got[k] = torch.empty(like.shape, dtype=like.dtype,
+                                     device=comm)
+                ops.append(dist.P2POp(dist.irecv, got[k], peers[k], group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+    dev0 = mesh.devices[0, 0]
+    return tuple(None if g is None else g.to(dev0) for g in got)
+
+
+def _row_cat(parts, mesh: Mesh, dim: int = 0, sizes=None,
+             dev=None) -> torch.Tensor:
+    """This process's bands' ``parts`` of one mesh row, concatenated along
+    ``dim`` on ``dev`` (default ``devices[0, 0]``); where the row spans
+    processes, the whole row's in band order (``dist.all_gather`` over the
+    row group).  ``sizes``: each rank's length along ``dim`` where they
+    differ (the parts are padded to the longest for the gather)."""
+    dev0 = mesh.devices[0, 0] if dev is None else dev
+    local = torch.cat([p.to(dev0) for p in parts], dim=dim)
+    if not mesh.spans:
+        return local
+    group = mesh.row_group
+    sizes = sizes or [local.shape[dim]] * len(mesh.row_ranks)
+    comm = _comm_device(mesh, group)
+    with _on(comm):
+        x = local.to(comm)
+        if x.shape[dim] < max(sizes):
+            pad = list(x.shape)
+            pad[dim] = max(sizes) - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        bufs = [torch.empty_like(x) for _ in sizes]
+        dist.all_gather(bufs, x.contiguous(), group=group)
+        out = torch.cat([b.narrow(dim, 0, n) for b, n in zip(bufs, sizes)],
+                        dim=dim)
+    return out.to(dev0)
+
+
+def _halo_ext(bands, halo: int, axis: int, edge=None, mesh=None) -> list:
     """Each band with ``halo`` rows of its neighbours' on both sides
     (copied to its device); at the global top and bottom the rows are
-    zero, or ``edge(band, top)`` when given."""
+    zero, or ``edge(band, top)`` when given.  ``bands`` are this
+    process's bands of one mesh row; where the row spans processes
+    (``mesh``), the rows above the first band and below the last come
+    from the neighbouring ranks (:func:`_row_p2p`)."""
+
+    def first(b):
+        return b.narrow(axis, 0, halo)
+
+    def last(b):
+        return b.narrow(axis, b.shape[axis] - halo, halo)
+
+    above = below = None
+    if mesh is not None and mesh.spans:
+        above, below = _row_p2p(mesh, up=first(bands[0]),
+                                down=last(bands[-1]), above=last(bands[-1]),
+                                below=first(bands[0]))
     nsp = len(bands)
     out = []
     for j, b in enumerate(bands):
         if j > 0:
-            top = bands[j - 1].narrow(axis, bands[j - 1].shape[axis] - halo,
-                                      halo).to(b.device)
+            top = last(bands[j - 1]).to(b.device)
+        elif above is not None:
+            top = above.to(b.device)
         else:
-            top = (torch.zeros_like(b.narrow(axis, 0, halo)) if edge is None
+            top = (torch.zeros_like(first(b)) if edge is None
                    else edge(b, True))
         if j < nsp - 1:
-            bot = bands[j + 1].narrow(axis, 0, halo).to(b.device)
+            bot = first(bands[j + 1]).to(b.device)
+        elif below is not None:
+            bot = below.to(b.device)
         else:
-            bot = (torch.zeros_like(b.narrow(axis, 0, halo)) if edge is None
+            bot = (torch.zeros_like(first(b)) if edge is None
                    else edge(b, False))
         out.append(torch.cat([top, b, bot], dim=axis))
     return out
@@ -985,74 +1189,72 @@ def warp_rows_sharded(frame, m3, mesh: Mesh, halo: int = 64,
     resamples its own rows from the extended strip (B5's planar form,
     BORDER_CONSTANT 0).  ``m3`` is the forward map ([3,3] or [2,3]).
     B5 takes the band's row origins as integers (``csrc/warp.cu``), so
-    each band equals the rows of the whole frame's warp bitwise.
+    each band equals the rows of the whole frame's warp bitwise.  Where
+    a mesh row spans processes, each process warps its own bands of the
+    full ``frame`` it was given, and every mesh row warps the frame.
 
     Correct while every output pixel's source row lies within ``halo``
     rows of its own; taps beyond read zero, as off-frame pixels do.
     ``perspective`` is kept for the JAX package's signature, which also
     warps with the full perspective map.  Returns the frame on
     ``devices[0, 0]``."""
-    nsp = mesh.shape["spatial"]
     h, w = frame.shape[0], frame.shape[1]
-    h_loc = _check_rows(h, nsp, halo)
-    devs = [mesh.devices[0, j] for j in range(nsp)]
+    h_loc = _check_rows(h, mesh.shape["spatial"], halo)
+    devs = [mesh.devices[0, j] for j in range(mesh.spatial_local)]
     m = torch.as_tensor(np.asarray(m3, np.float32)).to(devs[0])
     if m.shape == (2, 3):
         m = warp.affine_to_3x3(m)
     # inverted where the frame is (CPU and CUDA inverses differ in ulps)
     minv = warp.invert_3x3(m)
-    bands = [_to(frame[j * h_loc : (j + 1) * h_loc], devs[j])
-             for j in range(nsp)]
-    exts = _halo_ext(bands, halo, 0)
+    rows = [(mesh.s0 + j) * h_loc for j in range(len(devs))]
+    bands = [_to(frame[r : r + h_loc], d) for r, d in zip(rows, devs)]
+    exts = _halo_ext(bands, halo, 0, mesh=mesh)
 
     def one(j):
         ext = exts[j].to(torch.float32)
         planes = ext[None] if ext.ndim == 2 else ext.permute(2, 0, 1)
         planes = planes.contiguous()
         mj = minv.to(devs[j]).expand(planes.shape[0], 3, 3).contiguous()
-        row0 = j * h_loc
         out = warp_bilinear(planes, mj, border_value=0.0, out_hw=(h_loc, w),
-                            rows=(row0, row0 - halo))
+                            rows=(rows[j], rows[j] - halo))
         return out[0] if ext.ndim == 2 else out.permute(1, 2, 0)
 
-    outs = _run(devs, one)
-    return torch.cat([o.to(devs[0]) for o in outs])
+    return _row_cat(_run(devs, one), mesh)
 
 
 def sharpness_teng_spatial(frames, mesh: Mesh, k_size: int = 3):
     """Tenengrad sharpness with frames on ``'data'`` and rows on
     ``'spatial'``: each band takes ``(k_size-1)/2`` rows of its
     neighbours (reflect-101 of its own rows at the global top and
-    bottom), so the Sobel window is the dense one at every row.
-    ``frames``: ``[N,H,W]`` float32.  Returns ``[N]`` numpy scores."""
+    bottom), so the Sobel window is the dense one at every row; the
+    bands' per-frame sums add in band order (gathered over the row group
+    where a row spans processes).  ``frames``: ``[N,H,W]`` float32.
+    Returns ``[N]`` numpy scores."""
     frames = frames if isinstance(frames, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(frames))
     n, h, w = frames.shape
     r = len(filters.deriv_kernel(1, k_size)) // 2
-    nsp = mesh.shape["spatial"]
+    nsp, nloc_sp = mesh.shape["spatial"], mesh.spatial_local
     h_loc = _check_rows(h, nsp, r)
-    ndata = mesh.shape["data"]
-    if n % ndata != 0:
-        raise ValueError(f"N={n} must divide the data axis ({ndata})")
-    per = n // mesh.world
+    lo, per = _data_rows(n, mesh)
     n_loc = per // mesh.data_local
-    lo = mesh.rank * per
 
     def edge(b, top):
         rows = b[:, 1 : r + 1] if top else b[:, -r - 1 : -1]
         return rows.flip(1)
 
-    cells = [(i, j) for i in range(mesh.data_local) for j in range(nsp)]
+    cells = [(i, j) for i in range(mesh.data_local) for j in range(nloc_sp)]
     devs = [mesh.devices[i, j] for i, j in cells]
     bands = {}
     for (i, j), dev in zip(cells, devs):
-        f0 = lo + i * n_loc
-        bands[i, j] = _to(frames[f0 : f0 + n_loc, j * h_loc : (j + 1) * h_loc],
+        f0, r0 = lo + i * n_loc, (mesh.s0 + j) * h_loc
+        bands[i, j] = _to(frames[f0 : f0 + n_loc, r0 : r0 + h_loc],
                           dev).to(torch.float32)
     exts = {}
     for i in range(mesh.data_local):
-        row = _halo_ext([bands[i, j] for j in range(nsp)], r, 1, edge)
-        for j in range(nsp):
+        row = _halo_ext([bands[i, j] for j in range(nloc_sp)], r, 1, edge,
+                        mesh)
+        for j in range(nloc_sp):
             exts[i, j] = row[j]
 
     def one(k):
@@ -1062,8 +1264,12 @@ def sharpness_teng_spatial(frames, mesh: Mesh, k_size: int = 3):
         return torch.sum(gx * gx + gy * gy, dim=(1, 2))
 
     sums = _run(devs, one)
-    per_shard = [sum(sums[i * nsp + j].to(mesh.devices[i, 0])
-                     for j in range(nsp)) for i in range(mesh.data_local)]
+    per_shard = []
+    for i in range(mesh.data_local):
+        band_sums = _row_cat([sums[i * nloc_sp + j][None]
+                              for j in range(nloc_sp)], mesh,
+                             dev=mesh.devices[i, 0])
+        per_shard.append(sum(band_sums[j] for j in range(nsp)))
     return _gather(per_shard, mesh) / np.float32(h * w)
 
 
@@ -1114,24 +1320,27 @@ def ecc_stack_step_spatial(
     whose vertical motion leaves the halo dropped; the band's warp and
     sum of the kept frames from its extended strip (B5's accumulate form
     on float32 bands); the sums reduced over ``'data'``; frame 0 added.
+    Where a mesh row spans processes, each process takes its own bands
+    of the full inputs it was given; the next band's rows come from the
+    rank below by point-to-point, the small grid's rows are gathered
+    over the row group and every rank of the row solves it (the same
+    solve on the same inputs), each band's sum reduces over its column
+    group, and the bands are gathered over the row group.
 
     Returns ``(stacked_sum [H,W,3] on devices[0, 0], ok [N] numpy)``:
     divide by ``1 + ok.sum()`` for the mean."""
-    nsp = mesh.shape["spatial"]
+    nsp, nloc_sp, s0 = mesh.shape["spatial"], mesh.spatial_local, mesh.s0
     n, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
     hs, ws = int(scale_hw[0]), int(scale_hw[1])
     h_loc = _check_rows(h, nsp, halo)
-    ndata = mesh.shape["data"]
-    if n % ndata != 0:
-        raise ValueError(f"N={n} must divide the data axis ({ndata})")
-    per = n // mesh.world
+    lo, per = _data_rows(n, mesh)
     n_loc = per // mesh.data_local
-    lo = mesh.rank * per
-    cells = [(i, j) for i in range(mesh.data_local) for j in range(nsp)]
+    cells = [(i, j) for i in range(mesh.data_local) for j in range(nloc_sp)]
     devs = [mesh.devices[i, j] for i, j in cells]
 
     def rows_of(x, j):
-        return x[..., j * h_loc : (j + 1) * h_loc, :, :]
+        r0 = (s0 + j) * h_loc
+        return x[..., r0 : r0 + h_loc, :, :]
 
     cur = {c: _to(rows_of(frames_u8[lo + c[0] * n_loc : lo + (c[0] + 1)
                                     * n_loc], c[1]), d)
@@ -1140,33 +1349,56 @@ def ecc_stack_step_spatial(
 
     # grey per band; the INTER_AREA row pass of the output rows whose
     # first source row is the band's, from the band's rows and the next
-    # band's first few (the whole image's taps and sums: resize_rows)
+    # band's first need[g] (the whole image's taps and sums: resize_rows)
     first_tap = np.argmax(resize._area_weights(h, hs) != 0, axis=1)
     owned = np.searchsorted(first_tap, np.arange(nsp + 1) * h_loc)
+    need = [0] * nsp
+    for g in range(nsp):
+        if owned[g] < owned[g + 1]:
+            need[g] = resize.row_span(h, hs, int(owned[g]),
+                                      int(owned[g + 1]))[1] - (g + 1) * h_loc
+        if need[g] > 0 and (g + 1 == nsp or need[g] > h_loc):
+            raise ValueError(
+                f"INTER_AREA rows of band {g} reach {need[g]} rows past it")
     greys = {c: color.rgb_to_gray_u8(torch.cat([ref[c][None], cur[c]]))
              for c in cells}
+    below = None  # the next rank's first rows, for this process's last band
+    if mesh.spans:
+        g = s0 + nloc_sp - 1
+        below = _row_p2p(
+            mesh, up=(greys[0, 0][:, : need[s0 - 1]]
+                      if s0 > 0 and need[s0 - 1] > 0 else None),
+            below=(greys[0, nloc_sp - 1][:, : need[g]]
+                   if g + 1 < nsp and need[g] > 0 else None))[1]
 
     def mix(k):
         i, j = cells[k]
-        a0, a1 = int(owned[j]), int(owned[j + 1])
+        g = s0 + j
+        a0, a1 = int(owned[g]), int(owned[g + 1])
         if a0 == a1:
             return None
-        top = j * h_loc
         strip = greys[i, j]
-        need = resize.row_span(h, hs, a0, a1)[1] - (top + h_loc)
-        if need > 0:
-            if j + 1 == nsp or need > h_loc:
-                raise ValueError(
-                    f"INTER_AREA rows of band {j} reach {need} rows past it")
-            strip = torch.cat([strip, greys[i, j + 1][:, :need].to(devs[k])],
-                              dim=1)
-        return resize.resize_rows(strip, h, hs, a0, a1, top)
+        if need[g] > 0:
+            more = (greys[i, j + 1][:, : need[g]] if j + 1 < nloc_sp
+                    else below)
+            strip = torch.cat([strip, more.to(devs[k])], dim=1)
+        return resize.resize_rows(strip, h, hs, a0, a1, g * h_loc)
 
     parts = _run(devs, mix)
+    # each rank's rows of the small grid (a rank may own none)
+    sizes = [int(owned[min(b + nloc_sp, nsp)] - owned[b])
+             for b in range(0, nsp, nloc_sp)]
+    small_rows = []
+    for i in range(mesh.data_local):
+        dev = mesh.devices[i, 0]
+        mine = [p for p in parts[i * nloc_sp : (i + 1) * nloc_sp]
+                if p is not None]
+        small_rows.append(_row_cat(mine or [torch.zeros(
+            (n_loc + 1, 0, w), dtype=torch.float32, device=dev)], mesh,
+            dim=1, sizes=sizes, dev=dev))
 
     def solve(i, dev):
-        rows = torch.cat([parts[i * nsp + j].to(dev) for j in range(nsp)
-                          if parts[i * nsp + j] is not None], dim=1)
+        rows = small_rows[i].to(dev)
         small = resize._resize_axis(rows, -1, ws, constants.INTER_AREA)
         small = torch.clamp(torch.floor(small + 0.5), 0.0, 255.0)
         small_ref, small_cur = small[0], small[1:]
@@ -1193,25 +1425,24 @@ def ecc_stack_step_spatial(
     oks = [s[1] for s in solved]
     exts = {}
     for i in range(mesh.data_local):
-        f32 = [color.to_unit_f32(cur[i, j]) for j in range(nsp)]
-        row = _halo_ext(f32, halo, 1)
-        for j in range(nsp):
+        f32 = [color.to_unit_f32(cur[i, j]) for j in range(nloc_sp)]
+        row = _halo_ext(f32, halo, 1, mesh=mesh)
+        for j in range(nloc_sp):
             exts[i, j] = row[j]
 
     def band_sum(k):
         # B5's accumulate form writes the strip's own grid (global rows
         # from row0 - halo): its row halo + y is the band's row y
         i, j = cells[k]
-        top = j * h_loc - halo
+        top = (s0 + j) * h_loc - halo
         out = warp_frames(exts[i, j].contiguous(), solved[i][0].to(devs[k]),
                           valid=oks[i].to(devs[k]), rows=(top, top))
         return out[halo : halo + h_loc]
 
     sums = _run(devs, band_sum)
     bands = []
-    for j in range(nsp):
-        total = _psum([sums[i * nsp + j] for i in range(mesh.data_local)],
-                      mesh)
+    for j in range(nloc_sp):
+        total = _psum([sums[i * nloc_sp + j]
+                       for i in range(mesh.data_local)], mesh)
         bands.append(total + color.to_unit_f32(ref[0, j]).to(total.device))
-    dev0 = mesh.devices[0, 0]
-    return torch.cat([b.to(dev0) for b in bands]), _gather(oks, mesh)
+    return _row_cat(bands, mesh), _gather(oks, mesh)

@@ -25,6 +25,7 @@ plain version, pixel for pixel.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -32,6 +33,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -69,13 +71,23 @@ def build(*names: str, csrc: Path = CSRC) -> None:
     """Compile every ``<csrc>/<name>.cu`` whose hashed build is missing,
     one ``nvcc`` per source, all started together.  The compiler's
     ``-Xptxas -v`` report (registers, spills) is kept beside each
-    library as ``<lib>.ptxas.txt``."""
+    library as ``<lib>.ptxas.txt``.  One process builds at a time: the
+    others wait on ``build/build.lock`` (``flock``, released when its
+    holder exits), then find the libraries built."""
+    if all(library_path(n, csrc).exists() for n in names):
+        return
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_locked(names, csrc)
+
+
+def _build_locked(names, csrc: Path) -> None:
     jobs = []
     for name in names:
         out = library_path(name, csrc)
         if out.exists():
             continue
-        BUILD.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
         proc = subprocess.Popen(
@@ -88,7 +100,7 @@ def build(*names: str, csrc: Path = CSRC) -> None:
         _, err = proc.communicate()
         if proc.returncode == 0:
             out.with_suffix(".ptxas.txt").write_text(err)
-            os.replace(tmp, out)  # atomic: concurrent builders agree
+            os.replace(tmp, out)
         else:
             failed.append(f"nvcc failed for {csrc / name}.cu:\n{err}")
         if os.path.exists(tmp):
@@ -136,6 +148,19 @@ def kernel_resources(name: str, csrc: Path = CSRC) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(m.group(1)) if m else 0
     return {k: v for k, v in out.items() if "registers" in v}
+
+
+# one lock for every counter: the mesh's host threads launch at once
+_COUNT_LOCK = threading.Lock()
+
+
+def count(scope: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``scope[name]`` under one lock.  A
+    wrapper passes its module's ``globals()``, so the module attribute
+    that readers reset and read (``ecc_cuda.launch_count``) moves; a bare
+    ``+=`` from the mesh's host threads can lose an increment."""
+    with _COUNT_LOCK:
+        scope[name] += n
 
 
 def launch(lib: ctypes.CDLL, entry: str, device: torch.device, *args) -> None:

@@ -1,17 +1,19 @@
-"""Run records and phase timers (counterpart of
-``libstacker_tpu/utils/tracing.py``; ``jax.profiler`` tracing is not
-ported).
+"""Run records, phase timers and profiler traces (counterpart of
+``libstacker_tpu/utils/tracing.py``).
 
 :class:`PipelineStats` is a copy of the reference dataclass.
 :class:`PhaseTimer` adds one thing: given a CUDA device it synchronises
 at the end of every phase, so a phase's wall time includes the device
 work it enqueued (PyTorch returns before the card finishes).
+:func:`trace` records ``torch.profiler`` where the JAX package records
+``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -56,6 +58,27 @@ class PhaseTimer:
         total = sum(self.durations.values())
         lines.append(f"{'total':>24s}: {total*1e3:10.2f} ms")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Profile the block with ``torch.profiler`` (host operations, and
+    the card's kernels where CUDA is available) and write a Chrome trace
+    ``trace_<pid>_<ns>.json`` into ``log_dir``; a no-op when ``log_dir``
+    is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 @dataclasses.dataclass

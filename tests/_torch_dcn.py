@@ -31,3 +31,39 @@ def run_step(scenario: str, frames, base, mesh):
                       sigma_iters=1)
         stacked, ok = pmesh.ecc_stack_step(frames, grey, mesh, **kw)
     return stacked.cpu().numpy(), ok
+
+
+# the row-band functions on a mesh whose rows span processes
+# (tests/test_torch_spatial_dcn.py): warp halo, ECC halo
+SPATIAL_WARP_HALO = 8
+SPATIAL_ECC_HALO = 16
+
+
+def run_spatial(inputs, mesh) -> dict:
+    """``warp_rows_sharded``, ``sharpness_teng_spatial`` and
+    ``ecc_stack_step_spatial`` of ``parallel/mesh.py`` on ``inputs``
+    (numpy: ``frame`` [H,W,3] f32 and its map ``m3``, ``greys`` [N,H,W]
+    f32, ``burst`` [1+N,H,W,3] u8 solved at ``scale_hw`` and at
+    ``scale_hw_cut``) -> numpy results: ``warp``, ``teng``, ``ecc`` and
+    ``ecc_cut`` (the stacked sums), ``ok`` and ``ok_cut``; and
+    ``ecc_stack_step`` on the same mesh (``step``, ``ok_step``)."""
+    warped = pmesh.warp_rows_sharded(inputs["frame"], inputs["m3"], mesh,
+                                     halo=SPATIAL_WARP_HALO)
+    out = dict(warp=warped.cpu().numpy(),
+               teng=pmesh.sharpness_teng_spatial(inputs["greys"], mesh))
+    burst = inputs["burst"]
+    for key in ("", "_cut"):
+        total, ok = pmesh.ecc_stack_step_spatial(
+            burst[1:], burst[0], mesh,
+            tuple(int(v) for v in inputs["scale_hw" + key]),
+            motion_type=MotionType.Translation, num_iters=50, eps=1e-5,
+            halo=SPATIAL_ECC_HALO)
+        out["ecc" + key], out["ok" + key] = total.cpu().numpy(), ok
+    # the 'data' axis on the same mesh: each rank of a row steps its
+    # row's frames, the sums reduce over its band column
+    grey = color.rgb_to_gray_u8(torch.from_numpy(burst[0])).to(torch.float32)
+    step, ok = pmesh.ecc_stack_step(burst[1:], grey, mesh,
+                                    motion_type=MotionType.Translation,
+                                    num_iters=3, eps=1e-3)
+    out["step"], out["ok_step"] = step.cpu().numpy(), ok
+    return out

@@ -11,10 +11,16 @@ takes, checked on the CPU.
 - RANSAC's generators and the stream chunks on a one-shard data axis.
 - A global mesh that outlives its process group holds no reference to
   it.
+- The launch counters: 8 threads x 10 000 faked launches of one wrapper
+  (``launch`` then ``count``, as ``fast_cuda.fast_scores`` does) add up
+  exactly under ``cuda_build.count``'s lock, and every counter that
+  ``chip_smoke.py`` reads exists and resets to 0.
 """
 
 import contextlib
 import pathlib
+import re
+import threading
 import types
 
 import numpy as np
@@ -176,3 +182,54 @@ def test_global_mesh_does_not_hold_a_destroyed_group(tmp_path):
         dist.destroy_process_group()
     with pytest.raises(RuntimeError, match="destroyed"):
         pmesh._psum([s.sum(0) for s in sf.shards], mesh)
+
+
+def _smoke_counters() -> dict:
+    """``chip_smoke.py``'s ``counters()`` map, read from its source (the
+    script needs a card to import its phases' modules)."""
+    src = (pathlib.Path(P.__file__).parents[1] / "chip_smoke.py").read_text()
+    body = src[src.index("def counters():"):src.index("def reset_counts(")]
+    return {name: (module, attr) for name, module, attr in
+            re.findall(r'"(\w+)": \((\w+), "(\w+)"\)', body)}
+
+
+def test_launch_counters_count_every_threaded_launch(fake_cuda):
+    """C4: the mesh's host threads launch at once; a bare ``+=`` on a
+    module global can lose an increment, ``cuda_build.count`` cannot."""
+    from libstacker_tpu_torch.ops import fast_cuda
+
+    calls = []
+    lib = _lib(fake_cuda, calls)
+    start = fast_cuda.launch_count
+    go = threading.Barrier(8)
+
+    def shard(index):
+        go.wait()
+        for _ in range(10_000):
+            cuda_build.launch(lib, "kernel", torch.device("cuda", index))
+            cuda_build.count(vars(fast_cuda), "launch_count")
+
+    threads = [threading.Thread(target=shard, args=(k % 4,))
+               for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 80_000
+    assert fast_cuda.launch_count - start == 80_000
+    fast_cuda.launch_count = start
+
+
+def test_smoke_counters_exist_and_reset():
+    import importlib
+
+    pairs = _smoke_counters()
+    assert len(pairs) == 16
+    for name, (module, attr) in pairs.items():
+        mod = importlib.import_module(f"libstacker_tpu_torch.ops.{module}")
+        before = getattr(mod, attr)
+        assert isinstance(before, int), name
+        setattr(mod, attr, 0)
+        cuda_build.count(vars(mod), attr)
+        assert getattr(mod, attr) == 1, name
+        setattr(mod, attr, before)
