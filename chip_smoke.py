@@ -90,13 +90,17 @@ Phases (each prints one line; any failure exits non-zero):
     at the headline bars and against phase 5's forward stack, with the
     lanes the forward rescue re-solved;
 22. the file entry points: 8 frames of 1080x1920 written as 16-bit PNGs
-    by ``save_image(..., bit_depth=16)`` and as 8-bit PNGs, decoded by
-    ``load_frames`` with and without ``preserve_depth``, and
-    ``ecc_match(files)`` (also with ``preserve_depth=True``) and
-    ``keypoint_match(files)`` bitwise against their ``_arrays`` forms on
-    the decoded arrays; whether the native loader built, and if not, the
-    compiler's reason on a line of its own (a 48-bit PNG then decodes at
-    full depth nowhere, and the phase checks the reference's refusal);
+    by ``save_image(..., bit_depth=16)``, as 48-bit TIFFs (uncompressed
+    and Deflate with predictor 2, in turns, by ``write_tiff16``) and as
+    8-bit PNGs, decoded by ``load_frames`` with and without
+    ``preserve_depth`` (bitwise: the written array at full depth, its
+    high byte at 8 bits), and ``ecc_match(files)`` (also with
+    ``preserve_depth=True`` on 8-bit PNGs, 16-bit PNGs and 48-bit TIFFs)
+    and ``keypoint_match(files)`` bitwise against their ``_arrays`` forms
+    on the written arrays; it prints which native image library decodes
+    (``native/stacker_io.cpp`` where libjpeg, libpng and libtiff are
+    there, else the port's zlib reader ``csrc/image_io.cpp``) and fails,
+    with both compilers' reasons, where neither builds;
 23. sharpness at full width: ``sharpness_all`` on the grey of phase 5's
     burst (100x2160x3840), ms a burst by CUDA events and peak memory,
     held against the port's CPU path on its first 4 frames (rel 1e-5,
@@ -112,11 +116,18 @@ Phases (each prints one line; any failure exits non-zero):
     whole-burst wall, and the share of the host-to-device copies (from
     pinned memory) that ran under kernels by ``torch.profiler``; then an
     ECC stream killed after two chunks and resumed from its checkpoint,
-    bitwise equal to the uninterrupted run;
+    bitwise equal to the uninterrupted run; before the streams, the
+    seconds per 4K PNG of one chunk decoded through the native library's
+    pool and through PIL's thread pool, in turns (native, PIL, PIL,
+    native), and of two files on one thread each, the two decodes
+    bitwise equal;
 25. the example workflow in process (``stack_burst.main``) on 6 textured
     frames of 2160x3840 with frame 3 blurred, headline ECC flags: the
     blurred frame ranked worst and dropped, keypoint dropping none, the
-    four PNGs written;
+    four PNGs written; then the same frames as 48-bit PNGs (the 8-bit
+    frames in the high byte, seeded noise in the low) with
+    ``--preserve-depth --out-depth 16``: the same checks, four 16-bit
+    PNGs, each within 0.02 of the 8-bit run's image in the interior;
 26. ``mesh=`` at full width on shards of the one card
     (``parallel/mesh.py``), each case against the port's dense path at
     the JAX package's mesh bars: phase 5's burst over 3 shards (2 pad
@@ -177,6 +188,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2154,24 +2166,75 @@ def phase_solvers(dev, frames, clean):
     return results
 
 
+def write_tiff16(path, rgb16, deflate: bool) -> None:
+    """A 48-bit RGB baseline TIFF (little-endian, one strip of 64 rows
+    each), uncompressed or Deflate (zlib level 1) with the horizontal
+    predictor, written with numpy and zlib alone."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb16.shape
+    rows = 64
+    strips = []
+    for y0 in range(0, h, rows):
+        s = rgb16[y0:y0 + rows]
+        if deflate:
+            s = s.copy()
+            s[:, 1:] -= rgb16[y0:y0 + rows, :-1]  # uint16 wraps mod 2^16
+        raw = np.ascontiguousarray(s, dtype="<u2").tobytes()
+        strips.append(zlib.compress(raw, 1) if deflate else raw)
+    offsets = np.cumsum([8] + [len(b) for b in strips[:-1]])
+    arrays = pos = 8 + sum(len(b) for b in strips)
+    bits = struct.pack("<3H", 16, 16, 16) + b"\0\0"
+    offs = np.asarray(offsets, "<u4").tobytes()
+    counts = np.asarray([len(b) for b in strips], "<u4").tobytes()
+    pos += len(bits) + len(offs) + len(counts)
+    n = len(strips)
+    # (tag, type, count, value or offset); one strip's values are inline
+    one = n == 1
+    tags = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, arrays),
+            (259, 3, 1, 8 if deflate else 1), (262, 3, 1, 2),
+            (273, 4, n, 8 if one else arrays + len(bits)), (277, 3, 1, 3),
+            (278, 4, 1, rows),
+            (279, 4, n, len(strips[0]) if one
+             else arrays + len(bits) + len(offs)),
+            (284, 3, 1, 1), (317, 3, 1, 2 if deflate else 1)]
+    ifd = b"".join(struct.pack("<HHII", t, typ, c, v) if typ == 4 or c > 1
+                   else struct.pack("<HHIHH", t, typ, c, v, 0)
+                   for t, typ, c, v in tags)
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", pos))
+        for b in strips:
+            f.write(b)
+        f.write(bits + offs + counts)
+        f.write(struct.pack("<H", len(tags)) + ifd + b"\0\0\0\0")
+
+
 def phase_files(dev):
     """The file entry points on the card's host: 8 frames of 1080x1920
-    written as 16-bit PNGs by ``save_image(..., bit_depth=16)`` (and as
-    8-bit PNGs), decoded by ``load_frames`` with and without
+    written as 16-bit PNGs by ``save_image(..., bit_depth=16)``, as 48-bit
+    TIFFs (uncompressed and Deflate with predictor 2, in turns) and as
+    8-bit PNGs, decoded by ``load_frames`` with and without
     ``preserve_depth``, and ``ecc_match(files)`` / ``keypoint_match(files)``
     held bitwise against their ``_arrays`` forms on the decoded arrays.
-    A 48-bit PNG decodes at full depth only through the native loader:
-    where it did not build, that comparison is replaced by the
-    reference's error, and the compiler's reason is printed."""
+    The native library that decodes them is printed; where neither
+    ``native/stacker_io.cpp`` nor ``csrc/image_io.cpp`` builds, the phase
+    fails and prints both compilers' reasons."""
     import shutil
 
     from libstacker_tpu_torch import (
-        KeyPointMatchParameters, StackerIoError, ecc_match, ecc_match_arrays,
+        KeyPointMatchParameters, ecc_match, ecc_match_arrays,
         keypoint_match, keypoint_match_arrays, save_image,
     )
     from libstacker_tpu_torch.utils import io, native_loader
     from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
 
+    t0 = time.perf_counter()
+    backend = native_loader.backend()
+    build_s = time.perf_counter() - t0
+    if backend is None:
+        reason = (native_loader.build_error() or "").replace("\n", " | ")
+        fail(f"no native image library loads on this host: {reason}")
     n, h, w = SLICE_N, SLICE_H, SLICE_W
     rgb8 = make_burst(n, h, w, seed=5)[0].numpy()
     # 16-bit content whose high byte is the 8-bit burst
@@ -2183,33 +2246,38 @@ def phase_files(dev):
     d.mkdir(parents=True)
     p16, p8, pkp = ([d / f"{tag}{i}.png" for i in range(n)]
                     for tag in ("ecc16_", "ecc8_", "kp8_"))
+    t16 = [d / f"ecc16_{i}.tif" for i in range(n)]
     t0 = time.perf_counter()
     for i in range(n):
         save_image(p16[i], rgb16[i], bit_depth=16)
         save_image(p8[i], rgb8[i])
         save_image(pkp[i], kp8[i])
     write_s = time.perf_counter() - t0
-    native = native_loader.available()
+    for i in range(n):
+        write_tiff16(t16[i], rgb16[i], deflate=i % 2 == 1)
 
     checks = {}
     t0 = time.perf_counter()
     checks["16-bit PNG, 8-bit decode = high byte"] = np.array_equal(
         io.load_frames(p16), rgb8)
     decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["16-bit PNG, preserve_depth"] = np.array_equal(
+        io.load_frames(p16, preserve_depth=True), rgb16)
+    decode16_s = time.perf_counter() - t0
+    checks["48-bit TIFF, preserve_depth"] = np.array_equal(
+        io.load_frames(t16, preserve_depth=True), rgb16)
+    # the zlib reader keeps the high byte, as PIL and PNG's strip_16 do;
+    # libtiff's RGBA route rounds 16-bit RGB to (v + 128) / 257
+    # (ROADMAP Queue C)
+    tiff8 = rgb8 if backend == native_loader.ZLIB else (
+        (rgb16.astype(np.uint32) + 128) // 257).astype(np.uint8)
+    checks["48-bit TIFF, 8-bit decode"] = np.array_equal(
+        io.load_frames(t16), tiff8)
     checks["8-bit PNG decode"] = np.array_equal(io.load_frames(p8), rgb8)
     u16_from_8 = io.load_frames(p8, preserve_depth=True)
     checks["8-bit PNG, preserve_depth = x257"] = np.array_equal(
         u16_from_8, rgb8.astype(np.uint16) * 257)
-    refused = None
-    if native:
-        checks["16-bit PNG, preserve_depth"] = np.array_equal(
-            io.load_frames(p16, preserve_depth=True), rgb16)
-    else:
-        try:
-            io.load_frames(p16, preserve_depth=True)
-            checks["16-bit PNG refused without the native loader"] = False
-        except StackerIoError as e:
-            refused = str(e)
 
     def entry(label, run_files, run_arrays, kernels):
         reset_counts()
@@ -2236,11 +2304,16 @@ def phase_files(dev):
         lambda: ecc_match(p8, params, preserve_depth=True, device=dev),
         lambda: ecc_match_arrays(u16_from_8, params, device=dev),
         ("ecc_moments", "warp_accum"))
-    if native:
-        entry("ecc_match(16-bit files, preserve_depth)",
-              lambda: ecc_match(p16, params, preserve_depth=True, device=dev),
-              lambda: ecc_match_arrays(rgb16, params, device=dev),
-              ("ecc_moments", "warp_accum"))
+    results["ecc_match 16-bit PNG files preserve_depth"] = entry(
+        "ecc_match(16-bit PNG files, preserve_depth)",
+        lambda: ecc_match(p16, params, preserve_depth=True, device=dev),
+        lambda: ecc_match_arrays(rgb16, params, device=dev),
+        ("ecc_moments", "warp_accum"))
+    results["ecc_match 48-bit TIFF files preserve_depth"] = entry(
+        "ecc_match(48-bit TIFF files, preserve_depth)",
+        lambda: ecc_match(t16, params, preserve_depth=True, device=dev),
+        lambda: ecc_match_arrays(rgb16, params, device=dev),
+        ("ecc_moments", "warp_accum"))
     results["keypoint_match files"] = entry(
         "keypoint_match(files)",
         lambda: keypoint_match(pkp, kp, device=dev)[1],
@@ -2249,16 +2322,13 @@ def phase_files(dev):
         KP_DETECT + ("warp_accum",))
     shutil.rmtree(d, ignore_errors=True)
     ok = all(checks.values())
-    log(f"[22 file entry points] {n}x{h}x{w}: native loader built {native}; "
-        f"wrote {3 * n} PNGs in {write_s:.2f} s ({n} of them 16-bit), decoded "
-        f"the {n} 16-bit PNGs in {decode_s:.2f} s; "
+    log(f"[22 file entry points] {n}x{h}x{w}: native image library "
+        f"{backend!r} (built and loaded in {build_s:.2f} s); wrote "
+        f"{3 * n} PNGs in {write_s:.2f} s ({n} of them 16-bit) and {n} "
+        f"48-bit TIFFs; decoded the {n} 16-bit PNGs in {decode_s:.2f} s at "
+        f"8 bits, {decode16_s:.2f} s at 16; "
         + "; ".join(f"{k} {v}" for k, v in checks.items())
-        + (f"; 16-bit PNG with preserve_depth refused: {refused}"
-           if refused else "")
         + f" -> {'OK' if ok else 'FAILED'}")
-    if not native:
-        reason = (native_loader.build_error() or "").replace("\n", " | ")
-        log(f"    native loader not built: {reason}")
     if not ok:
         fail("a file entry point disagrees with its _arrays form")
     return results
@@ -2314,9 +2384,9 @@ def phase_sharpness(dev, frames):
         fail("sharpness on the card disagrees with the CPU path")
 
 
-def write_pngs(d, frames) -> list:
-    """u8 [N,H,W,3] -> PNG files in ``d`` (zlib level 1, one thread a
-    file)."""
+def write_pngs(d, frames, ext: str = "png") -> list:
+    """u8 [N,H,W,3] -> PNG files in ``d`` (zlib level 1; ``ext="jpg"``:
+    JPEG at quality 95), one thread a file."""
     import concurrent.futures
     import shutil
 
@@ -2324,10 +2394,11 @@ def write_pngs(d, frames) -> list:
 
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    paths = [d / f"f{i:03d}.png" for i in range(frames.shape[0])]
+    paths = [d / f"f{i:03d}.{ext}" for i in range(frames.shape[0])]
+    opts = {"compress_level": 1} if ext == "png" else {"quality": 95}
 
     def one(i):
-        Image.fromarray(frames[i]).save(paths[i], compress_level=1)
+        Image.fromarray(frames[i]).save(paths[i], **opts)
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         list(pool.map(one, range(len(paths))))
@@ -2408,7 +2479,7 @@ def phase_streams(dev):
         KeyPointMatchParameters, ecc_match, ecc_match_stream, keypoint_match,
         keypoint_match_stream,
     )
-    from libstacker_tpu_torch.utils import io
+    from libstacker_tpu_torch.utils import io, native_loader
     from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
 
     t_phase = time.perf_counter()
@@ -2420,11 +2491,39 @@ def phase_streams(dev):
     kp = make_textured_burst(KP_N, FULL_H, FULL_W, seed=0, device=dev)[0]
     kp_files = write_pngs(REPO / "build" / "smoke_stream_kp", kp.cpu().numpy())
     write_s = time.perf_counter() - t0
+    # the first chunk's frames also as JPEGs: the zlib reader gives them
+    # ERR_FORMAT, and utils.io sends them to PIL's pool
+    jpgs = write_pngs(REPO / "build" / "smoke_stream_jpg",
+                      frames[:STREAM_CHUNK], "jpg")
     del frames, kp
+
+    def per_file(paths):
+        """s per file through the native route and through PIL's thread
+        pool, in turns -> ({native: [s, s]}, the frames agree bitwise)."""
+        per = {True: [], False: []}
+        decoded = {}
+        for native in (True, False, False, True):
+            t0 = time.perf_counter()
+            decoded[native] = io.load_frames(paths, use_native=native)
+            per[native].append((time.perf_counter() - t0) / len(paths))
+        return per, np.array_equal(decoded[True], decoded[False])
+
+    # s per 4K PNG and JPEG, one chunk of the same files each, then PNG on
+    # one thread
+    chunk = ecc_files[:STREAM_CHUNK]
+    per, png_same = per_file(chunk)
+    per_jpg, jpg_same = per_file(jpgs)
+    one = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        io.load_frames(chunk[:2], use_native=native, num_threads=1)
+        one[native] = (time.perf_counter() - t0) / 2
     params = headline_params()
     sigma_p = dataclasses.replace(params, stacking="sigma_clip")
     c = 64
     results, lines, checks = {}, [], {}
+    checks["4K PNG decode: native = PIL"] = png_same
+    checks["4K JPEG decode: native route = PIL"] = jpg_same
 
     def record(label, stream_run, whole_run, need, compare):
         (got, wall, launches, dec) = timed_run(stream_run)
@@ -2519,6 +2618,20 @@ def phase_streams(dev):
     checks["kill-and-resume bitwise"] = (crashed and saved and not ck.exists()
                                          and np.array_equal(resumed, mean[0]))
     ok = all(checks.values())
+    log(f"[24 decode] s per 4K RGB PNG (PIL, zlib level 1) over {len(chunk)} "
+        f"files: native {native_loader.backend()!r} "
+        + "/".join(f"{t:.4f}" for t in per[True])
+        + f" (pool of {os.cpu_count()}), PIL "
+        + "/".join(f"{t:.4f}" for t in per[False])
+        + f" (thread pool of {min(len(chunk), os.cpu_count() or 1)}); one "
+        f"thread: native {one[True]:.4f}, PIL {one[False]:.4f}; native = "
+        f"PIL {png_same}")
+    log(f"[24 decode] s per 4K RGB JPEG (PIL, quality 95) over {len(jpgs)} "
+        f"files: native route ({native_loader.backend()!r}, PIL's pool for "
+        f"what it does not take) "
+        + "/".join(f"{t:.4f}" for t in per_jpg[True]) + ", PIL "
+        + "/".join(f"{t:.4f}" for t in per_jpg[False])
+        + f"; native route = PIL {jpg_same}")
     log(f"[24 streams] {STREAM_N}x{FULL_H}x{FULL_W} (a streak in frame "
         f"{STREAM_N // 3}) and {KP_N}x{FULL_H}x{FULL_W} textured u8 as PNG "
         f"(written in {write_s:.1f} s), chunk_size={STREAM_CHUNK}, headline / "
@@ -2539,13 +2652,18 @@ def phase_streams(dev):
 def phase_cli(dev):
     """Phase 25: ``stack_burst.main`` in process on full-width frames,
     one blurred: it is ranked worst and dropped, keypoint drops none and
-    the four PNGs are written."""
+    the four PNGs are written.  Then the same burst as 48-bit PNGs (the
+    8-bit frames in the high byte, seeded noise in the low) with
+    ``--preserve-depth --out-depth 16``: the same checks, four 16-bit
+    PNGs, each within the stack bar of the 8-bit run's image."""
+    import concurrent.futures
     import contextlib
     import io as pyio
     import shutil
 
-    from libstacker_tpu_torch import stack_burst
+    from libstacker_tpu_torch import save_image, stack_burst
     from libstacker_tpu_torch.ops import filters
+    from libstacker_tpu_torch.utils import io
     from libstacker_tpu_torch.utils.synth import make_textured_burst
 
     t_phase = time.perf_counter()
@@ -2555,44 +2673,78 @@ def phase_cli(dev):
     frames[blurred] = filters.gaussian_blur(f, 9, 3.0).round().clamp(
         0, 255).to(torch.uint8).permute(1, 2, 0)
     d = REPO / "build" / "smoke_cli"
-    write_pngs(d / "in", frames.cpu().numpy())
+    shutil.rmtree(d, ignore_errors=True)
+    frames = frames.cpu().numpy()
+    write_pngs(d / "in", frames)
+    rgb16 = (frames.astype(np.uint16) << 8) | np.random.default_rng(9).integers(
+        0, 256, frames.shape, dtype=np.uint16)
     del frames
-    out = d / "out"
-    args = [str(d / "in"), "--out", str(out), "--device", dev.type,
-            "--max-count", "50",
-            "--epsilon", "1e-4", "--coarse-levels", "1"]
-    text = pyio.StringIO()
-    reset_counts()
-    torch.cuda.synchronize()
+    (d / "in16").mkdir()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(text):
-        rc = stack_burst.main(args)
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    lines = text.getvalue().splitlines()
-    table = lines[lines.index("Files ordered by TENG (low quality first)") + 1:]
-    worst = table[0].split()[0]
-    written = sorted(p.name for p in out.iterdir())
+    with concurrent.futures.ThreadPoolExecutor(CLI_N) as pool:
+        list(pool.map(lambda i: save_image(d / "in16" / f"f{i:03d}.png",
+                                           rgb16[i], bit_depth=16),
+                      range(CLI_N)))
+    write16_s = time.perf_counter() - t0
+    del rgb16
     want = sorted(f"{m}_{t}.png" for m in ("keypoint", "ecc")
                   for t in ("full", "w400"))
-    kp_dropped = [ln for ln in lines if ln.startswith("keypoint_match(")]
-    ok = (rc == 0 and worst.endswith(f"f{blurred:03d}.png")
-          and f"stacking {CLI_N - 1} frames" in text.getvalue()
-          and written == want and len(kp_dropped) == 2
-          and all(ln.endswith(": 0") for ln in kp_dropped)
-          and not missing(launches, KP_DETECT + ("ecc_moments", "warp_accum"))
-          and not stray(launches))
-    shutil.rmtree(d, ignore_errors=True)
+
+    def run(src, out, extra):
+        args = [str(src), "--out", str(out), "--device", dev.type,
+                "--max-count", "50",
+                "--epsilon", "1e-4", "--coarse-levels", "1", *extra]
+        text = pyio.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = stack_burst.main(args)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        lines = text.getvalue().splitlines()
+        table = lines[lines.index(
+            "Files ordered by TENG (low quality first)") + 1:]
+        worst = table[0].split()[0]
+        written = sorted(p.name for p in out.iterdir())
+        kp_dropped = [ln for ln in lines if ln.startswith("keypoint_match(")]
+        ok = (rc == 0 and worst.endswith(f"f{blurred:03d}.png")
+              and f"stacking {CLI_N - 1} frames" in text.getvalue()
+              and written == want and len(kp_dropped) == 2
+              and all(ln.endswith(": 0") for ln in kp_dropped)
+              and not missing(launches,
+                              KP_DETECT + ("ecc_moments", "warp_accum"))
+              and not stray(launches))
+        log(f"    {' '.join(extra) or 'u8 frames'}: rc {rc}, ranked worst "
+            f"{Path(worst).name}, {'; '.join(kp_dropped)}, wrote {written}, "
+            f"in {wall:.2f} s | launches B1 {launches['ecc_moments']}, B2 "
+            f"{launches['warp_accum']}, B8 {launches['fast']}, B3h "
+            f"{launches['orb_harris']}, B3d {launches['orb_describe']}, B3 "
+            f"{launches['orb_extract']} -> {'OK' if ok else 'FAILED'}")
+        if not ok:
+            fail("the CLI on the card missed a check:\n" + text.getvalue())
+        return launches
+
     log(f"[25 stack_burst CLI] {CLI_N}x{FULL_H}x{FULL_W} PNGs, frame "
-        f"{blurred} blurred, headline ECC flags: rc {rc}, ranked worst "
-        f"{Path(worst).name}, {'; '.join(kp_dropped)}, wrote {written}, in "
-        f"{wall:.2f} s | launches B1 {launches['ecc_moments']}, B2 "
-        f"{launches['warp_accum']}, B8 {launches['fast']}, B3h "
-        f"{launches['orb_harris']}, B3d {launches['orb_describe']}, B3 "
-        f"{launches['orb_extract']} | phase {time.perf_counter() - t_phase:.1f}"
-        f" s -> {'OK' if ok else 'FAILED'}")
+        f"{blurred} blurred, headline ECC flags; the 48-bit copies written "
+        f"in {write16_s:.2f} s ({CLI_N} threads)")
+    launches = {"stack_burst": run(d / "in", d / "out", [])}
+    launches["stack_burst --preserve-depth"] = run(
+        d / "in16", d / "out16", ["--preserve-depth", "--out-depth", "16"])
+    c = 64
+    worst = 0.0
+    for name in want:
+        img8 = io.load_frames([d / "out" / name])[0]
+        img16 = io.load_frames([d / "out16" / name], preserve_depth=True)[0]
+        diff = np.abs(img16[c:-c, c:-c] / 65535.0 - img8[c:-c, c:-c] / 255.0)
+        worst = max(worst, float(diff.max()))
+    ok = worst < STACK_MAX_BAR
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"    16-bit images against the 8-bit run's: interior max "
+        f"{worst:.4f} (bar {STACK_MAX_BAR}) | phase "
+        f"{time.perf_counter() - t_phase:.1f} s -> {'OK' if ok else 'FAILED'}")
     if not ok:
-        fail("the CLI on the card missed a check:\n" + text.getvalue())
+        fail("the 16-bit workflow's images are off the 8-bit run's")
     return launches
 
 
@@ -3175,7 +3327,7 @@ def main(argv=None) -> int:
                "ecc_match_arrays output_scale=2": ecc_sr,
                **{f"ecc_match_arrays {k}": v for k, v in solvers.items()},
                "keypoint_match_arrays output_scale=2": kp_sr,
-               **files, **streams, "stack_burst": cli, **mesh, **dcn}
+               **files, **streams, **cli, **mesh, **dcn}
 
     def counts(name):
         per = {path: c[name] for path, c in by_path.items() if c[name]}

@@ -209,7 +209,12 @@ def main(argv=None) -> int:
 
     # drop worst, reverse so sharpest is the reference frame
     keep = order[::-1] if args.keep_all else order[1:][::-1]
-    frames_t = frames_t[torch.from_numpy(keep.copy()).to(dev)]
+    index = torch.from_numpy(keep.copy()).to(dev)
+    if frames_t.dtype == torch.uint16:
+        # CUDA has no uint16 gather; int16 moves the same bits
+        frames_t = frames_t.view(torch.int16)[index].view(torch.uint16)
+    else:
+        frames_t = frames_t[index]
     kept_files = [files[i] for i in keep]
     print(f"stacking {len(keep)} frames; reference = {kept_files[0]}")
 

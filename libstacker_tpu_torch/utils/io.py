@@ -5,10 +5,13 @@ A copy of ``libstacker_tpu/utils/io.py`` (``collect_image_files`` :34,
 ``normalize_files`` :50, ``imread_unchanged`` :62, ``imread_rgb`` :80,
 ``imread_gray`` :111, ``save_image`` :129, ``_write_png16_py`` :179,
 ``pad_chunk`` :213, ``_load_frames_u16`` :265, ``prefetched_chunks`` :313,
-``load_frames`` :339).  Decoding prefers the native C++ loader
-(``utils/native_loader.py``, built on first use into ``build/``) and
-falls back to PIL, as the reference does.  The 16-bit PNG writer needs
-only ``zlib``.
+``load_frames`` :339).  Decoding goes through a native C++ batch
+decoder (``utils/native_loader.py``, built on first use into ``build/``:
+the JAX package's ``native/stacker_io.cpp`` where libjpeg, libpng and
+libtiff are there, else the port's zlib reader ``csrc/image_io.cpp``);
+the files it does not take, and every file where neither builds, decode
+through PIL, as the reference does without its library.  The 16-bit
+PNG writer needs only ``zlib``.
 
 Channel order is RGB in memory, as in the reference.
 """
@@ -133,9 +136,10 @@ def save_image(path: PathLike, img: np.ndarray, bit_depth: int = 8) -> None:
     48-bit RGB PNG — a stacked burst carries more than 8 bits of real
     depth (a 100-frame mean adds ~log2(100) bits), which the reference's
     example flow cannot preserve (its imwrite of an 8-bit Mat,
-    examples/main.rs:150-158).  Encoding prefers the native libpng
-    writer (native/stacker_io.cpp) and falls back to a pure-Python
-    encoder (PIL has no 48-bit RGB mode).
+    examples/main.rs:150-158).  Encoding prefers the native library's
+    writer (libpng in native/stacker_io.cpp, zlib in csrc/image_io.cpp)
+    and falls back to a pure-Python encoder (PIL has no 48-bit RGB
+    mode).
     """
     if bit_depth == 8:
         from PIL import Image
@@ -260,17 +264,6 @@ def _load_frames_u16(files, num_threads, use_native: bool) -> np.ndarray:
     """Full-depth decode -> [N,H,W,3] uint16 (see load_frames)."""
     from . import native_loader
 
-    if use_native and native_loader.available16() and all(
-        str(f).lower().endswith((".jpg", ".jpeg", ".png", ".tif", ".tiff"))
-        for f in files
-    ):
-        try:
-            return native_loader.load_frames_native16(
-                files, num_threads or 0
-            )
-        except StackerIoError:
-            pass  # unusual subformats: per-file PIL fallback below
-
     def one(path):
         arr = imread_unchanged(path)
         if arr.dtype == np.uint8:
@@ -291,6 +284,8 @@ def _load_frames_u16(files, num_threads, use_native: bool) -> np.ndarray:
             arr = np.repeat(arr[:, :, None], 3, axis=2)
         return arr
 
+    if use_native and native_loader.available16():
+        return _load_native(files, num_threads, np.uint16, one)
     frames = [one(f) for f in files]
     shape0 = frames[0].shape
     for f, arr in zip(files, frames):
@@ -300,6 +295,48 @@ def _load_frames_u16(files, num_threads, use_native: bool) -> np.ndarray:
                 f"expected {shape0}"
             )
     return np.stack(frames, axis=0)
+
+
+def _load_native(files, num_threads, dtype, pil_one) -> np.ndarray:
+    """Decode ``files`` into one ``[N,H,W,3] dtype`` tensor: every file in
+    one batch call on the native library's thread pool, then each file it
+    did not decode (JPEG under the zlib reader, a TIFF outside its subset,
+    a file the library refused) through ``pil_one``, the PIL route, on a
+    thread pool: the JAX package falls back to PIL likewise, for the whole
+    burst.  A frame of another size than frame 0 raises the PIL route's
+    message; so does the first file the PIL route cannot decode."""
+    from . import native_loader as nl
+
+    rc, h, w = nl.probe_status(files[0])
+    if rc != 0:  # frame 0 goes to the PIL route too: its size from PIL
+        from PIL import Image
+
+        try:
+            with Image.open(files[0]) as im:
+                w, h = im.size
+        except OSError as e:
+            raise StackerIoError(f"{files[0]}: {e}") from e
+    out, statuses = nl.decode_batch(files, h, w, dtype, num_threads or 0)
+    sizes = {}  # files the library read at another size
+    for i, s in enumerate(statuses):
+        if s == nl.ERR_SIZE:
+            rc, gh, gw = nl.probe_status(files[i])
+            if rc == 0 and (gh, gw) != (h, w):
+                sizes[i] = (gh, gw, 3)
+    redo = [i for i, s in enumerate(statuses) if s != 0 and i not in sizes]
+    with concurrent.futures.ThreadPoolExecutor(
+        num_threads or min(len(redo), os.cpu_count() or 1) or 1
+    ) as pool:
+        decoded = dict(zip(redo, pool.map(pil_one, [files[i] for i in redo])))
+    for i in sorted(set(decoded) | set(sizes)):
+        shape = sizes[i] if i in sizes else decoded[i].shape
+        if shape != out.shape[1:]:
+            raise StackerIoError(
+                f"frame size mismatch: {files[i]} has {shape}, "
+                f"expected {out.shape[1:]}"
+            )
+        out[i] = decoded[i]
+    return out
 
 
 def prefetched_chunks(files, chunk_size: int, h: int, w: int,
@@ -337,15 +374,16 @@ def load_frames(
     All frames must share the first frame's spatial size (the reference
     implicitly requires this: every frame is warped onto frame 0's grid,
     ref src/lib.rs:291-299).  Decoding prefers the native C++ thread-pool
-    loader (native/stacker_io.cpp — the counterpart of the reference's
-    OpenCV imgcodecs + Rayon fan-out) and falls back to a PIL thread
-    pool when the shared library isn't built.
+    decoder (the counterpart of the reference's OpenCV imgcodecs + Rayon
+    fan-out; see ``_load_native``), one batch call for every file it
+    takes, and falls back to a PIL thread pool when no library builds.
 
     ``preserve_depth=True`` returns ``uint16`` instead: 16-bit PNG/TIFF
     decode at full depth and 8-bit sources expand x257, so the
     pipelines stack at 16-bit precision (they align on the high byte
     either way — see ops.color.depth_reduce_u8).  16-bit RGB needs the
-    native loader (PIL silently reduces 48-bit content to 8).
+    native library (PIL silently reduces 48-bit content to 8), and a
+    16-bit file it does not take is refused.
     """
     files = normalize_files(files)
     if not files:
@@ -355,17 +393,8 @@ def load_frames(
     if use_native:
         from . import native_loader
 
-        if native_loader.available() and all(
-            str(f).lower().endswith((".jpg", ".jpeg", ".png", ".tif",
-                                     ".tiff"))
-            for f in files
-        ):
-            try:
-                return native_loader.load_frames_native(
-                    files, num_threads or 0
-                )
-            except StackerIoError:
-                pass  # fall back to PIL (e.g. unusual subformats)
+        if native_loader.available():
+            return _load_native(files, num_threads, np.uint8, imread_rgb)
     if num_threads is None:
         num_threads = min(len(files), os.cpu_count() or 1)
     if num_threads <= 1 or len(files) == 1:

@@ -45,7 +45,9 @@ CPU path; the chunk uploader's copies equal their chunks; the ECC and
 keypoint streams (mean and sigma-clip) on the card against the CPU
 streams at the slice bars (keypoint: p99 < 0.02 and mean < 0.01, the
 draws differing), through their kernels; a sigma-clip stream killed and
-resumed on the card bitwise equal to an uninterrupted one.  B5's row
+resumed on the card bitwise equal to an uninterrupted one; the streams
+and ``mesh=`` on 48-bit PNG files with ``preserve_depth=True`` against
+the CPU path on the same files at those bars.  B5's row
 origins (a strip of rows warped with the global map) bitwise against the
 plain version and the whole frame's rows; ``mesh=`` on shards of the
 card against the same mesh on the CPU (ECC mean and SR through B6's
@@ -927,6 +929,101 @@ def test_native_loader_on_card(tmp_path, dev):
     io.save_image(tmp_path / "a.png", rgb16, bit_depth=16)
     got = io.load_frames([tmp_path / "a.png"], preserve_depth=True)
     np.testing.assert_array_equal(got[0], rgb16)
+
+
+def test_stack_burst_preserve_depth_on_card(tmp_path, dev):
+    """The workflow on 48-bit PNGs with ``--preserve-depth``: the uint16
+    burst is reordered on the card (CUDA gathers no uint16) and stacked
+    to 16-bit PNGs."""
+    from libstacker_tpu_torch import stack_burst
+    from libstacker_tpu_torch.utils import io
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames = make_textured_burst(4, 270, 480, seed=3)[0].numpy()
+    rgb16 = (frames.astype(np.uint16) << 8) | np.random.default_rng(
+        3).integers(0, 256, frames.shape, dtype=np.uint16)
+    (tmp_path / "in").mkdir()
+    for i, f in enumerate(rgb16):
+        io.save_image(tmp_path / "in" / f"f{i}.png", f, bit_depth=16)
+    rc = stack_burst.main([str(tmp_path / "in"), "--out",
+                           str(tmp_path / "out"), "--device", "cuda",
+                           "--max-count", "50", "--coarse-levels", "1",
+                           "--preserve-depth", "--out-depth", "16"])
+    assert rc == 0
+    outs = sorted((tmp_path / "out").iterdir())
+    assert len(outs) == 4
+    for p in outs:
+        img = io.load_frames([p], preserve_depth=True)[0]
+        assert img.dtype == np.uint16 and img.shape == (270, 480, 3)
+
+
+def _rgb16_files(d, frames, seed):
+    """u8 frames in the high byte, seeded noise in the low -> 48-bit PNG
+    files in ``d`` (written through the native library where it loads)."""
+    from libstacker_tpu_torch.utils import io
+
+    rgb16 = (frames.astype(np.uint16) << 8) | np.random.default_rng(
+        seed).integers(0, 256, frames.shape, dtype=np.uint16)
+    d.mkdir(parents=True, exist_ok=True)
+    files = [str(d / f"f{i:02d}.png") for i in range(len(rgb16))]
+    for f, img in zip(files, rgb16):
+        io.save_image(f, img, bit_depth=16)
+    np.testing.assert_array_equal(io.load_frames(files, preserve_depth=True),
+                                  rgb16)
+    return files
+
+
+@pytest.mark.parametrize("path", ["ecc_stream", "ecc_stream_sigma",
+                                  "ecc_mesh", "keypoint_stream",
+                                  "keypoint_mesh"])
+def test_16bit_files_on_card(dev, tmp_path, path):
+    """48-bit PNG files with ``preserve_depth=True`` through the streams and
+    ``mesh=`` on the card (uint16 chunks and shards on CUDA) against the
+    CPU path on the same files, at the slice bars."""
+    import dataclasses
+
+    from libstacker_tpu_torch import (
+        KeyPointMatchParameters, ecc_match, ecc_match_stream, keypoint_match,
+        keypoint_match_stream,
+    )
+    from libstacker_tpu_torch.parallel import make_mesh
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    if path.startswith("ecc"):
+        frames = burst(9, 6, 192, 256, max_shift=4.0, max_angle=0.4)[0]
+        files = _rgb16_files(tmp_path, frames, 9)
+        p = EccMatchParameters(MotionType.Homography, max_count=50,
+                               epsilon=1e-4, gauss_filt_size=5,
+                               coarse_levels=1)
+        if path == "ecc_stream_sigma":
+            p = dataclasses.replace(p, stacking="sigma_clip", sigma_iters=2)
+        if path == "ecc_mesh":
+            def run(d):
+                return ecc_match(files, p, preserve_depth=True,
+                                 mesh=make_mesh([d] * 3))
+        else:
+            def run(d):
+                return ecc_match_stream(files, p, chunk_size=2,
+                                        preserve_depth=True, device=d)
+        gpu, cpu = run(dev), run("cpu")
+        assert gpu.shape == cpu.shape == (192, 256, 3)
+        assert np.abs(gpu[8:-8, 8:-8] - cpu[8:-8, 8:-8]).max() < 0.02
+        return
+    frames = make_textured_burst(5, 270, 480, seed=2)[0].numpy()
+    files = _rgb16_files(tmp_path, frames, 2)
+    params = KeyPointMatchParameters()
+    if path == "keypoint_mesh":
+        def run(d):
+            return keypoint_match(files, params, preserve_depth=True,
+                                  mesh=make_mesh([d] * 2))
+    else:
+        def run(d):
+            return keypoint_match_stream(files, params, chunk_size=2,
+                                         preserve_depth=True, device=d)
+    (d_gpu, gpu), (d_cpu, cpu) = run(dev), run("cpu")
+    assert d_gpu == d_cpu == 0 and gpu.shape == (270, 480, 3)
+    diff = np.abs(gpu[16:-16, 16:-16] - cpu[16:-16, 16:-16])
+    assert np.quantile(diff, 0.99) < 0.02 and diff.mean() < 0.01
 
 
 def _png_files(d, frames):
