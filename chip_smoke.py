@@ -14,7 +14,9 @@ Phases (each prints one line; any failure exits non-zero):
 3. kernel B2 (``warp_accum.cu``) against its plain version, bitwise, at
    the main path's shape (99 u8 frames of 2160x3840, one dropped), its
    u8-source result against its f32-source result (bitwise), and 4
-   frames rotated by 30 degrees (bitwise);
+   frames rotated by 30 degrees (bitwise), with the instructions a
+   pixel-frame of its frame loop by class (``utils/sass.py``, from
+   ``cuobjdump -sass``);
 4. the ECC slice on CUDA against the port's own CPU path on a small
    burst (``ok`` flags, warps, stacked interior);
 5. the full-size slice: a 100x2160x3840 burst through ``ecc_match_arrays``
@@ -43,7 +45,8 @@ Phases (each prints one line; any failure exits non-zero):
 10. kernel B4 (``warp_accum.cu``, moments form) against its plain version
     at the main path's shape (99 u8 frames of 2160x3840, one dropped): a
     moments pass, then a clip pass fed with that pass's mean and
-    kappa-sigma tolerance; S0, S1 and S2 of both passes bitwise;
+    kappa-sigma tolerance; S0, S1 and S2 of both passes bitwise, with the
+    instruction classes of both passes' frame loops;
 11. kernel B5 (``warp.cu``) against its plain version, bitwise, on the 60
     planes of phase 9's 20 RGB 4K frames in each of the six border modes,
     once with slots sharing sources (``src_index``) and once on an output
@@ -173,11 +176,17 @@ time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 10, 13 and 17 also print the registers and spills that
 ptxas gave each instance of B1, B2, B8, B4 and B7, the kernel's share of
 its bound; phases 12 and 18 print B9's and B6's too, and, with
-``--baseline DIR``, the time of an earlier design of B6 and B9 on the
-same inputs: ``DIR`` holds that design's ``sr_deposit.cu`` and
-``warp.cu`` (with the C interfaces they had before their launch plans,
-each computing its own launch geometry), built beside the others, and each pair is timed in
-turns (new, earlier, earlier, new).
+``--baseline DIR``, the time of an earlier design of B2 / B4, B6 and B9
+on the same inputs: ``DIR`` holds that design's ``warp_accum.cu`` (the
+thread-a-pixel B2 and B4, whose B2 takes its border value from the
+card), ``sr_deposit.cu`` and ``warp.cu`` (with the C interfaces they had
+before their launch plans, each computing its own launch geometry),
+built beside the others, and each pair is timed in turns (new, earlier,
+earlier, new); phases 3 and 10 then also print the earlier B2's and
+B4's instruction classes.  Phase 3 also holds B2 and B4 (both passes)
+bitwise to their plain versions on 99 u8 frames of 4000x6000 with
+affine maps, and times them (with ``--baseline``, paired with the
+earlier design).
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -200,8 +209,11 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe")
-# the sources an earlier design is timed from (--baseline): B6 and B9
-BASELINE_KERNELS = ("sr_deposit", "warp")
+# the sources an earlier design is timed from (--baseline): B2 / B4, B6
+# and B9
+BASELINE_KERNELS = ("sr_deposit", "warp", "warp_accum")
+# pixels a thread of warp_accum.cu's B2 and B4 (a SASS loop iteration)
+B2_PIXELS, B4_PIXELS = 4, 2
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -209,8 +221,13 @@ B1_LITE_INSTANCE = "moments_kernelILi8ELb0ELb0E"  # P=8, no Gram
 B7_INSTANCE = "ic_moments_kernelILi8ELb0E"  # P=8, no Gram
 B7_GRAM_INSTANCE = "ic_moments_kernelILi8ELb1E"
 B8_INSTANCE = "fast_kernelIhE"  # u8 source
-B2_INSTANCE = "warp_accum_kernelIhE"  # u8 source
-B4_INSTANCE = "warp_moments_kernelIhLb1E"  # u8 source, clip pass
+B2_INSTANCE = "warp_accum_kernelIhLb1EE"  # u8 source, homography
+B4_INSTANCE = "warp_moments_kernelIhLb1ELb1EE"  # u8, homography, clip pass
+B4M_INSTANCE = "warp_moments_kernelIhLb1ELb0EE"  # u8, homography, moments
+B2_AFFINE_INSTANCE = "warp_accum_kernelIhLb0EE"  # u8 source, affine
+B2_EARLIER_INSTANCE = "warp_accum_kernelIhE"  # the thread-a-pixel design
+B4_EARLIER_INSTANCE = "warp_moments_kernelIhLb1E"
+B4M_EARLIER_INSTANCE = "warp_moments_kernelIhLb0E"
 B5_INSTANCE = "11warp_kernelILi1EE"  # planar, BORDER_REPLICATE
 B5F_INSTANCE = "frames_kernelILi1EhE"  # u8 frames, BORDER_REPLICATE
 B5A_INSTANCE = "accum_kernelILi1EhE"
@@ -225,6 +242,8 @@ B6_EARLIER_INSTANCE = "sr_deposit_kernelIhLb1ELb0E"  # the first design
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
+# phase 3's affine frames: 24 MP, wider than 2^12 px
+WIDE_H, WIDE_W = 4000, 6000
 SLICE_N, SLICE_H, SLICE_W = 8, 1080, 1920
 # keypoint bench configuration (bench.py:499-560,
 # benchmarks/bench_keypoint.py:19-45): 20 textured frames of 4K
@@ -506,7 +525,7 @@ BASELINE_DIR: list = []
 def load_baseline(path: str) -> None:
     """Build the earlier design's sources in ``path`` and bind their C
     entry points (the interfaces B6 and B9 had before their launch
-    plans)."""
+    plans; B2's with its border value on the card)."""
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
@@ -516,6 +535,8 @@ def load_baseline(path: str) -> None:
         ("sr_deposit", "sr_deposit",
          [vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf, vp]),
         ("warp", "warp3_bilinear", [vp] * 3 + [ci] * 4 + [vp]),
+        ("warp_accum", "warp_accum_rgb", [vp] * 5 + [ci] * 5 + [cf, vp]),
+        ("warp_accum", "warp_moments_rgb", [vp] * 8 + [ci] * 5 + [cf, vp]),
     ):
         lib = cuda_build.load(name, d)
         getattr(lib, fn).argtypes = argtypes
@@ -537,6 +558,26 @@ def resources(name: str, piece: str, csrc=None) -> dict:
 
     found = cuda_build.kernel_resources(name, csrc or cuda_build.CSRC)
     return next((v for k, v in found.items() if piece in k), {})
+
+
+def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1):
+    """Print the instructions a pixel-frame by class of the frame loop of
+    the kernel of build ``name`` whose mangled name contains ``piece``
+    (``utils/sass.py``; ``pixels`` a loop iteration); return them (None
+    where cuobjdump is missing)."""
+    from libstacker_tpu_torch.utils import cuda_build, sass
+
+    lib = cuda_build.library_path(name, csrc or cuda_build.CSRC)
+    try:
+        found = sass.kernel_loop(lib, piece, pixels)
+    except (RuntimeError, subprocess.CalledProcessError) as e:
+        log(f"    {label} SASS: not read ({e})")
+        return None
+    log(f"    {label} SASS: {sass.fmt(found)}")
+    if not found:
+        return None
+    return dict(per_pixel_frame=found["per_pixel"],
+                total=found["per_pixel_total"], pixels_a_thread=pixels)
 
 
 def fmt_resources(r: dict) -> str:
@@ -602,6 +643,40 @@ def b6_earlier(frames, minv, valid, factor, sigma, with_fallback):
                          int(with_fallback), color.U8_SCALE, _stream())
     cuda_build.check(lib, err, "earlier sr_deposit")
     return tuple(acc)
+
+
+def b2_earlier(frames, minv, vf, border, perspective=1):
+    """The earlier B2 design (u8 frames, perspective maps unless
+    ``perspective`` is 0; ``border`` a [3] float32 tensor on the card)."""
+    from libstacker_tpu_torch.ops import color
+    from libstacker_tpu_torch.utils import cuda_build
+
+    n, h, w, _ = frames.shape
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
+    lib = BASELINE["warp_accum"]
+    cuda_build.check(lib, lib.warp_accum_rgb(
+        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(), border.data_ptr(),
+        out.data_ptr(), n, h, w, 0, perspective, color.U8_SCALE, _stream()),
+        "earlier warp_accum_rgb")
+    return out
+
+
+def b4_call(lib, frames, minv, vf, mu=None, tol=None, perspective=1):
+    """B4 (u8 frames, perspective maps unless ``perspective`` is 0)
+    through ``lib``, the earlier design's build."""
+    from libstacker_tpu_torch.ops import color
+    from libstacker_tpu_torch.utils import cuda_build
+
+    n, h, w, _ = frames.shape
+    s = [torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
+         for _ in range(3)]
+    cuda_build.check(lib, lib.warp_moments_rgb(
+        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(),
+        None if mu is None else mu.data_ptr(),
+        None if tol is None else tol.data_ptr(), *(x.data_ptr() for x in s),
+        n, h, w, 0, perspective, color.U8_SCALE, _stream()),
+        "warp_moments_rgb")
+    return tuple(s)
 
 
 def b9_earlier(srcs, minv):
@@ -764,8 +839,16 @@ def phase_b2(dev):
     torch.cuda.synchronize()
     rot_abs = float((rot_got - rot_want).abs().max())
     del rot_got, rot_want
-    ms = time_ms(lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid),
-                 20)
+    vf = valid.to(torch.float32)
+    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    old = earlier("warp_accum", lambda: b2_earlier(frames, minv, vf, zero3))
+    if old is not None and not torch.equal(old(), want):
+        fail("the earlier B2 design disagrees with the plain version")
+
+    def new():
+        return warp_accum_cuda.warp_accum_rgb(frames, minv, valid)
+
+    ms, earlier_ms = paired_ms(new, old, 20)
     plain_ms = time_ms(
         lambda: warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid), 2)
     hw = FULL_H * FULL_W
@@ -781,9 +864,108 @@ def phase_b2(dev):
     if not ok:
         fail("B2 disagrees with its plain version")
     rec = design_report("B2 u8", "warp_accum", B2_INSTANCE, ms, bound_ms,
-                        None)
+                        earlier_ms, B2_EARLIER_INSTANCE)
+    rec["sass"] = sass_line("B2 u8", "warp_accum", B2_INSTANCE,
+                            pixels=B2_PIXELS)
+    if BASELINE_DIR:
+        rec["earlier_design_sass"] = sass_line(
+            "B2 u8 earlier design", "warp_accum", B2_EARLIER_INSTANCE,
+            BASELINE_DIR[0])
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
+
+
+def phase_wide_affine(dev):
+    """B2 and B4 (moments and clip pass) on 99 u8 frames of WIDE_HxWIDE_W
+    with affine maps (the ECC path's Translation / Euclidean / Affine
+    motion, quant_affine=True): bitwise against their plain versions, and
+    timed, paired with the earlier design when ``--baseline`` built one;
+    returns the record phase 3 carries."""
+    from libstacker_tpu_torch.ops import stack, warp_accum_cuda
+
+    n, h, w = KERNEL_FRAMES, WIDE_H, WIDE_W
+    gen = torch.Generator(device=dev).manual_seed(13)
+    frames = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    rng = np.random.default_rng(13)
+    mats = []
+    for _ in range(n):  # burst-like: +-0.6 degrees, +-6 px
+        a = np.radians(rng.uniform(-0.6, 0.6))
+        dx, dy = rng.uniform(-6.0, 6.0, 2)
+        c, s = np.cos(a), np.sin(a)
+        cx, cy = w / 2.0, h / 2.0
+        mats.append([[c, -s, cx - c * cx + s * cy + dx],
+                     [s, c, cy - s * cx - c * cy + dy], [0.0, 0.0, 1.0]])
+    minv = torch.from_numpy(np.asarray(mats, np.float32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[n // 2] = False
+    vf = valid.to(torch.float32)
+
+    def b2():
+        return warp_accum_cuda.warp_accum_rgb(frames, minv, valid,
+                                              quant_affine=True)
+
+    def moments():
+        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid,
+                                                quant_affine=True)
+
+    mom = moments()
+    denom = torch.clamp(mom[0], min=1.0)
+    mu = mom[1] / denom
+    var = torch.clamp(mom[2] / denom - mu * mu, min=0.0)
+    tol = (2.5 * torch.sqrt(var) + stack._CLIP_TOL).contiguous()
+    mu = mu.contiguous()
+
+    def clip():
+        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol,
+                                                quant_affine=True)
+
+    got = (b2(),) + mom + clip()
+    want = ((warp_accum_cuda.warp_accum_rgb_reference(
+        frames, minv, valid, quant_affine=True),)
+        + warp_accum_cuda.warp_moments_rgb_reference(
+            frames, minv, valid, quant_affine=True)
+        + warp_accum_cuda.warp_moments_rgb_reference(
+            frames, minv, valid, mu, tol, quant_affine=True))
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    old_lib = BASELINE.get("warp_accum")
+    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    old = dict(
+        b2=lambda: (b2_earlier(frames, minv, vf, zero3, 0),),
+        moments=lambda: b4_call(old_lib, frames, minv, vf, perspective=0),
+        clip=lambda: b4_call(old_lib, frames, minv, vf, mu, tol, 0))
+    if old_lib is not None and not all(
+            bool(torch.equal(a, b))
+            for a, b in zip(old["b2"]() + old["moments"]() + old["clip"](),
+                            want)):
+        fail("the earlier B2 / B4 design disagrees with the plain version "
+             "on the affine frames")
+    hw = h * w
+    covered = float(want[1][..., 0].sum())
+    clip_bound, _, moments_bound = b4_bounds(n, hw, covered)
+    b2_bound, _ = bound((n - 1) * hw * 3.0 + hw * 3 * 4.0 + n * 40.0,
+                        float(n - 1) * hw * B2_OPS)
+    rec = {}
+    line = (f"[3 B2/B4 affine] {n} u8 frames of {h}x{w}, affine maps (one "
+            f"dropped): B2, B4 moments and clip pass bitwise {bitwise} (max "
+            f"abs {max_abs:.1e}, bar 0)")
+    for key, fn, reps, bnd in (("b2", b2, 10, b2_bound),
+                               ("moments", moments, 5, moments_bound),
+                               ("clip", clip, 5, clip_bound)):
+        ms, earlier_ms = paired_ms(fn, earlier("warp_accum", old[key]), reps)
+        rec[key] = dict(ms=ms, earlier_design_ms=earlier_ms, bound_ms=bnd)
+        line += f"; {key} {ms:.3f} ms, {bnd / ms:.3f} of its bound"
+        if earlier_ms is not None:
+            line += (f", earlier design {earlier_ms:.3f} ms -> new/earlier "
+                     f"{ms / earlier_ms:.3f}")
+    log(line + f" -> {'OK' if bitwise else 'MISMATCH'}")
+    if not bitwise:
+        fail("B2 / B4 disagree with their plain versions on the affine frames")
+    rec["sass"] = sass_line("B2 u8 affine", "warp_accum", B2_AFFINE_INSTANCE,
+                            pixels=B2_PIXELS)
+    return rec
 
 
 def headline_params():
@@ -1269,6 +1451,21 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def b4_bounds(n: int, hw: int, covered: float):
+    """(bound_ms, bound_by) of B4's clip pass over ``n`` frames of ``hw``
+    pixels, ``covered`` of the pixel-frames covered and valid, and the
+    moments pass's bound_ms: coordinates and the coverage test for every
+    pixel-frame, the taps and sums for the covered, valid ones; the clip
+    pass also reads mu and tol and takes the clip test."""
+    frame_bytes = n * hw * 3.0 + 3 * hw * 3 * 4.0 + n * 40.0
+    clip_ms, clip_by = bound(
+        frame_bytes + 2 * hw * 3 * 4.0,
+        n * hw * float(B4_OPS_ANY) + covered * (B4_OPS_COVERED + B4_OPS_CLIP))
+    moments_ms, _ = bound(
+        frame_bytes, n * hw * float(B4_OPS_ANY) + covered * B4_OPS_COVERED)
+    return clip_ms, clip_by, moments_ms
+
+
 def phase_b4(dev, frames, truth):
     """B4 on frames 1..N-1 of phase 5's burst, as the sigma-clip stack
     sees them."""
@@ -1299,20 +1496,33 @@ def phase_b4(dev, frames, truth):
     rel = max(rel_err(a, b) for a, b in pairs)
     max_abs = max(float((a - b).abs().max()) for a, b in pairs)
     clipped = float((got[0] - got_c[0]).sum()) / max(float(got[0].sum()), 1.0)
-    ms_moments = time_ms(
-        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid), 10)
-    ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb(
-        frames, minv, valid, mu, tol), 10)
+    vf = valid.to(torch.float32)
+    old_lib = BASELINE.get("warp_accum")
+    if old_lib is not None and not (
+            all(bool(torch.equal(a, b)) for a, b in zip(
+                b4_call(old_lib, frames, minv, vf), want))
+            and all(bool(torch.equal(a, b)) for a, b in zip(
+                b4_call(old_lib, frames, minv, vf, mu, tol), want_c))):
+        fail("the earlier B4 design disagrees with the plain version")
+
+    def new_moments():
+        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid)
+
+    def new_clip():
+        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol)
+
+    ms_moments, earlier_moments = paired_ms(
+        new_moments, earlier("warp_accum", lambda: b4_call(
+            old_lib, frames, minv, vf)), 10)
+    ms, earlier_ms = paired_ms(new_clip, earlier("warp_accum", lambda: b4_call(
+        old_lib, frames, minv, vf, mu, tol)), 10)
     plain_ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb_reference(
         frames, minv, valid, mu, tol), 1)
     hw = FULL_H * FULL_W
     # this run's data: coordinates and the coverage test for every
     # pixel-frame, the taps and sums for the covered, valid ones
     covered = float(want[0][..., 0].sum())
-    bound_ms, bound_by = bound(
-        n * hw * 3.0 + 2 * hw * 3 * 4.0 + 3 * hw * 3 * 4.0 + n * 40.0,
-        n * hw * float(B4_OPS_ANY)
-        + covered * (B4_OPS_COVERED + B4_OPS_CLIP))
+    bound_ms, bound_by, moments_bound_ms = b4_bounds(n, hw, covered)
     ok = count_equal and bitwise
     log(f"[10 B4 warp_moments] {n} u8 frames of {FULL_H}x{FULL_W} (one "
         f"dropped), moments pass then clip pass (kappa 2.5, "
@@ -1326,10 +1536,26 @@ def phase_b4(dev, frames, truth):
     if not ok:
         fail("B4 disagrees with its plain version")
     rec = design_report("B4 u8 clip pass", "warp_accum", B4_INSTANCE, ms,
-                        bound_ms, None)
+                        bound_ms, earlier_ms, B4_EARLIER_INSTANCE)
+    design_report("B4 u8 moments pass", "warp_accum", B4M_INSTANCE,
+                  ms_moments, moments_bound_ms, earlier_moments,
+                  B4M_EARLIER_INSTANCE)
+    rec["sass"] = sass_line("B4 u8 clip pass", "warp_accum", B4_INSTANCE,
+                            pixels=B4_PIXELS)
+    rec["moments_pass_sass"] = sass_line("B4 u8 moments pass", "warp_accum",
+                                         B4M_INSTANCE, pixels=B4_PIXELS)
+    if BASELINE_DIR:
+        rec["earlier_design_sass"] = sass_line(
+            "B4 u8 clip pass earlier design", "warp_accum",
+            B4_EARLIER_INSTANCE, BASELINE_DIR[0])
+        rec["earlier_moments_pass_sass"] = sass_line(
+            "B4 u8 moments pass earlier design", "warp_accum",
+            B4M_EARLIER_INSTANCE, BASELINE_DIR[0])
+        rec["earlier_moments_pass_ms"] = earlier_moments
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 moments_pass_ms=ms_moments,
+                moments_pass_bound_ms=moments_bound_ms,
                 library_note="no PyTorch call warps and reduces the "
                              "coverage-masked moments over frames", **rec)
 
@@ -3233,8 +3459,8 @@ def phase_dcn(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time an earlier design of B6 and B9 from the "
-                         "sources in DIR beside the current one")
+                    help="time an earlier design of B2 / B4, B6 and B9 from "
+                         "the sources in DIR beside the current one")
     ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3263,6 +3489,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     b2 = phase_b2(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    b2["affine_4000x6000"] = phase_wide_affine(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     phase_slice_parity(dev)
     torch.cuda.synchronize()
     launches, ecc_frames, ecc_truth, ecc_clean = phase_full(dev)

@@ -108,14 +108,15 @@ def warp_accum_rgb(
     dev = frames.device
     minv = minv.contiguous()
     vf = valid.to(device=dev, dtype=torch.float32).contiguous()
-    bv = _border3(border_value, dev)
+    # on the host: the kernel takes the border value by value
+    bv = _border3(border_value, "cpu").tolist()
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lib = _lib()
     cuda_build.launch(
         lib, "warp_accum_rgb", dev,
-        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(), bv.data_ptr(),
-        out.data_ptr(), n, h, w, _DTYPE_CODE[frames.dtype],
-        int(not quant_affine), _SCALE[frames.dtype],
+        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(), out.data_ptr(),
+        n, h, w, _DTYPE_CODE[frames.dtype], int(not quant_affine),
+        _SCALE[frames.dtype], *bv,
     )
     cuda_build.count(globals(), "launch_count")
     return out
@@ -226,7 +227,7 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("warp_accum")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.warp_accum_rgb.argtypes = (
-        [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+        [vp] * 4 + [ci] * 5 + [ctypes.c_float] * 4 + [vp]
     )
     lib.warp_accum_rgb.restype = ci
     lib.warp_moments_rgb.argtypes = (

@@ -33,7 +33,9 @@ the CPU path at the slice bars (the keypoint SR image, whose RANSAC
 draws differ between devices, at a mean abs of 0.01); the n == 1
 upsample of both entry points within 1e-6 of the CPU path.  B2 and B4
 bitwise for u8, u16 and f32 sources, affine, perspective, 30-degree and
-strongly perspective maps, odd sizes, N = 1 and every frame dropped; B7
+strongly perspective maps, ties and near-ties of the 1/32 and 1/1024
+rounding, coordinates on the coverage edges, rows where sw == 0, odd
+sizes (W 1, 2, 3, 5, 3841; H 1), N = 0 and 1 and every frame dropped; B7
 across its tile and warp edges; the native loader where it builds.  B6's
 image form (``sr_image``) bitwise for u8 / u16 / f32, factors 2-4, sigma
 0.3 and 0.1, affine and perspective maps, scalar and 16-byte stores, and
@@ -835,29 +837,72 @@ def _burst_of(dev, dtype, n_frames, h, w, seed=4):
 
 def _maps(dev, kind, n_frames, h, w):
     """``n_frames`` inverse maps of one kind: near-identity affine or
-    perspective, 30 degrees, or a strong perspective term."""
-    deg, persp = {"affine": (0.5, (0, 0)), "perspective": (0.5, (2e-5, -3e-5)),
-                  "rot30": (30.0, (0, 0)), "strong": (4.0, (2e-3, 1e-3))}[kind]
-    return torch.from_numpy(np.stack([
-        rotation_inverse_map(h, w, deg * (1 - 2 * (i % 2)), 1.0, 2.5, -1.5,
-                             persp=persp)
-        for i in range(n_frames)
-    ])).to(dev)
+    perspective, 30 degrees, or a strong perspective term; shifts that
+    put s*32 on a rounding tie (k + 1/2) or a few ulps off it (and s*1024
+    for the affine form's ties); coordinates on the coverage edges 0 and
+    W-1 / H-1; a row where sw == 0 with sw <= 1e-6 beyond it."""
+    mats = []
+    for i in range(n_frames):
+        sign = 1 - 2 * (i % 2)
+        if kind == "ties":
+            e = (2 * i + 1) / 64.0
+            m = [[1, 0, e - 3], [0, 1, -e], [0, 0, 1]]
+        elif kind == "near_ties":
+            e = float(np.nextafter(np.float32(1 / 64.0), np.float32(sign),
+                                   dtype=np.float32)) * (i + 1)
+            m = [[1, 0, e], [0, 1, -e], [0, 0, 1]]
+        elif kind == "affine_ties":
+            e = (2 * i + 1) / 2048.0
+            m = [[1, 0, e], [0, 1, -e + 1 / 32.0], [0, 0, 1]]
+        elif kind == "edges":
+            m = [[1, 0, 0], [0, 1, 0], [0, 0, 1]] if i % 2 else [
+                [(w - 1) / max(w - 1.0, 1.0), 0, 0], [0, 1, 0], [0, 0, 1]]
+        elif kind == "horizon":
+            row = max(h // 2, 1)
+            m = [[1, 0.01, 0.5], [0.02, 1, -0.25], [1e-7 * i, -1.0 / row, 1.0]]
+        else:
+            deg, persp = {"affine": (0.5, (0, 0)),
+                          "perspective": (0.5, (2e-5, -3e-5)),
+                          "rot30": (30.0, (0, 0)),
+                          "strong": (4.0, (2e-3, 1e-3))}[kind]
+            m = rotation_inverse_map(h, w, deg * sign, 1.0, 2.5, -1.5,
+                                     persp=persp)
+        mats.append(np.asarray(m, np.float32))
+    return torch.from_numpy(np.stack(mats) if mats else
+                            np.zeros((0, 3, 3), np.float32)).to(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
-@pytest.mark.parametrize("kind", ["affine", "perspective", "rot30", "strong"])
-@pytest.mark.parametrize("shape", [(4, 150, 211), (1, 97, 33)])
-def test_warp_accum_bitwise(dev, dtype, kind, shape):
+@pytest.mark.parametrize("kind", ["affine", "perspective", "rot30", "strong",
+                                  "ties", "near_ties", "affine_ties",
+                                  "edges", "horizon"])
+@pytest.mark.parametrize("shape", [(4, 150, 211), (1, 97, 33), (2, 1, 5),
+                                   (1, 3, 1), (2, 4, 2), (1, 5, 3),
+                                   (0, 6, 5), (2, 3, 3841), (258, 3, 5),
+                                   (513, 2, 33), (2, 3, 6001), (1, 2, 8200)])
+@pytest.mark.parametrize("drop", ["last", "all"])
+def test_warp_accum_bitwise(dev, dtype, kind, shape, drop):
     """B2 and B4 (moments and clip pass) bitwise against their plain
     versions, at near-identity, 30-degree and strongly perspective maps,
-    odd sizes and N = 1."""
+    ties and near-ties of the 1/32 (and affine 1/1024) rounding,
+    coordinates on the coverage edges, rows where sw == 0 and sw <= 1e-6,
+    widths that are no multiple of a thread's pixels (1, 2, 3, 5, 3841),
+    H = 1, N = 0 and 1, more frames than a block stages at once (258,
+    513), widths past the affine bins' range (6001 inside 2^13, 8200
+    beyond), one frame or every frame dropped, and a border value per
+    channel."""
     n_frames, h, w = shape
-    frames, _ = _burst_of(dev, dtype, n_frames, h, w)
+    if n_frames:
+        frames, _ = _burst_of(dev, dtype, n_frames, h, w)
+    else:
+        frames = torch.zeros((0, h, w, 3), dtype=dtype, device=dev)
     minv = _maps(dev, kind, n_frames, h, w)
-    qa = kind == "affine"
+    qa = kind in ("affine", "affine_ties")
     valid = torch.ones(n_frames, dtype=torch.bool, device=dev)
-    valid[-1] = n_frames == 1
+    if n_frames:
+        valid[-1] = n_frames == 1
+    if drop == "all":
+        valid[:] = False
     bv = [0.1, 0.2, 0.3]
     got = warp_accum_cuda.warp_accum_rgb(frames, minv, valid, bv, qa)
     want = warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid, bv,
