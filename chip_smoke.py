@@ -50,7 +50,17 @@ Phases (each prints one line; any failure exits non-zero):
 11. kernel B5 (``warp.cu``) against its plain version, bitwise, on the 60
     planes of phase 9's 20 RGB 4K frames in each of the six border modes,
     once with slots sharing sources (``src_index``) and once on an output
-    grid other than the source's; then B5's frames and accumulate forms on
+    grid other than the source's, and as the row warp calls it (a border
+    by value, no ``src_index``; on the whole frame and on the strips of
+    phase 26's bands of ``rows_frame`` and of the first and last bands
+    of the 60 planes, the first strip from 64 rows above the frame);
+    its planar form timed in
+    BORDER_CONSTANT, REPLICATE and WRAP (with ``--baseline``, in turns
+    with the thread-a-value design, held bitwise to it), with its
+    registers, share of the bound and instructions an output value on a
+    slot with its own map and on one reusing the previous slot's (the
+    earlier design's: its whole body a value), and a device copy of the
+    same bytes; then B5's frames and accumulate forms on
     frames 1-19 of that burst as u8 and as u16 (one frame dropped) in the
     six modes, bitwise, with the keypoint stack's BORDER_REPLICATE sum
     timed both ways: the float32 widening, planes, planar B5 and
@@ -144,7 +154,8 @@ Phases (each prints one line; any failure exits non-zero):
     frames, equal to the one-process mesh), phase 9's keypoint burst over
     4 (equal drops, mean < 5e-3, max < 0.06), the ECC mean stream over 4
     on phase 24's PNGs (phase 24's bar), and 4 row bands of the card:
-    ``warp_rows_sharded`` on one 2160x3840x3 float32 frame (planar B5),
+    ``warp_rows_sharded`` on one 2160x3840x3 float32 frame (planar B5,
+    bitwise the dense warp: each band's sources hold every tap it reads),
     ``sharpness_teng_spatial`` on 100 greys (data 2 x spatial 2, rel
     1e-5) and ``ecc_stack_step_spatial`` on 16 frames solved at 540x960
     (B5's accumulate form; interior max 1e-5 against the dense scaled
@@ -158,6 +169,7 @@ Phases (each prints one line; any failure exits non-zero):
     5's burst and ``ecc_stack_step_spatial`` on those frames solved at
     540x960 (halo 64); each rank's results bitwise equal to the
     one-process ``make_mesh([card] * 2, data=1, spatial=2)`` run here,
+    whose row warp is bitwise the dense warp,
     with each rank's launches of B1, B5 and B5a; a worker that fails or
     passes 180 s fails the phase.
 
@@ -173,17 +185,19 @@ wrappers' host time, the device time ``torch.profiler`` reads), its
 plain version's time, the bound of the same work at the card's published rates (bytes
 over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
-Phases 2, 3, 6, 10, 13 and 17 also print the registers and spills that
-ptxas gave each instance of B1, B2, B8, B4 and B7, the kernel's share of
-its bound; phases 12 and 18 print B9's and B6's too, and, with
-``--baseline DIR``, the time of an earlier design of B2 / B4, B6 and B9
-on the same inputs: ``DIR`` holds that design's ``warp_accum.cu`` (the
-thread-a-pixel B2 and B4, whose B2 takes its border value from the
-card), ``sr_deposit.cu`` and ``warp.cu`` (with the C interfaces they had
-before their launch plans, each computing its own launch geometry),
-built beside the others, and each pair is timed in turns (new, earlier,
-earlier, new); phases 3 and 10 then also print the earlier B2's and
-B4's instruction classes.  Phase 3 also holds B2 and B4 (both passes)
+Phases 2, 3, 6, 10, 11, 13 and 17 also print the registers and spills
+that ptxas gave each instance of B1, B2, B8, B4, B5 and B7, the kernel's
+share of its bound; phases 12 and 18 print B9's and B6's too, and, with
+``--baseline DIR``, the time of an earlier design of B2 / B4, B5, B6 and
+B9 on the same inputs: ``DIR`` holds any of that design's
+``warp_accum.cu`` (commit b279a66's thread-a-pixel B2 and B4, whose B2
+takes its border value from the card), ``sr_deposit.cu`` (commit
+60e5e20's, computing its own launch geometry) and ``warp.cu`` (commit
+0c2d687's: the thread-a-value planar B5, its border values and source
+indices on the card, and B9 with its launch plan), built beside the
+others, and each pair is timed in turns (new,
+earlier, earlier, new); phases 3, 10 and 11 then also print the earlier
+B2's, B4's and B5's instruction classes.  Phase 3 also holds B2 and B4 (both passes)
 bitwise to their plain versions on 99 u8 frames of 4000x6000 with
 affine maps, and times them (with ``--baseline``, paired with the
 earlier design).
@@ -209,11 +223,13 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe")
-# the sources an earlier design is timed from (--baseline): B2 / B4, B6
-# and B9
+# the sources an earlier design is timed from (--baseline), where the
+# directory holds them: B2 / B4 (warp_accum.cu of commit b279a66), B6
+# (sr_deposit.cu of 60e5e20), planar B5 and B9 (warp.cu of 0c2d687)
 BASELINE_KERNELS = ("sr_deposit", "warp", "warp_accum")
-# pixels a thread of warp_accum.cu's B2 and B4 (a SASS loop iteration)
-B2_PIXELS, B4_PIXELS = 4, 2
+# pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
+# B5 (a SASS loop iteration)
+B2_PIXELS, B4_PIXELS, B5_PIXELS = 4, 2, 4
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -228,7 +244,14 @@ B2_AFFINE_INSTANCE = "warp_accum_kernelIhLb0EE"  # u8 source, affine
 B2_EARLIER_INSTANCE = "warp_accum_kernelIhE"  # the thread-a-pixel design
 B4_EARLIER_INSTANCE = "warp_moments_kernelIhLb1E"
 B4M_EARLIER_INSTANCE = "warp_moments_kernelIhLb0E"
-B5_INSTANCE = "11warp_kernelILi1EE"  # planar, BORDER_REPLICATE
+# planar B5 in its timed modes (homography), and its thread-a-value
+# design
+B5_INSTANCES = {"constant": "11warp_kernelILi0ELb1EE",
+                "replicate": "11warp_kernelILi1ELb1EE",
+                "wrap": "11warp_kernelILi3ELb1EE"}
+B5_EARLIER_INSTANCES = {"constant": "11warp_kernelILi0EE",
+                        "replicate": "11warp_kernelILi1EE",
+                        "wrap": "11warp_kernelILi3EE"}
 B5F_INSTANCE = "frames_kernelILi1EhE"  # u8 frames, BORDER_REPLICATE
 B5A_INSTANCE = "accum_kernelILi1EhE"
 B3_INSTANCE = "extract_kernelIhE"
@@ -523,21 +546,31 @@ BASELINE_DIR: list = []
 
 
 def load_baseline(path: str) -> None:
-    """Build the earlier design's sources in ``path`` and bind their C
-    entry points (the interfaces B6 and B9 had before their launch
-    plans; B2's with its border value on the card)."""
+    """Build the earlier designs' sources that ``path`` holds and bind
+    their C entry points (``BASELINE_KERNELS``' commits): B6's before
+    its launch plan, B2 with its border value on the card and B4, planar
+    B5 with its border and source index on the card and B9 with its
+    plan."""
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
-    cuda_build.build(*BASELINE_KERNELS, csrc=d)
+    names = [n for n in BASELINE_KERNELS if (d / f"{n}.cu").exists()]
+    if not names:
+        fail(f"--baseline {d} holds none of "
+             + ", ".join(f"{n}.cu" for n in BASELINE_KERNELS))
+    cuda_build.build(*names, csrc=d)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, fn, argtypes in (
         ("sr_deposit", "sr_deposit",
          [vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf, vp]),
-        ("warp", "warp3_bilinear", [vp] * 3 + [ci] * 4 + [vp]),
+        ("warp", "warp_bilinear", [vp] * 5 + [ci] * 9 + [vp]),
+        ("warp", "warp3_bilinear", [vp] * 3 + [ci] * 4 + [ctypes.c_uint, ci,
+                                                          vp]),
         ("warp_accum", "warp_accum_rgb", [vp] * 5 + [ci] * 5 + [cf, vp]),
         ("warp_accum", "warp_moments_rgb", [vp] * 8 + [ci] * 5 + [cf, vp]),
     ):
+        if name not in names:
+            continue
         lib = cuda_build.load(name, d)
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ci
@@ -560,16 +593,18 @@ def resources(name: str, piece: str, csrc=None) -> dict:
     return next((v for k, v in found.items() if piece in k), {})
 
 
-def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1):
+def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1,
+              homography: bool = True, whole: bool = False):
     """Print the instructions a pixel-frame by class of the frame loop of
     the kernel of build ``name`` whose mangled name contains ``piece``
-    (``utils/sass.py``; ``pixels`` a loop iteration); return them (None
-    where cuobjdump is missing)."""
+    (``utils/sass.py``; ``pixels`` a loop iteration, ``homography`` False
+    for the path with no MUFU, ``whole`` for a kernel with no loop);
+    return them (None where cuobjdump is missing)."""
     from libstacker_tpu_torch.utils import cuda_build, sass
 
     lib = cuda_build.library_path(name, csrc or cuda_build.CSRC)
     try:
-        found = sass.kernel_loop(lib, piece, pixels)
+        found = sass.kernel_loop(lib, piece, pixels, homography, whole)
     except (RuntimeError, subprocess.CalledProcessError) as e:
         log(f"    {label} SASS: not read ({e})")
         return None
@@ -577,7 +612,8 @@ def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1):
     if not found:
         return None
     return dict(per_pixel_frame=found["per_pixel"],
-                total=found["per_pixel_total"], pixels_a_thread=pixels)
+                total=found["per_pixel_total"], pixels_a_thread=pixels,
+                mufu=found["mufu"])
 
 
 def fmt_resources(r: dict) -> str:
@@ -681,15 +717,34 @@ def b4_call(lib, frames, minv, vf, mu=None, tol=None, perspective=1):
 
 def b9_earlier(srcs, minv):
     """The earlier B9 design (perspective maps)."""
+    from libstacker_tpu_torch.ops import warp_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
     lib = BASELINE["warp"]
     b = minv.shape[0]
     _, h, w = srcs.shape
     out = torch.empty((b, 3, h, w), dtype=torch.float32, device=srcs.device)
+    tiles, vector = warp_cuda.warp3_plan(h, w)
     err = lib.warp3_bilinear(srcs.data_ptr(), minv.data_ptr(), out.data_ptr(),
-                             b, h, w, 1, _stream())
+                             b, h, w, 1, tiles, int(vector), _stream())
     cuda_build.check(lib, err, "earlier warp3_bilinear")
+    return out
+
+
+def b5_earlier(src, minv, border, sidx, mode):
+    """The thread-a-value planar B5 (perspective maps, the source
+    grid), its border values and source indices on the card as its
+    wrapper passed them."""
+    from libstacker_tpu_torch.ops import warp_cuda
+    from libstacker_tpu_torch.utils import cuda_build
+
+    lib = BASELINE["warp"]
+    g, (_, h, w) = minv.shape[0], src.shape
+    out = torch.empty((g, h, w), dtype=torch.float32, device=src.device)
+    err = lib.warp_bilinear(src.data_ptr(), minv.data_ptr(), border.data_ptr(),
+                            sidx.data_ptr(), out.data_ptr(), g, h, w, h, w,
+                            warp_cuda._MODE_CODE[mode], 1, 0, 0, _stream())
+    cuda_build.check(lib, err, "earlier warp_bilinear")
     return out
 
 
@@ -867,7 +922,7 @@ def phase_b2(dev):
                         earlier_ms, B2_EARLIER_INSTANCE)
     rec["sass"] = sass_line("B2 u8", "warp_accum", B2_INSTANCE,
                             pixels=B2_PIXELS)
-    if BASELINE_DIR:
+    if "warp_accum" in BASELINE:
         rec["earlier_design_sass"] = sass_line(
             "B2 u8 earlier design", "warp_accum", B2_EARLIER_INSTANCE,
             BASELINE_DIR[0])
@@ -1544,7 +1599,7 @@ def phase_b4(dev, frames, truth):
                             pixels=B4_PIXELS)
     rec["moments_pass_sass"] = sass_line("B4 u8 moments pass", "warp_accum",
                                          B4M_INSTANCE, pixels=B4_PIXELS)
-    if BASELINE_DIR:
+    if "warp_accum" in BASELINE:
         rec["earlier_design_sass"] = sass_line(
             "B4 u8 clip pass earlier design", "warp_accum",
             B4_EARLIER_INSTANCE, BASELINE_DIR[0])
@@ -1575,6 +1630,18 @@ def grid_for(minv, hw, src_hw):
     return grid
 
 
+def row_strip(planes, oy0: int, h_loc: int, halo: int):
+    """The strip the row warp warps for the band of ``h_loc`` rows from
+    ``oy0`` of ``planes`` [S,H,W]: ``halo`` rows above and below, zero
+    off the frame (``parallel/mesh.py`` ``_halo_ext``); with its row
+    origins ``(oy0, oy0 - halo)``."""
+    s, h, w = planes.shape
+    strip = planes.new_zeros((s, h_loc + 2 * halo, w))
+    lo, hi = max(oy0 - halo, 0), min(oy0 + h_loc + halo, h)
+    strip[:, lo - (oy0 - halo):hi - (oy0 - halo)] = planes[:, lo:hi]
+    return strip, (oy0, oy0 - halo)
+
+
 def phase_b5(dev, frames, truth):
     """B5 on the 60 planes of phase 9's burst, each slot its frame's
     inverse map, as ``warp_frames_batch`` calls it."""
@@ -1591,23 +1658,95 @@ def phase_b5(dev, frames, truth):
     bv = torch.linspace(0.1, 0.9, g, device=dev)
     modes = ("constant", "transparent", "replicate", "reflect",
              "reflect101", "wrap")
-    cases = [(m, None, None) for m in modes]
+    cases = [(m, src, minv, bv, None, None, (0, 0)) for m in modes]
     # slots sharing sources (each frame's three slots read its first
     # plane), and an output grid other than the source's
     shared = (torch.arange(g, device=dev) // c) * c
-    cases += [("replicate", shared, None), ("wrap", None, (h - 112, w + 128))]
+    cases += [("replicate", src, minv, bv, shared, None, (0, 0)),
+              ("wrap", src, minv, bv, None, (h - 112, w + 128), (0, 0))]
+    # the row warp's call (parallel/mesh.py warp_rows_sharded): a border
+    # by value, no src_index; on the whole frame, then on its strips of
+    # 3 planes of rows_frame's image with its map, and of the 60 planes
+    # with their maps (first and last band), the first strip starting
+    # MESH_HALO rows above the frame
+    row_cases = [("constant", src, minv, 0.0, None, None, (0, 0)),
+                 ("constant", src, minv, 0.25, None, None, (0, 0)),
+                 ("reflect101", src, minv, 0.25, None, None, (0, 0))]
+    rgb, m3 = rows_frame(dev)
+    m_rows = warp.invert_3x3(torch.from_numpy(m3).to(dev))
+    m_rows = m_rows.expand(3, 3, 3).contiguous()
+    h_loc = h // 4
+    bands = [(j, rgb.permute(2, 0, 1), m_rows) for j in range(4)]
+    for j, planes, maps in bands + [(0, src, minv), (3, src, minv)]:
+        strip, rows = row_strip(planes, j * h_loc, h_loc, MESH_HALO)
+        row_cases.append(("constant", strip, maps, 0.0, None, (h_loc, w),
+                          rows))
+    del rgb, bands
     equal = True
     max_abs = 0.0
-    for mode, sidx, out_hw in cases:
-        got = warp_cuda.warp_bilinear(src, minv, bv, sidx, out_hw, False, mode)
-        want = warp_cuda.warp_bilinear_reference(src, minv, bv, sidx, out_hw,
-                                                 False, mode)
+    row_warp_equal = True
+    for k, (mode, s_k, m_k, b_k, sidx, out_hw, rows) in enumerate(
+            cases + row_cases):
+        got = warp_cuda.warp_bilinear(s_k, m_k, b_k, sidx, out_hw, False,
+                                      mode, rows)
+        want = warp_cuda.warp_bilinear_reference(s_k, m_k, b_k, sidx, out_hw,
+                                                 False, mode, rows)
         torch.cuda.synchronize()
-        equal &= bool(torch.equal(got, want))
+        same = bool(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)))
+        equal &= same
+        if k >= len(cases):
+            row_warp_equal &= same
         max_abs = max(max_abs, float((got - want).abs().max()))
         del got, want
-    ms = time_ms(lambda: warp_cuda.warp_bilinear(
-        src, minv, border_mode="replicate"), 10)
+    del cases, row_cases
+    log(f"    B5 as the row warp calls it (border 0.0 / 0.25 by value, no "
+        f"src_index; strips of {h_loc + 2 * MESH_HALO} rows, rows "
+        f"(oy0, oy0 - {MESH_HALO}), bands 0-3 of 3 planes and 0, 3 of "
+        f"{g}): bitwise equal {row_warp_equal}")
+    hw = h * w
+    bound_ms, bound_by = bound(g * hw * 4.0 * 2 + g * 40.0,
+                               g * hw * float(B5_OPS))
+    # the design and, with --baseline, the earlier one in turns, in
+    # BORDER_CONSTANT (the row warp's), REPLICATE and WRAP, with their
+    # registers, share of the bound and instructions an output value
+    zeros = torch.zeros(g, device=dev)
+    planes = torch.arange(g, dtype=torch.int32, device=dev)
+    timed = {}
+    for mode in B5_INSTANCES:
+        def run(mode=mode):
+            return warp_cuda.warp_bilinear(src, minv, border_mode=mode)
+
+        old = earlier("warp", lambda mode=mode: b5_earlier(
+            src, minv, zeros, planes, mode))
+        if old is not None:
+            same = bool(torch.equal(run().view(torch.int32),
+                                    old().view(torch.int32)))
+            log(f"    B5 {mode}: bitwise the earlier design {same}")
+            equal &= same
+        t_new, t_old = paired_ms(run, old, 10)
+        rec = dict(ms=t_new, **design_report(
+            f"B5 {mode}", "warp", B5_INSTANCES[mode], t_new, bound_ms, t_old,
+            B5_EARLIER_INSTANCES[mode]))
+        own = sass_line(f"B5 {mode}, a slot on its own map", "warp",
+                        B5_INSTANCES[mode], pixels=B5_PIXELS)
+        # the path with no reciprocal: the previous slot's coordinates
+        reuse = sass_line(f"B5 {mode}, a slot on the previous slot's map",
+                          "warp", B5_INSTANCES[mode], pixels=B5_PIXELS,
+                          homography=False)
+        rec.update(sass_own_map=own, sass_shared_map=reuse)
+        if own and reuse:
+            # each frame's c planes: one map computed, c - 1 reused
+            rec["instructions_a_value"] = (
+                own["total"] + (c - 1) * reuse["total"]) / c
+            log(f"    B5 {mode}: {rec['instructions_a_value']:.1f} "
+                f"instructions an output value here ({c} planes a map)")
+        if t_old is not None:
+            rec["earlier_design_sass"] = sass_line(
+                f"B5 {mode}, earlier design", "warp",
+                B5_EARLIER_INSTANCES[mode], BASELINE_DIR[0], whole=True)
+        timed[mode] = rec
+    ms = timed["replicate"]["ms"]
     plain_ms = time_ms(lambda: warp_cuda.warp_bilinear_reference(
         src, minv, border_mode="replicate"), 1)
     grid = grid_for(minv, (h, w), (h, w))
@@ -1615,25 +1754,24 @@ def phase_b5(dev, frames, truth):
         src[:, None], grid, mode="bilinear", padding_mode="border",
         align_corners=True), 10)
     del grid
-    hw = h * w
-    bound_ms, bound_by = bound(g * hw * 4.0 * 2 + g * 40.0,
-                               g * hw * float(B5_OPS))
+    # the same bytes moved by a device copy: what the card reaches on
+    # B5's traffic with no arithmetic at all
+    copy_ms = time_ms(lambda: torch.empty_like(src).copy_(src), 10)
     log(f"[11 B5 warp] {g} planes of {h}x{w} ({n} RGB frames) in each of "
         f"{', '.join(modes)}, plus shared sources and a {h - 112}x{w + 128} "
         f"grid: bitwise equal {equal}; kernel {ms:.3f} ms vs plain "
         f"{plain_ms:.3f} ms (replicate), library grid_sample "
         f"{library_ms:.3f} ms (border padding, grid precomputed, no 1/32 "
-        f"quantisation), bound {bound_ms:.3f} ms ({bound_by}) "
-        f"-> {'OK' if equal else 'MISMATCH'}")
+        f"quantisation), a copy of the same bytes {copy_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}) -> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B5 disagrees with its plain version")
-    b5 = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+    b5 = dict(max_abs_err=max_abs, plain_ms=plain_ms,
               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
               library_note="grid_sample(bilinear, border, align_corners) "
                            "on a precomputed grid; it does not quantise "
                            "to 1/32 px",
-              **design_report("B5 replicate", "warp", B5_INSTANCE, ms,
-                              bound_ms, None))
+              copy_ms=copy_ms, **timed["replicate"], modes=timed)
     del src
     torch.cuda.empty_cache()
     return (b5, *phase_b5_frames(dev, frames, truth, modes))
@@ -3224,16 +3362,22 @@ def phase_mesh(dev):
     ).permute(1, 2, 0)
 
     def rows_cmp(out):
-        d = (out - want).abs()
-        frac = float((d > 1e-4).float().mean())
-        return frac < 1e-3 and float(d.max()) < 3.0, (
-            f"vs the dense warp: > 1e-4 on {frac:.2e} (bar 1e-3), max "
-            f"{float(d.max()):.3e} (bar 3.0), bitwise "
-            f"{bool(torch.equal(out, want))}")
+        # every tap of the 1-degree map lies within the halo: each band
+        # is the dense warp's rows, bit for bit
+        same = bool(torch.equal(out.view(torch.int32), want.view(torch.int32)))
+        return same, (f"vs the dense warp: bitwise {same} (max diff "
+                      f"{float((out - want).abs().max()):.3e})")
 
     case(f"warp_rows_sharded, {FULL_H}x{FULL_W}x3 f32, halo {MESH_HALO}",
          lambda: pmesh.warp_rows_sharded(rgb, m3, rows, halo=MESH_HALO),
          ("warp",), rows_cmp)
+    band = profile_line(
+        f"row warp's B5, 4 bands of 3 planes of {FULL_H // 4}x{FULL_W} "
+        f"from strips of {FULL_H // 4 + 2 * MESH_HALO} rows",
+        lambda: pmesh.warp_rows_sharded(rgb, m3, rows, halo=MESH_HALO),
+        "::warp_kernel<")
+    lines.append(f"row warp's B5: {band['kernel_device_ms'] / 4:.4f} ms of "
+                 f"device time a band")
     del rgb, want
 
     greys = color.rgb_to_gray_u8(make_burst(FULL_N, FULL_H, FULL_W, seed=0,
@@ -3374,6 +3518,7 @@ def phase_dcn(dev):
     fails the phase."""
     import shutil
 
+    from libstacker_tpu_torch.ops import warp, warp_cuda
     from libstacker_tpu_torch.parallel import mesh as pmesh
 
     t_phase = time.perf_counter()
@@ -3381,7 +3526,15 @@ def phase_dcn(dev):
     one, cold_s, warm_s, one_launches = drive(
         lambda: dcn_run(pmesh.make_mesh([dev] * 2, data=1, spatial=2),
                         inputs))
-    del inputs
+    # the one-process row warp against the dense warp, bit for bit
+    rgb, m3 = inputs[0], inputs[1]
+    minv = warp.invert_3x3(torch.from_numpy(m3).to(dev))
+    dense = warp_cuda.warp_bilinear(
+        rgb.permute(2, 0, 1).contiguous(), minv.expand(3, 3, 3).contiguous()
+    ).permute(1, 2, 0)
+    one_dense = bool(torch.equal(one["warp"].view(torch.int32),
+                                 dense.view(torch.int32)))
+    del inputs, rgb, dense
     torch.cuda.empty_cache()
     outdir = REPO / "build" / "smoke_dcn"
     shutil.rmtree(outdir, ignore_errors=True)
@@ -3434,7 +3587,7 @@ def phase_dcn(dev):
             + ", ".join(f"{k} {v}" for k, v in equal.items())
             + f" -> {'OK' if ok_r else 'FAILED'}")
     one_ok = bool(one["ok"].all())
-    good = good and one_ok
+    good = good and one_ok and one_dense
     shutil.rmtree(outdir, ignore_errors=True)
     log(f"[27 spatial across processes] warp_rows_sharded "
         f"({FULL_H}x{FULL_W}x3 f32), sharpness_teng_spatial ({DCN_N} "
@@ -3445,22 +3598,24 @@ def phase_dcn(dev):
         f"{torch.cuda.get_device_name(0)} | one-process mesh: cold "
         f"{cold_s:.3f} s, warm {warm_s:.3f} s, launches "
         + ", ".join(f"{k} {one_launches[k]}" for k in DCN_KERNELS)
-        + f", kept {int(one['ok'].sum())}/{DCN_N - 1} | workers "
+        + f", kept {int(one['ok'].sum())}/{DCN_N - 1}, row warp bitwise "
+        f"the dense warp {one_dense} | workers "
         f"{workers_s:.1f} s | phase {time.perf_counter() - t_phase:.1f} s "
         f"-> {'OK' if good else 'FAILED'}")
     for line in lines:
         log(f"    {line}")
     if not good:
-        fail("phase 27: a rank's results differ from the one-process mesh "
-             "or a kernel of the path did not launch")
+        fail("phase 27: a rank's results differ from the one-process mesh, "
+             "its row warp from the dense warp, or a kernel of the path did "
+             "not launch")
     return results
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time an earlier design of B2 / B4, B6 and B9 from "
-                         "the sources in DIR beside the current one")
+                    help="time an earlier design of B2 / B4, B5, B6 and B9 "
+                         "from the sources in DIR beside the current one")
     ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

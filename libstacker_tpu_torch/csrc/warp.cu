@@ -21,18 +21,42 @@
 // another path.  B9 warps three shared planes (ECC's image, gx, gy) with
 // one coordinate and weight set per pixel, BORDER_CONSTANT 0.
 //
-// What bounds them on the H100.  Each output value is written once (4 B)
-// and each source pixel is read about once from DRAM (the 4 taps of
-// neighbouring threads share cache lines): 2 x 33 MB per 4K plane, ~20 us
-// at 3.35 TB/s.  Against that, ~45 separately rounded float operations
-// and 4 gathers per output value; for 60 planes of 4K ~2.2e10
-// operations, ~0.34 ms at 67 T/s, so operations bind.  The residual band,
-// (8,128)-aligned window DMAs and dynamic rolls of the TPU kernels exist
-// only for VMEM windows; a thread here reads any source pixel.
+// What bounds B5's planar form on the H100.  Each output value is
+// written once (4 B) and each source pixel is read about once from DRAM
+// (the four taps of neighbouring pixels share cache lines): for 60
+// slots of 4K, 2.0 GB out and 2.0 GB in, 1.19 ms at 3.35 TB/s.  The
+// first design (one thread an output value) spent 168-223 instructions
+// an output value (utils/sass.py) and ran at a third of that bound on an
+// H100: a 64-bit division to split its index, the compiler's IEEE
+// 1.0f / sw, the bins on the conversion pipe (rint, floor, the
+// float-to-int casts: 16 a clock per SM against FP32's 128), an integer
+// modulo per tap in the wrapping and reflecting modes even inside the
+// frame, the map and the border value read from global memory by every
+// thread, and plain stores that kept the output in L2 over the sources.
 //
-// Design: one thread per output pixel and slot (B5) or per four output
-// pixels of a row and one lane covering the three planes (B9);
-// coordinates exactly as warp_accum.cu and ops/warp.py evaluate them.
+// Design (warp_kernel).  A block is four warps on four output rows; a
+// lane takes B5_PIXELS pixels of its row strided by 32 (each tap load of
+// a warp covers 32 neighbouring pixels) and loops over up to B5_SLOTS
+// slots, whose maps, border values and source planes the block stages
+// in shared memory once.  The grid is 1-D, the slots slowest.  Per
+// pixel and map, with 32-bit indexing and the row products m1*y, m4*y,
+// m7*y formed once: the coordinates as ops/warp.py:56-62 writes them,
+// the correctly rounded reciprocal and the bins off the conversion pipe
+// (csrc/warp_bins.cuh), the tap offset and the two weights.  A slot whose
+// map is bitwise the previous slot's (the channel planes of a frame)
+// reuses all of that and pays only its four loads and the lerp.  When
+// every reciprocal took the fast path and every tap of the thread's
+// pixels lies inside the strip, the taps are read with no border select
+// or index map (one branch a thread and map); otherwise each pixel takes
+// the plain expressions, where the index-mapping modes map only the
+// taps off the frame.  The output leaves by scalar streaming stores
+// (__stcs, evict-first), 128 contiguous bytes a warp.  Measured on an
+// H100 for 60 4K slots, three planes a map, where bytes bind (a device
+// copy of the same bytes takes about 0.8 of its time): four
+// consecutive pixels a lane with one 16-byte store ran 1-2 % slower
+// (its tap loads span four times the sectors), 12 slots a block 1-3 %
+// slower than 3 (more planes streaming at once), 6 as fast, and the
+// same kernel without the map reuse 6 % slower.
 //
 // Row origins (oy0, sy0; 0 and 0 on every whole-frame path).  A row band
 // of a larger frame (parallel/mesh.py: warp_rows_sharded and
@@ -91,6 +115,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_bins.cuh"  // rcp_fast, quant, frac32
 
 namespace {
 
@@ -243,26 +269,38 @@ __device__ __forceinline__ float sample(const T* __restrict__ f,
   return lerp2(t00, t01, t10, t11, t.fx, t.fy);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
-            const float* __restrict__ border,
-            const int32_t* __restrict__ src_index, float* __restrict__ out,
-            int H, int W, int OH, int OW, int perspective, int oy0, int sy0) {
-  const size_t ohw = (size_t)OH * OW;
-  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= ohw) return;
-  const int g = blockIdx.y;
-  const int y = (int)(p / OW);
-  const int x = (int)(p - (size_t)y * OW);
-  const float* m = minv + 9 * g;
-  const float* s = src + (size_t)src_index[g] * H * W;
+// B5, planar form: see the header.  A block's four warps take four
+// output rows, a lane B5_PIXELS pixels of its row (x = x0 + lane + 32k),
+// and each thread loops over the block's slots.
+constexpr int B5_ROWS = 4;
+constexpr int B5_THREADS = 32 * B5_ROWS;
+constexpr int B5_PIXELS = 4;
+constexpr int B5_TILE = 32 * B5_PIXELS;  // output columns a block
+constexpr int B5_SLOTS = 3;              // slots a block
+
+// One slot as a block stages it: its inverse map, border value and
+// source plane; `same` where the map is bitwise the previous slot's
+struct Slot {
+  float m[9];
+  float border;
+  int same;
+  const float* plane;
+};
+
+// The plain expressions for output pixel (xs, ys) of slot sl, as the
+// first design and ops/warp.py evaluate them; the index-mapping
+// modes map only the taps off the strip.
+template <int MODE, bool PERSP>
+__device__ __forceinline__ float plain_value(const Slot& sl,
+                                             const float* __restrict__ s,
+                                             float xs, float ys, int H, int W,
+                                             float sy0f) {
   float x0f, y0f, fx, fy;
-  coords(m, (float)x, (float)(y + oy0), perspective, x0f, y0f, fx, fy);
-  y0f -= (float)sy0;
+  coords(sl.m, xs, ys, PERSP, x0f, y0f, fx, fy);
+  y0f -= sy0f;
   float t00, t01, t10, t11;
   if constexpr (MODE == CONSTANT) {
-    const float bv = border[g];
+    const float bv = sl.border;
     const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
     const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
     const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
@@ -277,15 +315,114 @@ warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
   } else {
     const int x0 = (int)fminf(fmaxf(x0f, -INDEX_LIMIT), INDEX_LIMIT);
     const int y0 = (int)fminf(fmaxf(y0f, -INDEX_LIMIT), INDEX_LIMIT);
-    const int mx0 = map_index<MODE>(x0, W), mx1 = map_index<MODE>(x0 + 1, W);
-    const size_t r0 = (size_t)map_index<MODE>(y0, H) * W;
-    const size_t r1 = (size_t)map_index<MODE>(y0 + 1, H) * W;
+    const int mx0 = map_tap<MODE>(x0, W), mx1 = map_tap<MODE>(x0 + 1, W);
+    const size_t r0 = (size_t)map_tap<MODE>(y0, H) * W;
+    const size_t r1 = (size_t)map_tap<MODE>(y0 + 1, H) * W;
     t00 = s[r0 + mx0];
     t01 = s[r0 + mx1];
     t10 = s[r1 + mx0];
     t11 = s[r1 + mx1];
   }
-  out[(size_t)g * ohw + p] = lerp2(t00, t01, t10, t11, fx, fy);
+  return lerp2(t00, t01, t10, t11, fx, fy);
+}
+
+// fast_w, fast_y0, fast_h: a tap origin (tx, ty) with tx < fast_w and
+// fast_y0 <= ty < fast_y0 + fast_h has its four taps in the strip and
+// exact integer bins (launch_planar)
+template <int MODE, bool PERSP>
+__global__ void __launch_bounds__(B5_THREADS)
+warp_kernel(const float* __restrict__ src, const float* __restrict__ minv,
+            const float* __restrict__ border, float border_value,
+            const int32_t* __restrict__ src_index, float* __restrict__ out,
+            int G, int H, int W, int OH, int OW, int tiles_x, int bands,
+            int oy0, int sy0, unsigned fast_w, int fast_y0,
+            unsigned fast_h) {
+  constexpr int P = B5_PIXELS;
+  __shared__ Slot slots[B5_SLOTS];
+  const unsigned tile = blockIdx.x % (unsigned)tiles_x;
+  const unsigned rest = blockIdx.x / (unsigned)tiles_x;
+  const int band = (int)(rest % (unsigned)bands);
+  const int g0 = (int)(rest / (unsigned)bands) * B5_SLOTS;
+  const int count = min(B5_SLOTS, G - g0);
+  if ((int)threadIdx.x < count) {
+    const int j = (int)threadIdx.x, g = g0 + j;
+    const float* m = minv + 9 * (size_t)g;
+    bool same = j > 0;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      slots[j].m[i] = m[i];
+      if (j > 0) same &= __float_as_uint(m[i]) == __float_as_uint(m[i - 9]);
+    }
+    slots[j].same = same;
+    slots[j].border = border ? border[g] : border_value;
+    slots[j].plane = src + (size_t)(src_index ? src_index[g] : g) * H * W;
+  }
+  __syncthreads();
+  const int y = band * B5_ROWS + (int)(threadIdx.x >> 5);
+  if (y >= OH) return;
+  const int x0 = (int)tile * B5_TILE + (int)(threadIdx.x & 31);
+  float xs[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) xs[k] = (float)min(x0 + 32 * k, OW - 1);
+  const float ys = (float)(y + oy0), sy0f = (float)sy0;
+  const size_t ohw = (size_t)OH * OW;
+  float* orow = out + (size_t)g0 * ohw + (size_t)y * OW + x0;
+  // the last map's tap offsets, weights and whether it took the fast path
+  bool fast = false;
+  unsigned off[P];
+  float fx[P], fy[P], gx[P], gy[P];
+#pragma unroll 1
+  for (int j = 0; j < count; ++j, orow += ohw) {
+    const Slot& sl = slots[j];
+    if (!sl.same) {
+      const float r1 = sl.m[1] * ys, r4 = sl.m[4] * ys, r7 = sl.m[7] * ys;
+      fast = true;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        float sx = (sl.m[0] * xs[k] + r1) + sl.m[2];
+        float sy = (sl.m[3] * xs[k] + r4) + sl.m[5];
+        if (PERSP) {
+          const float sw = (sl.m[6] * xs[k] + r7) + sl.m[8];
+          bool ok;
+          const float inv = rcp_fast(sw, ok);
+          fast &= ok;
+          sx = sx * inv;
+          sy = sy * inv;
+        }
+        const int qx = quant<PERSP>(sx), qy = quant<PERSP>(sy);
+        const int tx = qx >> 5, ty = (qy >> 5) - sy0;
+        fast &= (unsigned)tx < fast_w && (unsigned)(ty - fast_y0) < fast_h;
+        off[k] = (unsigned)ty * (unsigned)W + (unsigned)tx;
+        fx[k] = frac32(qx);
+        fy[k] = frac32(qy);
+        gx[k] = 1.0f - fx[k];
+        gy[k] = 1.0f - fy[k];
+      }
+    }
+    const float* plane = sl.plane;
+    float v[P];
+    if (fast) {
+      const float* below = plane + W;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        // __ldg: global loads through the read-only path, one 32-bit
+        // offset each from the plane (a pointer from shared memory would
+        // read as a generic one)
+        const float* t0 = plane + off[k];
+        const float* t1 = below + off[k];
+        const float top = __ldg(t0) * gx[k] + __ldg(t0 + 1) * fx[k];
+        const float bot = __ldg(t1) * gx[k] + __ldg(t1 + 1) * fx[k];
+        v[k] = top * gy[k] + bot * fy[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        v[k] = plain_value<MODE, PERSP>(sl, plane, xs[k], ys, H, W, sy0f);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (x0 + 32 * k < OW) __stcs(orow + 32 * k, v[k]);
+  }
 }
 
 // B9: one thread per W3PX consecutive pixels of a row and one lane, the
@@ -438,32 +575,62 @@ cudaError_t frames_by_mode(int mode, const void* frames, const float* minv,
   }
 }
 
+// The grid and the fast path's extents of a planar launch, then the
+// launch: a tap origin is fast where its four taps lie in the strip and
+// its bins are exact (below 2^18 per axis, 2^13 for the affine bins, and
+// not negative), and where a strip's offsets fit 32 bits.
+template <int MODE, bool PERSP>
+cudaError_t launch_planar(const float* src, const float* minv,
+                          const float* border, float border_value,
+                          const int32_t* sidx, float* out, int G, int H,
+                          int W, int OH, int OW, int oy0, int sy0,
+                          cudaStream_t st) {
+  const long long tiles_x = (OW + B5_TILE - 1) / B5_TILE;
+  const long long bands = (OH + B5_ROWS - 1) / B5_ROWS;
+  const long long blocks =
+      tiles_x * bands * ((G + B5_SLOTS - 1) / B5_SLOTS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long lim = PERSP ? BIN_LIMIT_PERSP : BIN_LIMIT_AFFINE;
+  const bool narrow = (long long)H * W <= 0xffffffffLL;
+  const long long ty_lo = sy0 < 0 ? -(long long)sy0 : 0;
+  const long long ty_hi = H - 1 < lim - sy0 ? H - 1 : lim - sy0;
+  const unsigned fast_w = narrow ? (unsigned)(W - 1 < lim ? W - 1 : lim) : 0u;
+  const unsigned fast_h =
+      narrow && ty_hi > ty_lo ? (unsigned)(ty_hi - ty_lo) : 0u;
+  warp_kernel<MODE, PERSP><<<(unsigned)blocks, B5_THREADS, 0, st>>>(
+      src, minv, border, border_value, sidx, out, G, H, W, OH, OW,
+      (int)tiles_x, (int)bands, oy0, sy0, fast_w, (int)ty_lo, fast_h);
+  return cudaGetLastError();
+}
+
 template <int MODE>
 cudaError_t launch(const float* src, const float* minv, const float* border,
-                   const int32_t* sidx, float* out, int G, int H, int W,
-                   int OH, int OW, int perspective, int oy0, int sy0,
-                   cudaStream_t st) {
-  const size_t ohw = (size_t)OH * OW;
-  const dim3 grid((unsigned)((ohw + THREADS - 1) / THREADS), (unsigned)G);
-  warp_kernel<MODE><<<grid, THREADS, 0, st>>>(src, minv, border, sidx, out,
-                                              H, W, OH, OW, perspective, oy0,
-                                              sy0);
-  return cudaGetLastError();
+                   float border_value, const int32_t* sidx, float* out, int G,
+                   int H, int W, int OH, int OW, int perspective, int oy0,
+                   int sy0, cudaStream_t st) {
+  return perspective
+             ? launch_planar<MODE, true>(src, minv, border, border_value,
+                                         sidx, out, G, H, W, OH, OW, oy0,
+                                         sy0, st)
+             : launch_planar<MODE, false>(src, minv, border, border_value,
+                                          sidx, out, G, H, W, OH, OW, oy0,
+                                          sy0, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// src [S,H,W] f32, minv [G,3,3] f32 inverse maps, border [G] f32 (read in
-// BORDER_CONSTANT only), src_index [G] i32 (each in 0..S-1, checked by
-// the wrapper), out [G,OH,OW] f32.  border_mode is OpenCV's integer
-// (0 constant, 1 replicate, 2 reflect, 3 wrap, 4 reflect101); oy0 / sy0
-// the row origins (header).
+// src [S,H,W] f32, minv [G,3,3] f32 inverse maps, border [G] f32 or
+// null (then border_value for every slot; either read in BORDER_CONSTANT
+// only), src_index [G] i32 (each in 0..S-1, checked by the wrapper) or
+// null (slot g reads plane g), out [G,OH,OW] f32.  border_mode is
+// OpenCV's integer (0 constant, 1 replicate, 2 reflect, 3 wrap, 4
+// reflect101); oy0 / sy0 the row origins (header).
 int warp_bilinear(const void* src, const void* minv, const void* border,
-                  const void* src_index, void* out, int G, int H, int W,
-                  int OH, int OW, int border_mode, int perspective, int oy0,
-                  int sy0, void* stream) {
+                  float border_value, const void* src_index, void* out, int G,
+                  int H, int W, int OH, int OW, int border_mode,
+                  int perspective, int oy0, int sy0, void* stream) {
   if (G <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<const float*>(src);
@@ -472,12 +639,13 @@ int warp_bilinear(const void* src, const void* minv, const void* border,
   auto i = static_cast<const int32_t*>(src_index);
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  const float bv = border_value;
   switch (border_mode) {
-    case CONSTANT: return (int)launch<CONSTANT>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
-    case REPLICATE: return (int)launch<REPLICATE>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
-    case REFLECT: return (int)launch<REFLECT>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
-    case WRAP: return (int)launch<WRAP>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
-    case REFLECT101: return (int)launch<REFLECT101>(s, m, b, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case CONSTANT: return (int)launch<CONSTANT>(s, m, b, bv, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REPLICATE: return (int)launch<REPLICATE>(s, m, b, bv, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REFLECT: return (int)launch<REFLECT>(s, m, b, bv, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case WRAP: return (int)launch<WRAP>(s, m, b, bv, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
+    case REFLECT101: return (int)launch<REFLECT101>(s, m, b, bv, i, o, G, H, W, OH, OW, perspective, oy0, sy0, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import numbers
 from typing import Optional, Tuple
 
 import torch
@@ -129,7 +130,10 @@ def warp_bilinear(
     (oy0, sy0)``: output row y is row ``y + oy0`` of a larger frame whose
     rows from ``sy0`` the sources hold (a row band, ``csrc/warp.cu``).
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/warp.cu`` or raise."""
+    ``csrc/warp.cu`` or raise.  A border that is a Python number goes
+    by value and ``src_index=None`` as a null pointer (the row warp's
+    call builds no tensor); other borders and ``src_index`` go to the
+    card, ``src_index`` range-checked there."""
     g, out_hw = _check_args(src, minv, src_index, out_hw)
     if src.device.type == "cpu":
         return warp_bilinear_reference(src, minv, border_value, src_index,
@@ -144,22 +148,25 @@ def warp_bilinear(
     minv = minv.contiguous()
     _check_cuda(dev, src=src, minv=minv)
     s_n, h, w = src.shape
-    if src_index is None:
-        sidx = torch.arange(g, dtype=torch.int32, device=dev)
+    if isinstance(border_value, numbers.Real):
+        bv, value = None, float(border_value)
     else:
+        bv, value = _per_slot(border_value, g, dev), 0.0
+    sidx = None
+    if src_index is not None:
         sidx = src_index.to(device=dev, dtype=torch.int32).contiguous()
         if bool(((sidx < 0) | (sidx >= s_n)).any()):
             raise ValueError(f"src_index outside 0..{s_n - 1}")
-    bv = _per_slot(border_value, g, dev)
     out = torch.empty((g, *out_hw), dtype=torch.float32, device=dev)
     if g == 0:
         return out
     lib = _lib()
     cuda_build.launch(
         lib, "warp_bilinear", dev,
-        src.data_ptr(), minv.data_ptr(), bv.data_ptr(), sidx.data_ptr(),
-        out.data_ptr(), g, h, w, out_hw[0], out_hw[1], _MODE_CODE[border],
-        int(not quant_affine), int(rows[0]), int(rows[1]),
+        src.data_ptr(), minv.data_ptr(), None if bv is None else bv.data_ptr(),
+        value, None if sidx is None else sidx.data_ptr(), out.data_ptr(), g,
+        h, w, out_hw[0], out_hw[1], _MODE_CODE[border], int(not quant_affine),
+        int(rows[0]), int(rows[1]),
     )
     cuda_build.count(globals(), "launch_count")
     return out
@@ -351,7 +358,8 @@ def _check_cuda(dev, **tensors) -> None:
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("warp")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.warp_bilinear.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+    lib.warp_bilinear.argtypes = ([vp] * 3 + [ctypes.c_float]
+                                  + [vp] * 2 + [ci] * 9 + [vp])
     lib.warp_bilinear.restype = ci
     lib.warp3_bilinear.argtypes = ([vp] * 3 + [ci] * 4
                                    + [ctypes.c_uint, ci, vp])

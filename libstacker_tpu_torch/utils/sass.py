@@ -4,7 +4,8 @@
 does: :func:`dump` disassembles a built library, and
 :func:`loop_classes` counts the instructions of one kernel's innermost
 loop (its largest loop that holds no other) along its main path, in five
-classes:
+classes (:func:`body_classes` the same for a kernel with no loop, from
+its first instruction to an ``EXIT``):
 
 - ``fp32``: FP32 arithmetic, compares and selects;
 - ``conv``: conversions, roundings and the special-function unit (I2F,
@@ -146,13 +147,33 @@ def loop_classes(text: str, pixels: int = 1,
     kernel's innermost loop (``text``: its SASS, from :func:`functions`;
     ``pixels`` the pixel-frames an iteration), with ``static`` the loop
     body's instruction count and ``per_pixel`` the class counts divided
-    by ``pixels``; None if the kernel has no loop."""
+    by ``pixels``; None if the kernel has no loop.  Where several paths
+    carry the most loads, ``homography`` takes the one with ``pixels``
+    MUFU, else the one with none."""
     insns = _parse(text)
     loop = _innermost_loop(insns)
     if loop is None:
         return None
     head, end = loop
-    body = insns[head:end + 1]
+    return _main_path(insns[head:end + 1], pixels, homography,
+                      closes_loop=True)
+
+
+def body_classes(text: str, pixels: int = 1,
+                 homography: bool = True) -> Optional[dict]:
+    """:func:`loop_classes` for a kernel with no loop: the main path from
+    the kernel's first instruction to an ``EXIT`` (``pixels`` the output
+    values a thread)."""
+    insns = _parse(text)
+    if not insns:
+        return None
+    return _main_path(insns, pixels, homography, closes_loop=False)
+
+
+def _main_path(body: List[dict], pixels: int, homography: bool,
+               closes_loop: bool) -> Optional[dict]:
+    """The counts of the main path through ``body``: from its head to its
+    back edge (``closes_loop``) or to an ``EXIT``, forward edges only."""
     addr = {ins["addr"]: i for i, ins in enumerate(body)}
     # leaders of basic blocks: the head, branch targets, after branches
     lead = {0}
@@ -184,8 +205,10 @@ def loop_classes(text: str, pixels: int = 1,
                 neg -= 1
             last = body[e - 1]
             succ = []
+            if not closes_loop and last["op"] == "EXIT":
+                offer(ends, mufu, (ldg, neg), ops)
             if last["op"] == "BRA" and last["target"] is not None:
-                if last["target"] == body[0]["addr"]:
+                if closes_loop and last["target"] == body[0]["addr"]:
                     offer(ends, mufu, (ldg, neg), ops)
                 elif last["target"] in addr and addr[last["target"]] > e - 1:
                     succ.append(block_of[addr[last["target"]]])
@@ -198,7 +221,7 @@ def loop_classes(text: str, pixels: int = 1,
         return None
     want = pixels if homography else 0
     mufu = max(ends, key=lambda m: (ends[m][0][0], -abs(m - want),
-                                    ends[m][0][1]))
+                                      ends[m][0][1]))
     ops = ends[mufu][1]
     counts = {c: 0 for c in CLASSES}
     for full, n in ops.items():
@@ -210,14 +233,16 @@ def loop_classes(text: str, pixels: int = 1,
 
 
 def kernel_loop(lib: Path, piece: str, pixels: int = 1,
-                homography: bool = True) -> Optional[dict]:
+                homography: bool = True, whole: bool = False) -> Optional[dict]:
     """:func:`loop_classes` of the kernel of library ``lib`` whose
-    mangled name contains ``piece`` (None if there is none)."""
+    mangled name contains ``piece`` (None if there is none); ``whole``:
+    :func:`body_classes`, for a kernel with no loop."""
     funcs = functions(dump(lib))
     name = next((k for k in funcs if piece in k), None)
     if name is None:
         return None
-    found = loop_classes(funcs[name], pixels, homography)
+    count = body_classes if whole else loop_classes
+    found = count(funcs[name], pixels, homography)
     if found is not None:
         found["kernel"] = name
     return found

@@ -4,7 +4,8 @@
 // thread (ucontext), __syncthreads switches to the next lane until all
 // have reached it, __shared__ arrays are statics, and the intrinsics are
 // their IEEE float32 definitions.  Build with -ffp-contract=off (nvcc's
-// --fmad=false).  tests/test_torch_warp_accum_design.py rewrites each
+// --fmad=false).  tests/test_torch_warp_accum_design.py and
+// tests/test_torch_warp_design.py rewrite each
 // `kernel<<<blocks, threads, 0, stream>>>(args)` as a host_grid call.
 #pragma once
 #include <ucontext.h>
@@ -25,6 +26,14 @@
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct host_dim3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+// streaming stores and read-only loads: plain ones on the host
+inline void __stcs(float* p, float v) { *p = v; }
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline void __stcs(float4* p, float4 v) { *p = v; }
 inline host_dim3 threadIdx, blockIdx;
 inline ucontext_t host_scheduler;
 inline std::vector<ucontext_t> host_lanes;
@@ -51,14 +60,15 @@ inline void host_lane(int t) {
   host_kernel();
   host_done[t] = true;
 }
-inline void host_grid(unsigned blocks, unsigned threads,
+inline void host_grid(dim3 blocks, unsigned threads,
                       std::function<void()> fn) {
   constexpr size_t kStack = 1 << 16;
   std::vector<char> stacks(threads * kStack);
   host_kernel = fn;
   host_lanes.assign(threads, ucontext_t{});
-  for (unsigned b = 0; b < blocks; ++b) {
-    blockIdx = {b, 0, 0};
+  for (unsigned by = 0; by < blocks.y; ++by)
+  for (unsigned b = 0; b < blocks.x; ++b) {
+    blockIdx = {b, by, 0};
     host_done.assign(threads, false);
     for (unsigned t = 0; t < threads; ++t) {
       getcontext(&host_lanes[t]);
@@ -77,4 +87,8 @@ inline void host_grid(unsigned blocks, unsigned threads,
       }
     }
   }
+}
+inline void host_grid(unsigned blocks, unsigned threads,
+                      std::function<void()> fn) {
+  host_grid(dim3(blocks), threads, fn);
 }

@@ -22,7 +22,8 @@ widths; keypoint slice: equal ``dropped``, homographies mapping the
 image corners within 0.5 px, stacked interior within 0.02.  B1's masked
 form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
-the compiler reorders); B5 in every border mode (its planar form, and its
+the compiler reorders); B5 in every border mode (its planar form, also on
+the host-shim cases of tests/test_torch_warp_design.py, and its
 frames and accumulate forms on u8, u16 and f32 frames) and B9 bitwise; the
 sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
 on the card against the CPU path at the slice bars above.  B7 at B1's
@@ -63,6 +64,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("scipy")
 
+import test_torch_warp_design as warp_design  # noqa: E402
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
@@ -447,6 +449,27 @@ def test_warp_kernel_matches_plain(dev, mode, quant_affine):
                                                  quant_affine, mode)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", list(warp_design.SHAPES))
+@pytest.mark.parametrize("kind", warp_design.KINDS)
+@pytest.mark.parametrize("mode", warp_design.MODES)
+def test_warp_kernel_design_cases(dev, mode, kind, shape):
+    """B5's planar form on the host-shim cases of
+    tests/test_torch_warp_design.py (ties, sw == 0 rows, edges, far and
+    shifted maps, odd widths, runs of equal maps, row origins), through
+    the wrapper with host-side borders and source indices, bitwise equal
+    to its plain version on the card."""
+    for src, minv, bv, sidx, out_hw, rows in warp_design.planar_cases(
+            kind, shape):
+        src, minv = src.to(dev), minv.to(dev)
+        for qa in (False, True):
+            got = warp_cuda.warp_bilinear(src, minv, bv, sidx, out_hw, qa,
+                                          mode, rows)
+            want = warp_cuda.warp_bilinear_reference(src, minv, bv, sidx,
+                                                     out_hw, qa, mode, rows)
+            torch.cuda.synchronize()
+            assert warp_design.bitwise(got, want), (qa, out_hw, rows)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])

@@ -88,3 +88,73 @@ def test_classes():
              "BSSY", "CALL")] == ["fp32", "conv", "conv", "conv", "mem", "mem",
                                   "int", "int", "branch", "branch"]
     assert sass.fmt(None) == "no SASS loop found"
+
+
+# a kernel with no loop (one thread an output value): an early exit, a
+# branch to the division's slow path, then the taps and the store
+_FLAT = """
+		Function : _Z4flatPKfPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, c[0x0][0x170], PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/                   FFMA R2, R0, R4, R5 ;
+        /*0040*/                   FSETP.GEU.AND P1, PT, |R2|, 1e-30, PT ;
+        /*0050*/              @!P1 BRA 0xa0 ;
+        /*0060*/                   MUFU.RCP R3, R2 ;
+        /*0070*/                   LDG.E R6, desc[UR4][R8.64] ;
+        /*0080*/                   LDG.E R7, desc[UR4][R8.64+0x4] ;
+        /*0090*/                   BRA 0xc0 ;
+        /*00a0*/                   CALL.REL.NOINC 0x200 ;
+        /*00b0*/                   LDG.E R6, desc[UR4][R8.64] ;
+        /*00c0*/                   FADD R7, R6, R7 ;
+        /*00d0*/                   STG.E desc[UR4][R10.64], R7 ;
+        /*00e0*/                   EXIT ;
+        /*00f0*/                   BRA 0xf0 ;
+        /*0200*/                   MUFU.RCP R3, R3 ;
+        /*0210*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+@pytest.mark.parametrize("form", ["addresses", "labels"])
+def test_loop_free_body(form):
+    """A kernel with no loop: no loop counts, and the body's main path
+    runs from the first instruction to the last EXIT through the taps,
+    past the early exit and the slow path."""
+    listing = _FLAT if form == "addresses" else _labelled(_FLAT)
+    text = sass.functions(listing)["_Z4flatPKfPf"]
+    # `BRA 0xf0` is the compiler's self-loop after the last EXIT
+    found = sass.body_classes(text)
+    # S2R ISETP EXIT | FFMA FSETP BRA | MUFU LDG LDG BRA | FADD STG EXIT
+    assert found["counts"] == {"fp32": 3, "conv": 1, "mem": 3, "int": 2,
+                               "branch": 4}
+    assert found["ops"]["LDG.E"] == 2 and found["mufu"] == 1
+    assert "CALL.REL.NOINC" not in found["ops"]
+    assert found["per_pixel_total"] == 13
+    assert sass.body_classes(text, 2)["per_pixel_total"] == 6.5
+
+
+def test_path_by_mufu():
+    """Two paths with the same loads: ``homography`` picks the one with
+    a MUFU a pixel, else the one with none (B5's slot that reuses the
+    previous slot's coordinates)."""
+    listing = """
+		Function : _Z5slotsv
+        /*0000*/                   LDS R4, [UR4] ;
+        /*0010*/                   ISETP.NE.AND P0, PT, R4, RZ, PT ;
+        /*0020*/               @P0 BRA 0x50 ;
+        /*0030*/                   FMUL R5, R4, R4 ;
+        /*0040*/                   MUFU.RCP R5, R5 ;
+        /*0050*/                   LDG.E R6, desc[UR6][R2.64] ;
+        /*0060*/                   FFMA R7, R6, R5, R7 ;
+        /*0070*/                   STG.E desc[UR6][R10.64], R7 ;
+        /*0080*/                   ISETP.NE.AND P1, PT, R8, R9, PT ;
+        /*0090*/               @P1 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+"""
+    text = sass.functions(listing)["_Z5slotsv"]
+    fresh = sass.loop_classes(text, 1)
+    shared = sass.loop_classes(text, 1, homography=False)
+    assert fresh["mufu"] == 1 and fresh["total"] == 10
+    assert shared["mufu"] == 0 and shared["total"] == 8
+    # the body's path is one pass: the fresh iteration, then the EXIT
+    assert sass.body_classes(text)["total"] == fresh["total"] + 1

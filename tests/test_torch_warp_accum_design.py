@@ -354,6 +354,7 @@ def _build_host(tmp_path_factory):
     lib = d / "libwarp_accum_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
                     "-fno-fast-math", "-fPIC", "-shared", "-I", str(d),
+                    "-I", str(_SOURCE.parent),
                     "-o", str(lib), str(d / "warp_accum.cpp")],
                    check=True, capture_output=True)
     h = ctypes.CDLL(str(lib))
