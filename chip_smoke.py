@@ -32,7 +32,9 @@ Phases (each prints one line; any failure exits non-zero):
    angle and rBRIEF at Q=109 keypoints) against theirs, bitwise, on the
    same level, with the detector's per-level tail timed both ways: B3's
    patches and the eager chain on them (PR 6's route), and B3h, the
-   top-k, B3d;
+   top-k, B3d; with ``--baseline``, B3d timed in turns with the earlier
+   design (held bitwise to it first), with registers, spills, shared
+   memory, bound share and a thread's instructions (``utils/sass.py``);
 8. the keypoint slice on CUDA against the port's own CPU path on a
    4x540x960 burst (``ok`` flags, corners mapped by H, stacked
    interior);
@@ -54,20 +56,20 @@ Phases (each prints one line; any failure exits non-zero):
     by value, no ``src_index``; on the whole frame and on the strips of
     phase 26's bands of ``rows_frame`` and of the first and last bands
     of the 60 planes, the first strip from 64 rows above the frame);
-    its planar form timed in
-    BORDER_CONSTANT, REPLICATE and WRAP (with ``--baseline``, in turns
-    with the thread-a-value design, held bitwise to it), with its
+    its planar form timed in BORDER_CONSTANT, REPLICATE and WRAP, with its
     registers, share of the bound and instructions an output value on a
-    slot with its own map and on one reusing the previous slot's (the
-    earlier design's: its whole body a value), and a device copy of the
-    same bytes; then B5's frames and accumulate forms on
+    slot with its own map and on one reusing the previous slot's, and a
+    device copy of the same bytes; then B5's frames and accumulate forms on
     frames 1-19 of that burst as u8 and as u16 (one frame dropped) in the
-    six modes, bitwise, with the keypoint stack's BORDER_REPLICATE sum
-    timed both ways: the float32 widening, planes, planar B5 and
-    ``torch.sum`` (PR 6's route), and the accumulate form;
+    six modes, and the accumulate form on their f32 widening, bitwise,
+    with the keypoint stack's BORDER_REPLICATE sum timed both ways: the
+    float32 widening, planes, planar B5 and ``torch.sum`` (the route
+    before the accumulate form), and the accumulate form; then the
+    accumulate form timed in each mode (with ``--baseline``, in turns
+    with the earlier design, held bitwise to it first), with registers,
+    spills, shared memory, bound share and instructions a pixel-frame;
 12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
-    of 3 shared 4K planes (with ``--baseline``, timed against the earlier
-    design in turns, both also by ``torch.profiler``);
+    of 3 shared 4K planes (also by ``torch.profiler``);
 13. B1's masked (4-plane) form against its plain version on 99 homography
     lanes of 2160x3840 with a quarter of the mask zero;
 14. ECC sigma-clip at full width: phase 5's burst with a bright 3-px
@@ -88,8 +90,7 @@ Phases (each prints one line; any failure exits non-zero):
     homographies, one lane dropped) at factors 2 and 3, sigma 0.3 and 0.1
     (the hole-fallback form): the deposit (``sr_deposit``) and the image
     (``sr_image``); then at x2 and both sigmas the image form timed
-    against the deposit followed by the PyTorch normalisation (with
-    ``--baseline``, the earlier design's deposit), both
+    against the deposit followed by the PyTorch normalisation, both
     also by ``torch.profiler``;
 19. ECC super-resolution at full width: the first 8 frames of phase 5's
     burst, headline parameters, ``output_scale=2`` -> 4320x7680, held
@@ -185,22 +186,19 @@ wrappers' host time, the device time ``torch.profiler`` reads), its
 plain version's time, the bound of the same work at the card's published rates (bytes
 over 3.35 TB/s, operations over 67 T/s, the larger of the two) and the
 time of one PyTorch call computing the same function where one exists.
-Phases 2, 3, 6, 10, 11, 13 and 17 also print the registers and spills
-that ptxas gave each instance of B1, B2, B8, B4, B5 and B7, the kernel's
-share of its bound; phases 12 and 18 print B9's and B6's too, and, with
-``--baseline DIR``, the time of an earlier design of B2 / B4, B5, B6 and
-B9 on the same inputs: ``DIR`` holds any of that design's
-``warp_accum.cu`` (commit b279a66's thread-a-pixel B2 and B4, whose B2
-takes its border value from the card), ``sr_deposit.cu`` (commit
-60e5e20's, computing its own launch geometry) and ``warp.cu`` (commit
-0c2d687's: the thread-a-value planar B5, its border values and source
-indices on the card, and B9 with its launch plan), built beside the
-others, and each pair is timed in turns (new,
-earlier, earlier, new); phases 3, 10 and 11 then also print the earlier
-B2's, B4's and B5's instruction classes.  Phase 3 also holds B2 and B4 (both passes)
-bitwise to their plain versions on 99 u8 frames of 4000x6000 with
-affine maps, and times them (with ``--baseline``, paired with the
-earlier design).
+Phases 2, 3, 6, 7, 10, 11, 13 and 17 also print the registers and
+spills that ptxas gave each instance of B1, B2, B8, B3 / B3h / B3d, B4,
+B5 and B7, the kernel's share of its bound; phases 12 and 18 print B9's
+and B6's too.  ``--baseline DIR`` times the earlier design of B5's
+accumulate form and of B3d on the same inputs: ``DIR`` holds commit
+6316203's ``warp.cu`` (with the ``warp_bins.cuh`` it includes) and
+``orb_describe.cu`` (both kernels' first designs), or either of them;
+their ``warp_frames`` and ``orb_describe`` C entry points are bound as
+the wrappers call them, the earlier design is held bitwise to the
+current one, and each pair is timed in turns (new, earlier, earlier,
+new), the instruction classes of both printed.  Phase 3 also holds B2 and B4 (both
+passes) bitwise to their plain versions on 99 u8 frames of 4000x6000
+with affine maps, and times them.
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -223,13 +221,13 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe")
-# the sources an earlier design is timed from (--baseline), where the
-# directory holds them: B2 / B4 (warp_accum.cu of commit b279a66), B6
-# (sr_deposit.cu of 60e5e20), planar B5 and B9 (warp.cu of 0c2d687)
-BASELINE_KERNELS = ("sr_deposit", "warp", "warp_accum")
+# the sources an earlier design is timed from (--baseline DIR), where the
+# directory holds them: B5's accumulate form (warp.cu's warp_frames) and
+# B3d (orb_describe.cu's orb_describe), as commit 6316203 left them
+BASELINE_KERNELS = ("warp", "orb_describe")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
-# B5 (a SASS loop iteration)
-B2_PIXELS, B4_PIXELS, B5_PIXELS = 4, 2, 4
+# B5 and accumulate form (a SASS loop iteration)
+B2_PIXELS, B4_PIXELS, B5_PIXELS, B5A_PIXELS = 4, 2, 4, 2
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -241,19 +239,19 @@ B2_INSTANCE = "warp_accum_kernelIhLb1EE"  # u8 source, homography
 B4_INSTANCE = "warp_moments_kernelIhLb1ELb1EE"  # u8, homography, clip pass
 B4M_INSTANCE = "warp_moments_kernelIhLb1ELb0EE"  # u8, homography, moments
 B2_AFFINE_INSTANCE = "warp_accum_kernelIhLb0EE"  # u8 source, affine
-B2_EARLIER_INSTANCE = "warp_accum_kernelIhE"  # the thread-a-pixel design
-B4_EARLIER_INSTANCE = "warp_moments_kernelIhLb1E"
-B4M_EARLIER_INSTANCE = "warp_moments_kernelIhLb0E"
-# planar B5 in its timed modes (homography), and its thread-a-value
-# design
+# planar B5 in its timed modes (homography)
 B5_INSTANCES = {"constant": "11warp_kernelILi0ELb1EE",
                 "replicate": "11warp_kernelILi1ELb1EE",
                 "wrap": "11warp_kernelILi3ELb1EE"}
-B5_EARLIER_INSTANCES = {"constant": "11warp_kernelILi0EE",
-                        "replicate": "11warp_kernelILi1EE",
-                        "wrap": "11warp_kernelILi3EE"}
 B5F_INSTANCE = "frames_kernelILi1EhE"  # u8 frames, BORDER_REPLICATE
-B5A_INSTANCE = "accum_kernelILi1EhE"
+
+
+# the accumulate form for u8 frames in border mode {} (homography), and
+# in commit 6316203's design (a thread a pixel)
+B5A_INSTANCE = "accum_kernelILi{}EhLb1ELi3EE"
+B5A_EARLIER_INSTANCE = "accum_kernelILi{}EhE"
+
+
 B3_INSTANCE = "extract_kernelIhE"
 B3H_INSTANCE = "harris_kernel"
 B3D_INSTANCE = "describe_kernel"
@@ -261,7 +259,6 @@ B9_INSTANCE = "warp3_kernel"
 # u8, 32-bit offsets, homography, no fallback: deposit and image forms
 B6_INSTANCE = "sr_kernelIhiLb1ELb0ELb0E"
 B6I_INSTANCE = "sr_kernelIhiLb1ELb0ELb1E"
-B6_EARLIER_INSTANCE = "sr_deposit_kernelIhLb1ELb0E"  # the first design
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -546,11 +543,10 @@ BASELINE_DIR: list = []
 
 
 def load_baseline(path: str) -> None:
-    """Build the earlier designs' sources that ``path`` holds and bind
-    their C entry points (``BASELINE_KERNELS``' commits): B6's before
-    its launch plan, B2 with its border value on the card and B4, planar
-    B5 with its border and source index on the card and B9 with its
-    plan."""
+    """Build the earlier design's sources that ``path`` holds and bind
+    their C entry points: ``warp_frames`` (B5's frames and accumulate
+    forms) and ``orb_describe`` (B3d), unchanged since their first
+    designs."""
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
@@ -561,13 +557,10 @@ def load_baseline(path: str) -> None:
     cuda_build.build(*names, csrc=d)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, fn, argtypes in (
-        ("sr_deposit", "sr_deposit",
-         [vp] * 7 + [ci] * 4 + [cf] + [ci] * 3 + [cf, vp]),
-        ("warp", "warp_bilinear", [vp] * 5 + [ci] * 9 + [vp]),
-        ("warp", "warp3_bilinear", [vp] * 3 + [ci] * 4 + [ctypes.c_uint, ci,
-                                                          vp]),
-        ("warp_accum", "warp_accum_rgb", [vp] * 5 + [ci] * 5 + [cf, vp]),
-        ("warp_accum", "warp_moments_rgb", [vp] * 8 + [ci] * 5 + [cf, vp]),
+        ("warp", "warp_frames", [vp, vp, ctypes.POINTER(cf), vp, vp]
+         + [ci] * 7 + [cf, ci, ci, vp]),
+        ("orb_describe", "orb_describe", [vp] * 4 + [ctypes.POINTER(cf)]
+         + [vp] * 2 + [ci] * 4 + [cf, cf, vp]),
     ):
         if name not in names:
             continue
@@ -576,12 +569,6 @@ def load_baseline(path: str) -> None:
         getattr(lib, fn).restype = ci
         BASELINE[name] = lib
     BASELINE_DIR.append(d)
-
-
-def earlier(name: str, fn):
-    """``fn`` (a call of the earlier design of source ``name``) when
-    ``--baseline`` built one, else None."""
-    return fn if name in BASELINE else None
 
 
 def resources(name: str, piece: str, csrc=None) -> dict:
@@ -598,8 +585,9 @@ def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1,
     """Print the instructions a pixel-frame by class of the frame loop of
     the kernel of build ``name`` whose mangled name contains ``piece``
     (``utils/sass.py``; ``pixels`` a loop iteration, ``homography`` False
-    for the path with no MUFU, ``whole`` for a kernel with no loop);
-    return them (None where cuobjdump is missing)."""
+    for the path with no MUFU, ``whole`` for the longest path of a
+    kernel's whole body); return them (None where cuobjdump is
+    missing)."""
     from libstacker_tpu_torch.utils import cuda_build, sass
 
     lib = cuda_build.library_path(name, csrc or cuda_build.CSRC)
@@ -624,34 +612,42 @@ def fmt_resources(r: dict) -> str:
             f"{r.get('spill_loads', 0)} B")
 
 
-def paired_ms(fn, earlier, reps: int):
+def paired_ms(fn, earlier, reps: int, timer=None):
     """(ms, earlier_ms): ``fn`` alone, or with the earlier design's call
-    in turns (new, earlier, earlier, new), each the mean of its two."""
+    in turns (new, earlier, earlier, new), each the mean of its two;
+    ``timer(fn, reps)`` times one (CUDA events by default)."""
+    timer = timer or time_ms
     if earlier is None:
-        return time_ms(fn, reps), None
-    a, b = time_ms(fn, reps), time_ms(earlier, reps)
-    c, d = time_ms(earlier, reps), time_ms(fn, reps)
+        return timer(fn, reps), None
+    a, b = timer(fn, reps), timer(earlier, reps)
+    c, d = timer(earlier, reps), timer(fn, reps)
     return (a + d) / 2.0, (b + c) / 2.0
 
 
 def design_report(label: str, name: str, piece: str, ms: float,
-                  bound_ms: float, earlier_ms, earlier_piece=None) -> dict:
-    """Print one line on an instance's registers, spills, bound share and
-    earlier-design time (``earlier_piece``: the earlier instance's name,
-    where it differs); return them for the kernel record
-    (``earlier_design_ms`` None where no earlier design was timed)."""
+                  bound_ms: float, earlier_ms=None,
+                  earlier_piece=None) -> dict:
+    """Print one line on an instance's registers, spills, shared memory
+    and bound share, and on the earlier design's (``earlier_ms`` its time
+    where --baseline timed it, ``earlier_piece`` its instance's name where
+    it differs); return them for the kernel record."""
     res = resources(name, piece)
-    line = (f"    {label}: {fmt_resources(res)}; {ms:.3f} ms, "
+    line = (f"    {label}: {fmt_resources(res)}; {ms:.4f} ms, "
             f"{bound_ms / ms:.3f} of its bound")
     rec = dict(registers=res.get("registers"), smem_bytes=res.get("smem"),
                spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
-               if res else None, earlier_design_ms=None)
+               if res else None)
     if earlier_ms is not None:
         old = resources(name, earlier_piece or piece, BASELINE_DIR[0])
-        line += (f"; earlier design {earlier_ms:.3f} ms ({fmt_resources(old)})"
-                 f" -> new/earlier {ms / earlier_ms:.3f}")
-        rec.update(earlier_design_ms=earlier_ms,
-                   earlier_design_registers=old.get("registers"))
+        line += (f"; earlier design {earlier_ms:.4f} ms, "
+                 f"{bound_ms / earlier_ms:.3f} of the bound "
+                 f"({fmt_resources(old)}) -> new/earlier "
+                 f"{ms / earlier_ms:.3f}")
+        rec["earlier_design"] = dict(
+            ms=earlier_ms, bound_share=bound_ms / earlier_ms,
+            registers=old.get("registers"), smem_bytes=old.get("smem"),
+            spill_bytes=old.get("spill_stores", 0) + old.get("spill_loads", 0)
+            if old else None)
     log(line)
     return rec
 
@@ -660,92 +656,46 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def b6_earlier(frames, minv, valid, factor, sigma, with_fallback):
-    """The earlier B6 design's deposit (u8 frames, perspective maps)."""
-    from libstacker_tpu_torch.ops import color
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["sr_deposit"]
-    n, h, w, _ = frames.shape
-    hf, wf = h * factor, w * factor
-    acc = [torch.empty((hf, wf, 3), dtype=torch.float32, device=frames.device),
-           torch.empty((hf, wf), dtype=torch.float32, device=frames.device)]
-    if with_fallback:
-        acc += [torch.empty_like(acc[0]), torch.empty_like(acc[1])]
-    ptrs = [a.data_ptr() for a in acc] + [None] * (4 - len(acc))
-    vb = valid.to(torch.uint8)
-    err = lib.sr_deposit(frames.data_ptr(), minv.data_ptr(), vb.data_ptr(),
-                         *ptrs, n, h, w, factor, 2.0 * sigma ** 2, 0, 1,
-                         int(with_fallback), color.U8_SCALE, _stream())
-    cuda_build.check(lib, err, "earlier sr_deposit")
-    return tuple(acc)
-
-
-def b2_earlier(frames, minv, vf, border, perspective=1):
-    """The earlier B2 design (u8 frames, perspective maps unless
-    ``perspective`` is 0; ``border`` a [3] float32 tensor on the card)."""
-    from libstacker_tpu_torch.ops import color
-    from libstacker_tpu_torch.utils import cuda_build
-
-    n, h, w, _ = frames.shape
-    out = torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
-    lib = BASELINE["warp_accum"]
-    cuda_build.check(lib, lib.warp_accum_rgb(
-        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(), border.data_ptr(),
-        out.data_ptr(), n, h, w, 0, perspective, color.U8_SCALE, _stream()),
-        "earlier warp_accum_rgb")
-    return out
-
-
-def b4_call(lib, frames, minv, vf, mu=None, tol=None, perspective=1):
-    """B4 (u8 frames, perspective maps unless ``perspective`` is 0)
-    through ``lib``, the earlier design's build."""
-    from libstacker_tpu_torch.ops import color
-    from libstacker_tpu_torch.utils import cuda_build
-
-    n, h, w, _ = frames.shape
-    s = [torch.empty((h, w, 3), dtype=torch.float32, device=frames.device)
-         for _ in range(3)]
-    cuda_build.check(lib, lib.warp_moments_rgb(
-        frames.data_ptr(), minv.data_ptr(), vf.data_ptr(),
-        None if mu is None else mu.data_ptr(),
-        None if tol is None else tol.data_ptr(), *(x.data_ptr() for x in s),
-        n, h, w, 0, perspective, color.U8_SCALE, _stream()),
-        "warp_moments_rgb")
-    return tuple(s)
-
-
-def b9_earlier(srcs, minv):
-    """The earlier B9 design (perspective maps)."""
+def b5a_earlier(frames, minv, border, vf, mode):
+    """The accumulate form in the earlier design's build (homography,
+    whole frames), its arguments as the wrapper passes them."""
     from libstacker_tpu_torch.ops import warp_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
     lib = BASELINE["warp"]
-    b = minv.shape[0]
-    _, h, w = srcs.shape
-    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=srcs.device)
-    tiles, vector = warp_cuda.warp3_plan(h, w)
-    err = lib.warp3_bilinear(srcs.data_ptr(), minv.data_ptr(), out.data_ptr(),
-                             b, h, w, 1, tiles, int(vector), _stream())
-    cuda_build.check(lib, err, "earlier warp3_bilinear")
+    n, h, w, c = frames.shape
+    if mode == "transparent":
+        mode, border = "constant", [0.0] * c
+    out = torch.empty((h, w, c), dtype=torch.float32, device=frames.device)
+    err = lib.warp_frames(
+        frames.data_ptr(), minv.data_ptr(), (ctypes.c_float * c)(*border),
+        vf.data_ptr(), out.data_ptr(), n, h, w, c,
+        warp_cuda._DTYPE_CODE[frames.dtype], warp_cuda._MODE_CODE[mode], 1,
+        warp_cuda._SCALE[frames.dtype], 0, 0, _stream())
+    cuda_build.check(lib, err, "earlier warp_frames")
     return out
 
 
-def b5_earlier(src, minv, border, sidx, mode):
-    """The thread-a-value planar B5 (perspective maps, the source
-    grid), its border values and source indices on the card as its
-    wrapper passed them."""
-    from libstacker_tpu_torch.ops import warp_cuda
+def b3d_earlier(imgs, ys, xs):
+    """B3d in the earlier design's build, its arguments as the wrapper
+    passes them."""
+    import math
+
+    from libstacker_tpu_torch.ops import orb_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
-    lib = BASELINE["warp"]
-    g, (_, h, w) = minv.shape[0], src.shape
-    out = torch.empty((g, h, w), dtype=torch.float32, device=src.device)
-    err = lib.warp_bilinear(src.data_ptr(), minv.data_ptr(), border.data_ptr(),
-                            sidx.data_ptr(), out.data_ptr(), g, h, w, h, w,
-                            warp_cuda._MODE_CODE[mode], 1, 0, 0, _stream())
-    cuda_build.check(lib, err, "earlier warp_bilinear")
-    return out
+    lib = BASELINE["orb_describe"]
+    n, h, w = imgs.shape
+    q = ys.shape[1]
+    angle = torch.empty((n, q), dtype=torch.float32, device=imgs.device)
+    desc = torch.empty((n, q, 32), dtype=torch.uint8, device=imgs.device)
+    err = lib.orb_describe(
+        imgs.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+        orb_cuda._describe_constants_on(imgs.device).data_ptr(),
+        orb_cuda._blur_taps(), angle.data_ptr(), desc.data_ptr(), n, q, h, w,
+        180.0 / math.pi, math.pi / 180.0, _stream())
+    cuda_build.check(lib, err, "earlier orb_describe")
+    return angle, desc
 
 
 def profile_line(label: str, fn, piece: str) -> dict:
@@ -849,7 +799,7 @@ def phase_b1(dev):
     if not ok:
         fail("B1 disagrees with its plain version")
     rec = design_report("B1 P=8 with the Gram", "ecc_moments", B1_INSTANCE,
-                        ms, bound_ms, None)
+                        ms, bound_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ms_10_lanes_active=ms10, **rec)
@@ -894,16 +844,8 @@ def phase_b2(dev):
     torch.cuda.synchronize()
     rot_abs = float((rot_got - rot_want).abs().max())
     del rot_got, rot_want
-    vf = valid.to(torch.float32)
-    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    old = earlier("warp_accum", lambda: b2_earlier(frames, minv, vf, zero3))
-    if old is not None and not torch.equal(old(), want):
-        fail("the earlier B2 design disagrees with the plain version")
-
-    def new():
-        return warp_accum_cuda.warp_accum_rgb(frames, minv, valid)
-
-    ms, earlier_ms = paired_ms(new, old, 20)
+    ms = time_ms(lambda: warp_accum_cuda.warp_accum_rgb(frames, minv, valid),
+                 20)
     plain_ms = time_ms(
         lambda: warp_accum_cuda.warp_accum_rgb_reference(frames, minv, valid), 2)
     hw = FULL_H * FULL_W
@@ -918,14 +860,9 @@ def phase_b2(dev):
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B2 disagrees with its plain version")
-    rec = design_report("B2 u8", "warp_accum", B2_INSTANCE, ms, bound_ms,
-                        earlier_ms, B2_EARLIER_INSTANCE)
+    rec = design_report("B2 u8", "warp_accum", B2_INSTANCE, ms, bound_ms)
     rec["sass"] = sass_line("B2 u8", "warp_accum", B2_INSTANCE,
                             pixels=B2_PIXELS)
-    if "warp_accum" in BASELINE:
-        rec["earlier_design_sass"] = sass_line(
-            "B2 u8 earlier design", "warp_accum", B2_EARLIER_INSTANCE,
-            BASELINE_DIR[0])
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
@@ -934,8 +871,7 @@ def phase_wide_affine(dev):
     """B2 and B4 (moments and clip pass) on 99 u8 frames of WIDE_HxWIDE_W
     with affine maps (the ECC path's Translation / Euclidean / Affine
     motion, quant_affine=True): bitwise against their plain versions, and
-    timed, paired with the earlier design when ``--baseline`` built one;
-    returns the record phase 3 carries."""
+    timed; returns the record phase 3 carries."""
     from libstacker_tpu_torch.ops import stack, warp_accum_cuda
 
     n, h, w = KERNEL_FRAMES, WIDE_H, WIDE_W
@@ -954,7 +890,6 @@ def phase_wide_affine(dev):
     minv = torch.from_numpy(np.asarray(mats, np.float32)).to(dev)
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     valid[n // 2] = False
-    vf = valid.to(torch.float32)
 
     def b2():
         return warp_accum_cuda.warp_accum_rgb(frames, minv, valid,
@@ -985,18 +920,6 @@ def phase_wide_affine(dev):
     torch.cuda.synchronize()
     bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
     max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    old_lib = BASELINE.get("warp_accum")
-    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    old = dict(
-        b2=lambda: (b2_earlier(frames, minv, vf, zero3, 0),),
-        moments=lambda: b4_call(old_lib, frames, minv, vf, perspective=0),
-        clip=lambda: b4_call(old_lib, frames, minv, vf, mu, tol, 0))
-    if old_lib is not None and not all(
-            bool(torch.equal(a, b))
-            for a, b in zip(old["b2"]() + old["moments"]() + old["clip"](),
-                            want)):
-        fail("the earlier B2 / B4 design disagrees with the plain version "
-             "on the affine frames")
     hw = h * w
     covered = float(want[1][..., 0].sum())
     clip_bound, _, moments_bound = b4_bounds(n, hw, covered)
@@ -1009,12 +932,9 @@ def phase_wide_affine(dev):
     for key, fn, reps, bnd in (("b2", b2, 10, b2_bound),
                                ("moments", moments, 5, moments_bound),
                                ("clip", clip, 5, clip_bound)):
-        ms, earlier_ms = paired_ms(fn, earlier("warp_accum", old[key]), reps)
-        rec[key] = dict(ms=ms, earlier_design_ms=earlier_ms, bound_ms=bnd)
+        ms = time_ms(fn, reps)
+        rec[key] = dict(ms=ms, bound_ms=bnd)
         line += f"; {key} {ms:.3f} ms, {bnd / ms:.3f} of its bound"
-        if earlier_ms is not None:
-            line += (f", earlier design {earlier_ms:.3f} ms -> new/earlier "
-                     f"{ms / earlier_ms:.3f}")
     log(line + f" -> {'OK' if bitwise else 'MISMATCH'}")
     if not bitwise:
         fail("B2 / B4 disagree with their plain versions on the affine frames")
@@ -1167,7 +1087,7 @@ def phase_b8(dev, grey):
         f"-> {'OK' if equal else 'MISMATCH'}")
     if not equal:
         fail("B8 disagrees with its plain version")
-    rec = design_report("B8 u8", "fast", B8_INSTANCE, ms, bound_ms, None)
+    rec = design_report("B8 u8", "fast", B8_INSTANCE, ms, bound_ms)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
                 compass_pass_share=cand / (n * h * w), **rec)
@@ -1255,7 +1175,7 @@ def phase_b3(dev, grey):
               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
               ms_source="torch.profiler device time", call_ms=events_ms,
               **design_report("B3 u8", "orb_extract", B3_INSTANCE, ms,
-                              bound_ms, None))
+                              bound_ms))
 
     # B3h at the K candidates (two of them invalid), B3d at Q keypoints
     # with the same clamp-edge centres
@@ -1282,8 +1202,20 @@ def phase_b3(dev, grey):
     h_plain = time_ms(
         lambda: orb_cuda.candidate_harris_reference(grey, ys, xs, valid), 5)
     d_call = time_ms(lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 20)
-    d_ms = device_profile(lambda: orb_cuda.describe(grey, kq_ys, kq_xs),
-                          "describe_kernel")[2]
+
+    def describe_ms(fn, reps):
+        return device_profile(fn, "describe_kernel", reps)[2]
+
+    # B3d and, with --baseline, the earlier design in turns, by device
+    # time; the earlier design held bitwise to this one first
+    d_new = lambda: orb_cuda.describe(grey, kq_ys, kq_xs)  # noqa: E731
+    d_old = None
+    if "orb_describe" in BASELINE:
+        d_old = lambda: b3d_earlier(  # noqa: E731
+            grey, kq_ys.int().contiguous(), kq_xs.int().contiguous())
+        if not all(bool(torch.equal(a, b)) for a, b in zip(d_old(), d_new())):
+            fail("the earlier B3d design disagrees with this one")
+    d_ms, d_old_ms = paired_ms(d_new, d_old, 10, describe_ms)
     d_plain = time_ms(
         lambda: orb_cuda.describe_reference(grey, kq_ys, kq_xs), 5)
     o = orb_cuda.HARRIS_ORIGIN
@@ -1348,12 +1280,21 @@ def phase_b3(dev, grey):
                bound_ms=h_bound, bound_by=h_by, library_ms=None,
                call_ms=h_call,
                **design_report("B3h", "orb_describe", B3H_INSTANCE, h_ms,
-                               h_bound, None), **route)
+                               h_bound), **route)
     b3d = dict(max_abs_err=max(a_err, d_err), ms=d_ms, plain_ms=d_plain,
                bound_ms=d_bound, bound_by=d_by, library_ms=None,
                call_ms=d_call,
                **design_report("B3d", "orb_describe", B3D_INSTANCE, d_ms,
-                               d_bound, None), **route)
+                               d_bound, d_old_ms), **route)
+    # a thread's longest path with no MUFU (B3d's loops are unrolled: a
+    # blurring thread's whole work; an earlier design's loops count once)
+    b3d["sass"] = sass_line("B3d, a thread", "orb_describe", B3D_INSTANCE,
+                            homography=False, whole=True)
+    if d_old is not None:
+        b3d["earlier_design_sass"] = sass_line(
+            "B3d earlier design, a thread (each loop body once)",
+            "orb_describe", B3D_INSTANCE, BASELINE_DIR[0], homography=False,
+            whole=True)
     return b3, b3h, b3d
 
 
@@ -1551,26 +1492,11 @@ def phase_b4(dev, frames, truth):
     rel = max(rel_err(a, b) for a, b in pairs)
     max_abs = max(float((a - b).abs().max()) for a, b in pairs)
     clipped = float((got[0] - got_c[0]).sum()) / max(float(got[0].sum()), 1.0)
-    vf = valid.to(torch.float32)
-    old_lib = BASELINE.get("warp_accum")
-    if old_lib is not None and not (
-            all(bool(torch.equal(a, b)) for a, b in zip(
-                b4_call(old_lib, frames, minv, vf), want))
-            and all(bool(torch.equal(a, b)) for a, b in zip(
-                b4_call(old_lib, frames, minv, vf, mu, tol), want_c))):
-        fail("the earlier B4 design disagrees with the plain version")
-
-    def new_moments():
-        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid)
-
-    def new_clip():
-        return warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol)
-
-    ms_moments, earlier_moments = paired_ms(
-        new_moments, earlier("warp_accum", lambda: b4_call(
-            old_lib, frames, minv, vf)), 10)
-    ms, earlier_ms = paired_ms(new_clip, earlier("warp_accum", lambda: b4_call(
-        old_lib, frames, minv, vf, mu, tol)), 10)
+    ms_moments = time_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid), 10)
+    ms = time_ms(
+        lambda: warp_accum_cuda.warp_moments_rgb(frames, minv, valid, mu, tol),
+        10)
     plain_ms = time_ms(lambda: warp_accum_cuda.warp_moments_rgb_reference(
         frames, minv, valid, mu, tol), 1)
     hw = FULL_H * FULL_W
@@ -1591,22 +1517,13 @@ def phase_b4(dev, frames, truth):
     if not ok:
         fail("B4 disagrees with its plain version")
     rec = design_report("B4 u8 clip pass", "warp_accum", B4_INSTANCE, ms,
-                        bound_ms, earlier_ms, B4_EARLIER_INSTANCE)
+                        bound_ms)
     design_report("B4 u8 moments pass", "warp_accum", B4M_INSTANCE,
-                  ms_moments, moments_bound_ms, earlier_moments,
-                  B4M_EARLIER_INSTANCE)
+                  ms_moments, moments_bound_ms)
     rec["sass"] = sass_line("B4 u8 clip pass", "warp_accum", B4_INSTANCE,
                             pixels=B4_PIXELS)
     rec["moments_pass_sass"] = sass_line("B4 u8 moments pass", "warp_accum",
                                          B4M_INSTANCE, pixels=B4_PIXELS)
-    if "warp_accum" in BASELINE:
-        rec["earlier_design_sass"] = sass_line(
-            "B4 u8 clip pass earlier design", "warp_accum",
-            B4_EARLIER_INSTANCE, BASELINE_DIR[0])
-        rec["earlier_moments_pass_sass"] = sass_line(
-            "B4 u8 moments pass earlier design", "warp_accum",
-            B4M_EARLIER_INSTANCE, BASELINE_DIR[0])
-        rec["earlier_moments_pass_ms"] = earlier_moments
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 moments_pass_ms=ms_moments,
@@ -1707,27 +1624,15 @@ def phase_b5(dev, frames, truth):
     hw = h * w
     bound_ms, bound_by = bound(g * hw * 4.0 * 2 + g * 40.0,
                                g * hw * float(B5_OPS))
-    # the design and, with --baseline, the earlier one in turns, in
-    # BORDER_CONSTANT (the row warp's), REPLICATE and WRAP, with their
-    # registers, share of the bound and instructions an output value
-    zeros = torch.zeros(g, device=dev)
-    planes = torch.arange(g, dtype=torch.int32, device=dev)
+    # the design in BORDER_CONSTANT (the row warp's), REPLICATE and WRAP,
+    # with its registers, share of the bound and instructions an output
+    # value
     timed = {}
     for mode in B5_INSTANCES:
-        def run(mode=mode):
-            return warp_cuda.warp_bilinear(src, minv, border_mode=mode)
-
-        old = earlier("warp", lambda mode=mode: b5_earlier(
-            src, minv, zeros, planes, mode))
-        if old is not None:
-            same = bool(torch.equal(run().view(torch.int32),
-                                    old().view(torch.int32)))
-            log(f"    B5 {mode}: bitwise the earlier design {same}")
-            equal &= same
-        t_new, t_old = paired_ms(run, old, 10)
+        t_new = time_ms(lambda mode=mode: warp_cuda.warp_bilinear(
+            src, minv, border_mode=mode), 10)
         rec = dict(ms=t_new, **design_report(
-            f"B5 {mode}", "warp", B5_INSTANCES[mode], t_new, bound_ms, t_old,
-            B5_EARLIER_INSTANCES[mode]))
+            f"B5 {mode}", "warp", B5_INSTANCES[mode], t_new, bound_ms))
         own = sass_line(f"B5 {mode}, a slot on its own map", "warp",
                         B5_INSTANCES[mode], pixels=B5_PIXELS)
         # the path with no reciprocal: the previous slot's coordinates
@@ -1741,10 +1646,6 @@ def phase_b5(dev, frames, truth):
                 own["total"] + (c - 1) * reuse["total"]) / c
             log(f"    B5 {mode}: {rec['instructions_a_value']:.1f} "
                 f"instructions an output value here ({c} planes a map)")
-        if t_old is not None:
-            rec["earlier_design_sass"] = sass_line(
-                f"B5 {mode}, earlier design", "warp",
-                B5_EARLIER_INSTANCES[mode], BASELINE_DIR[0], whole=True)
         timed[mode] = rec
     ms = timed["replicate"]["ms"]
     plain_ms = time_ms(lambda: warp_cuda.warp_bilinear_reference(
@@ -1792,10 +1693,12 @@ def phase_b5_frames(dev, frames, truth, modes):
     valid[n // 2] = False
     bv = [0.1, 0.2, 0.3]
     fr16 = (fr.to(torch.int32) * 257).to(torch.uint16)
+    fr32 = color.to_unit_f32(fr)
     equal, max_abs = True, 0.0
-    for src in (fr, fr16):
+    for src, forms in ((fr, (None, valid)), (fr16, (None, valid)),
+                       (fr32, (valid,))):
         for mode in modes:
-            for v in (None, valid):
+            for v in forms:
                 got = warp_cuda.warp_frames(src, minv, bv, mode, valid=v)
                 want = warp_cuda.warp_frames_reference(src, minv, bv, mode,
                                                        valid=v)
@@ -1803,7 +1706,7 @@ def phase_b5_frames(dev, frames, truth, modes):
                 equal &= bool(torch.equal(got, want))
                 max_abs = max(max_abs, float((got - want).abs().max()))
                 del got, want
-    del fr16
+    del fr16, fr32
     torch.cuda.empty_cache()
 
     # the keypoint stack with BORDER_REPLICATE, both ways: PR 6's route
@@ -1862,9 +1765,39 @@ def phase_b5_frames(dev, frames, truth, modes):
     a_bound, a_by = bound(kept * hw * c * 1.0 + hw * c * 4.0 + n * 40.0,
                           kept * hw * float(B5F_OPS_PIXEL
                                             + c * B5A_OPS_CHANNEL))
+    # the accumulate form in each mode, and with --baseline the earlier
+    # design in turns (held bitwise to this one first), with registers,
+    # shared memory, share of the bound and instructions a pixel-frame
+    a_modes = {}
+    for mode in modes:
+        code = warp_cuda._MODE_CODE[warp._resolve_border(mode)
+                                    .replace("transparent", "constant")]
+        run = lambda mode=mode: warp_cuda.warp_frames(  # noqa: E731
+            fr, minv, bv, mode, valid=valid)
+        earlier = None
+        if "warp" in BASELINE:
+            earlier = lambda mode=mode: b5a_earlier(  # noqa: E731
+                fr, minv, bv, vf.reshape(-1).contiguous(), mode)
+            if not torch.equal(earlier(), run()):
+                fail(f"the earlier B5a design disagrees with this one "
+                     f"({mode})")
+        ms_mode, earlier_ms = paired_ms(run, earlier, 10)
+        piece = B5A_INSTANCE.format(code)
+        rec = dict(ms=ms_mode, **design_report(
+            f"B5a u8 {mode}", "warp", piece, ms_mode, a_bound, earlier_ms,
+            B5A_EARLIER_INSTANCE.format(code)))
+        rec["sass"] = sass_line(f"B5a u8 {mode}", "warp", piece,
+                                pixels=B5A_PIXELS)
+        if earlier is not None:
+            # the earlier design: a thread a pixel
+            rec["earlier_design_sass"] = sass_line(
+                f"B5a u8 {mode} earlier design", "warp",
+                B5A_EARLIER_INSTANCE.format(code), BASELINE_DIR[0])
+        a_modes[mode] = rec
     log(f"[11 B5 warp_frames, warp_frames_accum] frames 1-{n} of the burst "
-        f"as u8 and u16 ({n} RGB frames of {h}x{w}, frame {n // 2} dropped) "
-        f"in each of {', '.join(modes)}, both forms: bitwise equal {equal}; "
+        f"as u8 and u16, both forms, and as f32, the accumulate form ({n} "
+        f"RGB frames of {h}x{w}, frame {n // 2} dropped) in each of "
+        f"{', '.join(modes)}: bitwise equal {equal}; "
         f"accumulate {a_ms:.3f} ms vs plain {a_plain:.3f} ms, bound "
         f"{a_bound:.3f} ms ({a_by}); PR 6's route (f32 widening, planes, "
         f"planar B5, torch.sum) {old_ms:.3f} ms, {dev_old:.3f} ms of device "
@@ -1885,15 +1818,15 @@ def phase_b5_frames(dev, frames, truth, modes):
                bound_ms=f_bound, bound_by=f_by, library_ms=library_ms,
                library_note=note, former_route_ms=fold_ms,
                **design_report("B5 frames u8", "warp", B5F_INSTANCE, f_ms,
-                               f_bound, None))
+                               f_bound))
     b5a = dict(max_abs_err=max_abs, ms=a_ms, plain_ms=a_plain,
                bound_ms=a_bound, bound_by=a_by, library_ms=library_ms,
                library_note=note, former_route_ms=old_ms,
                former_route_device_ops=n_old, route_device_ops=n_new,
                former_route_device_ms=dev_old, route_device_ms=dev_new,
                former_route_max_abs_diff=sum_diff,
-               **design_report("B5 accumulate u8", "warp", B5A_INSTANCE,
-                               a_ms, a_bound, None))
+               **{k: v for k, v in a_modes["replicate"].items() if k != "ms"},
+               modes=a_modes)
     return b5f, b5a
 
 
@@ -1915,8 +1848,7 @@ def phase_b9(dev, frames):
     max_abs = float((got - want).abs().max())
     del got, want
     new = lambda: warp_cuda.warp3_bilinear(srcs, minv)  # noqa: E731
-    old = earlier("warp", lambda: b9_earlier(srcs, minv))
-    ms, earlier_ms = paired_ms(new, old, 10)
+    ms = time_ms(new, 10)
     plain_ms = time_ms(lambda: warp_cuda.warp3_bilinear_reference(srcs, minv), 1)
     grid = grid_for(minv, (h, w), (h, w))
     batch = srcs[None].expand(lanes, 3, h, w).contiguous()
@@ -1935,16 +1867,12 @@ def phase_b9(dev, frames):
     if not equal:
         fail("B9 disagrees with its plain version")
     prof = profile_line("B9", new, "warp3_kernel")
-    if old is not None:
-        prof.update({f"earlier_design_{k}": v for k, v in profile_line(
-            "B9, earlier design", old, "warp3_kernel").items()})
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 library_note="grid_sample(bilinear, zeros, align_corners) "
                              "on a precomputed grid; it does not quantise "
                              "to 1/32 px", **prof,
-                **design_report("B9", "warp", B9_INSTANCE, ms, bound_ms,
-                                earlier_ms))
+                **design_report("B9", "warp", B9_INSTANCE, ms, bound_ms))
 
 
 def phase_b1_masked(dev):
@@ -1994,7 +1922,7 @@ def phase_b1_masked(dev):
     if not ok:
         fail("B1's masked form disagrees with its plain version")
     rec = design_report("B1m P=8 with the Gram", "ecc_moments",
-                        B1M_INSTANCE, ms, bound_ms, None)
+                        B1M_INSTANCE, ms, bound_ms)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **rec)
 
@@ -2228,11 +2156,11 @@ def phase_b7(dev):
     if not ok:
         fail("B7 or B1 without the Gram disagrees with its plain version")
     rec7 = design_report("B7 P=8", "ecc_ic_moments", B7_INSTANCE, ms,
-                         bound_ms, None)
+                         bound_ms)
     rec7g = design_report("B7 P=8 with the Gram", "ecc_ic_moments",
-                          B7_GRAM_INSTANCE, ms_gram, gram_bound_ms, None)
+                          B7_GRAM_INSTANCE, ms_gram, gram_bound_ms)
     rec_lite = design_report("B1 lite P=8", "ecc_moments", B1_LITE_INSTANCE,
-                             lite_ms, lite_bound_ms, None)
+                             lite_ms, lite_bound_ms)
     b7 = dict(max_abs_err=max_abs["ic"], ms=ms, plain_ms=plain_ms,
               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
               ms_with_gram=ms_gram, bound_ms_with_gram=gram_bound_ms,
@@ -2352,27 +2280,16 @@ def phase_b6(dev, frames):
         dep = lambda: sr_cuda.sr_deposit(*args)  # noqa: E731
         image = lambda: sr_cuda.sr_image(*args)  # noqa: E731
         route = lambda: sr_cuda.normalise(sr_cuda.sr_deposit(*args))  # noqa: E731
-        old_dep = earlier("sr_deposit", lambda: b6_earlier(*args[:5], fb))
-        old_route = earlier("sr_deposit", lambda: sr_cuda.normalise(
-            b6_earlier(*args[:5], fb)))
-        ms, earlier_ms = paired_ms(dep, old_dep, 20)
-        # the image form against the route it replaces: the earlier
-        # design's deposit and the PyTorch normalisation (with --baseline),
-        # else this design's deposit and the normalisation
-        i_ms, route_ms = paired_ms(image, old_route or route, 20)
-        tag = ("earlier deposit + normalise" if old_route
-               else "deposit + normalise")
-        log(f"    x2 sigma {sigma}: deposit {ms:.3f} ms"
-            + (f" (earlier design {earlier_ms:.3f})" if earlier_ms else "")
-            + f"; image {i_ms:.3f} ms vs {tag} {route_ms:.3f} ms")
+        ms = time_ms(dep, 20)
+        # the image form against the route it replaces: the deposit and
+        # the PyTorch normalisation
+        i_ms, route_ms = paired_ms(image, route, 20)
+        tag = "deposit + normalise"
+        log(f"    x2 sigma {sigma}: deposit {ms:.3f} ms; image {i_ms:.3f} ms "
+            f"vs {tag} {route_ms:.3f} ms")
         prof_i = profile_line(f"x2 sigma {sigma} image", image, "sr_kernel")
-        prof_r = profile_line(f"x2 sigma {sigma} {tag}", old_route or route,
-                              "sr_")
+        prof_r = profile_line(f"x2 sigma {sigma} {tag}", route, "sr_")
         prof_d = profile_line(f"x2 sigma {sigma} deposit", dep, "sr_kernel")
-        if old_dep is not None:
-            prof_d.update({f"earlier_design_{k}": v for k, v in profile_line(
-                f"x2 sigma {sigma} deposit, earlier design", old_dep,
-                "sr_deposit_kernel").items()})
         if sigma == 0.3:
             plain_ms = time_ms(lambda: sr_cuda.sr_deposit_reference(*args), 2)
             plain_i_ms = time_ms(lambda: sr_cuda.sr_image_reference(*args), 2)
@@ -2382,8 +2299,7 @@ def phase_b6(dev, frames):
                        library_note="no PyTorch call computes a nearest-tap "
                                     "Gaussian deposit over frames", **prof_d,
                        **design_report("B6 deposit x2", "sr_deposit",
-                                       B6_INSTANCE, ms, bound_ms, earlier_ms,
-                                       B6_EARLIER_INSTANCE))
+                                       B6_INSTANCE, ms, bound_ms))
             rec_i = dict(max_abs_err=max_abs["image"], ms=i_ms,
                          plain_ms=plain_i_ms, bound_ms=img_bound_ms,
                          bound_by=img_bound_by, library_ms=None,
@@ -2395,16 +2311,14 @@ def phase_b6(dev, frames):
                          **{f"replaced_route_{k}": v
                             for k, v in prof_r.items()},
                          **design_report("B6 image x2", "sr_deposit",
-                                         B6I_INSTANCE, i_ms, img_bound_ms,
-                                         route_ms if old_route else None,
-                                         B6_EARLIER_INSTANCE))
+                                         B6I_INSTANCE, i_ms, img_bound_ms))
         else:
             rec_i.update(fallback_ms=i_ms,
                          fallback_replaced_route_ms=route_ms,
                          **{f"fallback_{k}": v for k, v in prof_i.items()},
                          **{f"fallback_replaced_route_{k}": v
                             for k, v in prof_r.items()})
-            rec.update(fallback_ms=ms, fallback_earlier_design_ms=earlier_ms,
+            rec.update(fallback_ms=ms,
                        **{f"fallback_{k}": v for k, v in prof_d.items()})
     return rec, rec_i
 
@@ -3614,8 +3528,9 @@ def phase_dcn(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time an earlier design of B2 / B4, B5, B6 and B9 "
-                         "from the sources in DIR beside the current one")
+                    help="time the earlier design of B5's accumulate form "
+                         "and B3d from the sources in DIR beside the "
+                         "current one")
     ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -38,19 +38,31 @@
 // 2^31), then evaluates the response in float32.  The plain version
 // sums the same integers exactly in float64 and casts once, so the two
 // agree bitwise (a float32 sum of those products could round, 5.1e7 >
-// 2^24, in an order no two libraries share).  B3d: one block of 128
-// threads per keypoint loads the window once into shared memory as
-// float32, takes the IC moments over the radius-15 circle as exact
-// integers (|m10| <= 961 * 15 * 255 < 2^24, so any order gives the
-// plain version's float32 sum), blurs rows then columns into shared
-// tiles in the plain version's term order, each product and sum
-// separately rounded (__fmul_rn / __fadd_rn, which are never fused),
-// and makes each warp's 32 compares one __ballot_sync word of the
-// descriptor.  atan2f, cosf and sinf are the CUDA math library's, the
-// functions PyTorch's CUDA atan2 / cos / sin call.  The rBRIEF pattern
-// and the circle's row extents are read from a small device buffer
-// (copied once per device by the wrapper): each thread reads its own
-// pattern row, which the constant cache would serialise.
+// 2^24, in an order no two libraries share).
+//
+// B3d: one block of 128 threads per keypoint, four barrier-separated
+// steps, every result in the plain version's term order, each product
+// and sum separately rounded (__fmul_rn / __fadd_rn, which are never
+// fused):
+//   1. the window into shared memory as float32 rows of 11 float4: a
+//      thread takes 4 bytes of a row from the two aligned words that
+//      hold them (a funnel shift; never a word past the row's last
+//      window byte) and widens them exactly as 2^23 + b less 2^23;
+//   2. warp 3 takes the IC moments over the radius-15 circle, a lane a
+//      column, as exact integers in float32 (|m10|, |m01| < 2^24, so any
+//      order gives the plain version's float32 sums), then the angle,
+//      while warps 0-2 blur down the columns (_blur_patches_valid's
+//      rows): a thread 4 columns by 5 output rows, each window row read
+//      once as a float4 and added to the sums it reaches in tap order;
+//   3. every thread blurs along the rows 4 outputs at a time from 12
+//      row-blur values, into the window's space;
+//   4. each warp's 32 steered rBRIEF compares become one __ballot_sync
+//      word of the descriptor, the taps rounded by the 1.5 * 2^23 add.
+// atan2f, cosf and sinf are the CUDA math library's, the functions
+// PyTorch's CUDA atan2 / cos / sin call.  The rBRIEF pattern and the
+// circle's row extents are read from a small device buffer (copied once
+// per device by the wrapper): each thread reads its own pattern row,
+// which the constant cache would serialise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,92 +146,166 @@ harris_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ ys,
   }
 }
 
+// B3d's shared layout: the window as float32 rows of WORDS float4 (its
+// 43 columns and one spare), and VR output rows a row-blur task
+constexpr int WORDS = 11;
+constexpr int VR = 5;
+constexpr int VTASKS = WORDS * ((PS + VR - 1) / VR);  // 88, warps 0-2
+constexpr int WIN_ROWS = (PS + VR - 1) / VR * VR + 6;  // the last task's rows
+constexpr int BQ = 10;  // float4 a blurred row (37 columns and 3 spare)
+constexpr int MOMENT_WARP = DESC_WARPS - 1;
+static_assert(VTASKS <= 32 * MOMENT_WARP, "row blur on the other warps");
+
+__device__ __forceinline__ float warp_sumf(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// byte j of w as a float, exactly: 2^23 + b less 2^23
+__device__ __forceinline__ float byte_f(uint32_t w, int j) {
+  return __uint_as_float(0x4B000000u | ((w >> (8 * j)) & 0xFFu)) - 8388608.0f;
+}
+
+// rint(t) as an int for |t| < 2^22: t + 1.5 * 2^23 rounds to the nearest
+// integer (ties to even) and holds it in its low bits
+__device__ __forceinline__ int rint_int(float t) {
+  return __float_as_int(__fadd_rn(t, 12582912.0f)) - 0x4B400000;
+}
+
+__device__ __forceinline__ float4 scale4(float k, float4 w) {
+  return make_float4(__fmul_rn(k, w.x), __fmul_rn(k, w.y), __fmul_rn(k, w.z),
+                     __fmul_rn(k, w.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
 __global__ void __launch_bounds__(DESC_THREADS)
 describe_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ ys,
                 const int* __restrict__ xs, const int* __restrict__ consts,
                 float* __restrict__ angle, uint32_t* __restrict__ desc,
                 int Q, int H, int W, Gauss7 g, float rad2deg, float deg2rad) {
-  __shared__ float win[SIDE * SIDE];
-  __shared__ float rows[PS * SIDE];
-  __shared__ float blur[PS * PS];
+  // the window, then (after the row blur) the blurred patch
+  __shared__ float4 win[WIN_ROWS * WORDS];
+  // the row blur; one spare float4 for the last column task's reads
+  __shared__ float4 rows[PS * WORDS + 1];
   __shared__ int umax[HALF + 1];
-  __shared__ int part[2][DESC_WARPS];
   __shared__ float rot[2];
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int i = blockIdx.x;
   const int n = i / Q;
   const int y0 = origin(ys[i], H), x0 = origin(xs[i], W);
   const uint8_t* src = imgs + (size_t)n * H * W + (size_t)y0 * W + x0;
-  for (int j = tid; j < SIDE * SIDE; j += DESC_THREADS) {
-    const int r = j / SIDE, c = j - r * SIDE;
-    win[j] = (float)src[(size_t)r * W + c];
+
+  // the window: each thread makes 4 bytes of a row from the two aligned
+  // words that hold them (never a word past the row's last window byte)
+#pragma unroll
+  for (int it = 0; it < (SIDE * WORDS + DESC_THREADS - 1) / DESC_THREADS;
+       ++it) {
+    const int j = tid + it * DESC_THREADS;
+    if (j >= SIDE * WORDS) break;
+    const int r = j / WORDS, k = j - r * WORDS;
+    const uint8_t* row = src + (size_t)r * W;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row + 4 * k);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+    const uint32_t* last = reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<uintptr_t>(row + SIDE - 1) & ~(uintptr_t)3);
+    const uint32_t lo = w[0], hi = w < last ? w[1] : lo;
+    const uint32_t v = (uint32_t)((((uint64_t)hi << 32) | lo) >> (8 * (a & 3)));
+    win[j] = make_float4(byte_f(v, 0), byte_f(v, 1), byte_f(v, 2),
+                         byte_f(v, 3));
   }
   if (tid <= HALF) umax[tid] = consts[256 + tid];
   __syncthreads();
 
-  // intensity-centroid moments over the radius-15 circle, exact
-  int m10 = 0, m01 = 0;
-  for (int j = tid; j < (2 * HALF + 1) * (2 * HALF + 1); j += DESC_THREADS) {
-    const int v = j / (2 * HALF + 1) - HALF;
-    const int u = j - (v + HALF) * (2 * HALF + 1) - HALF;
-    if (abs(u) <= umax[abs(v)]) {
-      const int pv = (int)win[(R + v) * SIDE + R + u];
-      m10 += u * pv;
-      m01 += v * pv;
-    }
-  }
-  m10 = warp_sum(m10);
-  m01 = warp_sum(m01);
-  if (lane == 0) {
-    part[0][wid] = m10;
-    part[1][wid] = m01;
-  }
-
-  // _blur_patches_valid: rows (down a column) into 37 x 43, then
-  // columns into 37 x 37, terms added in tap order
-  for (int j = tid; j < PS * SIDE; j += DESC_THREADS) {
-    const float* s = win + j;  // row j / SIDE, column j % SIDE
-    float acc = __fmul_rn(g.k[0], s[0]);
+  const float* wf = reinterpret_cast<const float*>(win);
+  if (wid == MOMENT_WARP) {
+    // intensity-centroid moments over the radius-15 circle, lane u + 15
+    // on column u: exact integers in float32 (|m10|, |m01| < 2^24), so
+    // any order gives the plain version's float32 sums; then the angle
+    const int u = lane - HALF;
+    float col = 0.0f, m01 = 0.0f;
 #pragma unroll
-    for (int t = 1; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(g.k[t], s[t * SIDE]));
-    rows[j] = acc;
+    for (int v = -HALF; v <= HALF; ++v) {
+      const float p = wf[(R + v) * 4 * WORDS + R + u];
+      if (abs(u) <= umax[v < 0 ? -v : v]) {
+        col = col + p;
+        m01 = m01 + (float)v * p;
+      }
+    }
+    const float m10 = warp_sumf((float)u * col);
+    m01 = warp_sumf(m01);
+    // atan2(m01, m10) * (180 / pi), + 360 where negative
+    float a = __fmul_rn(atan2f(m01, m10), rad2deg);
+    if (a < 0.0f) a = __fadd_rn(a, 360.0f);
+    if (lane == 0) {
+      angle[i] = a;
+      const float rad = __fmul_rn(a, deg2rad);
+      rot[0] = cosf(rad);
+      rot[1] = sinf(rad);
+    }
+  } else if (tid < VTASKS) {
+    // _blur_patches_valid's rows (down a column): 4 columns by VR output
+    // rows, each window row read once and added to the sums it reaches
+    // in tap order
+    const int q = tid % WORDS, r0 = tid / WORDS * VR;
+    float4 acc[VR];
+#pragma unroll
+    for (int j = 0; j < VR + 6; ++j) {
+      const float4 w = win[(r0 + j) * WORDS + q];
+#pragma unroll
+      for (int o = 0; o < VR; ++o) {
+        const int t = j - o;
+        if (t == 0) acc[o] = scale4(g.k[0], w);
+        else if (t > 0 && t < 7) acc[o] = add4(acc[o], scale4(g.k[t], w));
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < VR; ++o)
+      if (r0 + o < PS) rows[(r0 + o) * WORDS + q] = acc[o];
   }
   __syncthreads();
-  for (int j = tid; j < PS * PS; j += DESC_THREADS) {
-    const int r = j / PS, c = j - r * PS;
-    const float* s = rows + r * SIDE + c;
-    float acc = __fmul_rn(g.k[0], s[0]);
+
+  // the columns: 4 outputs of a row from 12 row-blur values, terms added
+  // in tap order, into the window's space (BQ float4 a row)
+  float4* blur = win;
 #pragma unroll
-    for (int t = 1; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(g.k[t], s[t]));
-    blur[j] = acc;
-  }
-  if (tid == 0) {
-    int s10 = 0, s01 = 0;
-    for (int w = 0; w < DESC_WARPS; ++w) {
-      s10 += part[0][w];
-      s01 += part[1][w];
+  for (int it = 0; it < (PS * BQ + DESC_THREADS - 1) / DESC_THREADS; ++it) {
+    const int j = tid + it * DESC_THREADS;
+    if (j >= PS * BQ) break;
+    const int r = j / BQ, q = j - r * BQ;
+    const float4* s = rows + r * WORDS + q;
+    const float4 a = s[0], b = s[1], c = s[2];
+    const float v[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, c.x, c.y, c.z, c.w};
+    float o[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      o[x] = __fmul_rn(g.k[0], v[x]);
+#pragma unroll
+      for (int t = 1; t < 7; ++t) o[x] = __fadd_rn(o[x], __fmul_rn(g.k[t], v[x + t]));
     }
-    // atan2(m01, m10) * (180 / pi), + 360 where negative
-    float a = __fmul_rn(atan2f((float)s01, (float)s10), rad2deg);
-    if (a < 0.0f) a = __fadd_rn(a, 360.0f);
-    angle[i] = a;
-    const float rad = __fmul_rn(a, deg2rad);
-    rot[0] = cosf(rad);
-    rot[1] = sinf(rad);
+    blur[j] = make_float4(o[0], o[1], o[2], o[3]);
   }
   __syncthreads();
 
   // steered rBRIEF: taps rint(x cos - y sin), rint(x sin + y cos)
+  const float* bf = reinterpret_cast<const float*>(blur);
   const float ca = rot[0], sa = rot[1];
   const char4* pattern = reinterpret_cast<const char4*>(consts);
-  for (int b = tid; b < 256; b += DESC_THREADS) {
+#pragma unroll
+  for (int it = 0; it < 256 / DESC_THREADS; ++it) {
+    const int b = tid + it * DESC_THREADS;
     const char4 pt = pattern[b];
     const float x1 = pt.x, y1 = pt.y, x2 = pt.z, y2 = pt.w;
-    const int rx1 = (int)rintf(__fsub_rn(__fmul_rn(x1, ca), __fmul_rn(y1, sa))) + PR;
-    const int ry1 = (int)rintf(__fadd_rn(__fmul_rn(x1, sa), __fmul_rn(y1, ca))) + PR;
-    const int rx2 = (int)rintf(__fsub_rn(__fmul_rn(x2, ca), __fmul_rn(y2, sa))) + PR;
-    const int ry2 = (int)rintf(__fadd_rn(__fmul_rn(x2, sa), __fmul_rn(y2, ca))) + PR;
-    const bool bit = blur[ry1 * PS + rx1] < blur[ry2 * PS + rx2];
+    const int rx1 = rint_int(__fsub_rn(__fmul_rn(x1, ca), __fmul_rn(y1, sa))) + PR;
+    const int ry1 = rint_int(__fadd_rn(__fmul_rn(x1, sa), __fmul_rn(y1, ca))) + PR;
+    const int rx2 = rint_int(__fsub_rn(__fmul_rn(x2, ca), __fmul_rn(y2, sa))) + PR;
+    const int ry2 = rint_int(__fadd_rn(__fmul_rn(x2, sa), __fmul_rn(y2, ca))) + PR;
+    const bool bit = bf[ry1 * 4 * BQ + rx1] < bf[ry2 * 4 * BQ + rx2];
     const unsigned word = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) desc[(size_t)i * 8 + (b >> 5)] = word;
   }

@@ -92,26 +92,44 @@
 // division, 1/32 binning and border map ran once per channel, and a
 // [N,H,W,3] float32 intermediate was written and summed back by PyTorch.
 // The TPU kernel's plane-and-apron layout exists for its VMEM windows; a
-// CUDA thread reads any texel.  Here one thread per output pixel (and
-// frame) computes the coordinates and the four mapped tap offsets once,
-// reads the taps of all C <= 4 channels of the [N,H,W,C] frame in its
-// own type (u8 / u16 / f32) and widens each tap as warp_accum.cu does,
-// (float)v * float32(1/255) (or 1/65535): bitwise what feeding
-// ops/color.py's to_unit_f32(frames) gives.  Two outputs:
+// CUDA thread reads any texel.  Both forms compute a pixel's coordinates
+// and taps once for all C <= 4 channels of the [N,H,W,C] frame, read
+// the taps in the frame's own type (u8 / u16 / f32) and widen each as
+// warp_accum.cu does, (float)v * float32(1/255) (or 1/65535): bitwise
+// what feeding ops/color.py's to_unit_f32(frames) gives.  Two outputs:
 //   frames:     out[n, y, x, c] = warp(frames[n], minv[n])[y, x, c]
 //   accumulate: out[y, x, c] = sum_n valid[n] * warp(...)[y, x, c],
 //               frame by frame in frame order in one launch, the sums
-//               in registers (B2's loop); a frame with valid[n] == 0 is
-//               skipped whole, its map never read.
-// What bounds them: the accumulate form reads the burst in its own type
-// once and writes one [H,W,C] f32 image (0.47 GB + 0.1 GB for 19 u8
+//               in registers; a frame with valid[n] == 0 is skipped
+//               whole, its map never read.
+// frames_kernel is the first design: one thread per output pixel and
+// frame, the taps through frame_taps / sample.
+//
+// What bounds the accumulate form: it reads the burst in its own type
+// once and writes one [H,W,C] f32 image (0.47 GB + 0.1 GB for 18 kept u8
 // frames of 4K, ~0.17 ms at 3.35 TB/s) against ~35 float operations a
-// pixel-frame for the coordinates and ~16 a channel (~1.2e10 for the
-// same burst, ~0.19 ms at 67 T/s): the two bounds are close, and B2's
-// identical loop measures issue-bound (warp_accum.cu).  The index maps
-// are applied only to taps outside the frame; inside, every mode is the
-// identity.  The border values travel by value in the launch, so a
-// call copies nothing to the device and never waits on it.
+// pixel-frame for the coordinates and ~16 a channel (~1.2e10, ~0.19 ms
+// at 67 T/s); B2's identical loop measures issue-bound (warp_accum.cu).
+//
+// Design (accum_kernel), B2's and the planar form's: a block is four
+// warps on four output rows, a lane B5A_PIXELS pixels of its row strided
+// by 32 (each tap load of a warp covers 32 neighbouring pixels), and the
+// block stages each chunk of B5A_CHUNK frames' maps and weights in
+// shared memory once; a dropped frame is skipped by the whole block.
+// Per thread-frame: the row products m1*y, m4*y, m7*y once, then per
+// pixel the coordinates as ops/warp.py:56-62 writes them, the correctly
+// rounded reciprocal and the bins off the conversion pipe
+// (csrc/warp_bins.cuh), a 32-bit tap offset (frames of fewer than 2^31
+// values) and the two weights.  Inside the strip every border mode is
+// the identity: when every reciprocal took the fast path and every tap
+// of the thread's pixels lies in the strip (the row test taken on the
+// strip row, as the planar form's, so a strip above the frame stays
+// exact), the taps are read with no index map and no border select, one
+// branch a thread-frame; otherwise each pixel takes the plain
+// expressions (frame_taps / sample).  The C channels are a template
+// constant for RGB; the sums leave by streaming stores (__stcs).  The
+// border values travel by value in the launch, so a call copies nothing
+// to the device and never waits on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -507,36 +525,180 @@ frames_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
     if (c < C) o[c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
 }
 
-// B5, accumulate form: one thread per output pixel walks the frames in
-// order; a dropped frame (valid[n] == 0) is skipped whole
-template <int MODE, typename T>
-__global__ void __launch_bounds__(THREADS)
+// B5, accumulate form: see the header.  A block's four warps take four
+// output rows, a lane B5A_PIXELS pixels of its row (x = x0 + lane + 32k),
+// and each thread walks the frames in order with its sums in registers.
+constexpr int B5A_ROWS = 4;
+constexpr int B5A_THREADS = 32 * B5A_ROWS;
+constexpr int B5A_PIXELS = 2;
+constexpr int B5A_TILE = 32 * B5A_PIXELS;  // output columns a block
+constexpr int B5A_CHUNK = 32;  // frames whose maps a block stages at once
+
+// One frame's inverse map m0..m8 and valid[n], staged as three float4
+struct FrameMap {
+  float4 a, b, c;  // {m0 m1 m2 m3} {m4 m5 m6 m7} {m8 valid - -}
+};
+
+// fast_w, fast_y0, fast_h as warp_kernel's (launch_accum); CH the
+// channels where fixed at compile time (3), else 0 and C is read
+template <int MODE, typename T, bool PERSP, int CH>
+__global__ void __launch_bounds__(B5A_THREADS)
 accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
              const float* __restrict__ valid, Border4 border,
-             float* __restrict__ out, int N, int H, int W, int C,
-             int perspective, float scale, int oy0, int sy0) {
-  const size_t hw = (size_t)H * W;
-  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= hw) return;
-  const int y = (int)(p / W);
-  const int x = (int)(p - (size_t)y * W);
-  const float xs = (float)x, ys = (float)(y + oy0), sy0f = (float)sy0;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int n = 0; n < N; ++n) {
-    const float vn = valid[n];
-    if (vn == 0.0f) continue;
-    const Taps t =
-        frame_taps<MODE>(minv + 9 * n, xs, ys, H, W, perspective, sy0f);
-    const T* f = frames + (size_t)n * hw * C;
+             float* __restrict__ out, int N, int H, int W, int C_any,
+             float scale, int tiles_x, int oy0, int sy0, unsigned fast_w,
+             int fast_y0, unsigned fast_h) {
+  constexpr int P = B5A_PIXELS;
+  const int C = CH ? CH : C_any;
+  __shared__ FrameMap maps[B5A_CHUNK];
+  const int tile = (int)(blockIdx.x % (unsigned)tiles_x);
+  const int yy = (int)(blockIdx.x / (unsigned)tiles_x) * B5A_ROWS +
+                 (int)(threadIdx.x >> 5);
+  const int y = min(yy, H - 1);
+  const int x0 = tile * B5A_TILE + (int)(threadIdx.x & 31);
+  float xs[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) xs[k] = (float)min(x0 + 32 * k, W - 1);
+  const float ys = (float)(y + oy0), sy0f = (float)sy0;
+  const unsigned wc = (unsigned)W * (unsigned)C;  // a row's elements
+  const size_t frame_elems = (size_t)H * W * C;
+  float acc[P][4];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[k][c] = 0.0f;
+
+  for (int n0 = 0; n0 < N; n0 += B5A_CHUNK) {
+    const int count = min(B5A_CHUNK, N - n0);
+    __syncthreads();
+    if ((int)threadIdx.x < count) {
+      const int n = n0 + (int)threadIdx.x;
+      const float* m = minv + 9 * (size_t)n;
+      maps[threadIdx.x].a = make_float4(m[0], m[1], m[2], m[3]);
+      maps[threadIdx.x].b = make_float4(m[4], m[5], m[6], m[7]);
+      maps[threadIdx.x].c = make_float4(m[8], valid[n], 0.0f, 0.0f);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < count; ++j) {
+      const FrameMap fm = maps[j];
+      const float vn = fm.c.y;
+      if (vn == 0.0f) continue;  // dropped: the whole block skips it
+      const float m[9] = {fm.a.x, fm.a.y, fm.a.z, fm.a.w, fm.b.x,
+                          fm.b.y, fm.b.z, fm.b.w, fm.c.x};
+      const T* f = frames + (size_t)(n0 + j) * frame_elems;
+      const float r1 = m[1] * ys, r4 = m[4] * ys, r7 = m[7] * ys;
+      // the P pixels' tap offsets and weights; `fast`: every reciprocal
+      // on its fast path and every tap in the strip
+      bool fast = true;
+      unsigned off[P];
+      float fx[P], fy[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        float sx = (m[0] * xs[k] + r1) + m[2];
+        float sy = (m[3] * xs[k] + r4) + m[5];
+        if (PERSP) {
+          const float sw = (m[6] * xs[k] + r7) + m[8];
+          bool ok;
+          const float inv = rcp_fast(sw, ok);
+          fast &= ok;
+          sx = sx * inv;
+          sy = sy * inv;
+        }
+        const int qx = quant<PERSP>(sx), qy = quant<PERSP>(sy);
+        const int tx = qx >> 5, ty = (qy >> 5) - sy0;
+        fast &= (unsigned)tx < fast_w && (unsigned)(ty - fast_y0) < fast_h;
+        off[k] = (unsigned)ty * wc + (unsigned)tx * (unsigned)C;
+        fx[k] = frac32(qx);
+        fy[k] = frac32(qy);
+      }
+      float v[P][4];
+      if (fast) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const T* p0 = f + off[k];
+          const T* p1 = p0 + wc;
+          const float gx = 1.0f - fx[k], gy = 1.0f - fy[k];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c >= C) break;
+            const float top = widen<T>(p0[c], scale) * gx +
+                              widen<T>(p0[C + c], scale) * fx[k];
+            const float bot = widen<T>(p1[c], scale) * gx +
+                              widen<T>(p1[C + c], scale) * fx[k];
+            v[k][c] = top * gy + bot * fy[k];
+          }
+        }
+      } else {
+        // a tap off the strip, or a reciprocal off its fast path: each
+        // pixel as the plain version takes it
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const Taps t = frame_taps<MODE>(m, xs[k], ys, H, W, PERSP, sy0f);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c >= C) break;
+            v[k][c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c < C) acc[k][c] = acc[k][c] + v[k][c] * vn;
+    }
+  }
+  if (yy >= H) return;
+  float* orow = out + (size_t)y * wc;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int x = x0 + 32 * k;
+    if (x >= W) continue;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      if (c < C)
-        acc[c] = acc[c] + sample<MODE, T>(f, t, c, C, border.v[c], scale) * vn;
+      if (c < C) __stcs(orow + (size_t)x * C + c, acc[k][c]);
   }
-  float* o = out + p * C;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c < C) o[c] = acc[c];
+}
+
+// The fast path's extents for a strip of H rows from global row sy0
+// (0 where a frame's taps need offsets of 31 bits or more): a tap origin
+// (tx, ty) with tx < fast_w and fast_y0 <= ty < fast_y0 + fast_h has its
+// four taps in the strip and exact integer bins (not negative, below
+// 2^18 per axis, 2^13 for the affine bins), its global row tested.
+template <bool PERSP>
+void fast_extents(long long H, long long W, long long C, int sy0,
+                  unsigned& fast_w, int& fast_y0, unsigned& fast_h) {
+  const long long lim = PERSP ? BIN_LIMIT_PERSP : BIN_LIMIT_AFFINE;
+  const bool narrow = H * W * C <= 0x7fffffffLL;
+  const long long ty_lo = sy0 < 0 ? -(long long)sy0 : 0;
+  const long long ty_hi = H - 1 < lim - sy0 ? H - 1 : lim - sy0;
+  fast_w = narrow ? (unsigned)(W - 1 < lim ? W - 1 : lim) : 0u;
+  fast_y0 = (int)ty_lo;
+  fast_h = narrow && ty_hi > ty_lo ? (unsigned)(ty_hi - ty_lo) : 0u;
+}
+
+template <int MODE, typename T, bool PERSP>
+cudaError_t launch_accum(const T* f, const float* minv, const Border4& border,
+                         const float* valid, float* out, int N, int H, int W,
+                         int C, float scale, int oy0, int sy0,
+                         cudaStream_t st) {
+  const long long tiles_x = (W + B5A_TILE - 1) / B5A_TILE;
+  const long long blocks = tiles_x * ((H + B5A_ROWS - 1) / B5A_ROWS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  unsigned fw, fh;
+  int fy0;
+  fast_extents<PERSP>(H, W, C, sy0, fw, fy0, fh);
+  if (C == 3) {
+    accum_kernel<MODE, T, PERSP, 3><<<(unsigned)blocks, B5A_THREADS, 0, st>>>(
+        f, minv, valid, border, out, N, H, W, C, scale, (int)tiles_x, oy0,
+        sy0, fw, fy0, fh);
+  } else {
+    accum_kernel<MODE, T, PERSP, 0><<<(unsigned)blocks, B5A_THREADS, 0, st>>>(
+        f, minv, valid, border, out, N, H, W, C, scale, (int)tiles_x, oy0,
+        sy0, fw, fy0, fh);
+  }
+  return cudaGetLastError();
 }
 
 template <int MODE, typename T>
@@ -545,17 +707,18 @@ cudaError_t launch_frames(const void* frames, const float* minv,
                           float* out, int N, int H, int W, int C,
                           int perspective, float scale, int oy0, int sy0,
                           cudaStream_t st) {
-  const size_t hw = (size_t)H * W;
-  const unsigned blocks = (unsigned)((hw + THREADS - 1) / THREADS);
   const T* f = static_cast<const T*>(frames);
   if (valid) {
-    accum_kernel<MODE, T><<<blocks, THREADS, 0, st>>>(
-        f, minv, valid, border, out, N, H, W, C, perspective, scale, oy0,
-        sy0);
-  } else {
-    frames_kernel<MODE, T><<<dim3(blocks, (unsigned)N), THREADS, 0, st>>>(
-        f, minv, border, out, H, W, C, perspective, scale, oy0, sy0);
+    return perspective
+               ? launch_accum<MODE, T, true>(f, minv, border, valid, out, N,
+                                             H, W, C, scale, oy0, sy0, st)
+               : launch_accum<MODE, T, false>(f, minv, border, valid, out, N,
+                                              H, W, C, scale, oy0, sy0, st);
   }
+  const size_t hw = (size_t)H * W;
+  const unsigned blocks = (unsigned)((hw + THREADS - 1) / THREADS);
+  frames_kernel<MODE, T><<<dim3(blocks, (unsigned)N), THREADS, 0, st>>>(
+      f, minv, border, out, H, W, C, perspective, scale, oy0, sy0);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@
 does: :func:`dump` disassembles a built library, and
 :func:`loop_classes` counts the instructions of one kernel's innermost
 loop (its largest loop that holds no other) along its main path, in five
-classes (:func:`body_classes` the same for a kernel with no loop, from
-its first instruction to an ``EXIT``):
+classes (:func:`body_classes` the same for a kernel's whole body, from
+its first instruction to an ``EXIT``, each loop body once):
 
 - ``fp32``: FP32 arithmetic, compares and selects;
 - ``conv``: conversions, roundings and the special-function unit (I2F,
@@ -22,11 +22,15 @@ an affine one (the reciprocal's fast path in line; a fallback that
 divides again has more), and otherwise the fewest instructions: it
 skips the plain-expression fallbacks a kernel keeps for pixels on the
 frame's edge.  The counts are static, per loop iteration;
-``per_pixel`` divides them by the iteration's pixel-frames.
+``per_pixel`` divides them by the iteration's pixel-frames.  With
+``longest`` the path with the most instructions is taken instead of the
+fewest (a kernel whose threads share one body, as B3d's blurring
+threads do: its busiest thread).
 """
 
 from __future__ import annotations
 
+import functools
 import re
 import shutil
 import subprocess
@@ -159,21 +163,25 @@ def loop_classes(text: str, pixels: int = 1,
                       closes_loop=True)
 
 
-def body_classes(text: str, pixels: int = 1,
-                 homography: bool = True) -> Optional[dict]:
-    """:func:`loop_classes` for a kernel with no loop: the main path from
-    the kernel's first instruction to an ``EXIT`` (``pixels`` the output
-    values a thread)."""
+def body_classes(text: str, pixels: int = 1, homography: bool = True,
+                 longest: bool = False) -> Optional[dict]:
+    """:func:`loop_classes` for a kernel's whole body: the main path from
+    the kernel's first instruction to an ``EXIT``, forward edges only, so
+    a loop's body counts once (``pixels`` the output values a thread;
+    ``longest`` the path with the most instructions)."""
     insns = _parse(text)
     if not insns:
         return None
-    return _main_path(insns, pixels, homography, closes_loop=False)
+    return _main_path(insns, pixels, homography, closes_loop=False,
+                      longest=longest)
 
 
 def _main_path(body: List[dict], pixels: int, homography: bool,
-               closes_loop: bool) -> Optional[dict]:
+               closes_loop: bool, longest: bool = False) -> Optional[dict]:
     """The counts of the main path through ``body``: from its head to its
-    back edge (``closes_loop``) or to an ``EXIT``, forward edges only."""
+    back edge (``closes_loop``) or to an ``EXIT``, forward edges only;
+    among paths with the most global loads and the MUFU count closest to
+    the target, the fewest instructions (the most with ``longest``)."""
     addr = {ins["addr"]: i for i, ins in enumerate(body)}
     # leaders of basic blocks: the head, branch targets, after branches
     lead = {0}
@@ -187,6 +195,8 @@ def _main_path(body: List[dict], pixels: int, homography: bool,
     block_of = {s: k for k, (s, _) in enumerate(blocks)}
     # best[k][mufu]: ((LDG, -instructions), counts by opcode) of the best
     # path from the head to block k's start with that many MUFU
+    # (+instructions with ``longest``)
+    step = 1 if longest else -1
     best: List[dict] = [dict() for _ in blocks]
     best[0][0] = ((0, 0), {})
     ends: dict = {}
@@ -202,7 +212,7 @@ def _main_path(body: List[dict], pixels: int, homography: bool,
                 ops[ins["full"]] = ops.get(ins["full"], 0) + 1
                 ldg += ins["op"] == "LDG"
                 mufu += ins["op"] == "MUFU"
-                neg -= 1
+                neg += step
             last = body[e - 1]
             succ = []
             if not closes_loop and last["op"] == "EXIT":
@@ -232,17 +242,25 @@ def _main_path(body: List[dict], pixels: int, homography: bool,
                 per_pixel_total=sum(counts.values()) / pixels)
 
 
+@functools.lru_cache(maxsize=None)
+def _library_functions(lib: Path) -> Dict[str, str]:
+    return functions(dump(lib))
+
+
 def kernel_loop(lib: Path, piece: str, pixels: int = 1,
                 homography: bool = True, whole: bool = False) -> Optional[dict]:
     """:func:`loop_classes` of the kernel of library ``lib`` whose
     mangled name contains ``piece`` (None if there is none); ``whole``:
-    :func:`body_classes`, for a kernel with no loop."""
-    funcs = functions(dump(lib))
+    the longest path of its whole body (:func:`body_classes`, a busiest
+    thread).  A library is disassembled once."""
+    funcs = _library_functions(Path(lib))
     name = next((k for k in funcs if piece in k), None)
     if name is None:
         return None
-    count = body_classes if whole else loop_classes
-    found = count(funcs[name], pixels, homography)
+    if whole:
+        found = body_classes(funcs[name], pixels, homography, longest=True)
+    else:
+        found = loop_classes(funcs[name], pixels, homography)
     if found is not None:
         found["kernel"] = name
     return found

@@ -24,7 +24,10 @@ form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
 the compiler reorders); B5 in every border mode (its planar form, also on
 the host-shim cases of tests/test_torch_warp_design.py, and its
-frames and accumulate forms on u8, u16 and f32 frames) and B9 bitwise; the
+frames and accumulate forms on u8, u16 and f32 frames, the accumulate
+form also on the host-shim cases of tests/test_torch_warp_frames_design.py)
+and B9 bitwise, B3d also on the host-shim cases of
+tests/test_torch_orb_design.py; the
 sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
 on the card against the CPU path at the slice bars above.  B7 at B1's
 bar; B6 within 1e-5 of the largest value (the taps are the same, the
@@ -64,7 +67,9 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("scipy")
 
+import test_torch_orb_design as orb_design  # noqa: E402
 import test_torch_warp_design as warp_design  # noqa: E402
+import test_torch_warp_frames_design as frames_design  # noqa: E402
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
@@ -472,6 +477,29 @@ def test_warp_kernel_design_cases(dev, mode, kind, shape):
             assert warp_design.bitwise(got, want), (qa, out_hw, rows)
 
 
+@pytest.mark.parametrize("types", range(len(frames_design.TYPES)))
+@pytest.mark.parametrize("kind", frames_design.KINDS)
+@pytest.mark.parametrize("mode", warp_design.MODES)
+def test_accum_kernel_design_cases(dev, mode, kind, types):
+    """B5's accumulate form on the host-shim cases of
+    tests/test_torch_warp_frames_design.py (ties, sw == 0 rows, edges,
+    far and shifted maps, 1, 3 and 4 channels of u8, u16 and f32, odd
+    widths, dropped frames with non-finite maps inside and across a
+    block's staged chunk, row origins) through the wrapper, bitwise equal
+    to its plain version on the card."""
+    dtype, c = frames_design.TYPES[types]
+    for frames, minv, valid, border, rows in frames_design.frames_cases(
+            kind, dtype, c):
+        frames, minv, valid = frames.to(dev), minv.to(dev), valid.to(dev)
+        for qa in (False, True):
+            got = warp_cuda.warp_frames(frames, minv, border, mode, qa, valid,
+                                        rows)
+            want = warp_cuda.warp_frames_reference(frames, minv, border, mode,
+                                                   qa, valid, rows)
+            torch.cuda.synchronize()
+            assert warp_design.bitwise(got, want), (frames.shape, qa, rows)
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
 @pytest.mark.parametrize("mode", ["constant", "transparent", "replicate",
                                   "reflect", "reflect101", "wrap"])
@@ -533,6 +561,24 @@ def test_orb_harris_and_describe_kernels_match_plain(dev, shape):
     assert torch.equal(got, want)
     assert torch.equal(ang, ang_want)
     assert torch.equal(desc, desc_want)
+
+
+@pytest.mark.parametrize("w", [43, 140, 141, 142, 143])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_describe_kernel_design_cases(dev, axis, w):
+    """B3d on the host-shim cases of tests/test_torch_orb_design.py
+    (windows mirrored about the keypoint's row or column, flat windows,
+    every row pitch modulo 4, every byte alignment of a window) bitwise
+    against its plain version on the card."""
+    for seed in (w + axis, w + 7):
+        imgs, ys, xs = orb_design._mirrored_level(
+            seed, 3, 43 if w == 43 else 61, w, axis)
+        imgs, ys, xs = imgs.to(dev), ys.to(dev), xs.to(dev)
+        ang, desc = orb_cuda.describe(imgs, ys, xs)
+        ang_want, desc_want = orb_cuda.describe_reference(imgs, ys, xs)
+        torch.cuda.synchronize()
+        assert torch.equal(ang, ang_want)
+        assert torch.equal(desc, desc_want)
 
 
 def test_orb_detect_builds_no_patch_tensor(dev):

@@ -16,16 +16,33 @@ Bars, all bitwise:
   0/255 content whose sums pass 2^24 (where a float32 sum can round), and
   the response evaluated term by term in float32 equals the plain one;
 - B3d: the IC moments, summed in any order, are the same float32 value
-  (exact integers below 2^24); the rows-then-columns blur on the flat
-  43x43 / 37x43 / 37x37 shared tiles, each product and sum rounded,
+  (exact integers below 2^24), also in the kernel's split (a lane a
+  column, then a butterfly); the rows-then-columns blur in the kernel's
+  tiles (rows of 11 float4, 4 columns by 5 rows a row-blur task, each
+  window row added to the sums it reaches in tap order; 4 columns from
+  12 row-blur values a column task), each product and sum rounded,
   equals ``_blur_patches_valid``; the steered taps rint(x cos - y sin),
-  rint(x sin + y cos) at multiples of 90 degrees and on .5 boundaries
-  round half to even as ``torch.round`` does; the ballot words stored
-  little-endian are the LSB-first descriptor bytes; the device buffer
-  holds ORB_PATTERN and the circle's row extents.
+  rint(x sin + y cos) by the 1.5 * 2^23 add at multiples of 90 degrees
+  and on .5 boundaries round half to even as ``torch.round`` does; the
+  ballot words stored little-endian are the LSB-first descriptor bytes;
+  the device buffer holds ORB_PATTERN and the circle's row extents.
+
+``csrc/orb_describe.cu`` itself, compiled for the host with ``g++``
+through ``tests/_cuda_host_shim.h`` (its shuffles and ballots exchange
+through the shim's warp barriers), is held bitwise to the plain
+versions: B3h on random levels (no math library in its result), B3d on
+levels whose windows are symmetric about the keypoint's row or column,
+so that the moments make an angle of 0, 90, 180 or 270 degrees (or both
+are 0), which the host's atan2f, cosf and sinf give as the card's and
+PyTorch's do: its window staging at every byte alignment and row pitch,
+the blur and the steered compares decide the result.
 """
 
+import ctypes
 import math
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +50,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import n, t  # noqa: E402
+from test_torch_warp_design import _LAUNCH  # noqa: E402
 from libstacker_tpu_torch.ops import fast, filters, orb_cuda  # noqa: E402
 from libstacker_tpu_torch.ops._orb_pattern import ORB_PATTERN  # noqa: E402
 
@@ -182,13 +200,18 @@ def test_ic_moments_any_order():
         for v in prods[order]:
             acc = np.float32(acc + v)
         assert acc == want10
-    # the kernel's split: 128 threads over j = v * 31 + u, then warps
-    per_thread = np.zeros(128, np.int64)
-    for j in range(31 * 31):
-        v, u = divmod(j, 31)
-        if abs(u - 15) <= umax[abs(v - 15)]:
-            per_thread[j % 128] += (u - 15) * int(win[v, u])
-    assert float(per_thread.sum()) == want10
+    # the kernel's split: lane u + 15 sums its column over the circle's
+    # rows, times u, then a butterfly over 32 lanes (lane 31 outside)
+    lanes = np.zeros(32, np.float32)
+    for u in range(-15, 17):
+        col = np.float32(0)
+        for v in range(-15, 16):
+            if abs(u) <= umax[abs(v)]:
+                col = np.float32(col + win[v + 15, u + 15])
+        lanes[u + 15] = np.float32(u) * col
+    for off in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+    assert lanes[0] == want10
     assert abs(want10) < 2 ** 24
 
 
@@ -197,30 +220,51 @@ def test_blur_in_the_kernels_staged_layout():
     patches = rng.integers(0, 256, (3, SIDE, SIDE)).astype(np.float32)
     k = np.asarray(filters.gaussian_kernel(7, 2.0), np.float32)
     want = n(orb_cuda._blur_patches_valid(t(patches)))
+    f = np.float32
     for p, w in zip(patches, want):
-        win = p.ravel()
-        rows = np.empty(PS * SIDE, np.float32)
-        for j in range(PS * SIDE):
-            acc = np.float32(k[0] * win[j])
-            for tap in range(1, 7):
-                acc = np.float32(acc + np.float32(k[tap] * win[j + tap * SIDE]))
-            rows[j] = acc
-        blur = np.empty(PS * PS, np.float32)
-        for j in range(PS * PS):
-            r, c = divmod(j, PS)
-            acc = np.float32(k[0] * rows[r * SIDE + c])
-            for tap in range(1, 7):
-                acc = np.float32(acc + np.float32(k[tap] * rows[r * SIDE + c + tap]))
-            blur[j] = acc
-        np.testing.assert_array_equal(blur.reshape(PS, PS), w)
+        # the window as 46 rows of 44 columns (43 and a spare; the rows
+        # past 43 only reach the last task's spare outputs)
+        win = np.full((46, 44), np.nan, np.float32)
+        win[:SIDE, :SIDE] = p
+        rows = np.full((PS * 44 + 4,), np.nan, np.float32)
+        for task in range(88):  # 4 columns by 5 rows, window rows in order
+            q, r0 = task % 11, task // 11 * 5
+            acc = [None] * 5
+            for j in range(11):
+                wv = win[r0 + j, 4 * q : 4 * q + 4]
+                for o in range(5):
+                    tap = j - o
+                    if tap == 0:
+                        acc[o] = (k[0] * wv).astype(f)
+                    elif 0 < tap < 7:
+                        acc[o] = (acc[o] + (k[tap] * wv).astype(f)).astype(f)
+            for o in range(5):
+                if r0 + o < PS:
+                    rows[(r0 + o) * 44 + 4 * q : (r0 + o) * 44 + 4 * q + 4] = acc[o]
+        blur = np.empty((PS, 40), np.float32)
+        for task in range(PS * 10):  # 4 columns from 12 row-blur values
+            r, q = divmod(task, 10)
+            vals = rows[r * 44 + 4 * q : r * 44 + 4 * q + 12]
+            for x in range(4):
+                acc = f(k[0] * vals[x])
+                for tap in range(1, 7):
+                    acc = f(acc + f(k[tap] * vals[x + tap]))
+                blur[r, 4 * q + x] = acc
+        np.testing.assert_array_equal(blur[:, :PS], w)
+
+
+def _rint_int(v):
+    """B3d's rint: v + 1.5 * 2^23 in float32, its bits less 0x4B400000."""
+    s = np.array([np.float32(v) + np.float32(12582912.0)], np.float32)
+    return int(s.view(np.int32)[0]) - 0x4B400000
 
 
 def _taps(x, y, ca, sa):
     """B3d's steered tap: rint(x cos - y sin), rint(x sin + y cos)."""
     f = np.float32
     x, y, ca, sa = f(x), f(y), f(ca), f(sa)
-    return (int(np.rint(f(f(x * ca) - f(y * sa)))),
-            int(np.rint(f(f(x * sa) + f(y * ca)))))
+    return (_rint_int(f(f(x * ca) - f(y * sa))),
+            _rint_int(f(f(x * sa) + f(y * ca))))
 
 
 def test_rbrief_taps_quarter_turns_and_half_boundaries():
@@ -244,6 +288,9 @@ def test_rbrief_taps_quarter_turns_and_half_boundaries():
                         (3.0, 0.5, 2), (1.0, 0.5, 0)):
         assert _taps(x, 0.0, ca, 0.0)[0] == want
         assert int(torch.round(torch.tensor(np.float32(x * ca)))) == want
+    # the add is rint for every tap value the pattern can reach
+    vals = np.arange(-19.0, 19.0, 1 / 64, dtype=np.float32)
+    assert [_rint_int(v) for v in vals] == list(np.rint(vals).astype(int))
 
 
 def test_descriptor_words_and_device_buffer():
@@ -269,3 +316,114 @@ def test_guards():
         orb_cuda.candidate_harris(imgs, ys, xs, valid[:, :3])
     with pytest.raises(ValueError, match="smaller"):
         orb_cuda.describe(imgs[:, :40], ys, xs)
+
+
+# --- the kernel source on the host --------------------------------------
+
+_SHIM = Path(__file__).with_name("_cuda_host_shim.h")
+_SOURCE = Path(orb_cuda.__file__).parents[1] / "csrc" / "orb_describe.cu"
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """csrc/orb_describe.cu built for the host with g++ and the shim
+    (launches rewritten as shim calls; -ffp-contract=off as nvcc's
+    --fmad=false)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    d = tmp_path_factory.mktemp("orb_describe_host")
+    src = _LAUNCH.sub(
+        lambda m: (f"host_grid({m.group(2)}, {m.group(3)}, [&] "
+                   f"{{ {m.group(1)}({m.group(4)}); }});"),
+        _SOURCE.read_text())
+    (d / "cuda_runtime.h").write_text(_SHIM.read_text())
+    (d / "orb_describe.cpp").write_text(src)
+    lib = d / "liborb_describe_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-fno-fast-math", "-fPIC", "-shared", "-I", str(d),
+                    "-o", str(lib), str(d / "orb_describe.cpp")],
+                   check=True, capture_output=True)
+    h = ctypes.CDLL(str(lib))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    h.candidate_harris.argtypes = [vp] * 5 + [ci] * 4 + [cf, cf, vp]
+    h.orb_describe.argtypes = ([vp] * 4 + [ctypes.POINTER(cf)] + [vp] * 2
+                               + [ci] * 4 + [cf, cf, vp])
+    return h
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _host_describe(host, imgs, ys, xs):
+    nf, h, w = imgs.shape
+    q = ys.shape[1]
+    angle = torch.empty((nf, q), dtype=torch.float32)
+    desc = torch.empty((nf, q, 32), dtype=torch.uint8)
+    consts = orb_cuda._describe_constants_on(torch.device("cpu"))
+    ys32, xs32 = ys.to(torch.int32).contiguous(), xs.to(torch.int32).contiguous()
+    assert host.orb_describe(
+        _ptr(imgs), _ptr(ys32), _ptr(xs32), _ptr(consts), orb_cuda._blur_taps(),
+        _ptr(angle), _ptr(desc), nf, q, h, w, 180.0 / math.pi,
+        math.pi / 180.0, None) == 0
+    return angle, desc
+
+
+def _mirrored_level(seed, nf, h, w, axis):
+    """Random u8 levels mirrored about their middle row (``axis`` 0) or
+    column (1), and keypoints on it: every window centred there is
+    symmetric, so m01 (or m10) is 0; the other coordinate runs over every
+    byte alignment, the clamped edges and beyond."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (nf, h, w)).astype(np.uint8)
+    if axis == 0:
+        imgs = np.concatenate([imgs[:, : h // 2 + 1],
+                               imgs[:, : h // 2][:, ::-1]], axis=1)
+    else:
+        imgs = np.concatenate([imgs[:, :, : w // 2 + 1],
+                               imgs[:, :, : w // 2][:, :, ::-1]], axis=2)
+    mid = (imgs.shape[1 + axis] - 1) // 2
+    span = imgs.shape[2 - axis]
+    along = np.array([0, 1, 2, 3, 21, 22, 23, 24, span // 2, span - 23,
+                      span - 22, span - 1, span + 4, -5, 40, 41], np.int32)
+    along = np.tile(along, (nf, 1))
+    across = np.full_like(along, mid)
+    ys, xs = (across, along) if axis == 0 else (along, across)
+    return t(np.ascontiguousarray(imgs)), t(ys), t(xs)
+
+
+@pytest.mark.parametrize("w", [43, 140, 141, 142, 143])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_describe_kernel_source_on_host(host_kernel, axis, w):
+    """B3d bitwise on windows whose angle is a quarter turn (or 0 when a
+    window is flat), at every row pitch modulo 4 and a level of exactly
+    one window."""
+    for seed, flat in ((w + axis, False), (w + 7, True)):
+        imgs, ys, xs = _mirrored_level(seed, 3, 43 if w == 43 else 61, w, axis)
+        if flat:  # both moments 0: atan2(0, 0)
+            imgs = torch.full_like(imgs, 77)
+            imgs[:, ::5] = 200
+        ang, desc = _host_describe(host_kernel, imgs, ys, xs)
+        ang_want, desc_want = orb_cuda.describe_reference(imgs, ys, xs)
+        assert np.isin(np.round(n(ang_want), 3),
+                       [0.0, 90.0, 180.0, 270.0]).all()
+        np.testing.assert_array_equal(n(ang), n(ang_want))
+        np.testing.assert_array_equal(n(desc), n(desc_want))
+
+
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_harris_kernel_source_on_host(host_kernel, seed, binary):
+    """B3h bitwise: the warp's exact int32 sums through the shim's
+    shuffles, invalid candidates, centres at and beyond every edge."""
+    imgs, ys, xs, valid = _level(seed, binary=binary, w=137 + seed)
+    nf, h, w = imgs.shape
+    k = ys.shape[1]
+    out = torch.empty((nf, k), dtype=torch.float32)
+    vb = valid.to(torch.bool).contiguous()
+    assert host_kernel.candidate_harris(
+        _ptr(imgs), _ptr(ys), _ptr(xs), _ptr(vb), _ptr(out), nf, k, h, w,
+        orb_cuda.HARRIS_K, fast.harris_scale4(), None) == 0
+    want = orb_cuda.candidate_harris_reference(imgs, ys, xs, valid)
+    np.testing.assert_array_equal(n(out), n(want))

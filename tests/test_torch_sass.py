@@ -158,3 +158,31 @@ def test_path_by_mufu():
     assert shared["mufu"] == 0 and shared["total"] == 8
     # the body's path is one pass: the fresh iteration, then the EXIT
     assert sass.body_classes(text)["total"] == fresh["total"] + 1
+
+
+def test_longest_path():
+    """A body whose threads share one path but for a guarded task (B3d's
+    blurring threads): ``longest`` takes the guarded work, the default
+    skips it; with no MUFU wanted, the path through the MUFU branch is
+    not taken either way."""
+    listing = """
+		Function : _Z5blurv
+        /*0000*/                   LDG.E R4, desc[UR6][R2.64] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x58, PT ;
+        /*0020*/               @P0 BRA 0x60 ;
+        /*0030*/                   LDS.128 R8, [R5] ;
+        /*0040*/                   FMUL R8, R8, c[0x0][0x160] ;
+        /*0050*/                   STS.128 [R6], R8 ;
+        /*0060*/                   ISETP.NE.AND P1, PT, R7, 0x3, PT ;
+        /*0070*/               @P1 BRA 0xa0 ;
+        /*0080*/                   MUFU.RCP R9, R4 ;
+        /*0090*/                   FMUL R9, R9, R4 ;
+        /*00a0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00b0*/                   EXIT ;
+"""
+    text = sass.functions(listing)["_Z5blurv"]
+    busiest = sass.body_classes(text, homography=False, longest=True)
+    idle = sass.body_classes(text, homography=False)
+    assert busiest["mufu"] == 0 and idle["mufu"] == 0
+    assert busiest["total"] == 10 and idle["total"] == 7
+    assert "STS.128" in busiest["ops"] and "STS.128" not in idle["ops"]

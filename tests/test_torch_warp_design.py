@@ -52,10 +52,10 @@ _LAUNCH = re.compile(r"(\w+(?:<[^;]*?>)?)<<<(dim3\((?:[^()]|\([^()]*\))*\)"
                      r"|[^,]+),\s*([^,]+),.*?>>>\((.*?)\);", re.S)
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def build_host(tmp_path_factory):
     """csrc/warp.cu built for the host with g++ and the shim (launches
-    rewritten as shim calls; -ffp-contract=off as nvcc's --fmad=false)."""
+    rewritten as shim calls; -ffp-contract=off as nvcc's --fmad=false),
+    its ``warp_bilinear`` and ``warp_frames`` bound."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
@@ -76,7 +76,15 @@ def host_kernel(tmp_path_factory):
     h.warp_bilinear.argtypes = ([vp] * 3 + [ctypes.c_float] + [vp] * 2
                                 + [ci] * 9 + [vp])
     h.warp_bilinear.restype = ci
+    h.warp_frames.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float), vp,
+                               vp] + [ci] * 7 + [ctypes.c_float, ci, ci, vp])
+    h.warp_frames.restype = ci
     return h
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    return build_host(tmp_path_factory)
 
 
 def planar_cases(kind, shape):
