@@ -28,13 +28,16 @@ Phases (each prints one line; any failure exits non-zero):
 7. kernel B3 (``orb_extract.cu``) against its plain version, bitwise, at
    the level-0 shape of the keypoint path (20 frames, K=218, radius 21,
    some centres at the clamp edges), and kernels B3h and B3d
-   (``orb_describe.cu``: Harris at the K=218 candidates, some invalid;
-   angle and rBRIEF at Q=109 keypoints) against theirs, bitwise, on the
-   same level, with the detector's per-level tail timed both ways: B3's
-   patches and the eager chain on them (PR 6's route), and B3h, the
-   top-k, B3d; with ``--baseline``, B3d timed in turns with the earlier
-   design (held bitwise to it first), with registers, spills, shared
-   memory, bound share and a thread's instructions (``utils/sass.py``);
+   (``orb_describe.cu``: Harris at the K=218 candidates, some invalid,
+   and the level's selection of Q=109 in one launch; angle and rBRIEF at
+   Q=109 keypoints) against theirs, bitwise, on the same level, and B3h
+   at nfeatures=5000's level 0 (K=2172, Q=1086), with the detector's
+   per-level tail timed each way: B3's patches and the eager chain on
+   them (the patch route), and B3h, B3d; with ``--baseline``, the earlier
+   B3h (its Harris kernel, then the top-k and the gathers) held bitwise
+   to B3h, timed in turns with it at both K and in the tail, with
+   registers, spills, shared memory, bound share and B3d's instructions
+   a thread (``utils/sass.py``);
 8. the keypoint slice on CUDA against the port's own CPU path on a
    4x540x960 burst (``ok`` flags, corners mapped by H, stacked
    interior);
@@ -60,14 +63,17 @@ Phases (each prints one line; any failure exits non-zero):
     registers, share of the bound and instructions an output value on a
     slot with its own map and on one reusing the previous slot's, and a
     device copy of the same bytes; then B5's frames and accumulate forms on
-    frames 1-19 of that burst as u8 and as u16 (one frame dropped) in the
-    six modes, and the accumulate form on their f32 widening, bitwise,
-    with the keypoint stack's BORDER_REPLICATE sum timed both ways: the
-    float32 widening, planes, planar B5 and ``torch.sum`` (the route
-    before the accumulate form), and the accumulate form; then the
-    accumulate form timed in each mode (with ``--baseline``, in turns
-    with the earlier design, held bitwise to it first), with registers,
-    spills, shared memory, bound share and instructions a pixel-frame;
+    frames 1-19 of that burst as u8, as u16 and as their f32 widening
+    (one frame dropped) in the six modes, and the frames form on 1- and
+    4-channel copies of 4 of them in each type, bitwise, with the
+    keypoint stack's BORDER_REPLICATE sum timed both ways: the float32
+    widening, planes, planar B5 and ``torch.sum`` (the route before the
+    accumulate form), and the accumulate form; then the accumulate form
+    and the frames form timed in each mode (the frames form with
+    ``--baseline`` in turns with the earlier design, held bitwise to it
+    first), with registers, spills, shared memory, bound share and
+    instructions a pixel-frame, and the frames form two columns short
+    (W % 4 != 0, its scalar stores) in turns with the full width;
 12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
     of 3 shared 4K planes (also by ``torch.profiler``);
 13. B1's masked (4-plane) form against its plain version on 99 homography
@@ -107,8 +113,9 @@ Phases (each prints one line; any failure exits non-zero):
     by ``save_image(..., bit_depth=16)``, as 48-bit TIFFs (uncompressed
     and Deflate with predictor 2, in turns, by ``write_tiff16``) and as
     8-bit PNGs, decoded by ``load_frames`` with and without
-    ``preserve_depth`` (bitwise: the written array at full depth, its
-    high byte at 8 bits), and ``ecc_match(files)`` (also with
+    ``preserve_depth`` (bitwise: the written array at full depth; at 8
+    bits a PNG's high byte and a TIFF's ``(v + 128) // 257``, libtiff's
+    rounding, on either native loader), and ``ecc_match(files)`` (also with
     ``preserve_depth=True`` on 8-bit PNGs, 16-bit PNGs and 48-bit TIFFs)
     and ``keypoint_match(files)`` bitwise against their ``_arrays`` forms
     on the written arrays; it prints which native image library decodes
@@ -190,13 +197,15 @@ Phases 2, 3, 6, 7, 10, 11, 13 and 17 also print the registers and
 spills that ptxas gave each instance of B1, B2, B8, B3 / B3h / B3d, B4,
 B5 and B7, the kernel's share of its bound; phases 12 and 18 print B9's
 and B6's too.  ``--baseline DIR`` times the earlier design of B5's
-accumulate form and of B3d on the same inputs: ``DIR`` holds commit
-6316203's ``warp.cu`` (with the ``warp_bins.cuh`` it includes) and
+frames form and of B3h on the same inputs: ``DIR`` holds commit
+b19994b's ``warp.cu`` (with the ``warp_bins.cuh`` it includes) and
 ``orb_describe.cu`` (both kernels' first designs), or either of them;
-their ``warp_frames`` and ``orb_describe`` C entry points are bound as
-the wrappers call them, the earlier design is held bitwise to the
-current one, and each pair is timed in turns (new, earlier, earlier,
-new), the instruction classes of both printed.  Phase 3 also holds B2 and B4 (both
+their ``warp_frames`` (with a null ``valid``) and ``candidate_harris``
+(then ``fast.topk_stable`` and the gathers, as ``ops/orb.py`` called
+them) C entry points are bound as the wrappers called them, the earlier
+design is held bitwise to the current one, and each pair is timed in
+turns (new, earlier, earlier, new), the registers and B5f's instruction
+classes of both printed.  Phase 3 also holds B2 and B4 (both
 passes) bitwise to their plain versions on 99 u8 frames of 4000x6000
 with affine maps, and times them.
 The last two lines are the kernel record and the device record (JSON).
@@ -222,12 +231,14 @@ REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe")
 # the sources an earlier design is timed from (--baseline DIR), where the
-# directory holds them: B5's accumulate form (warp.cu's warp_frames) and
-# B3d (orb_describe.cu's orb_describe), as commit 6316203 left them
+# directory holds them: B5's frames form (warp.cu's warp_frames with a
+# null valid) and B3h (orb_describe.cu's candidate_harris, then
+# fast.topk_stable and the gathers), as commit b19994b left them
 BASELINE_KERNELS = ("warp", "orb_describe")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
-# B5 and accumulate form (a SASS loop iteration)
-B2_PIXELS, B4_PIXELS, B5_PIXELS, B5A_PIXELS = 4, 2, 4, 2
+# B5, accumulate and frames forms (a SASS loop iteration; B5f's whole
+# body)
+B2_PIXELS, B4_PIXELS, B5_PIXELS, B5A_PIXELS, B5F_PIXELS = 4, 2, 4, 2, 4
 # mangled-name pieces of the instances whose registers are printed
 B1_INSTANCE = "moments_kernelILi8ELb1ELb0E"  # P=8, Gram, 3 planes
 B1M_INSTANCE = "moments_kernelILi8ELb1ELb1E"  # P=8, Gram, masked
@@ -243,17 +254,17 @@ B2_AFFINE_INSTANCE = "warp_accum_kernelIhLb0EE"  # u8 source, affine
 B5_INSTANCES = {"constant": "11warp_kernelILi0ELb1EE",
                 "replicate": "11warp_kernelILi1ELb1EE",
                 "wrap": "11warp_kernelILi3ELb1EE"}
-B5F_INSTANCE = "frames_kernelILi1EhE"  # u8 frames, BORDER_REPLICATE
-
-
-# the accumulate form for u8 frames in border mode {} (homography), and
-# in commit 6316203's design (a thread a pixel)
+# the frames and accumulate forms for u8 RGB frames in border mode {}
+# (homography), and the frames form in commit b19994b's design (a thread
+# a pixel)
+B5F_INSTANCE = "frames_kernelILi{}EhLb1ELi3EE"
 B5A_INSTANCE = "accum_kernelILi{}EhLb1ELi3EE"
-B5A_EARLIER_INSTANCE = "accum_kernelILi{}EhE"
+B5F_EARLIER_INSTANCE = "frames_kernelILi{}EhE"
 
 
 B3_INSTANCE = "extract_kernelIhE"
-B3H_INSTANCE = "harris_kernel"
+B3H_INSTANCE = "select_kernelILb0E"  # the words in shared memory
+B3H_EARLIER_INSTANCE = "harris_kernel"
 B3D_INSTANCE = "describe_kernel"
 B9_INSTANCE = "warp3_kernel"
 # u8, 32-bit offsets, homography, no fallback: deposit and image forms
@@ -325,11 +336,14 @@ B5F_OPS_PIXEL = 15 + 12 + 8
 B5F_OPS_CHANNEL = 4 + 10
 B5A_OPS_CHANNEL = B5F_OPS_CHANNEL + 2
 # B3h per candidate (csrc/orb_describe.cu): 49 block positions of 6
-# differences, two Sobel sums of 3 and three multiply-adds; the warp
-# sums and the response.  B3d per keypoint: the IC moments (2 multiply-
-# adds a circle pixel), the 7-tap blur of 37x43 then 37x37 values, the
-# angle, and per descriptor bit two steered taps and a compare
-B3H_OPS = 49 * (6 + 6 + 6) + 3 * 5 + 8
+# differences, two Sobel sums of 3 and three multiply-adds; the response
+# and its sort word; per compare-exchange of the selection's bitonic
+# sort (b3h_ops) a 64-bit compare and two selects.  B3d per keypoint:
+# the IC moments (2 multiply-adds a circle pixel), the 7-tap blur of
+# 37x43 then 37x37 values, the angle, and per descriptor bit two
+# steered taps and a compare
+B3H_OPS = 49 * (6 + 6 + 6) + 8 + 4
+B3H_OPS_COMPARE = 4
 B3D_OPS_CIRCLE_PIXEL = 4
 B3D_OPS_BLUR = (37 * 43 + 37 * 37) * 13
 B3D_OPS_BIT = 2 * (4 + 2 + 2 + 2) + 1
@@ -360,6 +374,15 @@ SOLVER_P99_BAR = 0.02
 SIGMA_STREAK_RATIO = 0.25
 SIGMA_FAR_BAR = 0.01
 STREAK_FRAMES = (7, 41, 83)
+
+
+def b3h_ops(n: int, k: int) -> float:
+    """B3h's operations on ``n`` frames of ``k`` candidates: the
+    responses, and the compare-exchanges of a bitonic sort over the next
+    power of two, ``n2 / 2 * s (s + 1) / 2`` for ``n2 = 2^s``."""
+    s = max(k - 1, 0).bit_length()
+    compares = (1 << s) // 2 * s * (s + 1) // 2
+    return float(n) * (k * B3H_OPS + compares * B3H_OPS_COMPARE)
 
 
 def bound(nbytes: float, ops: float):
@@ -539,14 +562,16 @@ def device_profile(fn, piece: str = "", reps: int = 10):
 
 # the earlier design's libraries and their directory (--baseline)
 BASELINE: dict = {}
-BASELINE_DIR: list = []
+BASELINE_DIR = None
 
 
 def load_baseline(path: str) -> None:
     """Build the earlier design's sources that ``path`` holds and bind
     their C entry points: ``warp_frames`` (B5's frames and accumulate
-    forms) and ``orb_describe`` (B3d), unchanged since their first
-    designs."""
+    forms, the interface the current source keeps) and
+    ``candidate_harris`` (B3h's Harris responses, before the selection
+    was taken in)."""
+    global BASELINE_DIR
     from libstacker_tpu_torch.utils import cuda_build
 
     d = Path(path).resolve()
@@ -559,8 +584,8 @@ def load_baseline(path: str) -> None:
     for name, fn, argtypes in (
         ("warp", "warp_frames", [vp, vp, ctypes.POINTER(cf), vp, vp]
          + [ci] * 7 + [cf, ci, ci, vp]),
-        ("orb_describe", "orb_describe", [vp] * 4 + [ctypes.POINTER(cf)]
-         + [vp] * 2 + [ci] * 4 + [cf, cf, vp]),
+        ("orb_describe", "candidate_harris", [vp] * 5 + [ci] * 4
+         + [cf, cf, vp]),
     ):
         if name not in names:
             continue
@@ -568,7 +593,7 @@ def load_baseline(path: str) -> None:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ci
         BASELINE[name] = lib
-    BASELINE_DIR.append(d)
+    BASELINE_DIR = d
 
 
 def resources(name: str, piece: str, csrc=None) -> dict:
@@ -581,18 +606,20 @@ def resources(name: str, piece: str, csrc=None) -> dict:
 
 
 def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1,
-              homography: bool = True, whole: bool = False):
+              homography: bool = True, whole: bool = False,
+              longest: bool = True):
     """Print the instructions a pixel-frame by class of the frame loop of
     the kernel of build ``name`` whose mangled name contains ``piece``
     (``utils/sass.py``; ``pixels`` a loop iteration, ``homography`` False
-    for the path with no MUFU, ``whole`` for the longest path of a
-    kernel's whole body); return them (None where cuobjdump is
-    missing)."""
+    for the path with no MUFU, ``whole`` for a path through a kernel's
+    whole body: the longest, or with ``longest`` False the main one);
+    return them (None where cuobjdump is missing)."""
     from libstacker_tpu_torch.utils import cuda_build, sass
 
     lib = cuda_build.library_path(name, csrc or cuda_build.CSRC)
     try:
-        found = sass.kernel_loop(lib, piece, pixels, homography, whole)
+        found = sass.kernel_loop(lib, piece, pixels, homography, whole,
+                                 longest)
     except (RuntimeError, subprocess.CalledProcessError) as e:
         log(f"    {label} SASS: not read ({e})")
         return None
@@ -638,7 +665,7 @@ def design_report(label: str, name: str, piece: str, ms: float,
                spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
                if res else None)
     if earlier_ms is not None:
-        old = resources(name, earlier_piece or piece, BASELINE_DIR[0])
+        old = resources(name, earlier_piece or piece, BASELINE_DIR)
         line += (f"; earlier design {earlier_ms:.4f} ms, "
                  f"{bound_ms / earlier_ms:.3f} of the bound "
                  f"({fmt_resources(old)}) -> new/earlier "
@@ -656,9 +683,9 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def b5a_earlier(frames, minv, border, vf, mode):
-    """The accumulate form in the earlier design's build (homography,
-    whole frames), its arguments as the wrapper passes them."""
+def b5f_earlier(frames, minv, border, mode):
+    """The frames form in the earlier design's build (homography, whole
+    frames, a null valid), its arguments as the wrapper passes them."""
     from libstacker_tpu_torch.ops import warp_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
@@ -666,36 +693,37 @@ def b5a_earlier(frames, minv, border, vf, mode):
     n, h, w, c = frames.shape
     if mode == "transparent":
         mode, border = "constant", [0.0] * c
-    out = torch.empty((h, w, c), dtype=torch.float32, device=frames.device)
+    out = torch.empty((n, h, w, c), dtype=torch.float32, device=frames.device)
     err = lib.warp_frames(
         frames.data_ptr(), minv.data_ptr(), (ctypes.c_float * c)(*border),
-        vf.data_ptr(), out.data_ptr(), n, h, w, c,
+        None, out.data_ptr(), n, h, w, c,
         warp_cuda._DTYPE_CODE[frames.dtype], warp_cuda._MODE_CODE[mode], 1,
         warp_cuda._SCALE[frames.dtype], 0, 0, _stream())
     cuda_build.check(lib, err, "earlier warp_frames")
     return out
 
 
-def b3d_earlier(imgs, ys, xs):
-    """B3d in the earlier design's build, its arguments as the wrapper
-    passes them."""
-    import math
-
-    from libstacker_tpu_torch.ops import orb_cuda
+def b3h_earlier(imgs, ys, xs, valid, quota):
+    """B3h's selection as the earlier design made it: the build's
+    candidate_harris, then fast.topk_stable and the gathers, as
+    ops/orb.py called them; ``ys`` / ``xs`` int32 and ``valid`` bool,
+    contiguous, as the wrapper passed them."""
+    from libstacker_tpu_torch.ops import fast, orb_cuda
     from libstacker_tpu_torch.utils import cuda_build
 
     lib = BASELINE["orb_describe"]
     n, h, w = imgs.shape
-    q = ys.shape[1]
-    angle = torch.empty((n, q), dtype=torch.float32, device=imgs.device)
-    desc = torch.empty((n, q, 32), dtype=torch.uint8, device=imgs.device)
-    err = lib.orb_describe(
-        imgs.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-        orb_cuda._describe_constants_on(imgs.device).data_ptr(),
-        orb_cuda._blur_taps(), angle.data_ptr(), desc.data_ptr(), n, q, h, w,
-        180.0 / math.pi, math.pi / 180.0, _stream())
-    cuda_build.check(lib, err, "earlier orb_describe")
-    return angle, desc
+    k = ys.shape[1]
+    harris = torch.empty((n, k), dtype=torch.float32, device=imgs.device)
+    err = lib.candidate_harris(
+        imgs.data_ptr(), ys.data_ptr(), xs.data_ptr(), valid.data_ptr(),
+        harris.data_ptr(), n, k, h, w, orb_cuda.HARRIS_K,
+        fast.harris_scale4(), _stream())
+    cuda_build.check(lib, err, "earlier candidate_harris")
+    hval, hidx = fast.topk_stable(harris, quota)
+    kvalid = torch.isfinite(hval) & torch.gather(valid, 1, hidx)
+    return (hval, torch.gather(ys, 1, hidx), torch.gather(xs, 1, hidx),
+            kvalid)
 
 
 def profile_line(label: str, fn, piece: str) -> dict:
@@ -1127,12 +1155,11 @@ def harris_f32(patch):
 
 
 def phase_b3(dev, grey):
-    from libstacker_tpu_torch.ops import fast, fast_cuda, orb_cuda
+    from libstacker_tpu_torch.ops import fast, fast_cuda, orb, orb_cuda
 
     n, h, w = grey.shape
-    score = fast_cuda.fast_scores(grey, KP_T, KP_B)
-    cand = fast.top_k_keypoints(score > 0, score, KP_K)
-    del score
+    score5 = fast_cuda.fast_scores(grey, KP_T, KP_B)
+    cand = fast.top_k_keypoints(score5 > 0, score5, KP_K)
     ys, xs = cand.ys.contiguous(), cand.xs.contiguous()
     # centres at and beyond every clamp edge
     ys[:, :4] = torch.tensor([0, 5, h - 1, h + 7], dtype=torch.int32)
@@ -1177,51 +1204,62 @@ def phase_b3(dev, grey):
               **design_report("B3 u8", "orb_extract", B3_INSTANCE, ms,
                               bound_ms))
 
-    # B3h at the K candidates (two of them invalid), B3d at Q keypoints
-    # with the same clamp-edge centres
+    # B3h at the K candidates (two of them invalid a frame) with the
+    # level's selection of Q, B3d at Q keypoints with the same clamp-edge
+    # centres
     valid = cand.valid.clone()
     valid[:, 4:6] = False
     kq_ys, kq_xs = ys[:, :KP_Q].contiguous(), xs[:, :KP_Q].contiguous()
-    hg = orb_cuda.candidate_harris(grey, ys, xs, valid)
-    hw_ = orb_cuda.candidate_harris_reference(grey, ys, xs, valid)
+
+    def select():
+        return orb_cuda.select_keypoints(grey, ys, xs, valid, KP_Q)
+
+    sg = select()
+    sw = orb_cuda.select_keypoints_reference(grey, ys, xs, valid, KP_Q)
     ag, dg = orb_cuda.describe(grey, kq_ys, kq_xs)
     aw, dw = orb_cuda.describe_reference(grey, kq_ys, kq_xs)
     torch.cuda.synchronize()
-    eq_h = bool(torch.equal(hg, hw_))
+    eq_h = all(bool(torch.equal(a, b)) for a, b in zip(sg, sw))
     eq_d = bool(torch.equal(ag, aw)) and bool(torch.equal(dg, dw))
-    fin = torch.isfinite(hw_)
-    h_err = float((hg[fin] - hw_[fin]).abs().max())
+    fin = torch.isfinite(sw[0])
+    h_err = max(float((sg[0][fin] - sw[0][fin]).abs().max()),
+                float((sg[1] - sw[1]).abs().max()),
+                float((sg[2] - sw[2]).abs().max()))
     a_err = float((ag - aw).abs().max())
     d_err = float((dg.int() - dw.int()).abs().max())
-    del hg, hw_, ag, aw, dg, dw
-    h_call = time_ms(
-        lambda: orb_cuda.candidate_harris(grey, ys, xs, valid), 20)
-    h_ms = device_profile(
-        lambda: orb_cuda.candidate_harris(grey, ys, xs, valid),
-        "harris_kernel")[2]
+    del sg, sw, ag, aw, dg, dw
+    h_call = time_ms(select, 20)
     h_plain = time_ms(
-        lambda: orb_cuda.candidate_harris_reference(grey, ys, xs, valid), 5)
-    d_call = time_ms(lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 20)
+        lambda: orb_cuda.select_keypoints_reference(grey, ys, xs, valid,
+                                                    KP_Q), 5)
 
-    def describe_ms(fn, reps):
-        return device_profile(fn, "describe_kernel", reps)[2]
+    def kernel_ms(piece):
+        return lambda fn, reps: device_profile(fn, piece, reps)[2]
 
-    # B3d and, with --baseline, the earlier design in turns, by device
-    # time; the earlier design held bitwise to this one first
-    d_new = lambda: orb_cuda.describe(grey, kq_ys, kq_xs)  # noqa: E731
-    d_old = None
+    def selection_ms(fn, reps):
+        return device_profile(fn, "", reps)[1]
+
+    # B3h and, with --baseline, the earlier design (its candidate_harris,
+    # then topk_stable and the gathers) in turns, by the device time of
+    # the whole selection; the earlier design held bitwise to this one
+    # first
+    vb = valid.contiguous()
+    h_old = None
     if "orb_describe" in BASELINE:
-        d_old = lambda: b3d_earlier(  # noqa: E731
-            grey, kq_ys.int().contiguous(), kq_xs.int().contiguous())
-        if not all(bool(torch.equal(a, b)) for a, b in zip(d_old(), d_new())):
-            fail("the earlier B3d design disagrees with this one")
-    d_ms, d_old_ms = paired_ms(d_new, d_old, 10, describe_ms)
+        h_old = lambda: b3h_earlier(grey, ys, xs, vb, KP_Q)  # noqa: E731
+        if not all(bool(torch.equal(a, b)) for a, b in zip(h_old(), select())):
+            fail("the earlier B3h design disagrees with this one")
+    h_ms = kernel_ms("select_kernel")(select, 10)
+    sel_ms, sel_old_ms = paired_ms(select, h_old, 10, selection_ms)
+    d_call = time_ms(lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 20)
+    d_ms = kernel_ms("describe_kernel")(
+        lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 10)
     d_plain = time_ms(
         lambda: orb_cuda.describe_reference(grey, kq_ys, kq_xs), 5)
     o = orb_cuda.HARRIS_ORIGIN
     h_bytes = (window_bytes(grey, ys, xs, KP_RADIUS, o, 9)
-               + ys.numel() * (4.0 + 4.0 + 1.0 + 4.0))
-    h_bound, h_by = bound(h_bytes, ys.numel() * float(B3H_OPS))
+               + ys.numel() * (4.0 + 4.0 + 1.0) + n * KP_Q * 13.0)
+    h_bound, h_by = bound(h_bytes, b3h_ops(n, KP_K))
     circle = sum(2 * u + 1 for u in orb_cuda._ic_umax()) * 2 - (
         2 * orb_cuda._ic_umax()[0] + 1)
     d_ops = (B3D_OPS_CIRCLE_PIXEL * circle + B3D_OPS_BLUR + 100
@@ -1230,8 +1268,36 @@ def phase_b3(dev, grey):
                + kq_ys.numel() * (8.0 + 4.0 + 32.0))
     d_bound, d_by = bound(d_bytes, kq_ys.numel() * float(d_ops))
 
-    # the detector's per-level tail, both ways, on the same candidates:
-    # PR 6's (B3 patches, then the eager chain) and B3h, top-k, B3d
+    # the selection at nfeatures=5000's level 0 (K5 candidates, Q5 kept),
+    # held bitwise to its plain version, timed as above
+    q5 = orb._features_per_level(5000, 8, 1.2)[0]
+    k5 = 2 * q5
+    c5 = fast.top_k_keypoints(score5 > 0, score5, k5)
+    del score5
+    ys5, xs5, v5 = (c5.ys.contiguous(), c5.xs.contiguous(),
+                    c5.valid.contiguous())
+    sel5 = lambda: orb_cuda.select_keypoints(  # noqa: E731
+        grey, ys5, xs5, v5, q5)
+    eq5 = all(bool(torch.equal(a, b)) for a, b in zip(
+        sel5(), orb_cuda.select_keypoints_reference(grey, ys5, xs5, v5, q5)))
+    old5 = None
+    if "orb_describe" in BASELINE:
+        old5 = lambda: b3h_earlier(grey, ys5, xs5, v5, q5)  # noqa: E731
+        eq5 &= all(bool(torch.equal(a, b)) for a, b in zip(old5(), sel5()))
+    k5_ms = kernel_ms("select_kernel")(sel5, 10)
+    sel5_ms, sel5_old_ms = paired_ms(sel5, old5, 10, selection_ms)
+    b5_bound = bound(window_bytes(grey, ys5, xs5, KP_RADIUS, o, 9)
+                     + ys5.numel() * 9.0 + n * q5 * 13.0, b3h_ops(n, k5))
+    del c5, ys5, xs5, v5
+    at5000 = dict(k=k5, quota=q5, bitwise_equal=eq5, ms=k5_ms,
+                  selection_device_ms=sel5_ms,
+                  earlier_selection_device_ms=sel5_old_ms,
+                  bound_ms=b5_bound[0], bound_by=b5_bound[1])
+
+    # the detector's per-level tail, each way, on the same candidates:
+    # the patch route (B3 patches, then the eager chain), with --baseline the
+    # earlier design's (B3h's responses, top-k, gathers, B3d), and B3h's
+    # selection then B3d
     def former():
         patches = orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS)
         hr = harris_f32(patches[..., o : o + 9, o : o + 9])
@@ -1244,57 +1310,70 @@ def phase_b3(dev, grey):
             orb_cuda._blur_patches_valid(kept), ang)
 
     def current():
-        hr = orb_cuda.candidate_harris(grey, ys, xs, valid)
-        hval, hidx = fast.topk_stable(hr, KP_Q)
-        ang, desc = orb_cuda.describe(grey, torch.gather(ys, 1, hidx),
-                                      torch.gather(xs, 1, hidx))
+        hval, kys, kxs, _ = select()
+        ang, desc = orb_cuda.describe(grey, kys, kxs)
+        return hval, ang, desc
+
+    def earlier():
+        hval, kys, kxs, _ = h_old()
+        ang, desc = orb_cuda.describe(grey, kys, kxs)
         return hval, ang, desc
 
     route_old = time_ms(former, 20)
-    route_new = time_ms(current, 20)
-    route_new2 = time_ms(current, 20)
+    route_new, route_earlier = paired_ms(current, h_old and earlier, 20)
     route_old2 = time_ms(former, 20)
     n_old, dev_old, _ = device_profile(former)
     n_new, dev_new, _ = device_profile(current)
-    ok = eq_h and eq_d
-    log(f"[7 B3h orb_harris, B3d orb_describe] the same level: B3h at "
-        f"K={KP_K} (2 invalid a frame) bitwise equal {eq_h}; B3d at "
-        f"Q={KP_Q} bitwise equal {eq_d} (max abs: Harris {h_err:.3e}, "
-        f"angle {a_err:.3e}, descriptor bytes {d_err:.0f}); on the device "
-        f"B3h {h_ms:.4f} ms ({h_call:.4f} a call) vs plain {h_plain:.4f}, "
-        f"bound {h_bound:.4f} ms ({h_by}); B3d {d_ms:.4f} ms ({d_call:.4f} "
-        f"a call) vs plain {d_plain:.4f}, bound {d_bound:.4f} ms ({d_by}); "
+    n_earlier = dev_earlier = None
+    if h_old is not None:
+        n_earlier, dev_earlier, _ = device_profile(earlier)
+    ok = eq_h and eq_d and eq5
+    earlier_txt = ("" if h_old is None else
+                   f"; the earlier design's selection {sel_old_ms:.4f} ms of "
+                   f"device time ({sel5_old_ms:.4f} at K={k5}), its tail "
+                   f"{route_earlier:.4f} ms a call, {dev_earlier:.4f} ms in "
+                   f"{n_earlier}")
+    log(f"[7 B3h orb_harris, B3d orb_describe] the same level: B3h's "
+        f"selection of Q={KP_Q} at K={KP_K} (2 invalid a frame) bitwise "
+        f"equal {eq_h}, at K={k5}, Q={q5} (nfeatures=5000) {eq5}; B3d at "
+        f"Q={KP_Q} bitwise equal {eq_d} (max abs: Harris and indices "
+        f"{h_err:.3e}, angle {a_err:.3e}, descriptor bytes {d_err:.0f}); "
+        f"on the device B3h {h_ms:.4f} ms ({h_call:.4f} a call, the "
+        f"selection's device time {sel_ms:.4f}) vs plain {h_plain:.4f}, "
+        f"bound {h_bound:.4f} ms ({h_by}); at K={k5} {k5_ms:.4f} ms, "
+        f"bound {b5_bound[0]:.4f} ms; B3d {d_ms:.4f} ms ({d_call:.4f} a "
+        f"call) vs plain {d_plain:.4f}, bound {d_bound:.4f} ms ({d_by}); "
         f"per-level tail: B3 + eager chain "
         f"{(route_old + route_old2) / 2:.4f} ms a call, {dev_old:.4f} ms of "
-        f"device time in {n_old} operations; B3h + top-k + B3d "
-        f"{(route_new + route_new2) / 2:.4f} ms a call, {dev_new:.4f} ms in "
-        f"{n_new} -> {'OK' if ok else 'MISMATCH'}")
+        f"device time in {n_old} operations; B3h + B3d {route_new:.4f} ms "
+        f"a call, {dev_new:.4f} ms in {n_new}{earlier_txt} "
+        f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B3h or B3d disagrees with its plain version")
     route = dict(former_route_ms=(route_old + route_old2) / 2,
-                 route_ms=(route_new + route_new2) / 2,
-                 former_route_device_ms=dev_old, route_device_ms=dev_new,
-                 former_route_device_ops=n_old, route_device_ops=n_new,
+                 route_ms=route_new, former_route_device_ms=dev_old,
+                 route_device_ms=dev_new, former_route_device_ops=n_old,
+                 route_device_ops=n_new,
+                 earlier_design_route_ms=route_earlier,
+                 earlier_design_route_device_ms=dev_earlier,
+                 earlier_design_route_device_ops=n_earlier,
                  ms_source="torch.profiler device time")
     b3h = dict(max_abs_err=h_err, ms=h_ms, plain_ms=h_plain,
                bound_ms=h_bound, bound_by=h_by, library_ms=None,
-               call_ms=h_call,
+               call_ms=h_call, selection_device_ms=sel_ms,
+               nfeatures_5000=at5000,
                **design_report("B3h", "orb_describe", B3H_INSTANCE, h_ms,
-                               h_bound), **route)
+                               h_bound, sel_old_ms, B3H_EARLIER_INSTANCE),
+               **route)
     b3d = dict(max_abs_err=max(a_err, d_err), ms=d_ms, plain_ms=d_plain,
                bound_ms=d_bound, bound_by=d_by, library_ms=None,
                call_ms=d_call,
                **design_report("B3d", "orb_describe", B3D_INSTANCE, d_ms,
-                               d_bound, d_old_ms), **route)
+                               d_bound), **route)
     # a thread's longest path with no MUFU (B3d's loops are unrolled: a
-    # blurring thread's whole work; an earlier design's loops count once)
+    # blurring thread's whole work)
     b3d["sass"] = sass_line("B3d, a thread", "orb_describe", B3D_INSTANCE,
                             homography=False, whole=True)
-    if d_old is not None:
-        b3d["earlier_design_sass"] = sass_line(
-            "B3d earlier design, a thread (each loop body once)",
-            "orb_describe", B3D_INSTANCE, BASELINE_DIR[0], homography=False,
-            whole=True)
     return b3, b3h, b3d
 
 
@@ -1695,18 +1774,32 @@ def phase_b5_frames(dev, frames, truth, modes):
     fr16 = (fr.to(torch.int32) * 257).to(torch.uint16)
     fr32 = color.to_unit_f32(fr)
     equal, max_abs = True, 0.0
-    for src, forms in ((fr, (None, valid)), (fr16, (None, valid)),
-                       (fr32, (valid,))):
+
+    def hold(src, mode, v, border):
+        nonlocal equal, max_abs
+        got = warp_cuda.warp_frames(src, minv[:src.shape[0]], border, mode,
+                                    valid=v)
+        want = warp_cuda.warp_frames_reference(
+            src, minv[:src.shape[0]], border, mode, valid=v)
+        torch.cuda.synchronize()
+        equal &= bool(torch.equal(got, want))
+        max_abs = max(max_abs, float((got - want).abs().max()))
+
+    for src in (fr, fr16, fr32):
         for mode in modes:
-            for v in forms:
-                got = warp_cuda.warp_frames(src, minv, bv, mode, valid=v)
-                want = warp_cuda.warp_frames_reference(src, minv, bv, mode,
-                                                       valid=v)
-                torch.cuda.synchronize()
-                equal &= bool(torch.equal(got, want))
-                max_abs = max(max_abs, float((got - want).abs().max()))
-                del got, want
+            for v in (None, valid):
+                hold(src, mode, v, bv)
     del fr16, fr32
+    # the frames form on 1 and 4 channels (the runtime-C instance), 4
+    # frames of each type
+    grey1 = fr[:4, ..., :1].contiguous()
+    rgba = torch.cat([fr[:4], fr[:4, ..., :1]], dim=-1).contiguous()
+    for src in (grey1, rgba):
+        for s_ in (src, (src.to(torch.int32) * 257).to(torch.uint16),
+                   color.to_unit_f32(src)):
+            for mode in modes:
+                hold(s_, mode, None, [0.1, 0.2, 0.3, 0.4][:src.shape[-1]])
+    del grey1, rgba
     torch.cuda.empty_cache()
 
     # the keypoint stack with BORDER_REPLICATE, both ways: PR 6's route
@@ -1740,9 +1833,7 @@ def phase_b5_frames(dev, frames, truth, modes):
     old_ms2, a_ms2 = time_ms(former_stack, 5), time_ms(stack, 10)
     a_ms, old_ms = (a_ms + a_ms2) / 2, (old_ms + old_ms2) / 2
     torch.cuda.empty_cache()
-    f_ms, fold_ms = time_ms(frames_form, 10), time_ms(planar, 5)
-    fold_ms2, f_ms2 = time_ms(planar, 5), time_ms(frames_form, 10)
-    f_ms, fold_ms = (f_ms + f_ms2) / 2, (fold_ms + fold_ms2) / 2
+    fold_ms = time_ms(planar, 10)
     n_old, dev_old, _ = device_profile(former_stack, reps=3)
     n_new, dev_new, _ = device_profile(stack, reps=3)
     torch.cuda.empty_cache()
@@ -1765,38 +1856,81 @@ def phase_b5_frames(dev, frames, truth, modes):
     a_bound, a_by = bound(kept * hw * c * 1.0 + hw * c * 4.0 + n * 40.0,
                           kept * hw * float(B5F_OPS_PIXEL
                                             + c * B5A_OPS_CHANNEL))
-    # the accumulate form in each mode, and with --baseline the earlier
-    # design in turns (held bitwise to this one first), with registers,
-    # shared memory, share of the bound and instructions a pixel-frame
-    a_modes = {}
+    # the accumulate form in each mode, with registers, shared memory,
+    # share of the bound and instructions a pixel-frame; then the frames
+    # form in each mode, with --baseline in turns with the earlier design
+    # (held bitwise to this one first), and both designs' instructions
+    a_modes, f_modes = {}, {}
     for mode in modes:
         code = warp_cuda._MODE_CODE[warp._resolve_border(mode)
                                     .replace("transparent", "constant")]
         run = lambda mode=mode: warp_cuda.warp_frames(  # noqa: E731
             fr, minv, bv, mode, valid=valid)
-        earlier = None
-        if "warp" in BASELINE:
-            earlier = lambda mode=mode: b5a_earlier(  # noqa: E731
-                fr, minv, bv, vf.reshape(-1).contiguous(), mode)
-            if not torch.equal(earlier(), run()):
-                fail(f"the earlier B5a design disagrees with this one "
-                     f"({mode})")
-        ms_mode, earlier_ms = paired_ms(run, earlier, 10)
+        ms_mode = time_ms(run, 10)
         piece = B5A_INSTANCE.format(code)
         rec = dict(ms=ms_mode, **design_report(
-            f"B5a u8 {mode}", "warp", piece, ms_mode, a_bound, earlier_ms,
-            B5A_EARLIER_INSTANCE.format(code)))
+            f"B5a u8 {mode}", "warp", piece, ms_mode, a_bound))
         rec["sass"] = sass_line(f"B5a u8 {mode}", "warp", piece,
                                 pixels=B5A_PIXELS)
-        if earlier is not None:
-            # the earlier design: a thread a pixel
-            rec["earlier_design_sass"] = sass_line(
-                f"B5a u8 {mode} earlier design", "warp",
-                B5A_EARLIER_INSTANCE.format(code), BASELINE_DIR[0])
         a_modes[mode] = rec
+    torch.cuda.empty_cache()
+    for mode in modes:
+        code = warp_cuda._MODE_CODE[warp._resolve_border(mode)
+                                    .replace("transparent", "constant")]
+        run = lambda mode=mode: warp_cuda.warp_frames(  # noqa: E731
+            fr, minv, bv, mode)
+        earlier = None
+        if "warp" in BASELINE:
+            earlier = lambda mode=mode: b5f_earlier(  # noqa: E731
+                fr, minv, bv, mode)
+            if not torch.equal(earlier(), run()):
+                fail(f"the earlier B5f design disagrees with this one "
+                     f"({mode})")
+            torch.cuda.empty_cache()
+        ms_mode, earlier_ms = paired_ms(run, earlier, 10)
+        piece = B5F_INSTANCE.format(code)
+        rec = dict(ms=ms_mode, **design_report(
+            f"B5f u8 {mode}", "warp", piece, ms_mode, f_bound, earlier_ms,
+            B5F_EARLIER_INSTANCE.format(code)))
+        # a thread's whole body (no frame loop): the fast path
+        rec["sass"] = sass_line(f"B5f u8 {mode}", "warp", piece,
+                                pixels=B5F_PIXELS, whole=True, longest=False)
+        if earlier is not None:
+            # the earlier design: a thread a pixel, loop-free
+            rec["earlier_design_sass"] = sass_line(
+                f"B5f u8 {mode} earlier design", "warp",
+                B5F_EARLIER_INSTANCE.format(code), BASELINE_DIR, whole=True,
+                longest=False)
+        f_modes[mode] = rec
+        torch.cuda.empty_cache()
+    # the frames form's other store path: rows of W % 4 != 0 leave by
+    # coalesced scalar stores, held bitwise and timed (REPLICATE) in turns
+    # with the full width's 16-byte stores
+    w_odd = w - 2
+    fr_odd = fr[:, :, :w_odd].contiguous()
+    hold(fr_odd, "replicate", None, bv)
+    odd_run = lambda: warp_cuda.warp_frames(  # noqa: E731
+        fr_odd, minv, bv, "replicate")
+    full_ms, odd_ms = paired_ms(frames_form, odd_run, 10)
+    odd_bound, _ = bound(n * h * w_odd * c * (1.0 + 4.0) + n * 36.0,
+                         n * h * w_odd * float(B5F_OPS_PIXEL
+                                               + c * B5F_OPS_CHANNEL))
+    odd_vs_full = (odd_ms / w_odd) / (full_ms / w)
+    log(f"    B5f u8 replicate, width {w_odd} (scalar stores): "
+        f"{odd_ms:.4f} ms, {odd_bound / odd_ms:.3f} of its bound; width "
+        f"{w} (16-byte stores) {full_ms:.4f} ms in turns -> a pixel-frame "
+        f"{odd_vs_full:.3f}x")
+    f_modes["replicate"]["scalar_stores"] = dict(
+        width=w_odd, ms=odd_ms, bound_ms=odd_bound,
+        bound_share=odd_bound / odd_ms, full_width_ms=full_ms,
+        per_pixel_vs_full=odd_vs_full)
+    del fr_odd
+    torch.cuda.empty_cache()
+    f_ms = f_modes["replicate"]["ms"]
     log(f"[11 B5 warp_frames, warp_frames_accum] frames 1-{n} of the burst "
-        f"as u8 and u16, both forms, and as f32, the accumulate form ({n} "
-        f"RGB frames of {h}x{w}, frame {n // 2} dropped) in each of "
+        f"as u8, u16 and f32, both forms, and 1- and 4-channel copies of 4 "
+        f"of them, the frames form ({n} RGB frames of {h}x{w}, frame "
+        f"{n // 2} dropped) in each of "
         f"{', '.join(modes)}: bitwise equal {equal}; "
         f"accumulate {a_ms:.3f} ms vs plain {a_plain:.3f} ms, bound "
         f"{a_bound:.3f} ms ({a_by}); PR 6's route (f32 widening, planes, "
@@ -1804,7 +1938,8 @@ def phase_b5_frames(dev, frames, truth, modes):
         f"time in {n_old} operations, the accumulate form {dev_new:.3f} "
         f"ms in {n_new}; max abs against it "
         f"{sum_diff:.3e} (float32 summation order); frames form "
-        f"{f_ms:.3f} ms vs widening + planes + planar B5 {fold_ms:.3f} ms "
+        f"{f_ms:.3f} ms (replicate) vs widening + planes + planar B5 "
+        f"{fold_ms:.3f} ms "
         f"(max abs {f_diff:.3e}), plain {f_plain:.3f} ms, bound "
         f"{f_bound:.3f} ms ({f_by}); library grid_sample {library_ms:.3f} ms "
         f"(f32 planes, border padding, grid precomputed) "
@@ -1817,8 +1952,8 @@ def phase_b5_frames(dev, frames, truth, modes):
     b5f = dict(max_abs_err=max_abs, ms=f_ms, plain_ms=f_plain,
                bound_ms=f_bound, bound_by=f_by, library_ms=library_ms,
                library_note=note, former_route_ms=fold_ms,
-               **design_report("B5 frames u8", "warp", B5F_INSTANCE, f_ms,
-                               f_bound))
+               **{k: v for k, v in f_modes["replicate"].items() if k != "ms"},
+               modes=f_modes)
     b5a = dict(max_abs_err=max_abs, ms=a_ms, plain_ms=a_plain,
                bound_ms=a_bound, bound_by=a_by, library_ms=library_ms,
                library_note=note, former_route_ms=old_ms,
@@ -2545,11 +2680,9 @@ def phase_files(dev):
     decode16_s = time.perf_counter() - t0
     checks["48-bit TIFF, preserve_depth"] = np.array_equal(
         io.load_frames(t16, preserve_depth=True), rgb16)
-    # the zlib reader keeps the high byte, as PIL and PNG's strip_16 do;
-    # libtiff's RGBA route rounds 16-bit RGB to (v + 128) / 257
-    # (ROADMAP Queue C)
-    tiff8 = rgb8 if backend == native_loader.ZLIB else (
-        (rgb16.astype(np.uint32) + 128) // 257).astype(np.uint8)
+    # both native loaders round 16-bit TIFF RGB to (v + 128) // 257, as
+    # libtiff's RGBA route does (a PNG keeps the high byte, strip_16)
+    tiff8 = ((rgb16.astype(np.uint32) + 128) // 257).astype(np.uint8)
     checks["48-bit TIFF, 8-bit decode"] = np.array_equal(
         io.load_frames(t16), tiff8)
     checks["8-bit PNG decode"] = np.array_equal(io.load_frames(p8), rgb8)
@@ -3528,8 +3661,8 @@ def phase_dcn(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time the earlier design of B5's accumulate form "
-                         "and B3d from the sources in DIR beside the "
+                    help="time the earlier design of B5's frames form "
+                         "and B3h from the sources in DIR beside the "
                          "current one")
     ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     default=None, help=argparse.SUPPRESS)
@@ -3656,7 +3789,9 @@ def main(argv=None) -> int:
              replaces="libstacker_tpu/ops/orb_pallas.py:54",
              replaces_note="_extract_kernel's windows at the candidates "
                            "with the Harris response the JAX package "
-                           "takes from them (libstacker_tpu/ops/fast.py:237)",
+                           "takes from them (libstacker_tpu/ops/fast.py:237) "
+                           "and its top-k of the level's keypoints "
+                           "(libstacker_tpu/ops/orb.py:270-272)",
              **counts("orb_harris"), **b3h),
         dict(name="orb_describe", route="cuda",
              source="libstacker_tpu_torch/csrc/orb_describe.cu",

@@ -23,8 +23,14 @@
 // 4 (RGB, the extra sample dropped), compression none, LZW, Deflate or
 // PackBits, Predictor 1 or 2 (applied, as libtiff applies it, for LZW and
 // Deflate only).  Rows are read as stored, whatever the Orientation tag
-// says, as libtiff's scanline reader reads them.  A 16-bit sample gives
-// its high byte at 8 bits, an 8-bit one x257 at full depth.
+// says, as libtiff's scanline reader reads them.  At 8 bits the samples
+// are what native/stacker_io.cpp's TIFFReadRGBAImage route gives: a
+// 16-bit grey sample its high byte, a 16-bit RGB one (v + 128) / 257
+// (libtiff's Bitdepth16To8), and a 4-sample file whose ExtraSamples is 2
+// (unassociated alpha) has its colour premultiplied by the alpha, each at
+// 8 bits, as (c * a + 127) / 255 (libtiff's UaToAa).  At full depth a
+// 16-bit sample is kept, as that file's scanline route keeps it, and an
+// 8-bit one is its 8-bit value x257 (premultiplied where unassociated).
 //
 // The less common forms are decoded here, not left to PIL, because the
 // libraries of native/stacker_io.cpp decode them and such files reach a
@@ -394,7 +400,8 @@ struct Tiff {
   uint32_t w = 0, h = 0;
   bool has_w = false, has_h = false, tiled = false;
   uint32_t spp = 1, compression = 1, photometric = 0xffffffffu, planar = 1,
-           predictor = 1, fill = 1, rows_per_strip = 0xffffffffu;
+           predictor = 1, fill = 1, rows_per_strip = 0xffffffffu,
+           extra = 0;  // ExtraSamples' first value (0: none or unspecified)
   TiffEntry bits, format, offsets, counts;
 
   uint32_t u16(const uint8_t* p) const {
@@ -454,6 +461,7 @@ struct Tiff {
         case 279: counts = e; break;
         case 284: planar = value(e, 0); break;
         case 317: predictor = value(e, 0); break;
+        case 338: if (e.count) extra = value(e, 0); break;
         case 339: format = e; break;
         case 322: case 323: case 324: case 325: tiled = true; break;
       }
@@ -557,6 +565,29 @@ void packbits_decode(const uint8_t* in, size_t n, uint8_t* out, size_t need) {
   if (o < need) fail(kErrDecode);
 }
 
+// libtiff's TIFFReadRGBAImage conversions (tif_getimage.c): a 16-bit
+// colour sample to 8 bits, and an 8-bit colour sample times an 8-bit
+// unassociated alpha
+inline uint32_t bitdepth16to8(uint32_t v) { return (v + 128) / 257; }
+inline uint32_t ua_to_aa(uint32_t c, uint32_t a) { return (c * a + 127) / 255; }
+
+// A 16-bit RGB pixel to the output: at 8 bits as libtiff converts it, at
+// full depth as stored; p[3] the alpha where `ua` (unassociated)
+template <typename T>
+inline void tiff_rgb16(const uint16_t* p, bool ua, T* dst);
+template <>
+inline void tiff_rgb16<uint8_t>(const uint16_t* p, bool ua, uint8_t* dst) {
+  const uint32_t a = ua ? bitdepth16to8(p[3]) : 0;
+  for (int c = 0; c < 3; ++c) {
+    const uint32_t v = bitdepth16to8(p[c]);
+    dst[c] = (uint8_t)(ua ? ua_to_aa(v, a) : v);
+  }
+}
+template <>
+inline void tiff_rgb16<uint16_t>(const uint16_t* p, bool, uint16_t* dst) {
+  for (int c = 0; c < 3; ++c) dst[c] = p[c];
+}
+
 template <typename T>
 void decode_tiff(const std::vector<uint8_t>& buf, T* out, int64_t want_h,
                  int64_t want_w) {
@@ -584,6 +615,7 @@ void decode_tiff(const std::vector<uint8_t>& buf, T* out, int64_t want_h,
   const bool predicted = comp == 5 || comp == 8 || comp == 32946;
   if (predicted && t.predictor != 1 && t.predictor != 2) fail(kErrFormat);
   const bool diff = predicted && t.predictor == 2;
+  const bool ua = spp == 4 && t.extra == 2;  // unassociated alpha
   if (!t.offsets.present) fail(kErrDecode);
   if (!t.counts.present) fail(kErrFormat);
 
@@ -631,9 +663,8 @@ void decode_tiff(const std::vector<uint8_t>& buf, T* out, int64_t want_h,
           if (spp == 1) {
             dst[0] = dst[1] = dst[2] = from8<T>(p[0]);
           } else {
-            dst[0] = from8<T>(p[0]);
-            dst[1] = from8<T>(p[1]);
-            dst[2] = from8<T>(p[2]);
+            for (int c = 0; c < 3; ++c)
+              dst[c] = from8<T>(ua ? ua_to_aa(p[c], p[3]) : p[c]);
           }
         }
       } else {
@@ -645,11 +676,9 @@ void decode_tiff(const std::vector<uint8_t>& buf, T* out, int64_t want_h,
         for (size_t x = 0; x < w; ++x, dst += 3) {
           const uint16_t* p = row16.data() + x * spp;
           if (spp == 1) {
-            dst[0] = dst[1] = dst[2] = from16<T>(p[0]);
+            dst[0] = dst[1] = dst[2] = from16<T>(p[0]);  // grey: high byte
           } else {
-            dst[0] = from16<T>(p[0]);
-            dst[1] = from16<T>(p[1]);
-            dst[2] = from16<T>(p[2]);
+            tiff_rgb16<T>(p, ua, dst);
           }
         }
       }

@@ -1,8 +1,11 @@
 // ORB at the candidates and at the kept keypoints of one pyramid level,
-// with every 43x43 window kept on chip:
+// with every window kept on chip:
 //
-//   B3h  candidate_harris: the Harris response of the 9x9 centre of each
-//        candidate's clamped window, -inf where the candidate is invalid;
+//   B3h  select_keypoints: the Harris response of the 9x9 centre of each
+//        candidate's clamped window (-inf where the candidate is
+//        invalid), then the level's `quota` best candidates by response,
+//        ties to the lower candidate index, with their response, row,
+//        column and validity (finite response and a valid candidate);
 //   B3d  describe: at each kept keypoint, the intensity-centroid angle,
 //        the 7x7 sigma-2 Gaussian blur of its window (VALID) and the 256
 //        steered rBRIEF compares, packed LSB-first into 32 bytes.
@@ -10,14 +13,16 @@
 // Replace the Pallas TPU kernel libstacker_tpu/ops/orb_pallas.py
 // _extract_kernel (:54; call :111, entry extract_patches_batched :85)
 // together with the eager chain that read its patches in ops/orb.py:
-// fast.harris_from_patches on the patches' centres, the gather of the
-// kept patches, _ic_angles_from_patches, _blur_patches_valid and
-// _rbrief_from_patches (csrc/orb_extract.cu, the one-to-one port of the
-// TPU kernel, wrote [N, 2q, 43, 43] float32 patches to device memory for
-// that chain: 32 MB at the 4K level 0 of a 20-frame burst, then read by
-// some 80 launches a level).  The TPU kernel exists to DMA each window
-// into VMEM; on the H100 a window is 1.8 KB of shared memory, and
-// nothing derived from it needs to reach device memory.
+// fast.harris_from_patches on the patches' centres, the top-k of the
+// responses (libstacker_tpu/ops/orb.py:270-272, jax.lax.top_k), the
+// gathers of the kept candidates, _ic_angles_from_patches,
+// _blur_patches_valid and _rbrief_from_patches (csrc/orb_extract.cu, the
+// one-to-one port of the TPU kernel, wrote [N, 2q, 43, 43] float32
+// patches to device memory for that chain: 32 MB at the 4K level 0 of a
+// 20-frame burst, then read by some 80 launches a level).  The TPU kernel
+// exists to DMA each window into VMEM; on the H100 a window is 1.8 KB of
+// shared memory, and nothing derived from it needs to reach device
+// memory.
 //
 // The window of a keypoint (y, x) on an H x W level starts at
 // (clamp(y - 21, 0, H - 43), clamp(x - 21, 0, W - 43)), as
@@ -26,19 +31,39 @@
 //
 // What bounds them on the H100.  At the 4K level 0 of a 20-frame burst
 // B3h reads 81 bytes for each of 20 x 218 candidates (~0.4 MB) and does
-// ~1.3k integer operations for each; B3d reads 1849 bytes for each of
-// 20 x 109 keypoints (~4 MB) and does ~41k float operations for each
-// (the blur is most of them), ~0.09 G in all: ~1.3 us at 3.35 TB/s and
-// 67 T/s.  Both are below a launch's latency: what they save is the
-// launches and the patch tensor's round trip of the chain they replace.
+// ~1k integer operations for each and ~2k compares a frame to rank them;
+// B3d reads 1849 bytes for each of 20 x 109 keypoints (~4 MB) and does
+// ~41k float operations for each (the blur is most of them), ~0.09 G in
+// all: ~1.3 us at 3.35 TB/s and 67 T/s.  Both are below a launch's
+// latency: what they save is the launches, and the round trips through
+// device memory, of the chain they replace.
 //
-// Design.  B3h: one warp per candidate stages the 9x9 block in shared
-// memory and sums Ix^2, Iy^2 and Ix*Iy over its 7x7 positions exactly,
-// in int32 (|Ix|, |Iy| <= 4 * 255, so each sum is at most 49 * 1020^2 <
-// 2^31), then evaluates the response in float32.  The plain version
-// sums the same integers exactly in float64 and casts once, so the two
-// agree bitwise (a float32 sum of those products could round, 5.1e7 >
-// 2^24, in an order no two libraries share).
+// Design.  B3h (select_kernel): one block a frame.  Each thread takes
+// whole candidates: it stages a candidate's 9x9 block row by row in
+// registers, each row's 9 bytes from the three aligned words that hold
+// them (a funnel shift; never a word past the row's last block byte), and
+// sums Ix^2, Iy^2 and Ix*Iy over its 7x7 positions exactly, in int32
+// (|Ix|, |Iy| <= 4 * 255, so each sum is at most 49 * 1020^2 < 2^31),
+// then evaluates the response in float32 term by term.  The plain
+// version sums the same integers exactly in float64 and casts once, so
+// the two agree bitwise (a float32 sum of those products could round,
+// 5.1e7 > 2^24, in an order no two libraries share).  The response
+// becomes the order-preserving int32 key fast.topk_stable builds (the
+// float's bits, negative ones with their magnitude bits flipped: -0.0
+// below +0.0, every -inf equal), and key and index one unique 64-bit
+// word: key above, the complement of the index below, so a descending
+// order is topk_stable's (ties to the lower index).  The block sorts the
+// frame's words descending by a bitonic network over the next power of
+// two (padding words 0, below every candidate's), and the thread of
+// each of the first `quota` slots writes its response (the key's float
+// again), row, column and validity.  The words stay in dynamic shared
+// memory (8 bytes a candidate, opted in up to SELECT_SHARED_BYTES); a
+// level whose words do not fit sorts them in a scratch row of device
+// memory that only its own block touches.  The sort's steps of stride
+// 16 or less (30 of the 36 at K=218) run in registers, a word a lane,
+// by shuffles: a stage of the network loads and stores each word once
+// for them, and only its steps of stride 32 or more meet in memory at a
+// block barrier.
 //
 // B3d: one block of 128 threads per keypoint, four barrier-separated
 // steps, every result in the plain version's term order, each product
@@ -77,7 +102,7 @@ constexpr int PS = 2 * PR + 1;   // 37
 constexpr int HALF = 15;       // IC circle radius
 constexpr int HB = 9;          // Harris block 7 plus the Sobel ring
 constexpr int HO = R - 4;      // Harris block origin in the window (17)
-constexpr int HARRIS_WARPS = 4;
+constexpr int SELECT_THREADS = 512;
 constexpr int DESC_THREADS = 128;
 constexpr int DESC_WARPS = DESC_THREADS / 32;
 
@@ -89,60 +114,162 @@ __device__ __forceinline__ int origin(int c, int n) {
   return min(max(c - R, 0), n - SIDE);
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
+// The shared memory a select_kernel block may hold its sort words in:
+// the H100's opt-in limit for one block (227 KB).  A host build of this
+// source sets a smaller one, so that its tests reach the scratch path.
+#ifndef SELECT_SHARED_BYTES
+#define SELECT_SHARED_BYTES 232448
+#endif
+#ifndef DYNAMIC_SHARED
+#define DYNAMIC_SHARED(T, name) extern __shared__ T name[]
+#endif
+
+// The 9 bytes of a block row at p, from the three aligned words that hold
+// them (read-only loads): bytes o..o+8 of words w0 w1 w2, o = p & 3, each
+// byte zero-extended by one byte permute
+__device__ __forceinline__ void block_row(const uint8_t* p, int b[HB]) {
+  const int o = (int)(reinterpret_cast<uintptr_t>(p) & 3);
+  const unsigned* w = reinterpret_cast<const unsigned*>(p - o);
+  const uint32_t w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2);
+  const int s = 8 * o;
+  const uint32_t lo = (uint32_t)((((uint64_t)w1 << 32) | w0) >> s);
+  const uint32_t hi = (uint32_t)((((uint64_t)w2 << 32) | w1) >> s);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int j = 0; j < 4; ++j) {
+    b[j] = (int)__byte_perm(lo, 0u, 0x4440u | j);
+    b[4 + j] = (int)__byte_perm(hi, 0u, 0x4440u | j);
+  }
+  b[8] = (int)__byte_perm(w2, 0u, 0x4440u | o);
 }
 
-__global__ void __launch_bounds__(HARRIS_WARPS * 32)
-harris_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ ys,
-              const int* __restrict__ xs, const uint8_t* __restrict__ valid,
-              float* __restrict__ out, int K, int total, int H, int W,
-              float harris_k, float scale4) {
-  __shared__ int pix[HARRIS_WARPS][HB * HB];
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * HARRIS_WARPS + wid;
-  if (i >= total) return;  // the whole warp
-  if (!valid[i]) {
-    if (lane == 0) out[i] = -INFINITY;
-    return;
+// The Harris response of the 9x9 block at src (row pitch W), as
+// fast.harris_from_patches takes it: dx along a row, dy along a column,
+// the Sobel sums 2 * d[1] + d[0] + d[2], exact int32 block sums over the
+// 7x7 positions, then (a * b - c * c - k * (a + b) ** 2) * scale4 rounded
+// term by term.  Three rows at a time in registers.
+__device__ __forceinline__ float harris_at(const uint8_t* src, int W,
+                                           float harris_k, float scale4) {
+  int p0[HB], p1[HB], p2[HB];
+  int dx0[7], dx1[7];
+  block_row(src, p0);
+  block_row(src + W, p1);
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    dx0[q] = p0[q + 2] - p0[q];
+    dx1[q] = p1[q + 2] - p1[q];
   }
-  const int n = i / K;
-  const int y0 = origin(ys[i], H) + HO, x0 = origin(xs[i], W) + HO;
-  const uint8_t* src = imgs + (size_t)n * H * W + (size_t)y0 * W + x0;
-  int* p = pix[wid];
-  for (int j = lane; j < HB * HB; j += 32) {
-    const int r = j / HB, c = j - r * HB;
-    p[j] = src[(size_t)r * W + c];
-  }
-  __syncwarp();
   int a = 0, b = 0, c = 0;
-  for (int j = lane; j < 49; j += 32) {
-    const int r = j / 7, q = j - r * 7;
-    const int* t = p + r * HB + q;  // rows r..r+2, columns q..q+2
-    // fast.harris_from_patches: dx along a row, dy along a column, then
-    // the Sobel sums 2 * d[1] + d[0] + d[2]
-    const int dx0 = t[2] - t[0], dx1 = t[HB + 2] - t[HB],
-              dx2 = t[2 * HB + 2] - t[2 * HB];
-    const int dy0 = t[2 * HB] - t[0], dy1 = t[2 * HB + 1] - t[1],
-              dy2 = t[2 * HB + 2] - t[2];
-    const int ix = 2 * dx1 + dx0 + dx2;
-    const int iy = 2 * dy1 + dy0 + dy2;
-    a += ix * ix;
-    b += iy * iy;
-    c += ix * iy;
+#pragma unroll
+  for (int r = 2; r < HB; ++r) {
+    block_row(src + r * W, p2);
+    int dy[HB];
+#pragma unroll
+    for (int j = 0; j < HB; ++j) dy[j] = p2[j] - p0[j];
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const int dx2 = p2[q + 2] - p2[q];
+      const int ix = 2 * dx1[q] + dx0[q] + dx2;
+      const int iy = 2 * dy[q + 1] + dy[q] + dy[q + 2];
+      a += ix * ix;
+      b += iy * iy;
+      c += ix * iy;
+      dx0[q] = dx1[q];
+      dx1[q] = dx2;
+    }
+#pragma unroll
+    for (int j = 0; j < HB; ++j) {
+      p0[j] = p1[j];
+      p1[j] = p2[j];
+    }
   }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  c = warp_sum(c);
-  if (lane == 0) {
-    const float af = (float)a, bf = (float)b, cf = (float)c;
-    // (a * b - c * c - k * (a + b) ** 2) * scale4, rounded term by term
-    const float det = __fsub_rn(__fmul_rn(af, bf), __fmul_rn(cf, cf));
-    const float tr = __fadd_rn(af, bf);
-    const float r = __fsub_rn(det, __fmul_rn(harris_k, __fmul_rn(tr, tr)));
-    out[i] = __fmul_rn(r, scale4);
+  const float af = (float)a, bf = (float)b, cf = (float)c;
+  const float det = __fsub_rn(__fmul_rn(af, bf), __fmul_rn(cf, cf));
+  const float tr = __fadd_rn(af, bf);
+  const float r = __fsub_rn(det, __fmul_rn(harris_k, __fmul_rn(tr, tr)));
+  return __fmul_rn(r, scale4);
+}
+
+// fast.topk_stable's order-preserving int32 key of a float, offset by
+// 2^31 so that it orders as an unsigned word; and back
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const int bits = __float_as_int(v);
+  return (uint32_t)(bits >= 0 ? bits : bits ^ 0x7FFFFFFF) ^ 0x80000000u;
+}
+__device__ __forceinline__ float from_order_key(uint32_t u) {
+  const int key = (int)(u ^ 0x80000000u);
+  return __int_as_float(key >= 0 ? key : key ^ 0x7FFFFFFF);
+}
+
+// B3h: see the header.  Block n takes frame n's K candidates; n2 is the
+// power of two the words are sorted over (32 at least); SCRATCH: they
+// are sorted in scratch [N, n2], else in shared memory (an instance
+// each, so that each addresses its own space).
+template <bool SCRATCH>
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ ys,
+              const int* __restrict__ xs, const uint8_t* __restrict__ valid,
+              uint64_t* __restrict__ scratch, float* __restrict__ hval,
+              int* __restrict__ kys, int* __restrict__ kxs,
+              uint8_t* __restrict__ kvalid, int K, int Q, int H, int W,
+              int n2, float harris_k, float scale4) {
+  DYNAMIC_SHARED(uint64_t, shared_words);
+  const int n = blockIdx.x, tid = threadIdx.x;
+  uint64_t* words = SCRATCH ? scratch + (size_t)n * n2 : shared_words;
+  const size_t base = (size_t)n * K;
+  const uint8_t* img = imgs + (size_t)n * H * W;
+  for (int i = tid; i < n2; i += SELECT_THREADS) {
+    uint64_t word = 0;  // padding: below every candidate's word
+    if (i < K) {
+      float r = -INFINITY;
+      if (valid[base + i]) {
+        const int y0 = origin(ys[base + i], H) + HO;
+        const int x0 = origin(xs[base + i], W) + HO;
+        r = harris_at(img + (size_t)y0 * W + x0, W, harris_k, scale4);
+      }
+      word = (uint64_t)order_key(r) << 32 | (uint32_t)~(uint32_t)i;
+    }
+    words[i] = word;
+  }
+  __syncthreads();
+  // bitonic sort, descending.  Stage k's steps of stride j >= 32 pair
+  // words of different warps' 32-word chunks: pair t compares lo, lo + j
+  // in memory, a block barrier after each.  Its steps of stride 16..1
+  // pair words of one chunk: a warp takes each of its chunks into its
+  // lanes, exchanges them by shuffles, and stores them once.
+  for (int k = 2; k <= n2; k <<= 1) {
+    int j = k >> 1;
+    for (; j >= 32; j >>= 1) {
+      for (int t = tid; t < n2 >> 1; t += SELECT_THREADS) {
+        const int lo = 2 * t - (t & (j - 1)), hi = lo + j;
+        const uint64_t a = words[lo], b = words[hi];
+        if ((lo & k) == 0 ? a < b : a > b) {
+          words[lo] = b;
+          words[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < n2; e += SELECT_THREADS) {
+      uint64_t w = words[e];
+      for (int jj = j; jj > 0; jj >>= 1) {
+        const uint64_t o = __shfl_xor_sync(0xffffffffu, w, jj);
+        // the lower word of a pair keeps the larger in a descending run
+        const bool larger = ((e & k) == 0) == ((e & jj) == 0);
+        w = larger == (o > w) ? o : w;
+      }
+      words[e] = w;
+    }
+    __syncthreads();
+  }
+  for (int r = tid; r < Q; r += SELECT_THREADS) {
+    const uint64_t word = words[r];
+    const size_t i = base + ~(uint32_t)word;
+    const float h = from_order_key((uint32_t)(word >> 32));
+    const size_t o = (size_t)n * Q + r;
+    hval[o] = h;
+    kys[o] = ys[i];
+    kxs[o] = xs[i];
+    kvalid[o] = (__float_as_uint(h) & 0x7F800000u) != 0x7F800000u && valid[i];
   }
 }
 
@@ -315,19 +442,49 @@ describe_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ ys,
 
 extern "C" {
 
-// imgs [N,H,W] u8, ys/xs [N,K] i32, valid [N,K] u8 (bool), out [N,K] f32;
-// requires H, W >= 43.
-int candidate_harris(const void* imgs, const void* ys, const void* xs,
-                     const void* valid, void* out, int N, int K, int H,
+// The sort words a select_keypoints block keeps in shared memory; a
+// level of more candidates (rounded up to a power of two) needs scratch.
+int select_shared_words() { return SELECT_SHARED_BYTES / 8; }
+
+// imgs [N,H,W] u8, ys/xs [N,K] i32, valid [N,K] u8 (bool), scratch
+// [N,n2] 8-byte words (n2 the power of two at or above K and 32) where n2 >
+// select_shared_words(), else null; hval [N,Q] f32, kys/kxs [N,Q] i32,
+// kvalid [N,Q] u8 (bool); requires 1 <= Q <= K and H, W >= 43.
+int select_keypoints(const void* imgs, const void* ys, const void* xs,
+                     const void* valid, void* scratch, void* hval, void* kys,
+                     void* kxs, void* kvalid, int N, int K, int Q, int H,
                      int W, float harris_k, float scale4, void* stream) {
-  if (N <= 0 || K <= 0 || H < SIDE || W < SIDE) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)N * K;
-  if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((total + HARRIS_WARPS - 1) / HARRIS_WARPS);
-  harris_kernel<<<blocks, HARRIS_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(imgs), static_cast<const int*>(ys),
-      static_cast<const int*>(xs), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(out), K, (int)total, H, W, harris_k, scale4);
+  if (N <= 0 || K <= 0 || Q <= 0 || Q > K || K > (1 << 30) || H < SIDE ||
+      W < SIDE)
+    return (int)cudaErrorInvalidValue;
+  int n2 = 32;  // a warp's chunk at least
+  while (n2 < K) n2 <<= 1;
+  const bool shared = n2 <= select_shared_words();
+  if (!shared && !scratch) return (int)cudaErrorInvalidValue;
+  const auto im = static_cast<const uint8_t*>(imgs);
+  const auto y = static_cast<const int*>(ys);
+  const auto x = static_cast<const int*>(xs);
+  const auto v = static_cast<const uint8_t*>(valid);
+  const auto hv = static_cast<float*>(hval);
+  const auto ky = static_cast<int*>(kys);
+  const auto kx = static_cast<int*>(kxs);
+  const auto kv = static_cast<uint8_t*>(kvalid);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!shared) {
+    select_kernel<true><<<(unsigned)N, SELECT_THREADS, 0, st>>>(
+        im, y, x, v, static_cast<uint64_t*>(scratch), hv, ky, kx, kv, K, Q,
+        H, W, n2, harris_k, scale4);
+    return (int)cudaGetLastError();
+  }
+  const int bytes = n2 * 8;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        select_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  select_kernel<false><<<(unsigned)N, SELECT_THREADS, bytes, st>>>(
+      im, y, x, v, nullptr, hv, ky, kx, kv, K, Q, H, W, n2, harris_k, scale4);
   return (int)cudaGetLastError();
 }
 

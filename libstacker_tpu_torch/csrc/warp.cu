@@ -102,34 +102,45 @@
 //               frame by frame in frame order in one launch, the sums
 //               in registers; a frame with valid[n] == 0 is skipped
 //               whole, its map never read.
-// frames_kernel is the first design: one thread per output pixel and
-// frame, the taps through frame_taps / sample.
 //
-// What bounds the accumulate form: it reads the burst in its own type
+// What bounds them.  The accumulate form reads the burst in its own type
 // once and writes one [H,W,C] f32 image (0.47 GB + 0.1 GB for 18 kept u8
 // frames of 4K, ~0.17 ms at 3.35 TB/s) against ~35 float operations a
 // pixel-frame for the coordinates and ~16 a channel (~1.2e10, ~0.19 ms
 // at 67 T/s); B2's identical loop measures issue-bound (warp_accum.cu).
+// The frames form writes every frame's f32 warp: for 19 u8 RGB frames
+// of 4K 1.89 GB out against 0.47 GB in, 0.71 ms at 3.35 TB/s, so its
+// stores weigh as much as its taps.
 //
-// Design (accum_kernel), B2's and the planar form's: a block is four
-// warps on four output rows, a lane B5A_PIXELS pixels of its row strided
-// by 32 (each tap load of a warp covers 32 neighbouring pixels), and the
-// block stages each chunk of B5A_CHUNK frames' maps and weights in
-// shared memory once; a dropped frame is skipped by the whole block.
-// Per thread-frame: the row products m1*y, m4*y, m7*y once, then per
-// pixel the coordinates as ops/warp.py:56-62 writes them, the correctly
-// rounded reciprocal and the bins off the conversion pipe
+// Design (frame_pixels, the body of accum_kernel and frames_kernel), B2's
+// and the planar form's: a block is four warps on four output rows, a
+// lane B5A_PIXELS (B5F_PIXELS) pixels of its row strided by 32 (each tap
+// load of a warp covers 32 neighbouring pixels), and the block stages
+// the maps in shared memory once: the accumulate form each chunk of B5A_CHUNK
+// frames' maps and weights (a dropped frame is skipped by the whole
+// block), the frames form its one frame's map (the frame on the grid's
+// y axis).  Per thread-frame: the row products m1*y, m4*y, m7*y once,
+// then per pixel the coordinates as ops/warp.py:56-62 writes them, the
+// correctly rounded reciprocal and the bins off the conversion pipe
 // (csrc/warp_bins.cuh), a 32-bit tap offset (frames of fewer than 2^31
 // values) and the two weights.  Inside the strip every border mode is
 // the identity: when every reciprocal took the fast path and every tap
 // of the thread's pixels lies in the strip (the row test taken on the
 // strip row, as the planar form's, so a strip above the frame stays
 // exact), the taps are read with no index map and no border select, one
-// branch a thread-frame; otherwise each pixel takes the plain
-// expressions (frame_taps / sample).  The C channels are a template
-// constant for RGB; the sums leave by streaming stores (__stcs).  The
-// border values travel by value in the launch, so a call copies nothing
-// to the device and never waits on it.
+// branch a thread-frame; otherwise each pixel takes the plain expressions
+// (frame_taps / sample).  The C channels are a template constant for RGB
+// (a C read at run time measured 15-29 % slower on the accumulate form
+// and 11-19 % on the frames form, H100).  The accumulate form's sums
+// leave by streaming stores (__stcs).  The frames form's values leave as
+// each warp's 32 x C contiguous floats of a k: the lanes put their
+// pixels' C values in a shared buffer of the warp, and lane l streams
+// float4 l of the span where rows are a multiple of 16 bytes (W % 4 ==
+// 0), else elements l, l + 32, ... (coalesced __stcs, never C scalar
+// stores at a stride of 4 * C bytes).  On an H100 for 19 u8 RGB 4K frames
+// (chip_smoke.py phase 11) the float4 stores measured 2-3 % faster than
+// the scalar ones.  The border values travel by value in the launch, so a
+// call copies nothing to the device and never waits on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -504,27 +515,6 @@ warp3_kernel(const float* __restrict__ srcs, const float* __restrict__ minv,
   }
 }
 
-// B5, frames form: one thread per output pixel of frame blockIdx.y
-template <int MODE, typename T>
-__global__ void __launch_bounds__(THREADS)
-frames_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
-              Border4 border, float* __restrict__ out, int H, int W, int C,
-              int perspective, float scale, int oy0, int sy0) {
-  const size_t hw = (size_t)H * W;
-  const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= hw) return;
-  const int n = blockIdx.y;
-  const int y = (int)(p / W);
-  const int x = (int)(p - (size_t)y * W);
-  const Taps t = frame_taps<MODE>(minv + 9 * n, (float)x, (float)(y + oy0),
-                                  H, W, perspective, (float)sy0);
-  const T* f = frames + (size_t)n * hw * C;
-  float* o = out + ((size_t)n * hw + p) * C;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c < C) o[c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
-}
-
 // B5, accumulate form: see the header.  A block's four warps take four
 // output rows, a lane B5A_PIXELS pixels of its row (x = x0 + lane + 32k),
 // and each thread walks the frames in order with its sums in registers.
@@ -538,6 +528,77 @@ constexpr int B5A_CHUNK = 32;  // frames whose maps a block stages at once
 struct FrameMap {
   float4 a, b, c;  // {m0 m1 m2 m3} {m4 m5 m6 m7} {m8 valid - -}
 };
+
+// The values v[k][c] (c < C) of output pixels (xs[k], ys) under the
+// inverse map m of frame f ([H,W,C] in its own type; wc = W * C), the
+// body of both interleaved forms: the row products once, then per pixel
+// the coordinates as ops/warp.py:56-62 writes them, the reciprocal and
+// the bins off the conversion pipe (csrc/warp_bins.cuh), a 32-bit tap
+// offset and the two weights; with every reciprocal on its fast path and
+// every tap in the strip (fast_w, fast_y0, fast_h as warp_kernel's) the
+// taps are read with no index map or border select, else each pixel
+// takes the plain expressions (frame_taps / sample).
+template <int MODE, typename T, bool PERSP, int P>
+__device__ __forceinline__ void frame_pixels(
+    const float (&m)[9], const T* __restrict__ f, const float (&xs)[P],
+    float ys, int sy0, int H, int W, int C, unsigned wc, float scale,
+    const Border4& border, unsigned fast_w, int fast_y0, unsigned fast_h,
+    float (&v)[P][4]) {
+  const float r1 = m[1] * ys, r4 = m[4] * ys, r7 = m[7] * ys;
+  // the P pixels' tap offsets and weights; `fast`: every reciprocal on
+  // its fast path and every tap in the strip
+  bool fast = true;
+  unsigned off[P];
+  float fx[P], fy[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    float sx = (m[0] * xs[k] + r1) + m[2];
+    float sy = (m[3] * xs[k] + r4) + m[5];
+    if (PERSP) {
+      const float sw = (m[6] * xs[k] + r7) + m[8];
+      bool ok;
+      const float inv = rcp_fast(sw, ok);
+      fast &= ok;
+      sx = sx * inv;
+      sy = sy * inv;
+    }
+    const int qx = quant<PERSP>(sx), qy = quant<PERSP>(sy);
+    const int tx = qx >> 5, ty = (qy >> 5) - sy0;
+    fast &= (unsigned)tx < fast_w && (unsigned)(ty - fast_y0) < fast_h;
+    off[k] = (unsigned)ty * wc + (unsigned)tx * (unsigned)C;
+    fx[k] = frac32(qx);
+    fy[k] = frac32(qy);
+  }
+  if (fast) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const T* p0 = f + off[k];
+      const T* p1 = p0 + wc;
+      const float gx = 1.0f - fx[k], gy = 1.0f - fy[k];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= C) break;
+        const float top = widen<T>(p0[c], scale) * gx +
+                          widen<T>(p0[C + c], scale) * fx[k];
+        const float bot = widen<T>(p1[c], scale) * gx +
+                          widen<T>(p1[C + c], scale) * fx[k];
+        v[k][c] = top * gy + bot * fy[k];
+      }
+    }
+  } else {
+    // a tap off the strip, or a reciprocal off its fast path: each pixel
+    // as the plain version takes it
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const Taps t = frame_taps<MODE>(m, xs[k], ys, H, W, PERSP, (float)sy0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= C) break;
+        v[k][c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
+      }
+    }
+  }
+}
 
 // fast_w, fast_y0, fast_h as warp_kernel's (launch_accum); CH the
 // channels where fixed at compile time (3), else 0 and C is read
@@ -559,7 +620,7 @@ accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
   float xs[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) xs[k] = (float)min(x0 + 32 * k, W - 1);
-  const float ys = (float)(y + oy0), sy0f = (float)sy0;
+  const float ys = (float)(y + oy0);
   const unsigned wc = (unsigned)W * (unsigned)C;  // a row's elements
   const size_t frame_elems = (size_t)H * W * C;
   float acc[P][4];
@@ -586,62 +647,10 @@ accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
       if (vn == 0.0f) continue;  // dropped: the whole block skips it
       const float m[9] = {fm.a.x, fm.a.y, fm.a.z, fm.a.w, fm.b.x,
                           fm.b.y, fm.b.z, fm.b.w, fm.c.x};
-      const T* f = frames + (size_t)(n0 + j) * frame_elems;
-      const float r1 = m[1] * ys, r4 = m[4] * ys, r7 = m[7] * ys;
-      // the P pixels' tap offsets and weights; `fast`: every reciprocal
-      // on its fast path and every tap in the strip
-      bool fast = true;
-      unsigned off[P];
-      float fx[P], fy[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        float sx = (m[0] * xs[k] + r1) + m[2];
-        float sy = (m[3] * xs[k] + r4) + m[5];
-        if (PERSP) {
-          const float sw = (m[6] * xs[k] + r7) + m[8];
-          bool ok;
-          const float inv = rcp_fast(sw, ok);
-          fast &= ok;
-          sx = sx * inv;
-          sy = sy * inv;
-        }
-        const int qx = quant<PERSP>(sx), qy = quant<PERSP>(sy);
-        const int tx = qx >> 5, ty = (qy >> 5) - sy0;
-        fast &= (unsigned)tx < fast_w && (unsigned)(ty - fast_y0) < fast_h;
-        off[k] = (unsigned)ty * wc + (unsigned)tx * (unsigned)C;
-        fx[k] = frac32(qx);
-        fy[k] = frac32(qy);
-      }
       float v[P][4];
-      if (fast) {
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-          const T* p0 = f + off[k];
-          const T* p1 = p0 + wc;
-          const float gx = 1.0f - fx[k], gy = 1.0f - fy[k];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (c >= C) break;
-            const float top = widen<T>(p0[c], scale) * gx +
-                              widen<T>(p0[C + c], scale) * fx[k];
-            const float bot = widen<T>(p1[c], scale) * gx +
-                              widen<T>(p1[C + c], scale) * fx[k];
-            v[k][c] = top * gy + bot * fy[k];
-          }
-        }
-      } else {
-        // a tap off the strip, or a reciprocal off its fast path: each
-        // pixel as the plain version takes it
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-          const Taps t = frame_taps<MODE>(m, xs[k], ys, H, W, PERSP, sy0f);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (c >= C) break;
-            v[k][c] = sample<MODE, T>(f, t, c, C, border.v[c], scale);
-          }
-        }
-      }
+      frame_pixels<MODE, T, PERSP, P>(
+          m, frames + (size_t)(n0 + j) * frame_elems, xs, ys, sy0, H, W, C,
+          wc, scale, border, fast_w, fast_y0, fast_h, v);
 #pragma unroll
       for (int k = 0; k < P; ++k)
 #pragma unroll
@@ -658,6 +667,71 @@ accum_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (c < C) __stcs(orow + (size_t)x * C + c, acc[k][c]);
+  }
+}
+
+// B5, frames form: see the header.  Block (tile, band) of frame
+// blockIdx.y: its four warps take four output rows, a lane B5F_PIXELS
+// pixels of its row (x = x0 + lane + 32k), and each warp's 32 pixels of
+// a k leave as 32 * C contiguous floats, transposed through shared
+// memory so that lane l stores elements l, l + 32, ... of the span, or
+// with `vec` (rows of a multiple of 16 bytes) its float4 l.
+constexpr int B5F_PIXELS = 4;
+constexpr int B5F_TILE = 32 * B5F_PIXELS;
+template <int MODE, typename T, bool PERSP, int CH>
+__global__ void __launch_bounds__(B5A_THREADS)
+frames_kernel(const T* __restrict__ frames, const float* __restrict__ minv,
+              Border4 border, float* __restrict__ out, int H, int W,
+              int C_any, float scale, int tiles_x, int oy0, int sy0,
+              unsigned fast_w, int fast_y0, unsigned fast_h, int vec) {
+  constexpr int P = B5F_PIXELS;
+  const int C = CH ? CH : C_any;
+  __shared__ float map[9];
+  __shared__ float4 stage[B5A_ROWS][32];
+  const int n = (int)blockIdx.y;
+  if (threadIdx.x < 9) map[threadIdx.x] = minv[9 * (size_t)n + threadIdx.x];
+  __syncthreads();
+  const int tile = (int)(blockIdx.x % (unsigned)tiles_x);
+  const int wid = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const int y = (int)(blockIdx.x / (unsigned)tiles_x) * B5A_ROWS + wid;
+  if (y >= H) return;  // the whole warp
+  const int x0 = tile * B5F_TILE + lane;
+  float xs[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) xs[k] = (float)min(x0 + 32 * k, W - 1);
+  const unsigned wc = (unsigned)W * (unsigned)C;
+  const size_t frame_elems = (size_t)H * W * C;
+  float m[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m[i] = map[i];
+  float v[P][4];
+  frame_pixels<MODE, T, PERSP, P>(m, frames + (size_t)n * frame_elems, xs,
+                                  (float)(y + oy0), sy0, H, W, C, wc, scale,
+                                  border, fast_w, fast_y0, fast_h, v);
+  float* orow = out + (size_t)n * frame_elems + (size_t)y * wc;
+  float* st = reinterpret_cast<float*>(stage[wid]);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int xb = tile * B5F_TILE + 32 * k;  // the span's first pixel
+    if (xb >= W) break;  // the whole warp
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < C) st[lane * C + c] = v[k][c];
+    __syncwarp();
+    const int span = min(32, W - xb) * C;
+    float* dst = orow + (size_t)xb * C;
+    if (vec) {
+      if (4 * lane < span)
+        __stcs(reinterpret_cast<float4*>(dst) + lane, stage[wid][lane]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= C) break;
+        const int e = lane + 32 * j;
+        if (e < span) __stcs(dst + e, st[e]);
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -701,6 +775,33 @@ cudaError_t launch_accum(const T* f, const float* minv, const Border4& border,
   return cudaGetLastError();
 }
 
+// The frames form: the accumulate form's tiles for each frame, the frame
+// on the grid's y axis
+template <int MODE, typename T, bool PERSP>
+cudaError_t launch_each(const T* f, const float* minv, const Border4& border,
+                        float* out, int N, int H, int W, int C, float scale,
+                        int oy0, int sy0, cudaStream_t st) {
+  const long long tiles_x = (W + B5F_TILE - 1) / B5F_TILE;
+  const long long blocks = tiles_x * ((H + B5A_ROWS - 1) / B5A_ROWS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  unsigned fw, fh;
+  int fy0;
+  fast_extents<PERSP>(H, W, C, sy0, fw, fy0, fh);
+  const dim3 grid((unsigned)blocks, (unsigned)N);
+  // every span a whole number of float4 from a 16-byte boundary
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (C == 3) {
+    frames_kernel<MODE, T, PERSP, 3><<<grid, B5A_THREADS, 0, st>>>(
+        f, minv, border, out, H, W, C, scale, (int)tiles_x, oy0, sy0, fw,
+        fy0, fh, vec);
+  } else {
+    frames_kernel<MODE, T, PERSP, 0><<<grid, B5A_THREADS, 0, st>>>(
+        f, minv, border, out, H, W, C, scale, (int)tiles_x, oy0, sy0, fw,
+        fy0, fh, vec);
+  }
+  return cudaGetLastError();
+}
+
 template <int MODE, typename T>
 cudaError_t launch_frames(const void* frames, const float* minv,
                           const Border4& border, const float* valid,
@@ -715,11 +816,11 @@ cudaError_t launch_frames(const void* frames, const float* minv,
                : launch_accum<MODE, T, false>(f, minv, border, valid, out, N,
                                               H, W, C, scale, oy0, sy0, st);
   }
-  const size_t hw = (size_t)H * W;
-  const unsigned blocks = (unsigned)((hw + THREADS - 1) / THREADS);
-  frames_kernel<MODE, T><<<dim3(blocks, (unsigned)N), THREADS, 0, st>>>(
-      f, minv, border, out, H, W, C, perspective, scale, oy0, sy0);
-  return cudaGetLastError();
+  return perspective
+             ? launch_each<MODE, T, true>(f, minv, border, out, N, H, W, C,
+                                          scale, oy0, sy0, st)
+             : launch_each<MODE, T, false>(f, minv, border, out, N, H, W, C,
+                                           scale, oy0, sy0, st);
 }
 
 template <typename T>

@@ -10,14 +10,15 @@ all-default ``ORB::create`` ``detectAndCompute`` (nfeatures 500, scale
 - per level: FAST-9 with NMS and the edge band (kernel B8 on the card,
   ``ops/fast_cuda.py``), the ``2 * quota`` best candidates by FAST
   score, their Harris responses on the 9x9 centre of each clamped 43x43
-  window (kernel B3h, ``ops/orb_cuda.candidate_harris``), the ``quota``
-  best by Harris response, and at those the intensity-centroid angle
-  and steered rBRIEF on the Gaussian-blurred window (kernel B3d,
-  ``ops/orb_cuda.describe``).  Both kernels keep the windows in shared
-  memory; their plain versions, which the CPU runs, cut the windows
-  with ``orb_cuda.extract_patches_reference`` (the JAX package's
-  ``_extract_kernel`` B3) and run the JAX package's chain on them
-  (``orb_cuda._ic_angles_from_patches``, ``_blur_patches_valid``,
+  window and the ``quota`` best by Harris response (kernel B3h, one
+  launch, ``ops/orb_cuda.select_keypoints``), and at those the
+  intensity-centroid angle and steered rBRIEF on the Gaussian-blurred
+  window (kernel B3d, ``ops/orb_cuda.describe``).  Both kernels keep the
+  windows in shared memory; their plain versions, which the CPU runs,
+  cut the windows with ``orb_cuda.extract_patches_reference`` (the JAX
+  package's ``_extract_kernel`` B3) and run the JAX package's chain on
+  them (``fast.harris_from_patches``, ``fast.topk_stable`` and the
+  gathers, ``orb_cuda._ic_angles_from_patches``, ``_blur_patches_valid``,
   ``_rbrief_from_patches``), with Harris's block sums exact.
 
 The JAX package vmaps one frame's detector over the burst; here the
@@ -142,12 +143,8 @@ def orb_detect_and_compute(
             det = det & (level_mask > 0.5)  # after NMS
         cand = fast.top_k_keypoints(det, score, min(2 * quota, lh * lw))
         del score
-        harris = orb_cuda.candidate_harris(level_img, cand.ys, cand.xs,
-                                           cand.valid)
-        hval, hidx = fast.topk_stable(harris, quota)
-        kys = torch.gather(cand.ys, 1, hidx)
-        kxs = torch.gather(cand.xs, 1, hidx)
-        kvalid = torch.isfinite(hval) & torch.gather(cand.valid, 1, hidx)
+        hval, kys, kxs, kvalid = orb_cuda.select_keypoints(
+            level_img, cand.ys, cand.xs, cand.valid, quota)
         angles, desc = orb_cuda.describe(level_img, kys, kxs)
         xy = torch.stack([kxs.to(torch.float32) * scale,
                           kys.to(torch.float32) * scale], dim=-1)

@@ -15,17 +15,19 @@ Counterpart of ``libstacker_tpu/ops/orb_pallas.py`` (``PATCH_RADIUS``
   levels and ``[N,K]`` int32 rows / columns -> ``[N,K,side,side]``
   float32 patches.  It equals :func:`extract_patches_reference` (one
   advanced-indexing gather) bitwise.  The ORB path no longer calls it.
-- :func:`candidate_harris` (B3h, ``csrc/orb_describe.cu``): the Harris
-  response of each candidate's 9x9 window centre, -inf where invalid.
+- :func:`select_keypoints` (B3h, ``csrc/orb_describe.cu``): the Harris
+  response of each candidate's 9x9 window centre (-inf where invalid)
+  and the level's ``quota`` best candidates by it, in one launch.
 - :func:`describe` (B3d, same source): the intensity-centroid angle and
   the 32-byte steered rBRIEF descriptor of each kept keypoint.
 
-B3h and B3d keep every 43x43 window in shared memory, so no patch
-tensor exists on the CUDA path.  Their plain versions are the chain they
-replace, on :func:`extract_patches_reference` windows, with Harris's
-block sums exact (``fast.harris_from_patches``), and the kernels equal
-them bitwise.  CUDA tensors launch the kernels or raise; CPU tensors
-take the plain versions.
+B3h and B3d keep every window on chip, so no patch tensor exists on the
+CUDA path, and B3h keeps its sort keys there too.  Their plain versions
+are the chain they replace, on :func:`extract_patches_reference`
+windows, with Harris's block sums exact (``fast.harris_from_patches``)
+and the selection ``fast.topk_stable``, and the kernels equal them
+bitwise.  CUDA tensors launch the kernels or raise; CPU tensors take the
+plain versions.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ BLUR_SIDE = 2 * BLUR_RADIUS + 1  # 43
 
 #: launches of B3 (``extract_patches``) since the last reset
 launch_count = 0
-#: launches of B3h (``candidate_harris``) since the last reset
+#: launches of B3h (``select_keypoints``) since the last reset
 harris_launch_count = 0
 #: launches of B3d (``describe``) since the last reset
 describe_launch_count = 0
@@ -266,9 +268,10 @@ def candidate_harris_reference(
     imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     valid: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`candidate_harris`: the
-    ``BLUR_RADIUS`` windows, ``fast.harris_from_patches`` on their 9x9
-    centres, -inf where ``valid`` is False."""
+    """The Harris response (ORB's HarrisResponses: block 7, k 0.04) of
+    the 9x9 centre of each candidate's clamped 43x43 window -> ``[N,K]``
+    float32: the ``BLUR_RADIUS`` windows, ``fast.harris_from_patches`` on
+    their 9x9 centres, -inf where ``valid`` is False."""
     _check_level(imgs, ys, xs)
     o = HARRIS_ORIGIN
     patches = extract_patches_reference(imgs, ys, xs, BLUR_RADIUS)
@@ -278,38 +281,75 @@ def candidate_harris_reference(
                        torch.full_like(harris, -math.inf))
 
 
-def candidate_harris(
+def select_keypoints_reference(
     imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-    valid: torch.Tensor,
-) -> torch.Tensor:
-    """Harris response (ORB's HarrisResponses: block 7, k 0.04) of the
-    9x9 centre of each candidate's clamped 43x43 window -> ``[N,K]``
-    float32, -inf where ``valid`` [N,K] is False.  ``imgs`` [N,H,W]
-    uint8, ``ys`` / ``xs`` [N,K].  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/orb_describe.cu`` or raise."""
+    valid: torch.Tensor, quota: int,
+):
+    """Plain PyTorch version of :func:`select_keypoints`: the chain it
+    replaces, :func:`candidate_harris_reference`, ``fast.topk_stable``
+    and the gathers of the kept candidates."""
+    harris = candidate_harris_reference(imgs, ys, xs, valid)
+    hval, hidx = fast.topk_stable(harris, quota)
+    kvalid = torch.isfinite(hval) & torch.gather(
+        valid.to(device=hidx.device, dtype=torch.bool), 1, hidx)
+    return (hval, torch.gather(ys, 1, hidx), torch.gather(xs, 1, hidx),
+            kvalid)
+
+
+def select_keypoints(
+    imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+    valid: torch.Tensor, quota: int,
+):
+    """The ``quota`` best of a level's ``[N,K]`` candidates by Harris
+    response (:func:`candidate_harris_reference`'s), in descending order,
+    ties to the lower candidate index (``fast.topk_stable``'s order, the
+    JAX package's ``lax.top_k``) -> ``(hval [N,quota] float32, kys, kxs
+    [N,quota] as ys / xs, kvalid [N,quota] bool)``: the responses, rows
+    and columns of the kept candidates, and whether each is finite and
+    its candidate valid.  ``imgs`` [N,H,W] uint8, ``ys`` / ``xs`` /
+    ``valid`` [N,K], ``0 <= quota <= K``.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/orb_describe.cu`` or raise."""
     _check_level(imgs, ys, xs)
     if tuple(valid.shape) != tuple(ys.shape):
         raise ValueError(f"valid must be {tuple(ys.shape)}, got "
                          f"{tuple(valid.shape)}")
-    if imgs.device.type == "cpu":
-        return candidate_harris_reference(imgs, ys, xs, valid)
-    if imgs.device.type != "cuda":
-        raise ValueError(f"unsupported device {imgs.device}")
     n, h, w = imgs.shape
     k = ys.shape[1]
-    out = torch.empty((n, k), dtype=torch.float32, device=imgs.device)
-    if n == 0 or k == 0:
-        return out
+    if not 0 <= quota <= k:
+        raise ValueError(f"quota must be in 0..{k}, got {quota}")
+    if imgs.device.type == "cpu":
+        return select_keypoints_reference(imgs, ys, xs, valid, quota)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    dev = imgs.device
+    hval = torch.empty((n, quota), dtype=torch.float32, device=dev)
+    kys = torch.empty((n, quota), dtype=torch.int32, device=dev)
+    kxs = torch.empty_like(kys)
+    kvalid = torch.empty((n, quota), dtype=torch.bool, device=dev)
+    if n == 0 or quota == 0:
+        return hval, kys.to(ys.dtype), kxs.to(xs.dtype), kvalid
     ys32, xs32 = _cuda_args(imgs, ys, xs)
-    vb = valid.to(device=imgs.device, dtype=torch.bool).contiguous()
+    vb = valid.to(device=dev, dtype=torch.bool).contiguous()
     lib = _lib("orb_describe")
+    n2 = max(32, 1 << (k - 1).bit_length())  # the kernel's sort width
+    scratch = None
+    if n2 > _shared_words():
+        scratch = torch.empty((n, n2), dtype=torch.int64, device=dev)
     cuda_build.launch(
-        lib, "candidate_harris", imgs.device,
+        lib, "select_keypoints", dev,
         imgs.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), vb.data_ptr(),
-        out.data_ptr(), n, k, h, w, HARRIS_K, fast.harris_scale4(),
+        None if scratch is None else scratch.data_ptr(), hval.data_ptr(),
+        kys.data_ptr(), kxs.data_ptr(), kvalid.data_ptr(), n, k, quota, h, w,
+        HARRIS_K, fast.harris_scale4(),
     )
     cuda_build.count(globals(), "harris_launch_count")
-    return out
+    return hval, kys.to(ys.dtype), kxs.to(xs.dtype), kvalid
+
+
+@functools.lru_cache(maxsize=1)
+def _shared_words() -> int:
+    """The sort words a B3h block keeps in shared memory."""
+    return _lib("orb_describe").select_shared_words()
 
 
 def describe_reference(
@@ -362,8 +402,10 @@ def _lib(name: str = "orb_extract") -> ctypes.CDLL:
         lib.extract_patches.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         lib.extract_patches.restype = ci
     else:
-        lib.candidate_harris.argtypes = [vp] * 5 + [ci] * 4 + [cf, cf, vp]
-        lib.candidate_harris.restype = ci
+        lib.select_keypoints.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, vp]
+        lib.select_keypoints.restype = ci
+        lib.select_shared_words.argtypes = []
+        lib.select_shared_words.restype = ci
         lib.orb_describe.argtypes = ([vp] * 4 + [ctypes.POINTER(cf)]
                                      + [vp] * 2 + [ci] * 4 + [cf, cf, vp])
         lib.orb_describe.restype = ci

@@ -248,17 +248,19 @@ def _library_functions(lib: Path) -> Dict[str, str]:
 
 
 def kernel_loop(lib: Path, piece: str, pixels: int = 1,
-                homography: bool = True, whole: bool = False) -> Optional[dict]:
+                homography: bool = True, whole: bool = False,
+                longest: bool = True) -> Optional[dict]:
     """:func:`loop_classes` of the kernel of library ``lib`` whose
     mangled name contains ``piece`` (None if there is none); ``whole``:
-    the longest path of its whole body (:func:`body_classes`, a busiest
-    thread).  A library is disassembled once."""
+    a path through its whole body (:func:`body_classes`), the longest (a
+    busiest thread) or, with ``longest`` False, the main path (a
+    loop-free kernel's fast path).  A library is disassembled once."""
     funcs = _library_functions(Path(lib))
     name = next((k for k in funcs if piece in k), None)
     if name is None:
         return None
     if whole:
-        found = body_classes(funcs[name], pixels, homography, longest=True)
+        found = body_classes(funcs[name], pixels, homography, longest)
     else:
         found = loop_classes(funcs[name], pixels, homography)
     if found is not None:

@@ -5,11 +5,13 @@
 // has not returned reaches it, a lane at a warp's barrier (__syncwarp,
 // and inside the shuffles and ballots, which exchange through a slot a
 // lane) until the other lanes of its warp do; __shared__ arrays are
-// statics, and the intrinsics are their IEEE float32 definitions.  Build
-// with -ffp-contract=off (nvcc's --fmad=false).
-// tests/test_torch_warp_accum_design.py, tests/test_torch_warp_design.py
-// and tests/test_torch_orb_design.py rewrite each
-// `kernel<<<blocks, threads, 0, stream>>>(args)` as a host_grid call.
+// statics, a source's DYNAMIC_SHARED(T, name) (its `extern __shared__`
+// array) the launch's dynamic bytes, and the intrinsics are their IEEE
+// float32 definitions.  Build with -ffp-contract=off (nvcc's
+// --fmad=false).  tests/test_torch_warp_accum_design.py,
+// tests/test_torch_warp_design.py and tests/test_torch_orb_design.py
+// rewrite each `kernel<<<blocks, threads, bytes, stream>>>(args)` as a
+// host_grid call.
 #pragma once
 #include <ucontext.h>
 
@@ -41,6 +43,10 @@ inline void __stcs(float* p, float v) { *p = v; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline void __stcs(float4* p, float4 v) { *p = v; }
 inline host_dim3 threadIdx, blockIdx;
+// a launch's dynamic shared memory, as 16-byte words
+inline std::vector<float4> host_dynamic_shared;
+#define DYNAMIC_SHARED(T, name) \
+  T* const name = reinterpret_cast<T*>(host_dynamic_shared.data())
 inline ucontext_t host_scheduler;
 inline std::vector<ucontext_t> host_lanes;
 // per lane: block and warp barriers reached, whether it has returned, and
@@ -87,13 +93,24 @@ inline int __float_as_int(float f) { int u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+// byte i of the result: byte (s >> 4i) & 7 of y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xFF) << (8 * i);
+  return r;
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host shim"; }
 // Run `blocks` blocks of `threads` lanes: each round resumes every lane
 // that has not returned and whose barrier its peers have reached, until
@@ -105,10 +122,11 @@ inline void host_lane(int t) {
   host_done[t] = true;
 }
 inline void host_grid(dim3 blocks, unsigned threads,
-                      std::function<void()> fn) {
+                      std::function<void()> fn, size_t dynamic_bytes = 0) {
   constexpr size_t kStack = 1 << 16;
   std::vector<char> stacks(threads * kStack);
   host_kernel = fn;
+  host_dynamic_shared.assign((dynamic_bytes + 15) / 16, float4{});
   host_lanes.assign(threads, ucontext_t{});
   for (unsigned by = 0; by < blocks.y; ++by)
   for (unsigned b = 0; b < blocks.x; ++b) {
@@ -152,6 +170,6 @@ inline void host_grid(dim3 blocks, unsigned threads,
   }
 }
 inline void host_grid(unsigned blocks, unsigned threads,
-                      std::function<void()> fn) {
-  host_grid(dim3(blocks), threads, fn);
+                      std::function<void()> fn, size_t dynamic_bytes = 0) {
+  host_grid(dim3(blocks), threads, fn, dynamic_bytes);
 }

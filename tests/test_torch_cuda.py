@@ -14,8 +14,10 @@ also at an odd width, with taps off the image, with every lane inactive
 and with a ragged mask; warp-accumulate max abs < 1e-3 and u8 source ==
 f32 source bitwise; slice: equal ok flags, warps within 0.03, stacked
 interior within 0.02; FAST (B8), patch extraction (B3), Harris at the
-candidates (B3h) and the angle and descriptor at the kept keypoints
-(B3d) bitwise equal to their plain versions, B8 also with every pixel a
+candidates and the level's selection (B3h) and the angle and descriptor
+at the kept keypoints (B3d) bitwise equal to their plain versions, B3h
+also on the host-shim cases of tests/test_torch_orb_design.py and past
+the card's shared capacity, B8 also with every pixel a
 candidate, with
 none, with corners on the tile and warp edges and at the pyramid's
 widths; keypoint slice: equal ``dropped``, homographies mapping the
@@ -24,8 +26,8 @@ form at B1's bar; B4's S0 / C0 bitwise and S1 / S2 within 1e-6 of the
 group's largest value (summed in the same frame order, so equal unless
 the compiler reorders); B5 in every border mode (its planar form, also on
 the host-shim cases of tests/test_torch_warp_design.py, and its
-frames and accumulate forms on u8, u16 and f32 frames, the accumulate
-form also on the host-shim cases of tests/test_torch_warp_frames_design.py)
+frames and accumulate forms on u8, u16 and f32 frames, both also on the
+host-shim cases of tests/test_torch_warp_frames_design.py)
 and B9 bitwise, B3d also on the host-shim cases of
 tests/test_torch_orb_design.py; the
 sigma-clip and masked ECC slices and the BORDER_REPLICATE keypoint slice
@@ -500,6 +502,25 @@ def test_accum_kernel_design_cases(dev, mode, kind, types):
             assert warp_design.bitwise(got, want), (frames.shape, qa, rows)
 
 
+@pytest.mark.parametrize("types", range(len(frames_design.TYPES)))
+@pytest.mark.parametrize("kind", frames_design.KINDS)
+@pytest.mark.parametrize("mode", warp_design.MODES)
+def test_frames_kernel_design_cases(dev, mode, kind, types):
+    """B5's frames form on the same cases with every frame warped (no
+    ``valid``), bitwise equal to its plain version on the card."""
+    dtype, c = frames_design.TYPES[types]
+    for frames, minv, _, border, rows in frames_design.frames_cases(
+            kind, dtype, c, drop=False):
+        frames, minv = frames.to(dev), minv.to(dev)
+        for qa in (False, True):
+            got = warp_cuda.warp_frames(frames, minv, border, mode, qa, None,
+                                        rows)
+            want = warp_cuda.warp_frames_reference(frames, minv, border, mode,
+                                                   qa, None, rows)
+            torch.cuda.synchronize()
+            assert warp_design.bitwise(got, want), (frames.shape, qa, rows)
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
 @pytest.mark.parametrize("mode", ["constant", "transparent", "replicate",
                                   "reflect", "reflect101", "wrap"])
@@ -553,14 +574,42 @@ def test_orb_harris_and_describe_kernels_match_plain(dev, shape):
     level of exactly one window."""
     nf, h, w = shape
     imgs, ys, xs, valid = _orb_level(dev, nf, h, w, 300, seed=h + w)
-    got = orb_cuda.candidate_harris(imgs, ys, xs, valid)
-    want = orb_cuda.candidate_harris_reference(imgs, ys, xs, valid)
+    for quota in (1, 150, 300):
+        got = orb_cuda.select_keypoints(imgs, ys, xs, valid, quota)
+        want = orb_cuda.select_keypoints_reference(imgs, ys, xs, valid,
+                                                   quota)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
     ang, desc = orb_cuda.describe(imgs, ys, xs)
     ang_want, desc_want = orb_cuda.describe_reference(imgs, ys, xs)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
     assert torch.equal(ang, ang_want)
     assert torch.equal(desc, desc_want)
+
+
+@pytest.mark.parametrize("case,k,quota", orb_design.SELECT_CASES
+                         + [("random", 20000, 9000)])
+def test_select_kernel_design_cases(dev, case, k, quota):
+    """B3h on the host-shim cases of tests/test_torch_orb_design.py (flat,
+    binary and all-invalid levels, +0.0 beside negative responses, K on
+    both sides of a block's threads, quota == K) bitwise against its
+    plain version on the card, and 20000 candidates a frame, past the
+    card's shared capacity (the scratch rows)."""
+    imgs, ys, xs, valid = orb_design._level(
+        k + quota, nf=3, h=70, w=101, k=max(k, 9), binary=case == "binary")
+    ys, xs, valid = ys[:, :k], xs[:, :k], valid[:, :k]
+    if case == "flat":
+        imgs = torch.full_like(imgs, 99)
+    if case == "zeros":
+        imgs[:, :, : imgs.shape[2] // 2] = 17
+    if case == "invalid":
+        valid = valid.clone()
+        valid[1] = False
+    args = [a.to(dev).contiguous() for a in (imgs, ys, xs, valid)]
+    got = orb_cuda.select_keypoints(*args, quota)
+    want = orb_cuda.select_keypoints_reference(*args, quota)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
 
 
 @pytest.mark.parametrize("w", [43, 140, 141, 142, 143])

@@ -7,9 +7,13 @@ Every test runs with ``native_loader.ORDER`` narrowed to the zlib reader
 the full loader (``native/stacker_io.cpp``) also builds; the tests of the
 route to PIL run under both.  Every PNG and TIFF case decodes bitwise equal to
 ``cv2.imread(IMREAD_UNCHANGED)`` (BGR to RGB, alpha dropped; at 8 bits a
-16-bit sample's high byte, at 16 bits an 8-bit sample x257) and to the
-samples the test wrote, at 8 and at 16 bits; and to the JAX package's PIL
-route wherever PIL keeps the depth.  cv2 writes the 8/16-bit grey, RGB
+PNG's 16-bit sample gives its high byte and a TIFF's what the full
+loader's libtiff route gives, at 16 bits an 8-bit sample x257) and to
+the samples the test wrote, at 8 and at 16 bits; and to the JAX
+package's PIL route wherever PIL keeps the depth.  Every TIFF layout of
+the reader's subset (8/16-bit grey, RGB, RGBA with each ExtraSamples,
+each compression) decodes as the full loader decodes it, where that
+builds.  cv2 writes the 8/16-bit grey, RGB
 and RGBA PNGs with a forced ``IMWRITE_PNG_FILTER``, and the TIFFs; PIL the
 palette and 1-bit files; the writers below the rest (Adam7, 2/4-bit grey,
 tRNS, a filter forced per row, a big-endian TIFF, old-style LZW).
@@ -84,6 +88,37 @@ def _cv2_rgb(path, bits):
     a = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
     a = np.repeat(a[..., None], 3, axis=2) if a.ndim == 2 else a[..., 2::-1]
     return _at(a, 16 if a.dtype == np.uint16 else 8, bits)
+
+
+def _tiff_at(samples, bits, extra=None):
+    """``[H,W,C]`` samples of a TIFF (C = 1, 3 or 4; ``extra`` its
+    ExtraSamples) as both native loaders give them: at 8 bits what
+    ``native/stacker_io.cpp``'s TIFFReadRGBAImage route gives (libtiff's
+    tif_getimage.c: a 16-bit grey sample's high byte, a 16-bit colour
+    sample ``(v + 128) // 257``, and the colour premultiplied by an
+    unassociated alpha, ExtraSamples 2, as ``(c * a + 127) // 255`` at 8
+    bits); at 16 bits a 16-bit sample as stored and an 8-bit one x257
+    after that premultiplication."""
+    samples = np.asarray(samples)
+    wide = samples.dtype == np.uint16
+    if samples.shape[-1] == 1:
+        return _at(np.repeat(samples, 3, axis=2), 16 if wide else 8, bits)
+    if wide and bits == 16:
+        return samples[..., :3].astype(np.uint16)
+    s = samples.astype(np.int64)
+    s = (s + 128) // 257 if wide else s
+    rgb = s[..., :3]
+    if samples.shape[-1] == 4 and extra == 2:
+        rgb = (rgb * s[..., 3:] + 127) // 255
+    return _at(rgb.astype(np.uint8), 8, bits)
+
+
+def _cv2_tiff(path, bits):
+    """cv2's samples of a TIFF (``IMREAD_UNCHANGED``, BGR(A) to RGB(A)) as
+    :func:`_tiff_at` gives them (cv2 writes no ExtraSamples)."""
+    a = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    a = a[..., None] if a.ndim == 2 else a[..., [2, 1, 0, 3][:a.shape[-1]]]
+    return _tiff_at(a, bits)
 
 
 # ---- a PNG writer: any colour type and depth, a filter forced per row ----
@@ -339,10 +374,9 @@ def test_tiff_matches_cv2(tmp_path, dtype, channels, compression, predictor,
     if rows:
         params += [cv2.IMWRITE_TIFF_ROWSPERSTRIP, rows]
     assert cv2.imwrite(str(path), img, params)
-    rgb = np.repeat(s[..., :1], 3, 2) if channels == 1 else s[..., :3]
     got = _native(path, bits)
-    np.testing.assert_array_equal(got, _at(rgb, dtype().itemsize * 8, bits))
-    np.testing.assert_array_equal(got, _cv2_rgb(path, bits))
+    np.testing.assert_array_equal(got, _tiff_at(s, bits))
+    np.testing.assert_array_equal(got, _cv2_tiff(path, bits))
     assert nl.probe(path) == (H, W)
 
 
@@ -407,8 +441,78 @@ def test_hand_built_tiff(tmp_path, dtype, order, compression, predictor,
     path = write_tiff(tmp_path / "a.tif", s, order, compression, predictor,
                       rows)
     got = _native(path, bits)
-    np.testing.assert_array_equal(got, _at(s, dtype().itemsize * 8, bits))
-    np.testing.assert_array_equal(got, _cv2_rgb(path, bits))
+    np.testing.assert_array_equal(got, _tiff_at(s, bits))
+    np.testing.assert_array_equal(got, _cv2_tiff(path, bits))
+
+
+def _lzw_msb_first(data: bytes) -> bytes:
+    """TIFF LZW as libtiff reads it: codes most significant bit first,
+    every byte a literal, a ClearCode every 250 codes so the width stays
+    at 9 bits, then EOI."""
+    acc = nbits = 0
+    out = bytearray()
+    codes = [256]
+    for i, b in enumerate(data):
+        if i and i % 250 == 0:
+            codes.append(256)
+        codes.append(b)
+    for code in codes + [257]:
+        acc = acc << 9 | code
+        nbits += 9
+        while nbits >= 8:
+            nbits -= 8
+            out.append(acc >> nbits & 0xFF)
+    if nbits:
+        out.append(acc << (8 - nbits) & 0xFF)
+    return bytes(out)
+
+
+def _packbits(data: bytes, row: int) -> bytes:
+    """PackBits of literal runs of at most 128 bytes, each row packed on
+    its own (``row`` bytes), as the TIFF specification asks."""
+    return b"".join(bytes([len(data[i:j]) - 1]) + data[i:j]
+                    for r in range(0, len(data), row)
+                    for i in range(r, r + row, 128)
+                    for j in [min(i + 128, r + row)])
+# (samples a pixel, ExtraSamples): grey, RGB, RGBA with the tag absent
+# (libtiff takes the alpha as associated), unspecified (0), associated
+# (1) and unassociated (2)
+_LAYOUTS = ((1, None), (3, None), (4, None), (4, 0), (4, 1), (4, 2))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773],
+                         ids=["none", "lzw", "deflate", "packbits"])
+@pytest.mark.parametrize("layout", _LAYOUTS,
+                         ids=["grey", "rgb", "rgba", "rgba-es0", "rgba-es1",
+                              "rgba-es2"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=["u8", "u16"])
+def test_tiff_equals_full_loader(tmp_path, monkeypatch, dtype, layout,
+                                 compression, bits):
+    """The zlib reader decodes every TIFF layout of its subset as the full
+    loader (``native/stacker_io.cpp``, libtiff) does, at 8 bits and at
+    full depth: 16-bit RGB rounded by libtiff's Bitdepth16To8 and an
+    unassociated alpha premultiplied (alpha 0 and full on two rows)."""
+    if nl.library(nl.FULL) is None:
+        pytest.skip(f"the full loader does not build here: "
+                    f"{nl._errors.get(nl.FULL)}")
+    channels, extra = layout
+    rng = np.random.default_rng(channels * 10 + compression % 89 + bits)
+    s = _tiff_samples(rng, dtype, channels)
+    if channels == 4:
+        s[0, :, 3], s[1, :, 3] = 0, np.iinfo(dtype).max
+    row = W * channels * s.itemsize
+    encode = {5: _lzw_msb_first,
+              32773: lambda raw: _packbits(raw, row)}.get(compression)
+    path = write_tiff(tmp_path / "a.tif", s, compression=compression,
+                      rows_per_strip=5, encode=encode,
+                      extra=[] if extra is None else [(338, 3, [extra])])
+    got = {}
+    for backend in (nl.FULL, nl.ZLIB):
+        monkeypatch.setattr(nl, "ORDER", (backend,))
+        got[backend] = _native(path, bits)
+    np.testing.assert_array_equal(got[nl.ZLIB], got[nl.FULL])
+    np.testing.assert_array_equal(got[nl.ZLIB], _tiff_at(s, bits, extra))
 
 
 def _lzw_lsb_first(data: bytes) -> bytes:
@@ -718,7 +822,7 @@ def test_threads_bitwise(tmp_path, bits):
             s = _tiff_samples(rng, dtype, 3)
             files.append(write_tiff(tmp_path / f"{i}.tif", s, "<>"[i % 8 // 4],
                                     (1, 8)[i % 3 > 0], 2, 5))
-            want.append(_at(s, dtype().itemsize * 8, bits))
+            want.append(_tiff_at(s, bits))
     load = nl.load_frames_native16 if bits == 16 else nl.load_frames_native
     one = load(files, num_threads=1)
     eight = load(files, num_threads=8)

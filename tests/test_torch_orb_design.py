@@ -4,17 +4,21 @@ emulations of what the kernels rely on to equal them bitwise.
 
 Bars, all bitwise:
 
-- ``candidate_harris`` -> ``topk_stable`` -> ``describe`` (the detector's
-  route since B3h / B3d) selects the same keypoints, with the same
-  responses, angles and descriptors, as the former route: B3's 43x43
-  patches for every candidate, Harris on their centres, the kept
-  patches gathered, then the angle, blur and rBRIEF chain.  Random u8
-  levels, with centres at and beyond every clamp edge, and invalid
-  candidates at -inf;
-- B3h: the exact int32 block sums over the kernel's lane split and warp
-  reduction equal the float64 sums the plain version casts once, also on
-  0/255 content whose sums pass 2^24 (where a float32 sum can round), and
-  the response evaluated term by term in float32 equals the plain one;
+- ``select_keypoints`` -> ``describe`` (the detector's route since B3h /
+  B3d) selects the same keypoints, with the same responses, angles and
+  descriptors, as the former route: B3's 43x43 patches for every
+  candidate, Harris on their centres, ``topk_stable``, the kept patches
+  gathered, then the angle, blur and rBRIEF chain.  Random u8 levels,
+  with centres at and beyond every clamp edge, and invalid candidates at
+  -inf;
+- B3h: the exact int32 block sums in the kernel's order (a thread a
+  candidate, three block rows at a time) equal the float64 sums the
+  plain version casts once, also on 0/255 content whose sums pass 2^24
+  (where a float32 sum can round), and the response evaluated term by
+  term in float32 equals the plain one; the 64-bit sort words (the
+  order-preserving key above, the index's complement below) sorted
+  descending give ``topk_stable``'s order, -0.0 below +0.0 and -inf ties
+  by index;
 - B3d: the IC moments, summed in any order, are the same float32 value
   (exact integers below 2^24), also in the kernel's split (a lane a
   column, then a butterfly); the rows-then-columns blur in the kernel's
@@ -29,8 +33,12 @@ Bars, all bitwise:
 
 ``csrc/orb_describe.cu`` itself, compiled for the host with ``g++``
 through ``tests/_cuda_host_shim.h`` (its shuffles and ballots exchange
-through the shim's warp barriers), is held bitwise to the plain
-versions: B3h on random levels (no math library in its result), B3d on
+through the shim's warp barriers; its dynamic shared memory is the
+launch's bytes; ``SELECT_SHARED_BYTES`` shrunk to 64 sort words, so a
+level of more than 64 candidates sorts in its scratch rows), is held
+bitwise to the plain versions: B3h on random, flat and binary levels
+(no math library in its result), all-invalid frames, ``quota == K`` and
+K on both sides of the shrunk capacity and of a block's threads; B3d on
 levels whose windows are symmetric about the keypoint's row or column,
 so that the moments make an angle of 0, 90, 180 or 270 degrees (or both
 are 0), which the host's atan2f, cosf and sinf give as the card's and
@@ -50,7 +58,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import n, t  # noqa: E402
-from test_torch_warp_design import _LAUNCH  # noqa: E402
+from test_torch_warp_design import host_launches  # noqa: E402
 from libstacker_tpu_torch.ops import fast, filters, orb_cuda  # noqa: E402
 from libstacker_tpu_torch.ops._orb_pattern import ORB_PATTERN  # noqa: E402
 
@@ -92,37 +100,38 @@ def test_new_route_equals_former_route(seed):
     a_old = orb_cuda._ic_angles_from_patches(kept, center=R)
     d_old = orb_cuda._rbrief_from_patches(
         orb_cuda._blur_patches_valid(kept), a_old)
-    # new: B3h at the candidates, B3d at the kept keypoints
-    h_new = orb_cuda.candidate_harris(imgs, ys, xs, valid)
-    np.testing.assert_array_equal(n(h_new), n(h_old))
-    v_new, i_new = fast.topk_stable(h_new, q)
-    np.testing.assert_array_equal(n(i_new), n(i_old))
-    a_new, d_new = orb_cuda.describe(imgs, torch.gather(ys, 1, i_new),
-                                     torch.gather(xs, 1, i_new))
+    # new: B3h's selection at the candidates, B3d at the kept keypoints
+    v_new, kys, kxs, kvalid = orb_cuda.select_keypoints(imgs, ys, xs, valid,
+                                                        q)
+    np.testing.assert_array_equal(n(v_new), n(v_old))
+    np.testing.assert_array_equal(n(kys), n(torch.gather(ys, 1, i_old)))
+    np.testing.assert_array_equal(n(kxs), n(torch.gather(xs, 1, i_old)))
+    np.testing.assert_array_equal(
+        n(kvalid), n(torch.isfinite(v_old) & torch.gather(valid, 1, i_old)))
+    a_new, d_new = orb_cuda.describe(imgs, kys, kxs)
     assert a_new.dtype == torch.float32 and d_new.dtype == torch.uint8
     assert tuple(d_new.shape) == (ys.shape[0], q, 32)
     np.testing.assert_array_equal(n(a_new), n(a_old))
     np.testing.assert_array_equal(n(d_new), n(d_old))
-    assert np.isneginf(n(h_new)[:, 6:9]).all()
+    assert np.isneginf(n(h_old)[:, 6:9]).all()
 
 
 def _kernel_harris_sums(block):
-    """B3h's integer sums of one 9x9 block: lane l takes positions l and
-    l + 32 of the 7x7, then a butterfly (xor-shuffle) sum over 32 lanes."""
+    """B3h's integer sums of one 9x9 block in the kernel's order: one
+    thread, the block rows three at a time, the 7 positions of each
+    output row in turn, every partial an int32."""
     p = block.astype(np.int64)
-    lanes = np.zeros((3, 32), np.int64)
-    for j in range(49):
-        r, q = divmod(j, 7)
-        tt = p[r : r + 3, q : q + 3]
-        dx = tt[:, 2] - tt[:, 0]
-        dy = tt[2, :] - tt[0, :]
-        ix = 2 * dx[1] + dx[0] + dx[2]
-        iy = 2 * dy[1] + dy[0] + dy[2]
-        lanes[:, j % 32] += (ix * ix, iy * iy, ix * iy)
-    for off in (16, 8, 4, 2, 1):
-        lanes = lanes + lanes[:, np.arange(32) ^ off]
-    assert (np.abs(lanes) < 2 ** 31).all()  # int32 holds every partial
-    return lanes[:, 0]
+    acc = np.zeros(3, np.int64)
+    for r in range(7):
+        for q in range(7):
+            tt = p[r : r + 3, q : q + 3]
+            dx = tt[:, 2] - tt[:, 0]
+            dy = tt[2, :] - tt[0, :]
+            ix = 2 * dx[1] + dx[0] + dx[2]
+            iy = 2 * dy[1] + dy[0] + dy[2]
+            acc += (ix * ix, iy * iy, ix * iy)
+            assert (np.abs(acc) < 2 ** 31).all()  # int32 holds every partial
+    return acc
 
 
 def _response_f32(a, b, c):
@@ -138,7 +147,7 @@ def _response_f32(a, b, c):
 @pytest.mark.parametrize("binary", [False, True])
 def test_harris_exact_int32_sums(binary):
     imgs, ys, xs, valid = _level(7, binary=binary)
-    got = n(orb_cuda.candidate_harris(imgs, ys, xs, valid))
+    got = n(orb_cuda.candidate_harris_reference(imgs, ys, xs, valid))
     patches = n(orb_cuda.extract_patches_reference(imgs, ys, xs, R))
     o = orb_cuda.HARRIS_ORIGIN
     big = 0
@@ -308,12 +317,45 @@ def test_descriptor_words_and_device_buffer():
     assert tuple(buf[256:]) == orb_cuda._ic_umax()
 
 
+def _sort_words(harris):
+    """B3h's sort words of ``[N,K]`` responses: the order-preserving key,
+    offset by 2^31, above the complement of the candidate's index."""
+    bits = n(harris).astype(np.float32).view(np.int32).astype(np.int64)
+    key = np.where(bits >= 0, bits, bits ^ 0x7FFFFFFF) + 2 ** 31
+    idx = np.arange(harris.shape[-1], dtype=np.uint64)
+    return (key.astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - idx)
+
+
+def test_sort_words_order_is_topk_stable():
+    """Sorting the words descending gives topk_stable's order and values:
+    -0.0 below +0.0, -inf ties and equal responses by index."""
+    rng = np.random.default_rng(4)
+    vals = np.float32([0.0, -0.0, -np.inf, 1e-30, -1e-30, 3.5, -2.0,
+                       np.finfo(np.float32).max, -np.finfo(np.float32).max,
+                       np.finfo(np.float32).tiny])
+    harris = t(rng.choice(vals, (3, 57)).astype(np.float32))
+    words = _sort_words(harris)
+    order = np.flip(np.sort(words, axis=1), axis=1)
+    for q in (1, 20, 57):
+        want_v, want_i = fast.topk_stable(harris, q)
+        got_i = (np.uint64(0xFFFFFFFF) - (order[:, :q] & np.uint64(0xFFFFFFFF))
+                 ).astype(np.int64)
+        np.testing.assert_array_equal(got_i, n(want_i))
+        key = (order[:, :q] >> np.uint64(32)).astype(np.int64) - 2 ** 31
+        bits = np.where(key >= 0, key, key ^ 0x7FFFFFFF).astype(np.int32)
+        np.testing.assert_array_equal(bits.view(np.float32).view(np.int32),
+                                      n(want_v).view(np.int32))
+
+
 def test_guards():
     imgs, ys, xs, valid = _level(1)
     with pytest.raises(ValueError, match="uint8"):
-        orb_cuda.candidate_harris(imgs.float(), ys, xs, valid)
+        orb_cuda.select_keypoints(imgs.float(), ys, xs, valid, 3)
     with pytest.raises(ValueError, match="valid"):
-        orb_cuda.candidate_harris(imgs, ys, xs, valid[:, :3])
+        orb_cuda.select_keypoints(imgs, ys, xs, valid[:, :3], 3)
+    with pytest.raises(ValueError, match="quota"):
+        orb_cuda.select_keypoints(imgs, ys, xs, valid, ys.shape[1] + 1)
     with pytest.raises(ValueError, match="smaller"):
         orb_cuda.describe(imgs[:, :40], ys, xs)
 
@@ -324,31 +366,35 @@ _SHIM = Path(__file__).with_name("_cuda_host_shim.h")
 _SOURCE = Path(orb_cuda.__file__).parents[1] / "csrc" / "orb_describe.cu"
 
 
+# the sort words a host build's block keeps in shared memory: a level of
+# more candidates (rounded up to a power of two) sorts in scratch
+HOST_SHARED_WORDS = 64
+
+
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """csrc/orb_describe.cu built for the host with g++ and the shim
     (launches rewritten as shim calls; -ffp-contract=off as nvcc's
-    --fmad=false)."""
+    --fmad=false; SELECT_SHARED_BYTES shrunk to HOST_SHARED_WORDS)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     d = tmp_path_factory.mktemp("orb_describe_host")
-    src = _LAUNCH.sub(
-        lambda m: (f"host_grid({m.group(2)}, {m.group(3)}, [&] "
-                   f"{{ {m.group(1)}({m.group(4)}); }});"),
-        _SOURCE.read_text())
     (d / "cuda_runtime.h").write_text(_SHIM.read_text())
-    (d / "orb_describe.cpp").write_text(src)
+    (d / "orb_describe.cpp").write_text(host_launches(_SOURCE.read_text()))
     lib = d / "liborb_describe_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
                     "-fno-fast-math", "-fPIC", "-shared", "-I", str(d),
+                    f"-DSELECT_SHARED_BYTES={8 * HOST_SHARED_WORDS}",
                     "-o", str(lib), str(d / "orb_describe.cpp")],
                    check=True, capture_output=True)
     h = ctypes.CDLL(str(lib))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    h.candidate_harris.argtypes = [vp] * 5 + [ci] * 4 + [cf, cf, vp]
+    h.select_keypoints.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, vp]
+    h.select_shared_words.restype = ci
     h.orb_describe.argtypes = ([vp] * 4 + [ctypes.POINTER(cf)] + [vp] * 2
                                + [ci] * 4 + [cf, cf, vp])
+    assert h.select_shared_words() == HOST_SHARED_WORDS
     return h
 
 
@@ -412,18 +458,84 @@ def test_describe_kernel_source_on_host(host_kernel, axis, w):
         np.testing.assert_array_equal(n(desc), n(desc_want))
 
 
+def _host_select(host, imgs, ys, xs, valid, quota):
+    """The host build's select_keypoints, launched as the wrapper
+    launches it (scratch rows where the words pass the shared
+    capacity); returns the scratch too (None where unused)."""
+    nf, h, w = imgs.shape
+    k = ys.shape[1]
+    n2 = max(32, 1 << (k - 1).bit_length())
+    scratch = (torch.empty((nf, n2), dtype=torch.int64)
+               if n2 > host.select_shared_words() else None)
+    hval = torch.empty((nf, quota), dtype=torch.float32)
+    kys = torch.empty((nf, quota), dtype=torch.int32)
+    kxs = torch.empty_like(kys)
+    kvalid = torch.empty((nf, quota), dtype=torch.bool)
+    ys32, xs32 = ys.to(torch.int32).contiguous(), xs.to(torch.int32).contiguous()
+    vb = valid.to(torch.bool).contiguous()
+    assert host.select_keypoints(
+        _ptr(imgs), _ptr(ys32), _ptr(xs32), _ptr(vb),
+        None if scratch is None else _ptr(scratch), _ptr(hval), _ptr(kys),
+        _ptr(kxs), _ptr(kvalid), nf, k, quota, h, w, orb_cuda.HARRIS_K,
+        fast.harris_scale4(), None) == 0
+    return (hval, kys, kxs, kvalid), scratch
+
+
+def _assert_selection(got, imgs, ys, xs, valid, quota):
+    want = orb_cuda.select_keypoints_reference(imgs, ys, xs, valid, quota)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype
+        np.testing.assert_array_equal(n(g).view(np.uint8), n(w_).view(np.uint8))
+
+
 @pytest.mark.parametrize("binary", [False, True])
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_harris_kernel_source_on_host(host_kernel, seed, binary):
-    """B3h bitwise: the warp's exact int32 sums through the shim's
-    shuffles, invalid candidates, centres at and beyond every edge."""
+    """B3h bitwise: exact int32 sums, invalid candidates, centres at and
+    beyond every edge, the words sorted in shared memory (K = 40)."""
     imgs, ys, xs, valid = _level(seed, binary=binary, w=137 + seed)
-    nf, h, w = imgs.shape
-    k = ys.shape[1]
-    out = torch.empty((nf, k), dtype=torch.float32)
-    vb = valid.to(torch.bool).contiguous()
-    assert host_kernel.candidate_harris(
-        _ptr(imgs), _ptr(ys), _ptr(xs), _ptr(vb), _ptr(out), nf, k, h, w,
-        orb_cuda.HARRIS_K, fast.harris_scale4(), None) == 0
-    want = orb_cuda.candidate_harris_reference(imgs, ys, xs, valid)
-    np.testing.assert_array_equal(n(out), n(want))
+    got, scratch = _host_select(host_kernel, imgs, ys, xs, valid, 20)
+    assert scratch is None
+    _assert_selection(got, imgs, ys, xs, valid, 20)
+
+
+# (case, K, quota): the level's content or validity, candidates a frame
+# and slots; K = 100 and 600 pass the host build's 64 shared words (the
+# scratch path), 600 a block's 512 threads
+SELECT_CASES = [("random", 100, 37), ("random", 600, 300), ("flat", 64, 64),
+                ("binary", 45, 45), ("invalid", 30, 10),
+                ("invalid", 100, 100), ("zeros", 77, 50), ("random", 1, 1),
+                ("random", 513, 2)]
+
+
+@pytest.mark.parametrize("case,k,quota", SELECT_CASES)
+def test_select_kernel_source_on_host(host_kernel, case, k, quota):
+    """B3h bitwise on equal responses (a flat level: every response +0.0;
+    a binary one), all-invalid frames (every response -inf, kept by
+    index), a level whose flat and edged windows give +0.0, negative and
+    positive responses, centres at and beyond every edge, K not a
+    multiple of a block's threads, quota == K, and K past the shared
+    capacity (the scratch rows)."""
+    imgs, ys, xs, valid = _level(k + quota, nf=3, h=70, w=101, k=max(k, 9),
+                                 binary=case == "binary")
+    ys, xs, valid = ys[:, :k], xs[:, :k], valid[:, :k]
+    if case == "flat":
+        imgs = torch.full_like(imgs, 99)
+    if case == "zeros":  # flat halves: responses +0.0 beside edges
+        imgs[:, :, : imgs.shape[2] // 2] = 17
+    if case == "invalid":
+        valid = valid.clone()
+        valid[1] = False  # one frame all invalid
+    got, scratch = _host_select(host_kernel, imgs, ys, xs, valid, quota)
+    n2 = max(32, 1 << (k - 1).bit_length())
+    assert (scratch is not None) == (n2 > HOST_SHARED_WORDS)
+    _assert_selection(got, imgs, ys, xs, valid, quota)
+    hval = n(got[0])
+    if case == "flat":
+        assert (hval[n(got[3])].view(np.int32) == 0).all()  # +0.0
+    if case == "zeros":
+        h = n(orb_cuda.candidate_harris_reference(imgs, ys, xs, valid))
+        assert (h.view(np.int32) == 0).any() and (h < 0).any() and (h > 0).any()
+    if case == "invalid":
+        assert np.isneginf(hval[1]).all() and not n(got[3])[1].any()
+        np.testing.assert_array_equal(n(got[1])[1], n(ys)[1, :quota])

@@ -186,3 +186,18 @@ def test_longest_path():
     assert busiest["mufu"] == 0 and idle["mufu"] == 0
     assert busiest["total"] == 10 and idle["total"] == 7
     assert "STS.128" in busiest["ops"] and "STS.128" not in idle["ops"]
+
+
+def test_kernel_loop_whole_body(monkeypatch):
+    """``kernel_loop`` with ``whole`` on a loop-free kernel (B5's frames
+    form): the main path by default the busiest, with ``longest`` False
+    the fast one, past the slow path's CALL."""
+    listing = _labelled(_FLAT)
+    monkeypatch.setattr(sass, "_library_functions",
+                        lambda lib: sass.functions(listing))
+    main = sass.kernel_loop("lib.so", "flat", 2, whole=True, longest=False)
+    assert main["kernel"] == "_Z4flatPKfPf"
+    assert main["per_pixel_total"] == 6.5 and main["mufu"] == 1
+    busiest = sass.kernel_loop("lib.so", "flat", 2, whole=True)
+    assert busiest["total"] >= main["total"]
+    assert sass.kernel_loop("lib.so", "absent", whole=True) is None

@@ -47,9 +47,19 @@ SHAPES = {(9, 1): (3, 2), (7, 5): (3, 1, 2, 4, 4), (17, 33): (1, 3, 2),
 
 _SHIM = Path(__file__).with_name("_cuda_host_shim.h")
 _CSRC = Path(warp_cuda.__file__).parents[1] / "csrc"
-# a launch, its grid a number or a dim3(...)
+# a launch, its grid a number or a dim3(...), then its threads, dynamic
+# shared bytes and stream
 _LAUNCH = re.compile(r"(\w+(?:<[^;]*?>)?)<<<(dim3\((?:[^()]|\([^()]*\))*\)"
-                     r"|[^,]+),\s*([^,]+),.*?>>>\((.*?)\);", re.S)
+                     r"|[^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\((.*?)\);", re.S)
+
+
+def host_launches(source: str) -> str:
+    """``source`` with each launch rewritten as the shim's host_grid
+    call."""
+    return _LAUNCH.sub(
+        lambda m: (f"host_grid({m.group(2)}, {m.group(3)}, [&] "
+                   f"{{ {m.group(1)}({m.group(5)}); }}, {m.group(4)});"),
+        source)
 
 
 def build_host(tmp_path_factory):
@@ -60,10 +70,7 @@ def build_host(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     d = tmp_path_factory.mktemp("warp_host")
-    src = _LAUNCH.sub(
-        lambda m: (f"host_grid({m.group(2)}, {m.group(3)}, [&] "
-                   f"{{ {m.group(1)}({m.group(4)}); }});"),
-        (_CSRC / "warp.cu").read_text())
+    src = host_launches((_CSRC / "warp.cu").read_text())
     (d / "cuda_runtime.h").write_text(_SHIM.read_text())
     (d / "warp.cpp").write_text(src)
     lib = d / "libwarp_host.so"
