@@ -439,6 +439,7 @@ def ecc_match_arrays(
             ecc_rho=result.rho.cpu().tolist(),
             clipped_sample_frac=clip_frac,
             phase_ms=timer.ms(),
+            spans=timer.spans(),
         )
     fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
     count = n

@@ -366,6 +366,7 @@ def keypoint_match_arrays(
             inlier_counts=icounts.cpu().tolist(),
             clipped_sample_frac=clip_frac,
             phase_ms=timer.ms(),
+            spans=timer.spans(),
         )
         return dropped, out, stats
     return dropped, out

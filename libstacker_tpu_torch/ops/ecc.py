@@ -175,8 +175,17 @@ def _rescale_warp_batch(
     return w
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def _phase(timer, name: str):
-    return contextlib.nullcontext() if timer is None else timer.phase(name)
+    return _NO_SPAN if timer is None else timer.phase(name)
+
+
+def _span(timer, name: str):
+    """``timer.span(name)``; without a timer one shared no-op, so an
+    untraced solve pays one branch a span and allocates nothing."""
+    return _NO_SPAN if timer is None else timer.span(name)
 
 
 def _prepare_masked_input(input_image, input_mask, gauss_filt_size: int):
@@ -264,7 +273,11 @@ def find_transform_ecc_batched(
     cv2.findTransformECC's inputMask over ``input_image``; each octave
     solves with its INTER_AREA-shrunk mask (valid where >= 0.5).
     ``timer`` (a ``utils.tracing.PhaseTimer``) records the octave build,
-    the octave solves and the full-resolution solve.
+    the octave solves and the full-resolution solve as phases, and in
+    each solve the spans ``ecc.prep`` (the fields, the template blur,
+    the texel pack and the carry), ``ecc.sweep`` (one iteration over
+    every lane), ``ecc.check`` (the host's convergence read) and
+    ``ecc.rescue`` (the forward re-solve of failed lanes).
 
     ``mode``: 'forward' (``None``; OpenCV's formulation), 'lazy' or
     'ic' (module docstring).  The ``rho_init`` seed applies to 'forward'
@@ -316,7 +329,7 @@ def find_transform_ecc_batched(
             with _phase(timer, "ecc octave solve"):
                 res = _solve_lanes(
                     tl, il, motion_type, num_iters, eps, gauss_filt_size,
-                    init, None, mlv, mode, rescue=mode == "ic",
+                    init, None, mlv, mode, rescue=mode == "ic", timer=timer,
                 )
             wm = res.warp_matrix
             if mode == "lazy":
@@ -334,7 +347,7 @@ def find_transform_ecc_batched(
         return _solve_lanes(
             templates, input_image, motion_type, num_iters, eps,
             gauss_filt_size, init, rho_seed, input_mask, mode,
-            rescue=mode != "forward",
+            rescue=mode != "forward", timer=timer,
         )
 
 
@@ -364,10 +377,11 @@ def _solve_lanes(
     input_mask: Optional[torch.Tensor] = None,
     mode: str = "forward",
     rescue: bool = False,
+    timer=None,
 ) -> EccResult:
     """One resolution's solve: template prep, carry, masked GN loop, and
     with ``rescue`` the forward re-solve of the lanes an 'ic' / 'lazy'
-    solve failed."""
+    solve failed; ``timer`` records their spans."""
     n, h, w = templates.shape
     dev = templates.device
     rows = 3 if motion_type == MotionType.Homography else 2
@@ -379,42 +393,43 @@ def _solve_lanes(
             ok=torch.zeros((0,), dtype=torch.bool, device=dev),
             num_iters=torch.zeros((0,), dtype=torch.int32, device=dev),
         )
-    if input_mask is None:
-        srcs = torch.stack(_input_fields(input_image, gauss_filt_size))
-    else:
-        srcs = _prepare_masked_input(input_image, input_mask,
-                                     gauss_filt_size)
-    srcs = srcs.contiguous()
-    # B1 reads the planes as interleaved texels: pack once per level
-    texels = ecc_cuda.pack_texels(srcs) if srcs.is_cuda else None
-    templates_f = filters.gaussian_blur(
-        templates.to(torch.float32), gauss_filt_size
-    ).contiguous()
+    with _span(timer, "ecc.prep"):
+        if input_mask is None:
+            srcs = torch.stack(_input_fields(input_image, gauss_filt_size))
+        else:
+            srcs = _prepare_masked_input(input_image, input_mask,
+                                         gauss_filt_size)
+        srcs = srcs.contiguous()
+        # B1 reads the planes as interleaved texels: pack once per level
+        texels = ecc_cuda.pack_texels(srcs) if srcs.is_cuda else None
+        templates_f = filters.gaussian_blur(
+            templates.to(torch.float32), gauss_filt_size
+        ).contiguous()
 
-    if warp_init is None:
-        m = identity_warp(motion_type, dev).repeat(n, 1, 1)
-    else:
-        m = warp_init.to(device=dev, dtype=torch.float32).clone()
-    rho = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
-    last_rho = torch.zeros((n,), dtype=torch.float32, device=dev)
-    if rho_init is not None and eps > 0 and mode != "ic":
-        # seeded lanes: rho = octave rho, last_rho 2*eps below it so the
-        # first iteration always runs (the -eps shift below applies to
-        # both); unseeded lanes keep the (-1, -eps) cold start
-        r0 = rho_init.to(torch.float32)
-        valid = r0 > -1.0
-        rho = torch.where(valid, r0, rho)
-        last_rho = torch.where(valid, r0 - eps, last_rho)
-    p = motion_type.num_params
-    st = _Carry(
-        m=m, rho=rho, last_rho=last_rho - eps,
-        it=torch.zeros((n,), dtype=torch.int32, device=dev),
-        ok=torch.ones((n,), dtype=torch.bool, device=dev),
-        gram=torch.zeros((n, p, p), dtype=torch.float32, device=dev),
-        h_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
-    )
+        if warp_init is None:
+            m = identity_warp(motion_type, dev).repeat(n, 1, 1)
+        else:
+            m = warp_init.to(device=dev, dtype=torch.float32).clone()
+        rho = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+        last_rho = torch.zeros((n,), dtype=torch.float32, device=dev)
+        if rho_init is not None and eps > 0 and mode != "ic":
+            # seeded lanes: rho = octave rho, last_rho 2*eps below it so the
+            # first iteration always runs (the -eps shift below applies to
+            # both); unseeded lanes keep the (-1, -eps) cold start
+            r0 = rho_init.to(torch.float32)
+            valid = r0 > -1.0
+            rho = torch.where(valid, r0, rho)
+            last_rho = torch.where(valid, r0 - eps, last_rho)
+        p = motion_type.num_params
+        st = _Carry(
+            m=m, rho=rho, last_rho=last_rho - eps,
+            it=torch.zeros((n,), dtype=torch.int32, device=dev),
+            ok=torch.ones((n,), dtype=torch.bool, device=dev),
+            gram=torch.zeros((n, p, p), dtype=torch.float32, device=dev),
+            h_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
+        )
     st = _drive(srcs, texels, templates_f, st, motion_type, num_iters, eps,
-                mode)
+                mode, timer)
     if rescue and mode != "forward":
         bad = ~st.ok
         if bool(bad.any()):
@@ -423,25 +438,27 @@ def _solve_lanes(
             # mid-divergence iterate (ecc.py:1517-1526)
             cuda_build.count(globals(), "rescued_lane_count",
                              int(bad.sum()))
-            st = _Carry(
-                m=torch.where(bad[:, None, None], m, st.m),
-                rho=torch.where(bad, -1.0, st.rho),
-                last_rho=torch.where(bad, -float(eps), st.last_rho),
-                it=torch.where(bad, 0, st.it),
-                ok=st.ok | bad,
-                gram=st.gram,
-                h_ok=st.h_ok & ~bad,
-            )
-            st = _drive(srcs, texels, templates_f, st, motion_type,
-                        num_iters, eps, "forward")
+            with _span(timer, "ecc.rescue"):
+                st = _Carry(
+                    m=torch.where(bad[:, None, None], m, st.m),
+                    rho=torch.where(bad, -1.0, st.rho),
+                    last_rho=torch.where(bad, -float(eps), st.last_rho),
+                    it=torch.where(bad, 0, st.it),
+                    ok=st.ok | bad,
+                    gram=st.gram,
+                    h_ok=st.h_ok & ~bad,
+                )
+                st = _drive(srcs, texels, templates_f, st, motion_type,
+                            num_iters, eps, "forward", timer)
     return EccResult(rho=st.rho, warp_matrix=st.m, ok=st.ok,
                      num_iters=st.it)
 
 
 def _drive(srcs, texels, templates_f, st: _Carry, motion_type: MotionType,
-           num_iters: int, eps: float, mode: str) -> _Carry:
+           num_iters: int, eps: float, mode: str, timer=None) -> _Carry:
     """Iterate until no lane is active, checking on the host every
-    ``_CHUNK_ITERS`` iterations."""
+    ``_CHUNK_ITERS`` iterations: one ``ecc.check`` span a check, one
+    ``ecc.sweep`` span an iteration."""
 
     def active_lanes(c):
         return (c.it < num_iters) & ((c.rho - c.last_rho).abs() >= eps) & c.ok
@@ -452,12 +469,16 @@ def _drive(srcs, texels, templates_f, st: _Carry, motion_type: MotionType,
     # active on the first iteration and gets its Gram there: only that
     # sweep needs the Gram form, which the host knows without a sync.
     with_gram = mode != "forward"
-    while bool(active_lanes(st).any()):
+    while True:
+        with _span(timer, "ecc.check"):
+            if not bool(active_lanes(st).any()):
+                return st
         for _ in range(_CHUNK_ITERS):
-            st = _iterate(srcs, texels, templates_f, st, active_lanes(st),
-                          motion_type, mode, eps, with_gram)
+            with _span(timer, "ecc.sweep"):
+                st = _iterate(srcs, texels, templates_f, st,
+                              active_lanes(st), motion_type, mode, eps,
+                              with_gram)
             with_gram = False
-    return st
 
 
 def _iterate(srcs, texels, templates_f, st: _Carry, active,

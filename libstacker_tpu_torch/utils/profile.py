@@ -21,14 +21,13 @@ chrome trace to ``chiprun_out/``.  Then it traces one more run with
 ``return_stats=True``, whose stages each end in a synchronise, and
 prints the device time and operations of each stage (``grey``,
 ``detect``, ``stack``, ...) with its largest kernels: a device operation
-belongs to the stage whose host span contains its start.  Needs a card;
-exits non-zero without one.
+belongs to the outermost stage whose host span contains its start.
+Needs a card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import subprocess
 import sys
 import time
@@ -67,30 +66,21 @@ def _busy_us(events) -> float:
     return busy
 
 
-def _stage_ranges(timer_cls) -> None:
-    """Open a profiler range ``stage:<name>`` around every phase of the
-    entry points' ``PhaseTimer`` (this tool's process only)."""
-    phase = timer_cls.phase
-
-    @contextlib.contextmanager
-    def ranged(self, name):
-        with torch.profiler.record_function(f"stage:{name}"):
-            with phase(self, name):
-                yield
-
-    timer_cls.phase = ranged
-
-
 def _by_stage(prof, events):
     """stage -> (device us, operations, {kernel: us}) for the device
-    events that start inside a ``stage:`` host range."""
+    events that start inside a ``stage:`` host range, the outermost
+    where ranges nest: a phase synchronises at its end, so a device
+    operation that starts inside it was launched by it; a span nested
+    in a phase does not, so the card may still run its predecessors'
+    work."""
     spans = [(ev.name[len("stage:"):], ev.time_range.start,
               ev.time_range.end) for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CPU
              and ev.name.startswith("stage:")]
     out = {}
     for name, s, d in events:
-        stage = next((st for st, a, b in spans if a <= s <= b), "(none)")
+        inside = [(b - a, st) for st, a, b in spans if a <= s <= b]
+        stage = max(inside)[1] if inside else "(none)"
         us, ops, names = out.setdefault(stage, [0.0, 0, defaultdict(float)])
         out[stage][0] = us + d
         out[stage][1] = ops + 1
@@ -204,9 +194,6 @@ def main(argv=None) -> int:
         print(f"{d / 1e3:10.3f} {100.0 * d / total:5.1f}% {c:6d}  {name[:110]}")
     print(f"trace: {trace}")
 
-    from libstacker_tpu_torch.utils import tracing
-
-    _stage_ranges(tracing.PhaseTimer)
     run(stats=True)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:

@@ -1,52 +1,100 @@
-"""Run records, phase timers and profiler traces (counterpart of
+"""Run records and the port's span recorder (counterpart of
 ``libstacker_tpu/utils/tracing.py``).
 
-:class:`PipelineStats` is a copy of the reference dataclass.
-:class:`PhaseTimer` adds one thing: given a CUDA device it synchronises
-at the end of every phase, so a phase's wall time includes the device
-work it enqueued (PyTorch returns before the card finishes).
-:func:`trace` records ``torch.profiler`` where the JAX package records
-``jax.profiler``.
+:class:`PipelineStats` is a copy of the reference dataclass plus
+``spans``.  :class:`PhaseTimer` records a call's spans: a phase, which
+given a CUDA device synchronises at its end so that its wall time
+includes the device work it enqueued (PyTorch returns before the card
+finishes), and spans nested in it, which never synchronise.  Each span
+opens a ``torch.profiler`` range ``stage:<name>``, so a trace shows it
+on the clock of the card's kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+#: one recorded span: (name, parent's name or None, host ms, device ms
+#: or None off CUDA)
+Span = Tuple[str, Optional[str], float, Optional[float]]
+
 
 class PhaseTimer:
-    """Collects named wall-time phases.
+    """Records a call's phases and the spans nested in them.
+
+    Every span keeps its name, its parent (the innermost span open when
+    it started), its host duration and, on CUDA, its device duration:
+    the stream time between two timing events recorded on the current
+    stream at its start and end.  Read :meth:`spans` only once the
+    caller has synchronised past the last span: the recorder itself
+    synchronises only at a phase's end.
 
     >>> t = PhaseTimer()
     >>> with t.phase("load"):
-    ...     pass
-    >>> _ = t.report()
+    ...     with t.span("decode"):
+    ...         pass
+    >>> [(name, parent) for name, parent, _, _ in t.spans()]
+    [('load', None), ('decode', 'load')]
     """
 
     def __init__(self, device: Optional[torch.device] = None):
         self.durations: Dict[str, float] = {}
         self._order: List[str] = []
-        self._sync = device is not None and torch.device(device).type == "cuda"
+        self._cuda = device is not None and torch.device(device).type == "cuda"
+        # [name, parent, host s, start event, end event] in start order
+        self._records: List[list] = []
+        self._open: List[str] = []
+
+    @contextlib.contextmanager
+    def _record(self, name: str, sync: bool):
+        rec = [name, self._open[-1] if self._open else None, 0.0, None, None]
+        self._records.append(rec)
+        self._open.append(name)
+        with torch.profiler.record_function(f"stage:{name}"):
+            if self._cuda:
+                rec[3] = torch.cuda.Event(enable_timing=True)
+                rec[3].record()
+            t0 = time.perf_counter()
+            try:
+                yield rec
+            finally:
+                if self._cuda:
+                    rec[4] = torch.cuda.Event(enable_timing=True)
+                    rec[4].record()
+                    if sync:
+                        torch.cuda.synchronize()
+                rec[2] = time.perf_counter() - t0
+                self._open.pop()
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        """A stage of the call: its wall time adds to ``durations[name]``
+        (and :meth:`ms`), on CUDA after a synchronise."""
+        rec = None
         try:
-            yield
+            with self._record(name, sync=True) as rec:
+                yield
         finally:
-            if self._sync:
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
             if name not in self.durations:
                 self._order.append(name)
                 self.durations[name] = 0.0
-            self.durations[name] += dt
+            self.durations[name] += rec[2]
+
+    def span(self, name: str):
+        """A span nested in the open phase or span; never synchronises."""
+        return self._record(name, sync=False)
+
+    def spans(self) -> List[Span]:
+        """Every span in start order, as ``(name, parent, host_ms,
+        device_ms)``."""
+        return [(name, parent, host_s * 1e3,
+                 None if start is None else start.elapsed_time(end))
+                for name, parent, host_s, start, end in self._records]
 
     def ms(self) -> Dict[str, float]:
         """Phase durations in milliseconds, in first-seen order."""
@@ -58,27 +106,6 @@ class PhaseTimer:
         total = sum(self.durations.values())
         lines.append(f"{'total':>24s}: {total*1e3:10.2f} ms")
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str] = None):
-    """Profile the block with ``torch.profiler`` (host operations, and
-    the card's kernels where CUDA is available) and write a Chrome trace
-    ``trace_<pid>_<ns>.json`` into ``log_dir``; a no-op when ``log_dir``
-    is None."""
-    if log_dir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 @dataclasses.dataclass
@@ -96,6 +123,11 @@ class PipelineStats:
     #: stacking="sigma_clip" only: fraction of warped samples rejected
     #: by the kappa-sigma clip (0.0 on outlier-free bursts).
     clipped_sample_frac: Optional[float] = None
+    #: the call's spans in start order, ``(name, parent, host_ms,
+    #: device_ms)`` (``PhaseTimer.spans``): the phases, and inside the
+    #: ECC solve ``ecc.prep``, ``ecc.sweep``, ``ecc.check`` and
+    #: ``ecc.rescue``.
+    spans: Optional[List[Span]] = None
 
     def summary(self) -> str:
         parts = [
