@@ -6,7 +6,7 @@
 Phases (each prints one line; any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), torch / CUDA
-   versions, and the ``nvcc`` build of the eight kernel sources of
+   versions, and the ``nvcc`` build of the nine kernel sources of
    ``csrc/`` (one ``nvcc`` per source, all started together);
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
@@ -33,11 +33,9 @@ Phases (each prints one line; any failure exits non-zero):
    Q=109 keypoints) against theirs, bitwise, on the same level, and B3h
    at nfeatures=5000's level 0 (K=2172, Q=1086), with the detector's
    per-level tail timed each way: B3's patches and the eager chain on
-   them (the patch route), and B3h, B3d; with ``--baseline``, the earlier
-   B3h (its Harris kernel, then the top-k and the gathers) held bitwise
-   to B3h, timed in turns with it at both K and in the tail, with
-   registers, spills, shared memory, bound share and B3d's instructions
-   a thread (``utils/sass.py``);
+   them (the patch route), and B3h, B3d, with registers, spills, shared
+   memory, bound share and B3d's instructions a thread
+   (``utils/sass.py``);
 8. the keypoint slice on CUDA against the port's own CPU path on a
    4x540x960 burst (``ok`` flags, corners mapped by H, stacked
    interior);
@@ -69,9 +67,7 @@ Phases (each prints one line; any failure exits non-zero):
     keypoint stack's BORDER_REPLICATE sum timed both ways: the float32
     widening, planes, planar B5 and ``torch.sum`` (the route before the
     accumulate form), and the accumulate form; then the accumulate form
-    and the frames form timed in each mode (the frames form with
-    ``--baseline`` in turns with the earlier design, held bitwise to it
-    first), with registers, spills, shared memory, bound share and
+    and the frames form timed in each mode, with registers, spills, shared memory, bound share and
     instructions a pixel-frame, and the frames form two columns short
     (W % 4 != 0, its scalar stores) in turns with the full width;
 12. kernel B9 (``warp.cu``) against its plain version, bitwise, on 16 lanes
@@ -179,7 +175,18 @@ Phases (each prints one line; any failure exits non-zero):
     one-process ``make_mesh([card] * 2, data=1, spatial=2)`` run here,
     whose row warp is bitwise the dense warp,
     with each rank's launches of B1, B5 and B5a; a worker that fails or
-    passes 180 s fails the phase.
+    passes 180 s fails the phase;
+28. the ECC solve's Gaussian pre-filter (``ecc_blur.cu``, run after
+    phase 5 on its burst's grey): at ksize 5 on 99 and on 31 lanes of
+    2160x3840, bitwise against its plain version (``filters.gaussian_blur``,
+    the eager chain it replaced), timed against it, against its bound
+    (read once, written once) and against a library yardstick (reflect
+    pad and two separable ``F.conv2d`` with TF32 off, which the port
+    never calls), with registers, spills and shared memory; then the
+    99-lane 4K solve at the headline parameters and at the upstream's
+    (5000 / 1e-5, no octave), two pre-filter launches a solved level,
+    bitwise in warps, rho, ok and iterations against the same solve with
+    the plain pre-filter.
 
 Phases 5, 9, 14-16, 19-22 and 24-27 drive the entry points with every
 launch counter set to 0 just before the run and read just after it, and
@@ -196,16 +203,7 @@ time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 7, 10, 11, 13 and 17 also print the registers and
 spills that ptxas gave each instance of B1, B2, B8, B3 / B3h / B3d, B4,
 B5 and B7, the kernel's share of its bound; phases 12 and 18 print B9's
-and B6's too.  ``--baseline DIR`` times the earlier design of B5's
-frames form and of B3h on the same inputs: ``DIR`` holds commit
-b19994b's ``warp.cu`` (with the ``warp_bins.cuh`` it includes) and
-``orb_describe.cu`` (both kernels' first designs), or either of them;
-their ``warp_frames`` (with a null ``valid``) and ``candidate_harris``
-(then ``fast.topk_stable`` and the gathers, as ``ops/orb.py`` called
-them) C entry points are bound as the wrappers called them, the earlier
-design is held bitwise to the current one, and each pair is timed in
-turns (new, earlier, earlier, new), the registers and B5f's instruction
-classes of both printed.  Phase 3 also holds B2 and B4 (both
+and B6's too, phase 28 the pre-filter's.  Phase 3 also holds B2 and B4 (both
 passes) bitwise to their plain versions on 99 u8 frames of 4000x6000
 with affine maps, and times them.
 The last two lines are the kernel record and the device record (JSON).
@@ -216,7 +214,6 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -229,12 +226,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
-           "ecc_ic_moments", "sr_deposit", "orb_describe")
-# the sources an earlier design is timed from (--baseline DIR), where the
-# directory holds them: B5's frames form (warp.cu's warp_frames with a
-# null valid) and B3h (orb_describe.cu's candidate_harris, then
-# fast.topk_stable and the gathers), as commit b19994b left them
-BASELINE_KERNELS = ("warp", "orb_describe")
+           "ecc_ic_moments", "sr_deposit", "orb_describe", "ecc_blur")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
 # B5, accumulate and frames forms (a SASS loop iteration; B5f's whole
 # body)
@@ -255,21 +247,19 @@ B5_INSTANCES = {"constant": "11warp_kernelILi0ELb1EE",
                 "replicate": "11warp_kernelILi1ELb1EE",
                 "wrap": "11warp_kernelILi3ELb1EE"}
 # the frames and accumulate forms for u8 RGB frames in border mode {}
-# (homography), and the frames form in commit b19994b's design (a thread
-# a pixel)
+# (homography)
 B5F_INSTANCE = "frames_kernelILi{}EhLb1ELi3EE"
 B5A_INSTANCE = "accum_kernelILi{}EhLb1ELi3EE"
-B5F_EARLIER_INSTANCE = "frames_kernelILi{}EhE"
 
 
 B3_INSTANCE = "extract_kernelIhE"
 B3H_INSTANCE = "select_kernelILb0E"  # the words in shared memory
-B3H_EARLIER_INSTANCE = "harris_kernel"
 B3D_INSTANCE = "describe_kernel"
 B9_INSTANCE = "warp3_kernel"
 # u8, 32-bit offsets, homography, no fallback: deposit and image forms
 B6_INSTANCE = "sr_kernelIhiLb1ELb0ELb0E"
 B6I_INSTANCE = "sr_kernelIhiLb1ELb0ELb1E"
+BLUR_INSTANCE = "blur_kernelILi2E"  # the pre-filter at ksize 5
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -464,6 +454,7 @@ def counters():
         "ecc_moments_lite": (ecc_cuda, "lite_launch_count"),
         "ecc_moments_masked": (ecc_cuda, "masked_launch_count"),
         "ecc_ic_moments": (ecc_cuda, "ic_launch_count"),
+        "ecc_blur": (ecc_cuda, "blur_launch_count"),
         "sr_deposit": (sr_cuda, "launch_count"),
         "sr_image": (sr_cuda, "image_launch_count"),
         "warp_accum": (warp_accum_cuda, "launch_count"),
@@ -560,52 +551,16 @@ def device_profile(fn, piece: str = "", reps: int = 10):
     return round(len(evs) / reps), total / reps / 1e3, named / reps / 1e3
 
 
-# the earlier design's libraries and their directory (--baseline)
-BASELINE: dict = {}
-BASELINE_DIR = None
-
-
-def load_baseline(path: str) -> None:
-    """Build the earlier design's sources that ``path`` holds and bind
-    their C entry points: ``warp_frames`` (B5's frames and accumulate
-    forms, the interface the current source keeps) and
-    ``candidate_harris`` (B3h's Harris responses, before the selection
-    was taken in)."""
-    global BASELINE_DIR
-    from libstacker_tpu_torch.utils import cuda_build
-
-    d = Path(path).resolve()
-    names = [n for n in BASELINE_KERNELS if (d / f"{n}.cu").exists()]
-    if not names:
-        fail(f"--baseline {d} holds none of "
-             + ", ".join(f"{n}.cu" for n in BASELINE_KERNELS))
-    cuda_build.build(*names, csrc=d)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, fn, argtypes in (
-        ("warp", "warp_frames", [vp, vp, ctypes.POINTER(cf), vp, vp]
-         + [ci] * 7 + [cf, ci, ci, vp]),
-        ("orb_describe", "candidate_harris", [vp] * 5 + [ci] * 4
-         + [cf, cf, vp]),
-    ):
-        if name not in names:
-            continue
-        lib = cuda_build.load(name, d)
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ci
-        BASELINE[name] = lib
-    BASELINE_DIR = d
-
-
-def resources(name: str, piece: str, csrc=None) -> dict:
+def resources(name: str, piece: str) -> dict:
     """ptxas's registers and spills of the kernel of build ``name`` whose
     mangled name contains ``piece`` ({} if the report is missing)."""
     from libstacker_tpu_torch.utils import cuda_build
 
-    found = cuda_build.kernel_resources(name, csrc or cuda_build.CSRC)
+    found = cuda_build.kernel_resources(name)
     return next((v for k, v in found.items() if piece in k), {})
 
 
-def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1,
+def sass_line(label: str, name: str, piece: str, pixels: int = 1,
               homography: bool = True, whole: bool = False,
               longest: bool = True):
     """Print the instructions a pixel-frame by class of the frame loop of
@@ -616,7 +571,7 @@ def sass_line(label: str, name: str, piece: str, csrc=None, pixels: int = 1,
     return them (None where cuobjdump is missing)."""
     from libstacker_tpu_torch.utils import cuda_build, sass
 
-    lib = cuda_build.library_path(name, csrc or cuda_build.CSRC)
+    lib = cuda_build.library_path(name)
     try:
         found = sass.kernel_loop(lib, piece, pixels, homography, whole,
                                  longest)
@@ -639,91 +594,28 @@ def fmt_resources(r: dict) -> str:
             f"{r.get('spill_loads', 0)} B")
 
 
-def paired_ms(fn, earlier, reps: int, timer=None):
-    """(ms, earlier_ms): ``fn`` alone, or with the earlier design's call
-    in turns (new, earlier, earlier, new), each the mean of its two;
-    ``timer(fn, reps)`` times one (CUDA events by default)."""
+def paired_ms(fn, other, reps: int, timer=None):
+    """(ms, other_ms): ``fn`` and ``other`` timed in turns (fn, other,
+    other, fn), each the mean of its two; ``timer(fn, reps)`` times one
+    (CUDA events by default)."""
     timer = timer or time_ms
-    if earlier is None:
-        return timer(fn, reps), None
-    a, b = timer(fn, reps), timer(earlier, reps)
-    c, d = timer(earlier, reps), timer(fn, reps)
+    a, b = timer(fn, reps), timer(other, reps)
+    c, d = timer(other, reps), timer(fn, reps)
     return (a + d) / 2.0, (b + c) / 2.0
 
 
 def design_report(label: str, name: str, piece: str, ms: float,
-                  bound_ms: float, earlier_ms=None,
-                  earlier_piece=None) -> dict:
+                  bound_ms: float) -> dict:
     """Print one line on an instance's registers, spills, shared memory
-    and bound share, and on the earlier design's (``earlier_ms`` its time
-    where --baseline timed it, ``earlier_piece`` its instance's name where
-    it differs); return them for the kernel record."""
+    and bound share; return them for the kernel record."""
     res = resources(name, piece)
     line = (f"    {label}: {fmt_resources(res)}; {ms:.4f} ms, "
             f"{bound_ms / ms:.3f} of its bound")
     rec = dict(registers=res.get("registers"), smem_bytes=res.get("smem"),
                spill_bytes=res.get("spill_stores", 0) + res.get("spill_loads", 0)
                if res else None)
-    if earlier_ms is not None:
-        old = resources(name, earlier_piece or piece, BASELINE_DIR)
-        line += (f"; earlier design {earlier_ms:.4f} ms, "
-                 f"{bound_ms / earlier_ms:.3f} of the bound "
-                 f"({fmt_resources(old)}) -> new/earlier "
-                 f"{ms / earlier_ms:.3f}")
-        rec["earlier_design"] = dict(
-            ms=earlier_ms, bound_share=bound_ms / earlier_ms,
-            registers=old.get("registers"), smem_bytes=old.get("smem"),
-            spill_bytes=old.get("spill_stores", 0) + old.get("spill_loads", 0)
-            if old else None)
     log(line)
     return rec
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def b5f_earlier(frames, minv, border, mode):
-    """The frames form in the earlier design's build (homography, whole
-    frames, a null valid), its arguments as the wrapper passes them."""
-    from libstacker_tpu_torch.ops import warp_cuda
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["warp"]
-    n, h, w, c = frames.shape
-    if mode == "transparent":
-        mode, border = "constant", [0.0] * c
-    out = torch.empty((n, h, w, c), dtype=torch.float32, device=frames.device)
-    err = lib.warp_frames(
-        frames.data_ptr(), minv.data_ptr(), (ctypes.c_float * c)(*border),
-        None, out.data_ptr(), n, h, w, c,
-        warp_cuda._DTYPE_CODE[frames.dtype], warp_cuda._MODE_CODE[mode], 1,
-        warp_cuda._SCALE[frames.dtype], 0, 0, _stream())
-    cuda_build.check(lib, err, "earlier warp_frames")
-    return out
-
-
-def b3h_earlier(imgs, ys, xs, valid, quota):
-    """B3h's selection as the earlier design made it: the build's
-    candidate_harris, then fast.topk_stable and the gathers, as
-    ops/orb.py called them; ``ys`` / ``xs`` int32 and ``valid`` bool,
-    contiguous, as the wrapper passed them."""
-    from libstacker_tpu_torch.ops import fast, orb_cuda
-    from libstacker_tpu_torch.utils import cuda_build
-
-    lib = BASELINE["orb_describe"]
-    n, h, w = imgs.shape
-    k = ys.shape[1]
-    harris = torch.empty((n, k), dtype=torch.float32, device=imgs.device)
-    err = lib.candidate_harris(
-        imgs.data_ptr(), ys.data_ptr(), xs.data_ptr(), valid.data_ptr(),
-        harris.data_ptr(), n, k, h, w, orb_cuda.HARRIS_K,
-        fast.harris_scale4(), _stream())
-    cuda_build.check(lib, err, "earlier candidate_harris")
-    hval, hidx = fast.topk_stable(harris, quota)
-    kvalid = torch.isfinite(hval) & torch.gather(valid, 1, hidx)
-    return (hval, torch.gather(ys, 1, hidx), torch.gather(xs, 1, hidx),
-            kvalid)
 
 
 def profile_line(label: str, fn, piece: str) -> dict:
@@ -1054,6 +946,7 @@ def phase_full(dev):
     ok = (stats.frames_kept == FULL_N and float(rho.mean()) >= RHO_BAR
           and f0_diff < FRAME0_MEAN_BAR and finite
           and tuple(out.shape) == (FULL_H, FULL_W, 3)
+          and launches["ecc_blur"] == 2 * 2  # 2 levels: templates, input
           and not missing(launches, ("ecc_moments", "warp_accum")))
     log(f"[5 full slice] {FULL_N}x{FULL_H}x{FULL_W} u8, homography, "
         f"coarse_levels=1: cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
@@ -1065,6 +958,105 @@ def phase_full(dev):
     if not ok:
         fail("the full-size slice missed a bar")
     return launches, frames, truth, out
+
+
+def phase_blur(dev, frames):
+    """Phase 28: the ECC solve's Gaussian pre-filter at ksize 5 on 99
+    and 31 lanes of phase 5's 4K grey, then the 99-lane solve through it
+    against the same solve with the plain pre-filter."""
+    import torch.nn.functional as F
+
+    from libstacker_tpu_torch.models import ecc as ecc_model
+    from libstacker_tpu_torch.ops import ecc as ecc_ops, ecc_cuda, filters
+    from libstacker_tpu_torch.params import MotionType
+
+    grey = ecc_model._ecc_grey(frames)
+    ksize, r = 5, 2
+    taps = torch.tensor(filters.gaussian_kernel(ksize), dtype=torch.float32,
+                        device=dev)
+
+    def library(x):
+        p = F.pad(x[:, None], (r, r, r, r), mode="reflect")
+        return F.conv2d(F.conv2d(p, taps.view(1, 1, 1, -1)),
+                        taps.view(1, 1, -1, 1))[:, 0]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+    try:
+        for lanes in (KERNEL_LANES, 31):
+            x = grey[1:1 + lanes].contiguous()
+            got = ecc_cuda.gaussian_prefilter(x, ksize)
+            want = filters.gaussian_blur(x, ksize)
+            eq = bool(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)))
+            lib_err = float((library(x) - want).abs().max())
+            del got, want
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: ecc_cuda.gaussian_prefilter(x, ksize), 20)
+            plain_ms = time_ms(lambda: filters.gaussian_blur(x, ksize), 3)
+            lib_ms = time_ms(lambda: library(x), 5)
+            # read once, written once; 4r+2 multiplies and 4r adds a pixel
+            b_ms, b_by = bound(x.numel() * 8.0, x.numel() * (8.0 * r + 2))
+            log(f"[28 ECC pre-filter] {lanes}x{FULL_H}x{FULL_W} f32, "
+                f"ksize {ksize}: bitwise equal to the plain version {eq}; "
+                f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{b_ms / ms:.3f} of it); plain chain {plain_ms:.4f} ms; "
+                f"library (reflect pad + 2 F.conv2d, TF32 off) "
+                f"{lib_ms:.4f} ms, max abs {lib_err:.3e} off the plain "
+                f"version")
+            if not eq:
+                fail("the pre-filter kernel disagrees with its plain version")
+            recs[lanes] = dict(
+                bitwise_equal=eq, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_max_abs_err=lib_err,
+                bound_ms=b_ms, bound_by=b_by,
+                **design_report(f"pre-filter {lanes} lanes", "ecc_blur",
+                                BLUR_INSTANCE, ms, b_ms))
+            del x
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # the 99-lane solve through the kernel, then with the plain
+    # pre-filter in its place
+    templates, image = grey[1:], grey[0]
+    solves = {}
+    for label, kw in (("headline", dict(num_iters=50, eps=1e-4,
+                                        coarse_levels=1)),
+                      ("upstream", dict(num_iters=5000, eps=1e-5,
+                                        coarse_levels=0))):
+        def solve():
+            return ecc_ops.find_transform_ecc_batched(
+                templates, image, MotionType.Homography, gauss_filt_size=5,
+                **kw)
+
+        reset_counts()
+        got = solve()
+        torch.cuda.synchronize()
+        launches = read_counts()["ecc_blur"]
+        kernel = ecc_cuda.gaussian_prefilter
+        ecc_cuda.gaussian_prefilter = lambda x, k: filters.gaussian_blur(x, k)
+        try:
+            want = solve()
+        finally:
+            ecc_cuda.gaussian_prefilter = kernel
+        same = all(bool(torch.equal(getattr(got, f), getattr(want, f)))
+                   for f in ("warp_matrix", "rho", "ok", "num_iters"))
+        ok = same and launches == 2 * (1 + kw["coarse_levels"])
+        log(f"    {label} solve ({kw}): {launches} pre-filter launches, "
+            f"iterations mean {got.num_iters.float().mean():.2f}; warps, "
+            f"rho, ok and iterations bitwise those of the plain "
+            f"pre-filter's solve {same} -> {'OK' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"the {label} solve through the pre-filter kernel differs")
+        solves[label] = dict(bitwise_equal=same, launches=launches)
+    del grey, templates, image
+    torch.cuda.empty_cache()
+    rec = recs[KERNEL_LANES]
+    rec["lanes_31"] = recs[31]
+    rec["solves_bitwise"] = solves
+    return rec
 
 
 def textured_grey(dev):
@@ -1239,18 +1231,9 @@ def phase_b3(dev, grey):
     def selection_ms(fn, reps):
         return device_profile(fn, "", reps)[1]
 
-    # B3h and, with --baseline, the earlier design (its candidate_harris,
-    # then topk_stable and the gathers) in turns, by the device time of
-    # the whole selection; the earlier design held bitwise to this one
-    # first
-    vb = valid.contiguous()
-    h_old = None
-    if "orb_describe" in BASELINE:
-        h_old = lambda: b3h_earlier(grey, ys, xs, vb, KP_Q)  # noqa: E731
-        if not all(bool(torch.equal(a, b)) for a, b in zip(h_old(), select())):
-            fail("the earlier B3h design disagrees with this one")
+    # B3h, and the device time of the whole selection
     h_ms = kernel_ms("select_kernel")(select, 10)
-    sel_ms, sel_old_ms = paired_ms(select, h_old, 10, selection_ms)
+    sel_ms = selection_ms(select, 10)
     d_call = time_ms(lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 20)
     d_ms = kernel_ms("describe_kernel")(
         lambda: orb_cuda.describe(grey, kq_ys, kq_xs), 10)
@@ -1280,23 +1263,17 @@ def phase_b3(dev, grey):
         grey, ys5, xs5, v5, q5)
     eq5 = all(bool(torch.equal(a, b)) for a, b in zip(
         sel5(), orb_cuda.select_keypoints_reference(grey, ys5, xs5, v5, q5)))
-    old5 = None
-    if "orb_describe" in BASELINE:
-        old5 = lambda: b3h_earlier(grey, ys5, xs5, v5, q5)  # noqa: E731
-        eq5 &= all(bool(torch.equal(a, b)) for a, b in zip(old5(), sel5()))
     k5_ms = kernel_ms("select_kernel")(sel5, 10)
-    sel5_ms, sel5_old_ms = paired_ms(sel5, old5, 10, selection_ms)
+    sel5_ms = selection_ms(sel5, 10)
     b5_bound = bound(window_bytes(grey, ys5, xs5, KP_RADIUS, o, 9)
                      + ys5.numel() * 9.0 + n * q5 * 13.0, b3h_ops(n, k5))
     del c5, ys5, xs5, v5
     at5000 = dict(k=k5, quota=q5, bitwise_equal=eq5, ms=k5_ms,
                   selection_device_ms=sel5_ms,
-                  earlier_selection_device_ms=sel5_old_ms,
                   bound_ms=b5_bound[0], bound_by=b5_bound[1])
 
     # the detector's per-level tail, each way, on the same candidates:
-    # the patch route (B3 patches, then the eager chain), with --baseline the
-    # earlier design's (B3h's responses, top-k, gathers, B3d), and B3h's
+    # the patch route (B3 patches, then the eager chain), and B3h's
     # selection then B3d
     def former():
         patches = orb_cuda.extract_patches(grey, ys, xs, KP_RADIUS)
@@ -1314,25 +1291,12 @@ def phase_b3(dev, grey):
         ang, desc = orb_cuda.describe(grey, kys, kxs)
         return hval, ang, desc
 
-    def earlier():
-        hval, kys, kxs, _ = h_old()
-        ang, desc = orb_cuda.describe(grey, kys, kxs)
-        return hval, ang, desc
-
     route_old = time_ms(former, 20)
-    route_new, route_earlier = paired_ms(current, h_old and earlier, 20)
+    route_new = time_ms(current, 20)
     route_old2 = time_ms(former, 20)
     n_old, dev_old, _ = device_profile(former)
     n_new, dev_new, _ = device_profile(current)
-    n_earlier = dev_earlier = None
-    if h_old is not None:
-        n_earlier, dev_earlier, _ = device_profile(earlier)
     ok = eq_h and eq_d and eq5
-    earlier_txt = ("" if h_old is None else
-                   f"; the earlier design's selection {sel_old_ms:.4f} ms of "
-                   f"device time ({sel5_old_ms:.4f} at K={k5}), its tail "
-                   f"{route_earlier:.4f} ms a call, {dev_earlier:.4f} ms in "
-                   f"{n_earlier}")
     log(f"[7 B3h orb_harris, B3d orb_describe] the same level: B3h's "
         f"selection of Q={KP_Q} at K={KP_K} (2 invalid a frame) bitwise "
         f"equal {eq_h}, at K={k5}, Q={q5} (nfeatures=5000) {eq5}; B3d at "
@@ -1346,7 +1310,7 @@ def phase_b3(dev, grey):
         f"per-level tail: B3 + eager chain "
         f"{(route_old + route_old2) / 2:.4f} ms a call, {dev_old:.4f} ms of "
         f"device time in {n_old} operations; B3h + B3d {route_new:.4f} ms "
-        f"a call, {dev_new:.4f} ms in {n_new}{earlier_txt} "
+        f"a call, {dev_new:.4f} ms in {n_new} "
         f"-> {'OK' if ok else 'MISMATCH'}")
     if not ok:
         fail("B3h or B3d disagrees with its plain version")
@@ -1354,16 +1318,13 @@ def phase_b3(dev, grey):
                  route_ms=route_new, former_route_device_ms=dev_old,
                  route_device_ms=dev_new, former_route_device_ops=n_old,
                  route_device_ops=n_new,
-                 earlier_design_route_ms=route_earlier,
-                 earlier_design_route_device_ms=dev_earlier,
-                 earlier_design_route_device_ops=n_earlier,
                  ms_source="torch.profiler device time")
     b3h = dict(max_abs_err=h_err, ms=h_ms, plain_ms=h_plain,
                bound_ms=h_bound, bound_by=h_by, library_ms=None,
                call_ms=h_call, selection_device_ms=sel_ms,
                nfeatures_5000=at5000,
                **design_report("B3h", "orb_describe", B3H_INSTANCE, h_ms,
-                               h_bound, sel_old_ms, B3H_EARLIER_INSTANCE),
+                               h_bound),
                **route)
     b3d = dict(max_abs_err=max(a_err, d_err), ms=d_ms, plain_ms=d_plain,
                bound_ms=d_bound, bound_by=d_by, library_ms=None,
@@ -1858,8 +1819,7 @@ def phase_b5_frames(dev, frames, truth, modes):
                                             + c * B5A_OPS_CHANNEL))
     # the accumulate form in each mode, with registers, shared memory,
     # share of the bound and instructions a pixel-frame; then the frames
-    # form in each mode, with --baseline in turns with the earlier design
-    # (held bitwise to this one first), and both designs' instructions
+    # form in each mode likewise
     a_modes, f_modes = {}, {}
     for mode in modes:
         code = warp_cuda._MODE_CODE[warp._resolve_border(mode)
@@ -1879,28 +1839,13 @@ def phase_b5_frames(dev, frames, truth, modes):
                                     .replace("transparent", "constant")]
         run = lambda mode=mode: warp_cuda.warp_frames(  # noqa: E731
             fr, minv, bv, mode)
-        earlier = None
-        if "warp" in BASELINE:
-            earlier = lambda mode=mode: b5f_earlier(  # noqa: E731
-                fr, minv, bv, mode)
-            if not torch.equal(earlier(), run()):
-                fail(f"the earlier B5f design disagrees with this one "
-                     f"({mode})")
-            torch.cuda.empty_cache()
-        ms_mode, earlier_ms = paired_ms(run, earlier, 10)
+        ms_mode = time_ms(run, 10)
         piece = B5F_INSTANCE.format(code)
         rec = dict(ms=ms_mode, **design_report(
-            f"B5f u8 {mode}", "warp", piece, ms_mode, f_bound, earlier_ms,
-            B5F_EARLIER_INSTANCE.format(code)))
+            f"B5f u8 {mode}", "warp", piece, ms_mode, f_bound))
         # a thread's whole body (no frame loop): the fast path
         rec["sass"] = sass_line(f"B5f u8 {mode}", "warp", piece,
                                 pixels=B5F_PIXELS, whole=True, longest=False)
-        if earlier is not None:
-            # the earlier design: a thread a pixel, loop-free
-            rec["earlier_design_sass"] = sass_line(
-                f"B5f u8 {mode} earlier design", "warp",
-                B5F_EARLIER_INSTANCE.format(code), BASELINE_DIR, whole=True,
-                longest=False)
         f_modes[mode] = rec
         torch.cuda.empty_cache()
     # the frames form's other store path: rows of W % 4 != 0 leave by
@@ -2112,7 +2057,7 @@ def phase_ecc_sigma(dev, frames, clean):
           and far_err < SIGMA_FAR_BAR and bool(torch.isfinite(out).all())
           and tuple(out.shape) == (FULL_H, FULL_W, 3)
           and launches["warp_moments"] == 1 + params.sigma_iters
-          and not missing(launches, ("ecc_moments",)))
+          and not missing(launches, ("ecc_moments", "ecc_blur")))
     splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
     log(f"[14 ECC sigma-clip] {FULL_N}x{FULL_H}x{FULL_W} u8, a 3-px streak "
         f"in frames {list(STREAK_FRAMES)}, kappa 2.5, 1 clip pass: cold "
@@ -2144,7 +2089,8 @@ def phase_ecc_mask(dev, frames):
     ok = (stats.frames_kept == FULL_N and float(rho.mean()) >= RHO_BAR
           and f0_diff < FRAME0_MEAN_BAR and bool(torch.isfinite(out).all())
           and "phase init" not in stats.phase_ms
-          and not missing(launches, ("ecc_moments_masked", "warp_accum")))
+          and not missing(launches, ("ecc_moments_masked", "ecc_blur",
+                                     "warp_accum")))
     splits = ", ".join(f"{k} {v:.1f}" for k, v in stats.phase_ms.items())
     log(f"[15 ECC masked] {FULL_N}x{FULL_H}x{FULL_W} u8, mask zero on the "
         f"top-left {FULL_H // 4}x{FULL_W // 4}: cold {cold_s:.3f} s, warm "
@@ -2483,7 +2429,7 @@ def phase_ecc_sr(dev, frames):
           and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
           and box_err < SR_BOX_BAR and launches["sr_image"] == 1
           and launches["sr_deposit"] == 0 and launches["warp_accum"] == 0
-          and not missing(launches, ("ecc_moments",)))
+          and not missing(launches, ("ecc_moments", "ecc_blur")))
     log(f"[19 ECC super-resolution] {n}x{FULL_H}x{FULL_W} u8, headline "
         f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
         f"{cold_s:.3f} s, warm {warm_s:.3f} s | stages ms: {splits} | kept "
@@ -3660,10 +3606,6 @@ def phase_dcn(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", metavar="DIR", default=None,
-                    help="time the earlier design of B5's frames form "
-                         "and B3h from the sources in DIR beside the "
-                         "current one")
     ap.add_argument("--dcn-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3685,8 +3627,6 @@ def main(argv=None) -> int:
         return dcn_worker(int(rank), int(port), outdir)
     dev = resolve_device("cuda")
     smi = phase_device()
-    if args.baseline:
-        load_baseline(args.baseline)
     torch.cuda.synchronize()
     b1 = phase_b1(dev)
     torch.cuda.synchronize()
@@ -3701,6 +3641,8 @@ def main(argv=None) -> int:
     launches, ecc_frames, ecc_truth, ecc_clean = phase_full(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    blur = phase_blur(dev, ecc_frames)
+    torch.cuda.synchronize()
     frames, truth, grey = textured_grey(dev)
     b8 = phase_b8(dev, grey)
     torch.cuda.empty_cache()
@@ -3845,6 +3787,14 @@ def main(argv=None) -> int:
              replaces_note="_moments_kernel with with_hessian=False (the "
                            "lazy solver's sweep)",
              **counts("ecc_moments_lite"), **b1_lite),
+        dict(name="ecc_blur", route="cuda",
+             source="libstacker_tpu_torch/csrc/ecc_blur.cu",
+             replaces=None,
+             replaces_note="no TPU kernel: the JAX package's XLA-level "
+                           "jnp blur of the input image and the templates "
+                           "(libstacker_tpu/ops/ecc.py:236 _input_fields "
+                           "and the solve's template prep)",
+             **counts("ecc_blur"), **blur),
         dict(name="ecc_ic_moments", route="cuda",
              source="libstacker_tpu_torch/csrc/ecc_ic_moments.cu",
              replaces="libstacker_tpu/ops/ecc_pallas.py:460",

@@ -14,6 +14,9 @@ opt-in formulations of the same objective.
   :936-959, and ``find_transform_ecc_batched`` :1150 with
   ``coarse_levels``, ``warp_init`` and the cross-scale ``rho_init`` seed
   (:1214-1348).
+- The Gaussian pre-filter of the input image and of the templates is
+  ``ecc_cuda.gaussian_prefilter``: one pass of ``csrc/ecc_blur.cu`` on
+  the card, bitwise ``filters.gaussian_blur``, which the CPU runs.
 - ``mode='forward'`` (the default): every Gauss-Newton iteration is one
   sweep of kernel B1 (``ops/ecc_cuda.ecc_iteration_moments``, the TPU's
   ``_moments_kernel``); OpenCV's statistics, projections and the update
@@ -152,9 +155,9 @@ def _compose_warp_ic(
 def _input_fields(input_image: torch.Tensor, gauss_filt_size: int):
     """Input-side fields: Gaussian pre-filter + central-difference
     gradients (OpenCV ecc.cpp's image preparation)."""
-    image_f = filters.gaussian_blur(
-        input_image.to(torch.float32), gauss_filt_size
-    )
+    image_f = ecc_cuda.gaussian_prefilter(
+        input_image.to(torch.float32).contiguous()[None], gauss_filt_size
+    )[0]
     dx = (-0.5, 0.0, 0.5)
     gx = filters.sep_filter2d(image_f, dx, (1.0,), border="reflect101")
     gy = filters.sep_filter2d(image_f, (1.0,), dx, border="reflect101")
@@ -402,9 +405,9 @@ def _solve_lanes(
         srcs = srcs.contiguous()
         # B1 reads the planes as interleaved texels: pack once per level
         texels = ecc_cuda.pack_texels(srcs) if srcs.is_cuda else None
-        templates_f = filters.gaussian_blur(
-            templates.to(torch.float32), gauss_filt_size
-        ).contiguous()
+        templates_f = ecc_cuda.gaussian_prefilter(
+            templates.to(torch.float32).contiguous(), gauss_filt_size
+        )
 
         if warp_init is None:
             m = identity_warp(motion_type, dev).repeat(n, 1, 1)

@@ -40,6 +40,12 @@ gradients and Jacobian at the identity warp — reduced to
 
 CUDA tensors launch ``csrc/ecc_ic_moments.cu`` or raise; CPU tensors
 take :func:`ecc_ic_iteration_moments_reference`.
+
+The solve's Gaussian pre-filter, :func:`gaussian_prefilter`: OpenCV's
+GaussianBlur with reflect-101 borders on ``[N,H,W]`` float32 planes, the
+templates of a level and its input image.  CUDA tensors launch
+``csrc/ecc_blur.cu`` (one pass, bitwise equal to the plain version) or
+raise; CPU tensors take ``ops/filters.gaussian_blur``.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import torch
 from .. import constants
 from ..params import MotionType
 from ..utils import cuda_build
-from . import warp
+from . import filters, warp
 
 #: launches of B1's 3-plane kernel with the Gram since the last reset
 #: (one per call)
@@ -65,6 +71,9 @@ lite_launch_count = 0
 masked_launch_count = 0
 #: launches of B7 (the inverse-compositional sweep) since the last reset
 ic_launch_count = 0
+#: launches of the Gaussian pre-filter (csrc/ecc_blur.cu) since the last
+#: reset: one for the templates and one for the input image a solved level
+blur_launch_count = 0
 
 _IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
@@ -252,6 +261,56 @@ def _lib() -> ctypes.CDLL:
     lib.ecc_moments.restype = ci
     lib.ecc_moments_num_blocks.argtypes = [ci, ci]
     lib.ecc_moments_num_blocks.restype = ci
+    return lib
+
+
+def gaussian_prefilter(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """``filters.gaussian_blur(x, ksize)`` of ``[N,H,W]`` contiguous
+    float32 planes into a new tensor.  CPU tensors take that plain
+    version; CUDA tensors launch ``csrc/ecc_blur.cu`` on the current
+    stream (bitwise the plain version, with no padded copy and no
+    intermediate plane) or raise.  ``ksize`` is any odd size >= 1
+    (``filters.gaussian_kernel``'s taps); H and W must exceed its radius,
+    as the plain version's reflect pad requires."""
+    if x.dtype != torch.float32 or x.ndim != 3:
+        raise ValueError(f"x must be [N,H,W] float32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"ksize must be odd and >= 1, got {ksize}")
+    n, h, w = x.shape
+    r = ksize // 2
+    if h <= r or w <= r:
+        raise ValueError(f"{h}x{w} planes must exceed the radius {r} of "
+                         f"ksize {ksize}")
+    if x.device.type == "cpu":
+        return filters.gaussian_blur(x, ksize)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = torch.empty_like(x)
+    cuda_build.launch(
+        _blur_lib(), "gaussian_prefilter", x.device, x.data_ptr(),
+        out.data_ptr(), _taps_on(x.device, ksize).data_ptr(), n, h, w, r,
+    )
+    cuda_build.count(globals(), "blur_launch_count")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_on(device: torch.device, ksize: int) -> torch.Tensor:
+    """``filters.gaussian_kernel(ksize)`` as float32 on ``device``, copied
+    once (a copy from pageable host memory synchronises the stream)."""
+    return torch.tensor(filters.gaussian_kernel(ksize), dtype=torch.float32,
+                        device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("ecc_blur")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gaussian_prefilter.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+    lib.gaussian_prefilter.restype = ci
     return lib
 
 

@@ -9,9 +9,9 @@
 // array) the launch's dynamic bytes, and the intrinsics are their IEEE
 // float32 definitions.  Build with -ffp-contract=off (nvcc's
 // --fmad=false).  tests/test_torch_warp_accum_design.py,
-// tests/test_torch_warp_design.py and tests/test_torch_orb_design.py
-// rewrite each `kernel<<<blocks, threads, bytes, stream>>>(args)` as a
-// host_grid call.
+// tests/test_torch_warp_design.py, tests/test_torch_orb_design.py and
+// tests/test_torch_ecc_blur.py rewrite each
+// `kernel<<<blocks, threads, bytes, stream>>>(args)` as a host_grid call.
 #pragma once
 #include <ucontext.h>
 
@@ -42,6 +42,11 @@ struct dim3 {
 inline void __stcs(float* p, float v) { *p = v; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline void __stcs(float4* p, float4 v) { *p = v; }
+// cp.async as <cuda_pipeline.h> declares it: the copy at once on the host
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) { std::memcpy(dst, src, n); }
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline host_dim3 threadIdx, blockIdx;
 // a launch's dynamic shared memory, as 16-byte words
 inline std::vector<float4> host_dynamic_shared;

@@ -60,7 +60,14 @@ origins (a strip of rows warped with the global map) bitwise against the
 plain version and the whole frame's rows; ``mesh=`` on shards of the
 card against the same mesh on the CPU (ECC mean and SR through B6's
 deposit form at the slice bars, the keypoint mean at p99 < 0.02), and
-the row-band warp bitwise against the dense one.
+the row-band warp bitwise against the dense one.  The ECC solve's
+Gaussian pre-filter (``csrc/ecc_blur.cu``) bitwise against
+``filters.gaussian_blur`` for ksize 1-15 at N 1 and 7, W % 4 == 0 and
+!= 0, H and W just above 2r, and on the host-shim cases of
+tests/test_torch_ecc_blur.py (ksize 19 and 21 through its direct form),
+aligned and one float past a 16-byte boundary; a CUDA solve ('forward'
+with and without an octave, 'lazy', 'ic') launches it twice a solved
+level and returns bitwise what the plain pre-filter's solve returns.
 """
 
 import numpy as np
@@ -69,14 +76,15 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("scipy")
 
+import test_torch_ecc_blur as blur_design  # noqa: E402
 import test_torch_orb_design as orb_design  # noqa: E402
 import test_torch_warp_design as warp_design  # noqa: E402
 import test_torch_warp_frames_design as frames_design  # noqa: E402
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
-    color, ecc, ecc_cuda, fast_cuda, orb_cuda, warp, warp_accum_cuda,
-    warp_cuda,
+    color, ecc, ecc_cuda, fast_cuda, filters, orb_cuda, warp,
+    warp_accum_cuda, warp_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1395,3 +1403,72 @@ def test_mesh_paths_cuda_match_cpu(dev):
     want = warp_cuda.warp_bilinear(img.to(dev)[None], minv[None])[0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _blur_planes(dev, n_, h, w, seed, offset=0):
+    """``test_torch_ecc_blur.planes`` on the card; with ``offset`` the
+    planes start that many floats into their buffer (still contiguous)."""
+    x = torch.from_numpy(blur_design.planes(n_, h, w, seed))
+    buf = torch.empty(x.numel() + offset, dtype=torch.float32, device=dev)
+    buf[offset:] = x.reshape(-1).to(dev)
+    return buf[offset:].view(n_, h, w)
+
+
+@pytest.mark.parametrize("ksize", [1, 3, 5, 7, 9, 11, 15])
+@pytest.mark.parametrize("n_", [1, 7])
+@pytest.mark.parametrize("shape", ["aligned", "odd", "least"])
+def test_blur_kernel_bitwise(dev, ksize, n_, shape):
+    """The Gaussian pre-filter (csrc/ecc_blur.cu) against the plain
+    version on the card: W % 4 == 0 across strips and row segments, W % 4
+    != 0, and H and W just above 2r."""
+    r = ksize // 2
+    h, w = {"aligned": (301, 1928), "odd": (75, 1001),
+            "least": (2 * r + 1, 2 * r + 2)}[shape]
+    x = _blur_planes(dev, n_, h, w, seed=ksize * 10 + n_)
+    before = ecc_cuda.blur_launch_count
+    got = ecc_cuda.gaussian_prefilter(x, ksize)
+    want = filters.gaussian_blur(x, ksize)
+    torch.cuda.synchronize()
+    assert ecc_cuda.blur_launch_count == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", blur_design.CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_blur_kernel_design_cases(dev, case, offset):
+    """``test_torch_ecc_blur.CASES`` (the direct form above ksize 17
+    among them) through the wrapper, on planes 16-byte aligned and one
+    float past."""
+    ksize, n_, h, w = case
+    x = _blur_planes(dev, n_, h, w, seed=h * w + ksize, offset=offset)
+    got = ecc_cuda.gaussian_prefilter(x, ksize)
+    want = filters.gaussian_blur(x, ksize)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode,coarse_levels", [
+    ("forward", 0), ("forward", 1), ("lazy", 0), ("ic", 0)])
+def test_solve_through_the_blur_kernel(dev, monkeypatch, mode,
+                                       coarse_levels):
+    """A CUDA solve blurs through the kernel, one launch for the templates
+    and one for the input image a solved level, and returns bitwise what
+    the same solve returns with the plain pre-filter."""
+    frames, _ = burst(5, 4, 160, 224, max_shift=3.0, max_angle=0.3)
+    grey = torch.from_numpy(frames.astype(np.float32).mean(-1)).to(dev)
+
+    def solve():
+        return ecc.find_transform_ecc_batched(
+            grey[1:].contiguous(), grey[0], MotionType.Homography,
+            num_iters=30, eps=1e-4, gauss_filt_size=5,
+            coarse_levels=coarse_levels, mode=mode)
+
+    before = ecc_cuda.blur_launch_count
+    got = solve()
+    torch.cuda.synchronize()
+    assert ecc_cuda.blur_launch_count - before == 2 * (1 + coarse_levels)
+    monkeypatch.setattr(ecc_cuda, "gaussian_prefilter",
+                        lambda x, k: filters.gaussian_blur(x, k))
+    want = solve()
+    for name in ("warp_matrix", "rho", "ok", "num_iters"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

@@ -224,7 +224,7 @@ def test_smoke_counters_exist_and_reset():
     import importlib
 
     pairs = _smoke_counters()
-    assert len(pairs) == 16
+    assert len(pairs) == 17
     for name, (module, attr) in pairs.items():
         mod = importlib.import_module(f"libstacker_tpu_torch.ops.{module}")
         before = getattr(mod, attr)
