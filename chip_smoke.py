@@ -186,7 +186,15 @@ Phases (each prints one line; any failure exits non-zero):
     99-lane 4K solve at the headline parameters and at the upstream's
     (5000 / 1e-5, no octave), two pre-filter launches a solved level,
     bitwise in warps, rho, ok and iterations against the same solve with
-    the plain pre-filter.
+    the plain pre-filter;
+29. RANSAC's refit kernels (``ransac_refit.cu``) on the refit inputs
+    that phase 9's burst gives ``_match_and_estimate`` at full
+    resolution (19 frames of 500 slots): the DLT and the polish against
+    their plain versions run on the CPU in float64 (1e-3 px at a 4K
+    frame's corners) and in float32 (0.01 px), the same bits on a second
+    launch, and each kernel timed against its plain version on the card
+    (the eager chain it replaced) and against its bound, with registers,
+    spills and shared memory.
 
 Phases 5, 9, 14-16, 19-22 and 24-27 drive the entry points with every
 launch counter set to 0 just before the run and read just after it, and
@@ -203,9 +211,9 @@ time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 7, 10, 11, 13 and 17 also print the registers and
 spills that ptxas gave each instance of B1, B2, B8, B3 / B3h / B3d, B4,
 B5 and B7, the kernel's share of its bound; phases 12 and 18 print B9's
-and B6's too, phase 28 the pre-filter's.  Phase 3 also holds B2 and B4 (both
-passes) bitwise to their plain versions on 99 u8 frames of 4000x6000
-with affine maps, and times them.
+and B6's too, phase 28 the pre-filter's, phase 29 the refit's.  Phase 3
+also holds B2 and B4 (both passes) bitwise to their plain versions on 99
+u8 frames of 4000x6000 with affine maps, and times them.
 The last two lines are the kernel record and the device record (JSON).
 The script needs CUDA and the repository beside it; without either it
 exits non-zero before printing any result.
@@ -226,7 +234,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
-           "ecc_ic_moments", "sr_deposit", "orb_describe", "ecc_blur")
+           "ecc_ic_moments", "sr_deposit", "orb_describe", "ecc_blur",
+           "ransac_refit")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
 # B5, accumulate and frames forms (a SASS loop iteration; B5f's whole
 # body)
@@ -290,6 +299,10 @@ FRAME0_MEAN_BAR = 0.01
 # to its corner bar and prints its p99
 KP_P99_BAR = 0.04
 CORNER_BAR = 0.5
+# phase 29, px at a 4K frame's corners (tests/test_torch_ransac_refit.py):
+# the float64 kernels against their plain versions in float64, and in
+# float32, the path's own arithmetic before the kernels
+REFIT_BAR64, REFIT_BAR32 = 1e-3, 0.01
 
 # published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (also used for B8's
@@ -446,7 +459,8 @@ def group_rel(got, want, p, with_hessian=True):
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
     from libstacker_tpu_torch.ops import (
-        ecc_cuda, fast_cuda, orb_cuda, sr_cuda, warp_accum_cuda, warp_cuda,
+        ecc_cuda, fast_cuda, orb_cuda, ransac_cuda, sr_cuda, warp_accum_cuda,
+        warp_cuda,
     )
 
     return {
@@ -467,6 +481,8 @@ def counters():
         "warp_frames": (warp_cuda, "frames_launch_count"),
         "warp_frames_accum": (warp_cuda, "accum_launch_count"),
         "warp3": (warp_cuda, "warp3_launch_count"),
+        "ransac_dlt": (ransac_cuda, "dlt_launch_count"),
+        "ransac_refine": (ransac_cuda, "refine_launch_count"),
     }
 
 
@@ -505,6 +521,8 @@ def missing(launches: dict, names) -> list:
 
 # every keypoint path detects through B8, B3h and B3d, never B3
 KP_DETECT = ("fast", "orb_harris", "orb_describe")
+# and refits its RANSAC inliers through the DLT and polish kernels
+KP_REFIT = ("ransac_dlt", "ransac_refine")
 
 
 def stray(launches: dict, names=("orb_extract",)) -> list:
@@ -1461,7 +1479,8 @@ def phase_kp_full(dev, frames, truth):
         ok = (dropped == 0 and finite and c_err < corner_bar
               and (bar is None or q < bar)
               and tuple(out.shape) == (FULL_H, FULL_W, 3)
-              and not missing(launches, KP_DETECT + ("warp_accum",))
+              and not missing(launches,
+                              KP_DETECT + KP_REFIT + ("warp_accum",))
               and not stray(launches))
         log(f"[9 keypoint slice {label}] {n}x{FULL_H}x{FULL_W} u8, default "
             f"parameters, detection on {scale_hw or (FULL_H, FULL_W)}: cold "
@@ -1480,6 +1499,112 @@ def phase_kp_full(dev, frames, truth):
             full_out = out
         del out
     return results, ref, full_out
+
+
+def refit_inputs(dev, frames):
+    """The refit inputs of ``_match_and_estimate`` on ``frames`` at full
+    resolution with the default parameters (seed 0): ``(points, (src_n,
+    dst_n, weights) of the DLT, (h, src, dst, weights, iters) of the
+    polish)``, taken from the calls themselves."""
+    from libstacker_tpu_torch import KeyPointMatchParameters
+    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import orb, ransac
+
+    params = KeyPointMatchParameters()
+    feats = orb.orb_detect_and_compute(keypoint._grey(frames))
+    names = ("_points", "_dlt_least_squares", "_gauss_newton_refine")
+    real = {name: getattr(ransac, name) for name in names}
+    seen = {}
+
+    def spy(name):
+        def call(*args):
+            seen[name] = args
+            return real[name](*args)
+        return call
+
+    for name in names:
+        setattr(ransac, name, spy(name))
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        keypoint._match_and_estimate(
+            feats, gen, params.method, params.ransac_reproj_threshold,
+            params.match_keep_ratio, params.match_ratio, params.max_iters,
+            params.confidence)
+    finally:
+        for name in names:
+            setattr(ransac, name, real[name])
+    return (real["_points"](*seen["_points"]), seen["_dlt_least_squares"],
+            seen["_gauss_newton_refine"])
+
+
+def phase_refit(dev, frames):
+    """Phase 29: RANSAC's DLT and polish kernels on phase 9's refit
+    inputs, against their plain versions on the CPU in float64 and
+    float32 and timed against the plain versions on the card."""
+    from libstacker_tpu_torch.ops import ransac, ransac_cuda
+    from stackbench.roofline import ransac_refit as counts
+
+    p, dlt_args, refine_args = refit_inputs(dev, frames)
+    lanes, slots = dlt_args[2].shape
+    iters = refine_args[4]
+    t_src, t_dst_inv = p.t_src.cpu().double(), p.t_dst_inv.cpu().double()
+
+    def px(h_n):
+        """A DLT answer in normalised coordinates, in pixels."""
+        return (t_dst_inv @ h_n.cpu().double() @ t_src).numpy()
+
+    def on_cpu(args, dtype):
+        return [a.cpu().to(dtype) if torch.is_tensor(a) else a
+                for a in args]
+
+    runs = {
+        "dlt": (lambda: ransac_cuda.dlt(*dlt_args),
+                lambda dt: px(ransac._dlt_plain(*on_cpu(dlt_args, dt))),
+                lambda: ransac._dlt_plain(*dlt_args), px,
+                counts.DLT_KERNEL,
+                counts.dlt_bound_s(lanes + 1, slots) * 1e3),
+        "refine": (lambda: ransac_cuda.refine(*refine_args),
+                   lambda dt: ransac._refine_plain(
+                       *on_cpu(refine_args, dt)).numpy(),
+                   lambda: ransac._refine_plain(*refine_args),
+                   lambda h: h.cpu().double().numpy(),
+                   counts.REFINE_KERNEL,
+                   counts.refine_bound_s(lanes + 1, slots, iters) * 1e3),
+    }
+    recs, bad = {}, []
+    for label, (kernel, plain_cpu, plain_card, to_px, piece,
+                b_ms) in runs.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
+        got = to_px(got)
+        gap64 = corner_err(got, plain_cpu(torch.float64), FULL_H, FULL_W)
+        gap32 = corner_err(got, plain_cpu(torch.float32), FULL_H, FULL_W)
+        ms = time_ms(kernel, 50)
+        plain_ms = time_ms(plain_card, 5)
+        _, _, dev_ms = device_profile(kernel, piece)
+        ok = same and gap64 < REFIT_BAR64 and gap32 < REFIT_BAR32
+        steps = f", {iters} steps" if label == "refine" else ""
+        log(f"[29 RANSAC refit {label}] {lanes} frames of {slots} slots "
+            f"(phase 9's burst){steps}: corners within {gap64:.2e} px of "
+            f"the float64 plain "
+            f"version (bar {REFIT_BAR64}) and {gap32:.2e} px of the "
+            f"float32 one (bar {REFIT_BAR32}), same bits on a second "
+            f"launch {same}; kernel {ms:.4f} ms ({dev_ms:.4f} ms of "
+            f"device time in {piece}), bound {b_ms:.6f} ms (operations "
+            f"or bytes, {b_ms / dev_ms:.5f} of it); plain version on the "
+            f"card {plain_ms:.4f} ms -> {'OK' if ok else 'FAILED'}")
+        if not ok:
+            bad.append(label)
+        recs[label] = dict(
+            corner_gap_f64_px=gap64, corner_gap_f32_px=gap32,
+            same_bits_twice=same, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=b_ms,
+            **design_report(f"refit {label}", "ransac_refit", piece, dev_ms,
+                            b_ms))
+    if bad:
+        fail(f"the refit kernel(s) {bad} missed a bar")
+    return recs
 
 
 def rel_err(a, b) -> float:
@@ -2113,11 +2238,12 @@ def phase_kp_variants(dev, frames, truth, ref):
     mask[: FULL_H // 4, : FULL_W // 4] = 0
     cases = (
         ("sigma_clip", dict(stacking="sigma_clip"), None, None,
-         KP_DETECT + ("warp_moments",), None),
+         KP_DETECT + KP_REFIT + ("warp_moments",), None),
         ("replicate", dict(border_mode=constants.BORDER_REPLICATE), None,
-         None, KP_DETECT + ("warp_frames_accum",), KP_P99_BAR),
+         None, KP_DETECT + KP_REFIT + ("warp_frames_accum",),
+         KP_P99_BAR),
         ("scaled-800 mask", {}, 800.0, mask,
-         KP_DETECT + ("warp_accum",), None),
+         KP_DETECT + KP_REFIT + ("warp_accum",), None),
     )
     results = {}
     for label, kw, sdw, m, kernels, bar in cases:
@@ -2456,7 +2582,8 @@ def phase_kp_sr(dev, frames, mean_out):
           and tuple(out.shape) == (2 * FULL_H, 2 * FULL_W, 3)
           and box_err < SR_BOX_BAR and launches["sr_image"] == 1
           and launches["sr_deposit"] == 0 and launches["warp_accum"] == 0
-          and not missing(launches, KP_DETECT) and not stray(launches))
+          and not missing(launches, KP_DETECT + KP_REFIT)
+          and not stray(launches))
     log(f"[20 keypoint super-resolution] {n}x{FULL_H}x{FULL_W} u8, default "
         f"parameters, output_scale=2 -> {tuple(out.shape)}: cold "
         f"{cold_s:.3f} s, warm {warm_s:.3f} s | stages ms: {splits} | kept "
@@ -3653,6 +3780,8 @@ def main(argv=None) -> int:
     kp, kp_ref, kp_out = phase_kp_full(dev, frames, truth)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    refit = phase_refit(dev, frames)
+    torch.cuda.empty_cache()
     b4 = phase_b4(dev, ecc_frames, ecc_truth)
     torch.cuda.empty_cache()
     b5, b5f, b5a = phase_b5(dev, frames, truth)
@@ -3795,6 +3924,22 @@ def main(argv=None) -> int:
                            "(libstacker_tpu/ops/ecc.py:236 _input_fields "
                            "and the solve's template prep)",
              **counts("ecc_blur"), **blur),
+        dict(name="ransac_dlt", route="cuda",
+             source="libstacker_tpu_torch/csrc/ransac_refit.cu",
+             replaces=None,
+             replaces_note="no TPU kernel: the JAX package's XLA-level "
+                           "jnp eigh of the weighted DLT's Gram "
+                           "(libstacker_tpu/ops/ransac.py:93 "
+                           "_dlt_least_squares)",
+             **counts("ransac_dlt"), **refit["dlt"]),
+        dict(name="ransac_refine", route="cuda",
+             source="libstacker_tpu_torch/csrc/ransac_refit.cu",
+             replaces=None,
+             replaces_note="no TPU kernel: the JAX package's XLA-level "
+                           "jnp Gauss-Newton polish, ten 8x8 solves "
+                           "(libstacker_tpu/ops/ransac.py:109 "
+                           "_gauss_newton_refine)",
+             **counts("ransac_refine"), **refit["refine"]),
         dict(name="ecc_ic_moments", route="cuda",
              source="libstacker_tpu_torch/csrc/ecc_ic_moments.cu",
              replaces="libstacker_tpu/ops/ecc_pallas.py:460",

@@ -45,13 +45,12 @@ from ..errors import InvalidParamsError, NotEnoughFilesError
 from ..params import KeyPointMatchParameters
 from ..ops import color, matcher, orb, ransac, resize, warp
 from ..ops import stack as stack_ops
-from ..ops.ecc import _phase
 from ..ops.warp_batch import warp_accumulate_rgb
 from ..ops.warp_cuda import warp_frames
 from ..utils import checkpoint as ckpt_mod
 from ..utils import io
 from ..utils.device import resolve_device
-from ..utils.tracing import PhaseTimer, PipelineStats
+from ..utils.tracing import PhaseTimer, PipelineStats, phase_of, span_of
 from .ecc import (
     _ecc_mask, _f32, _frame0_lanes, _mask_key, _numpy_device, _pad_burst,
     _resolve_mesh,
@@ -97,23 +96,29 @@ def _match_and_estimate(
     match_ratio: float,
     max_iters: int = 2000,
     confidence: float = 0.995,
+    timer=None,
 ):
     """Stage 3: frames 1..N-1 matched against frame 0 and their
-    homographies (frame-i -> frame-0) estimated, all at once.
+    homographies (frame-i -> frame-0) estimated, all at once; the host
+    waits for the card only inside RANSAC's loop, once after each
+    slab.  ``timer`` records a ``kp.match`` span around the matching
+    and RANSAC's spans.
 
     Returns (hs [N-1,3,3], oks [N-1], match_counts, inlier_counts)."""
-    knn = matcher.knn_match2(feats.descriptors[0], feats.descriptors[1:],
-                             feats.valid[0], feats.valid[1:])
-    filt = matcher.ratio_filter_sort_keep(knn, match_ratio, match_keep_ratio)
-    src = feats.xy[0][filt.query_idx]  # frame-0 points (match.query)
-    dst = torch.gather(feats.xy[1:], 1,
-                       filt.train_idx[..., None].expand(-1, -1, 2))
-    enough = filt.count >= 5  # ref src/lib.rs:240-242
+    with span_of(timer, "kp.match"):
+        knn = matcher.knn_match2(feats.descriptors[0], feats.descriptors[1:],
+                                 feats.valid[0], feats.valid[1:])
+        filt = matcher.ratio_filter_sort_keep(knn, match_ratio,
+                                              match_keep_ratio)
+        src = feats.xy[0][filt.query_idx]  # frame-0 points (match.query)
+        dst = torch.gather(feats.xy[1:], 1,
+                           filt.train_idx[..., None].expand(-1, -1, 2))
+        enough = filt.count >= 5  # ref src/lib.rs:240-242
     # find_homography(dst_pts, src_pts): H maps frame-i -> frame-0
     res = ransac.find_homography(
         dst, src, filt.keep, generator, method=method,
         reproj_threshold=ransac_reproj_threshold, max_iters=max_iters,
-        confidence=confidence,
+        confidence=confidence, timer=timer,
     )
     det = torch.linalg.det(res.h)
     ok = enough & res.ok & (torch.abs(det) >= 1e-6)  # ref src/lib.rs:279-287
@@ -252,7 +257,10 @@ def keypoint_match_arrays(
     stack in [0,1] on frame 0's grid, as numpy, or as a tensor on the
     device with ``device_output=True``; ``return_stats`` adds a
     ``PipelineStats`` (match and inlier counts per frame, stage times in
-    ``phase_ms``, each ending in a device synchronise).
+    ``phase_ms``, each ending in a device synchronise, the spans inside
+    detection and RANSAC in ``spans`` and RANSAC's slab count in
+    ``ransac_slabs``).  Without stats the host waits for the card
+    inside RANSAC's loop (once a slab) and once for the kept flags.
 
     ``mask`` ([H,W], nonzero = valid) is cv2 ``detectAndCompute``'s
     detection mask, applied to every frame (shrunk to the detection
@@ -313,12 +321,12 @@ def keypoint_match_arrays(
     # keypoint.py _prepare_det_mask :341-357)
     det_mask = None if mask is None else _ecc_mask(mask, (h, w), scale_hw, dev)
     timer = PhaseTimer(dev) if return_stats else None
-    with _phase(timer, "grey"):
+    with phase_of(timer, "grey"):
         grey = _grey(frames_t, scale_hw)
-    with _phase(timer, "detect"):
-        feats = orb.orb_detect_and_compute(grey, mask=det_mask)
+    with phase_of(timer, "detect"):
+        feats = orb.orb_detect_and_compute(grey, mask=det_mask, timer=timer)
     del grey
-    with _phase(timer, "match+ransac"):
+    with phase_of(timer, "match+ransac"):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         hs, oks, mcounts, icounts = _match_and_estimate(
@@ -327,12 +335,13 @@ def keypoint_match_arrays(
             match_keep_ratio=params.match_keep_ratio,
             match_ratio=params.match_ratio,
             max_iters=params.max_iters, confidence=params.confidence,
+            timer=timer,
         )
     sigma = params.stacking == "sigma_clip"
     sr_factor = params.output_scale
     final = sigma or sr_factor > 1  # per-pixel divisors: no divide below
     clip_frac = None
-    with _phase(timer, "stack"):
+    with phase_of(timer, "stack"):
         hs_full = hs
         if final and scale_hw is not None:
             hs_full = _adjust_h_for_scale(hs, scale_hw, (h, w))
@@ -367,6 +376,7 @@ def keypoint_match_arrays(
             clipped_sample_frac=clip_frac,
             phase_ms=timer.ms(),
             spans=timer.spans(),
+            ransac_slabs=timer.counts.get("ransac_slabs"),
         )
         return dropped, out, stats
     return dropped, out

@@ -66,13 +66,13 @@ B1 as a 4th source plane; with a mask 'ic' solves in forward mode
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..params import MotionType
 from ..utils import cuda_build
+from ..utils.tracing import phase_of as _phase, span_of as _span
 from . import ecc_cuda, filters, resize, warp
 
 # Iterations between host convergence checks (the reference's
@@ -176,19 +176,6 @@ def _rescale_warp_batch(
         w[..., 2, 0] /= s
         w[..., 2, 1] /= s
     return w
-
-
-_NO_SPAN = contextlib.nullcontext()
-
-
-def _phase(timer, name: str):
-    return _NO_SPAN if timer is None else timer.phase(name)
-
-
-def _span(timer, name: str):
-    """``timer.span(name)``; without a timer one shared no-op, so an
-    untraced solve pays one branch a span and allocates nothing."""
-    return _NO_SPAN if timer is None else timer.span(name)
 
 
 def _prepare_masked_input(input_image, input_mask, gauss_filt_size: int):

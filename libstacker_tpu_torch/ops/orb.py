@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import constants
+from ..utils.tracing import span_of
 from . import fast, fast_cuda, orb_cuda, resize
 
 
@@ -89,6 +90,7 @@ def orb_detect_and_compute(
     patch_size: int = 31,
     fast_threshold: int = 20,
     mask: Optional[torch.Tensor] = None,
+    timer=None,
 ) -> OrbFeatures:
     """Detect and describe on ``[N,H,W]`` uint8 grey frames ->
     :class:`OrbFeatures` of ``[N,K,...]`` (K = nfeatures on full-size
@@ -100,7 +102,11 @@ def orb_detect_and_compute(
     image and re-binarised at each level (``rint(m * 255) >= 255``: only
     pixels whose whole support was valid survive), and it filters the
     candidates after FAST's non-maximum suppression (a masked stronger
-    corner still suppresses its valid neighbours)."""
+    corner still suppresses its valid neighbours).
+
+    ``timer`` (a ``utils.tracing.PhaseTimer``) records an ``orb.level``
+    span a pyramid level and, inside it, an ``orb.topk`` span around
+    the candidates' top-k."""
     if imgs.ndim != 3 or imgs.dtype != torch.uint8:
         raise ValueError(
             f"imgs must be [N,H,W] uint8, got {tuple(imgs.shape)} {imgs.dtype}"
@@ -121,44 +127,49 @@ def orb_detect_and_compute(
     level_img = imgs.contiguous()
     feats = []
     for level in range(nlevels):
-        scale = scale_factor ** level
-        if level > 0:
-            lh = int(round(h / scale))
-            lw = int(round(w / scale))
-            level_img = resize.resize(level_img, (lh, lw),
-                                      constants.INTER_LINEAR)
+        with span_of(timer, "orb.level"):
+            scale = scale_factor ** level
+            if level > 0:
+                lh = int(round(h / scale))
+                lw = int(round(w / scale))
+                level_img = resize.resize(level_img, (lh, lw),
+                                          constants.INTER_LINEAR)
+                if level_mask is not None:
+                    level_mask = resize.resize(level_mask, (lh, lw),
+                                               constants.INTER_LINEAR)
+                    level_mask = (torch.round(level_mask * 255.0)
+                                  >= 255.0).to(torch.float32)
+            lh, lw = level_img.shape[-2:]
+            quota = quotas[level]
+            if (quota == 0 or lh <= 2 * edge_threshold
+                    or lw <= 2 * edge_threshold):
+                continue
+            score = fast_cuda.fast_scores(level_img, fast_threshold,
+                                          edge_threshold)
+            det = score > 0.0
             if level_mask is not None:
-                level_mask = resize.resize(level_mask, (lh, lw),
-                                           constants.INTER_LINEAR)
-                level_mask = (torch.round(level_mask * 255.0) >= 255.0).to(
-                    torch.float32)
-        lh, lw = level_img.shape[-2:]
-        quota = quotas[level]
-        if quota == 0 or lh <= 2 * edge_threshold or lw <= 2 * edge_threshold:
-            continue
-        score = fast_cuda.fast_scores(level_img, fast_threshold,
-                                      edge_threshold)
-        det = score > 0.0
-        if level_mask is not None:
-            det = det & (level_mask > 0.5)  # after NMS
-        cand = fast.top_k_keypoints(det, score, min(2 * quota, lh * lw))
-        del score
-        hval, kys, kxs, kvalid = orb_cuda.select_keypoints(
-            level_img, cand.ys, cand.xs, cand.valid, quota)
-        angles, desc = orb_cuda.describe(level_img, kys, kxs)
-        xy = torch.stack([kxs.to(torch.float32) * scale,
-                          kys.to(torch.float32) * scale], dim=-1)
-        dev = imgs.device
-        feats.append(OrbFeatures(
-            xy=xy,
-            response=hval,
-            angle=angles,
-            octave=torch.full((n, quota), level, dtype=torch.int32, device=dev),
-            size=torch.full((n, quota), patch_size * scale,
-                            dtype=torch.float32, device=dev),
-            valid=kvalid,
-            descriptors=desc,
-        ))
+                det = det & (level_mask > 0.5)  # after NMS
+            with span_of(timer, "orb.topk"):
+                cand = fast.top_k_keypoints(det, score,
+                                            min(2 * quota, lh * lw))
+            del score
+            hval, kys, kxs, kvalid = orb_cuda.select_keypoints(
+                level_img, cand.ys, cand.xs, cand.valid, quota)
+            angles, desc = orb_cuda.describe(level_img, kys, kxs)
+            xy = torch.stack([kxs.to(torch.float32) * scale,
+                              kys.to(torch.float32) * scale], dim=-1)
+            dev = imgs.device
+            feats.append(OrbFeatures(
+                xy=xy,
+                response=hval,
+                angle=angles,
+                octave=torch.full((n, quota), level, dtype=torch.int32,
+                                  device=dev),
+                size=torch.full((n, quota), patch_size * scale,
+                                dtype=torch.float32, device=dev),
+                valid=kvalid,
+                descriptors=desc,
+            ))
     if not feats:
         return _empty_features(n, imgs.device)
     return OrbFeatures(*(torch.cat(parts, dim=1) for parts in zip(*feats)))

@@ -185,16 +185,21 @@ def _resize_axis(x: torch.Tensor, axis: int, dst: int,
         wshape[axis] = len(rows)
         prods = [x.index_select(axis, i) * w.reshape(wshape)
                  for i, w in zip(idx, wt)]
-
-        def total(node):
-            if isinstance(node, tuple):
-                return total(node[0]) + total(node[1])
-            return prods[node]
-
         if out is None:  # one group: every output, in order
-            return total(tree)
-        out.index_copy_(axis, rows, total(tree))
+            return _tree_sum(tree, prods)
+        out.index_copy_(axis, rows, _tree_sum(tree, prods))
     return out
+
+
+def _tree_sum(node, prods):
+    """The products summed in the order ``node`` gives: a pair adds its
+    halves' sums, an index is that product.  A module function, not a
+    closure that calls itself: such a closure is a reference cycle that
+    would keep ``prods`` (a full float32 image a tap) alive until the
+    next garbage collection."""
+    if isinstance(node, tuple):
+        return _tree_sum(node[0], prods) + _tree_sum(node[1], prods)
+    return prods[node]
 
 
 def row_span(src: int, dst: int, first: int, last: int,
@@ -225,13 +230,7 @@ def resize_rows(x: torch.Tensor, src: int, dst: int, first: int, last: int,
         prods = [xf.index_select(-2, torch.from_numpy(i - origin).to(x.device))
                  * torch.from_numpy(w).to(x.device)[:, None]
                  for i, w in zip(idx[sel].T, wt[sel].T)]
-
-        def total(node):
-            if isinstance(node, tuple):
-                return total(node[0]) + total(node[1])
-            return prods[node]
-
-        out.index_copy_(-2, at, total(tree))
+        out.index_copy_(-2, at, _tree_sum(tree, prods))
     return out
 
 

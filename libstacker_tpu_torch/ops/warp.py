@@ -38,8 +38,10 @@ def affine_to_3x3(m: torch.Tensor) -> torch.Tensor:
 
 
 def invert_3x3(m: torch.Tensor) -> torch.Tensor:
-    """float32 inverse of ``[..., 3, 3]`` matrices."""
-    return torch.linalg.inv(m.to(torch.float32))
+    """float32 inverse of ``[..., 3, 3]`` matrices (``inv_ex``: bitwise
+    ``linalg.inv``, without the check of ``info`` that makes the host
+    wait for the card; a singular matrix gives non-finite entries)."""
+    return torch.linalg.inv_ex(m.to(torch.float32))[0]
 
 
 def _dst_coords(

@@ -7,7 +7,10 @@ given a CUDA device synchronises at its end so that its wall time
 includes the device work it enqueued (PyTorch returns before the card
 finishes), and spans nested in it, which never synchronise.  Each span
 opens a ``torch.profiler`` range ``stage:<name>``, so a trace shows it
-on the clock of the card's kernels.
+on the clock of the card's kernels.  A timer also keeps a call's counts
+(:meth:`PhaseTimer.count`).  The module functions :func:`phase_of`,
+:func:`span_of` and :func:`count_of` take a timer or None, so that a
+call without stats pays one branch a span.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ class PhaseTimer:
         # [name, parent, host s, start event, end event] in start order
         self._records: List[list] = []
         self._open: List[str] = []
+        #: name -> count, in first-seen order (:meth:`count`)
+        self.counts: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def _record(self, name: str, sync: bool):
@@ -89,6 +94,10 @@ class PhaseTimer:
         """A span nested in the open phase or span; never synchronises."""
         return self._record(name, sync=False)
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the call's count ``name``."""
+        self.counts[name] = self.counts.get(name, 0) + n
+
     def spans(self) -> List[Span]:
         """Every span in start order, as ``(name, parent, host_ms,
         device_ms)``."""
@@ -108,6 +117,25 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def phase_of(timer: Optional[PhaseTimer], name: str):
+    """``timer.phase(name)``, or without a timer one shared no-op."""
+    return _NO_SPAN if timer is None else timer.phase(name)
+
+
+def span_of(timer: Optional[PhaseTimer], name: str):
+    """``timer.span(name)``, or without a timer one shared no-op."""
+    return _NO_SPAN if timer is None else timer.span(name)
+
+
+def count_of(timer: Optional[PhaseTimer], name: str, n: int = 1) -> None:
+    """``timer.count(name, n)``; nothing without a timer."""
+    if timer is not None:
+        timer.count(name, n)
+
+
 @dataclasses.dataclass
 class PipelineStats:
     """Structured per-run observability (SURVEY.md §5 metrics/logging)."""
@@ -124,10 +152,16 @@ class PipelineStats:
     #: by the kappa-sigma clip (0.0 on outlier-free bursts).
     clipped_sample_frac: Optional[float] = None
     #: the call's spans in start order, ``(name, parent, host_ms,
-    #: device_ms)`` (``PhaseTimer.spans``): the phases, and inside the
-    #: ECC solve ``ecc.prep``, ``ecc.sweep``, ``ecc.check`` and
-    #: ``ecc.rescue``.
+    #: device_ms)`` (``PhaseTimer.spans``): the phases; inside the ECC
+    #: solve ``ecc.prep``, ``ecc.sweep``, ``ecc.check`` and
+    #: ``ecc.rescue``; inside the keypoint path's ``detect`` an
+    #: ``orb.level`` a pyramid level with its ``orb.topk``, and inside
+    #: ``match+ransac`` ``kp.match``, a ``ransac.loop`` and a
+    #: ``ransac.check`` a slab of RANSAC's loop, and ``ransac.refit``.
     spans: Optional[List[Span]] = None
+    #: keypoint path: the slabs of ``ops.ransac._SLAB`` hypotheses its
+    #: RANSAC loop ran (the whole-burst entry point, with stats).
+    ransac_slabs: Optional[int] = None
 
     def summary(self) -> str:
         parts = [

@@ -1,0 +1,11 @@
+"""``ransac_refine_roofline``: the Gauss-Newton polish kernel's share of
+its roofline, in % (``stackbench/roofline/ransac_refit.py``): one launch
+of ten steps a call, a block a frame; latency-bound, so the share is
+small."""
+
+from stackbench.metrics import _refit_roofline
+from stackbench.roofline import ransac_refit as R
+
+
+def read(ctx):
+    return _refit_roofline.share(ctx, R.REFINE_KERNEL, R.refine_bound_s)

@@ -68,6 +68,12 @@ tests/test_torch_ecc_blur.py (ksize 19 and 21 through its direct form),
 aligned and one float past a 16-byte boundary; a CUDA solve ('forward'
 with and without an octave, 'lazy', 'ic') launches it twice a solved
 level and returns bitwise what the plain pre-filter's solve returns.
+RANSAC's refit kernels (``csrc/ransac_refit.cu``) on the cases of
+tests/test_torch_ransac_refit.py at its bars (float64 kernels: 1e-3 px
+at a 4K frame's corners from the plain versions in float64, 0.01 px
+from the float32 ones), the same bits on a second run; ORB detection
+and ``_match_and_estimate`` under ``set_sync_debug_mode("error")`` but
+for RANSAC's one read a slab.
 """
 
 import numpy as np
@@ -78,6 +84,7 @@ pytest.importorskip("scipy")
 
 import test_torch_ecc_blur as blur_design  # noqa: E402
 import test_torch_orb_design as orb_design  # noqa: E402
+import test_torch_ransac_refit as refit_design  # noqa: E402
 import test_torch_warp_design as warp_design  # noqa: E402
 import test_torch_warp_frames_design as frames_design  # noqa: E402
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
@@ -1472,3 +1479,76 @@ def test_solve_through_the_blur_kernel(dev, monkeypatch, mode,
     want = solve()
     for name in ("warp_matrix", "rho", "ok", "num_iters"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("seed", refit_design.SEEDS)
+def test_ransac_refit_kernels_near_plain(dev, seed):
+    """The DLT and polish kernels on the card against their plain
+    versions on the CPU, in float64 and in float32, at the bars of
+    tests/test_torch_ransac_refit.py; a second launch gives the same
+    bits."""
+    from libstacker_tpu_torch.ops import ransac, ransac_cuda
+
+    p, wts, start = refit_design.refit_inputs(seed)
+    on = [x.to(dev) for x in (p.src_n, p.dst_n, wts, start, p.src, p.dst)]
+    src_n, dst_n, w, h0, src, dst = on
+    dlt = [ransac_cuda.dlt(src_n, dst_n, w) for _ in range(2)]
+    ref = [ransac_cuda.refine(h0, src, dst, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dlt[0], dlt[1]) and torch.equal(ref[0], ref[1])
+    got = refit_design.pixels(p, dlt[0].cpu())
+    for dtype, bar in ((torch.float64, refit_design.BAR64),
+                       (torch.float32, refit_design.BAR32)):
+        plain = ransac._dlt_least_squares(p.src_n.to(dtype),
+                                          p.dst_n.to(dtype), wts.to(dtype))
+        plain = refit_design.pixels(p, plain)
+        assert refit_design.corner_gap(got, plain) < bar
+        plain = ransac._gauss_newton_refine(start.to(dtype), p.src.to(dtype),
+                                            p.dst.to(dtype), wts.to(dtype))
+        assert refit_design.corner_gap(ref[0].cpu(), plain) < bar
+
+
+def test_detect_and_match_wait_only_for_the_loop(dev, monkeypatch):
+    """ORB detection and ``_match_and_estimate`` on the card never make
+    the host wait for it, but for RANSAC's one read a slab, which runs
+    with the check off and is counted."""
+    from libstacker_tpu_torch import KeyPointMatchParameters
+    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import orb, ransac, ransac_cuda
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    frames, _ = make_textured_burst(6, 540, 960, seed=4, device=dev)
+    p = KeyPointMatchParameters()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grey = keypoint._grey(frames)
+    orb.orb_detect_and_compute(grey)  # kernels loaded, constants copied
+    keypoint._match_and_estimate(orb.orb_detect_and_compute(grey), gen,
+                                 p.method, p.ransac_reproj_threshold,
+                                 p.match_keep_ratio, p.match_ratio)
+    torch.cuda.synchronize()
+    reads = []
+    real_read = ransac._still_active
+
+    def allowed(active):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(real_read(active))
+            return reads[-1]
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(ransac, "_still_active", allowed)
+    launches = ransac_cuda.dlt_launch_count, ransac_cuda.refine_launch_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feats = orb.orb_detect_and_compute(grey)
+        hs, ok, _, _ = keypoint._match_and_estimate(
+            feats, gen, p.method, p.ransac_reproj_threshold,
+            p.match_keep_ratio, p.match_ratio)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert reads == [False]  # one slab meets every lane's bound
+    assert bool(ok.all())
+    assert (ransac_cuda.dlt_launch_count - launches[0],
+            ransac_cuda.refine_launch_count - launches[1]) == (1, 1)

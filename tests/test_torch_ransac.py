@@ -16,7 +16,18 @@ side vmapped over frames as ``_match_and_estimate`` runs it.  Bars:
   the JAX package statistically: the image corners mapped within 0.5 px
   of the truth and of the JAX estimate, inlier counts within 5% of the
   JAX package's.
+
+The port's own loop: the adaptive loop reads its active mask once
+after each slab and not before the first (``_adaptive_best``); it is
+held bitwise (best H, the answer's H, inliers and ``ok``, the
+generator's state) to a loop that reads before every slab, the loop the
+port ran before, over lanes that stop after 1 to 16 slabs and several
+generator seeds; LMEDS and method 0
+bitwise to the helpers composed as before; the normalisation's inverse
+(``inv_ex``) bitwise ``torch.linalg.inv``'s.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -213,3 +224,192 @@ def test_too_few_and_degenerate_points():
     assert n(res.ok).all()
     proj = np.c_[pts, np.ones(len(pts))] @ n(res.h)[0].astype(np.float64).T
     assert np.abs(proj[:, :2] / proj[:, 2:] - dst).max() < 1.0
+
+
+def _one_read_loop(p, gen, thresh_sq, max_iters=2000, confidence=0.995):
+    """RANSAC's adaptive loop reading the active mask before every slab
+    (the port's former loop): ``(best_h, slabs run)``."""
+    bsz = p.valid.shape[0]
+    countf = torch.clamp(p.count.to(torch.float32), min=1.0)
+    log_conf = float(np.float32(
+        math.log(max(1.0 - float(np.float32(confidence)), 1e-12))))
+
+    def needed_iters(best_ninl):
+        w = best_ninl.to(torch.float32) / countf
+        denom = torch.log(torch.clamp(1.0 - w ** 4, min=1e-30))
+        need = torch.where(best_ninl >= 4, torch.ceil(log_conf / denom),
+                           torch.full_like(w, float(max_iters)))
+        return torch.clamp(need, 1.0, float(max_iters)).to(torch.int64)
+
+    best_h = ransac._eye((bsz,), "cpu")
+    best_ninl = torch.full((bsz,), -1, dtype=torch.int64)
+    done = torch.zeros(bsz, dtype=torch.int64)
+    lanes = torch.arange(bsz)
+    slabs = 0
+    while True:
+        active = done < torch.clamp(needed_iters(best_ninl), max=max_iters)
+        if not bool(active.any()):
+            return best_h, slabs
+        h_px, errs, ok_samp = ransac._hypotheses(p, gen, ransac._SLAB)
+        n_inl = (errs <= thresh_sq).sum(-1)
+        n_inl = torch.where(ok_samp, n_inl, torch.full_like(n_inl, -1))
+        sbest = torch.argmax(n_inl, dim=-1)
+        top = n_inl[lanes, sbest]
+        better = active & (top > best_ninl)
+        best_h = torch.where(better[:, None, None], h_px[lanes, sbest],
+                             best_h)
+        best_ninl = torch.where(active, torch.maximum(best_ninl, top),
+                                best_ninl)
+        done = done + ransac._SLAB * active.to(torch.int64)
+        slabs += 1
+
+
+def _staggered():
+    """Lanes that stop after different numbers of slabs: inlier shares
+    of 0.95, 0.45 and 0.27 (1, 2 and 9 slabs of 128 at confidence
+    0.995, each lane alone) and a lane of 3 valid points (16 slabs, up
+    to 2000 hypotheses)."""
+    src, dst, valid, _ = _batch(21, outlier_fracs=(0.05, 0.55, 0.73, 0.0))
+    valid[3, 3:] = False
+    return t(src), t(dst), t(valid)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 16])
+def test_chunked_loop_equals_one_read_a_slab(monkeypatch, seed):
+    """The loop that reads after each slab and not before the first
+    against the one that reads before every slab: the same bits, the
+    same generator state, one read a slab."""
+    src, dst, valid = _staggered()
+    p = ransac._points(src, dst, valid)
+    thresh_sq = 9.0
+    g_old = torch.Generator().manual_seed(seed)
+    want_h, want_slabs = _one_read_loop(p, g_old, thresh_sq)
+    assert want_slabs == 16  # the 3-point lane runs to max_iters
+    reads = []
+    real_read = ransac._still_active
+
+    def counted(active):
+        reads.append(active.shape)
+        return real_read(active)
+
+    monkeypatch.setattr(ransac, "_still_active", counted)
+    g_new = torch.Generator().manual_seed(seed)
+    got_h, got_slabs = ransac._adaptive_best(p, g_new, thresh_sq, 2000,
+                                             0.995)
+    assert torch.equal(got_h, want_h)
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+    assert got_slabs == want_slabs == len(reads)
+    assert set(reads) == {(4,)}
+
+
+@pytest.mark.parametrize("max_iters,bsz", [(0, 4), (2000, 0)])
+def test_loop_runs_no_slab_with_nothing_to_draw(max_iters, bsz):
+    """No budget or no lane: no slab, no read, no draw, as the loop
+    that reads before every slab."""
+    src, dst, valid = (x[:bsz] for x in _staggered())
+    p = ransac._points(src, dst, valid)
+    g_old = torch.Generator().manual_seed(5)
+    want_h, want_slabs = _one_read_loop(p, g_old, 9.0, max_iters)
+    g_new = torch.Generator().manual_seed(5)
+    got_h, got_slabs = ransac._adaptive_best(p, g_new, 9.0, max_iters,
+                                             0.995)
+    assert got_slabs == want_slabs == 0
+    assert torch.equal(got_h, want_h)
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+@pytest.mark.parametrize("fracs,seed", [
+    ((0.05, 0.55, 0.73, 0.0), 1), ((0.05, 0.55, 0.73, 0.0), 4),
+    ((0.3, 0.5, 0.2), 1), ((0.0, 0.0), 2)])
+def test_chunked_answer_equals_one_read_a_slab(monkeypatch, fracs, seed):
+    """The whole estimate, loop and refit, with the former loop swapped
+    in: the same bits, and the same generator state after it."""
+    src, dst, valid, _ = _batch(31, outlier_fracs=fracs)
+    g_new = torch.Generator().manual_seed(seed)
+    got = ransac.find_homography(t(src), t(dst), t(valid), g_new)
+    monkeypatch.setattr(
+        ransac, "_adaptive_best",
+        lambda p, g, th, mi, conf, timer=None: _one_read_loop(p, g, th, mi,
+                                                              conf))
+    g_old = torch.Generator().manual_seed(seed)
+    want = ransac.find_homography(t(src), t(dst), t(valid), g_old)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+@pytest.mark.parametrize("method", [constants.LMEDS, 0])
+def test_lmeds_and_least_squares_unchanged(method):
+    """LMEDS and method 0 compose the helpers as they did."""
+    src, dst, valid, _ = _batch(41, outlier_fracs=(0.2, 0.0))
+    s, d, v = t(src), t(dst), t(valid)
+    got = ransac.find_homography(s, d, v, torch.Generator().manual_seed(2),
+                                 method=method)
+    p = ransac._points(s, d, v)
+    g = torch.Generator().manual_seed(2)
+    if method == 0:
+        wts = v.to(torch.float32)
+        h = ransac._normalise_h22(ransac._gauss_newton_refine(
+            ransac._normalise_h22(p.t_dst_inv @ ransac._dlt_least_squares(
+                p.src_n, p.dst_n, wts) @ p.t_src), s, d, wts))
+        assert torch.equal(got.h, h) and torch.equal(got.inliers, v)
+        return
+    best_h, thr = ransac._lmeds_select(*ransac._hypotheses(p, g, 1024),
+                                       p.count)
+    err = ransac._sq_reproj_error(best_h, s, d)
+    inl = (err <= thr[:, None]) & v
+    wts = inl.to(torch.float32)
+    h_ls = ransac._normalise_h22(p.t_dst_inv @ ransac._dlt_least_squares(
+        p.src_n, p.dst_n, wts) @ p.t_src)
+    h = ransac._normalise_h22(ransac._gauss_newton_refine(h_ls, s, d, wts))
+    assert torch.equal(got.h, h)
+    assert torch.equal(got.inliers,
+                       (ransac._sq_reproj_error(h, s, d) <= thr[:, None]) & v)
+
+
+def test_normalisation_inverse_is_linalg_inv():
+    """``inv_ex`` in place of ``linalg.inv`` (which synchronises on a
+    card): the same bits, here and in ``warp.invert_3x3``."""
+    from libstacker_tpu_torch.ops import warp
+
+    src, dst, valid, _ = _batch(5)
+    p = ransac._points(t(src), t(dst), t(valid))
+    t_dst = ransac._normalise_points(t(dst), t(valid))[1]
+    assert torch.equal(p.t_dst_inv, torch.linalg.inv(t_dst))
+    m = torch.from_numpy(np.stack([_truth(k) for k in range(4)])).float()
+    assert torch.equal(warp.invert_3x3(m), torch.linalg.inv(m))
+
+
+def _sample_ok_by_loop(samp, src_pts, dst_pts, count):
+    """checkSubset a pair and a triple at a time (the port's former
+    form)."""
+    a, b, c, d = samp.unbind(-1)
+    ok = (a != b) & (a != c) & (a != d) & (b != c) & (b != d) & (c != d)
+    ok = ok & (count >= 4)[:, None]
+    eps = ransac._FLT_EPS
+    for pts in (src_pts, dst_pts):
+        p = ransac._gather_points(pts, samp)
+        for i, j, k in ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)):
+            d1 = p[..., j, :] - p[..., i, :]
+            d2 = p[..., k, :] - p[..., i, :]
+            cross = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]
+            lim = eps * (d1[..., 0].abs() + d1[..., 1].abs()) * (
+                d2[..., 0].abs() + d2[..., 1].abs())
+            ok = ok & (cross.abs() > lim)
+    return ok
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sample_ok_stacked_equals_loop(seed):
+    """The pairs and triples tested in one pass each: the same flags as
+    one pass a pair and a triple, on integer grids full of repeats and
+    collinear triples."""
+    rng = np.random.default_rng(seed)
+    grid = t(rng.integers(0, 12, (5, 40, 2)).astype(np.float32))
+    cloud = t(rng.uniform(0, 100, (5, 40, 2)).astype(np.float32))
+    samp = t(rng.integers(0, 40, (5, 128, 4)))
+    count = t(np.array([0, 3, 4, 9, 40]))
+    got = ransac._sample_ok(samp, grid, cloud, count)
+    want = _sample_ok_by_loop(samp, grid, cloud, count)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < got.numel()

@@ -18,8 +18,13 @@ ratios bit-exact.
 - a 2.7x INTER_AREA shrink like 2160 -> 800 (the scaled keypoint path);
 - the 8-level INTER_LINEAR uint8 chain at scale 1.2 of the ORB pyramid,
   level by level, each level resized from the previous uint8 level;
-- INTER_NEAREST, exact.
+- INTER_NEAREST, exact;
+- the port's own: a resize leaves no reference cycle behind, so each
+  tap's full-image product is freed when the call returns (a cycle kept
+  the ORB pyramid's products alive until the next garbage collection).
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -119,3 +124,18 @@ def test_inter_nearest_and_errors():
         )
     with pytest.raises(Exception, match="invalid dsize"):
         resize.resize(t(x), (0, 5), constants.INTER_LINEAR)
+
+
+@pytest.mark.parametrize("interp", [constants.INTER_LINEAR,
+                                    constants.INTER_AREA])
+def test_resize_leaves_no_reference_cycle(interp):
+    x = torch.randint(0, 256, (3, 97, 131), dtype=torch.uint8)
+    gc.collect()
+    gc.disable()
+    try:
+        resize.resize(x, (61, 87), interp)
+        resize.resize(x.to(torch.float32), (50, 200), interp)
+        resize.resize_rows(x, 97, 61, 10, 40, 0, interp)
+        assert gc.collect() == 0
+    finally:
+        gc.enable()

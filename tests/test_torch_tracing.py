@@ -1,8 +1,11 @@
 """``utils/tracing.PhaseTimer``, the port's span recorder: phases and
 the spans nested in them, in start order with their parents; the
 phases' ``phase_ms`` as before; ``stage:`` profiler ranges for every
-span and none without stats; and the ECC solve's spans on a tiny CPU
-burst (``ecc.prep``, ``ecc.sweep``, ``ecc.check``)."""
+span and none without stats; the ECC solve's spans on a tiny CPU burst
+(``ecc.prep``, ``ecc.sweep``, ``ecc.check``); and the keypoint path's
+(an ``orb.level`` a pyramid level with its ``orb.topk``, ``kp.match``,
+``ransac.loop`` / ``ransac.check`` a slab, ``ransac.refit``)
+with the ``ransac_slabs`` count, and none of them without stats."""
 
 import pytest
 
@@ -11,6 +14,7 @@ torch = pytest.importorskip("torch")
 import libstacker_tpu_torch as P  # noqa: E402
 from _torch_parity import burst  # noqa: E402
 from libstacker_tpu_torch.ops import ecc as ecc_ops  # noqa: E402
+from libstacker_tpu_torch.ops import ransac  # noqa: E402
 from libstacker_tpu_torch.utils import tracing  # noqa: E402
 
 torch.set_num_threads(2)
@@ -145,3 +149,62 @@ def test_rescue_spans_nest_the_forward_resolve(frames, monkeypatch):
     assert inner[0] == "ecc.check" and "ecc.sweep" in inner
     assert inner.count("ecc.check") == (
         inner.count("ecc.sweep") // ecc_ops._CHUNK_ITERS + 1)
+
+
+@pytest.fixture(scope="module")
+def kp_frames():
+    from libstacker_tpu_torch.utils.synth import make_textured_burst
+
+    return make_textured_burst(4, 288, 512, seed=1)[0].numpy()
+
+
+def _kp_stats(kp_frames, monkeypatch):
+    """A keypoint call with stats, and the slabs its loop drew."""
+    drawn = []
+    real = ransac._hypotheses
+
+    def counted(p, generator, n_hyp):
+        drawn.append(n_hyp)
+        return real(p, generator, n_hyp)
+
+    monkeypatch.setattr(ransac, "_hypotheses", counted)
+    _, _, st = P.keypoint_match_arrays(kp_frames, return_stats=True,
+                                       device="cpu")
+    return st, drawn
+
+
+def test_keypoint_spans_and_slab_count(kp_frames, monkeypatch):
+    st, drawn = _kp_stats(kp_frames, monkeypatch)
+    names = [(name, parent) for name, parent, _, _ in st.spans]
+    assert [n for n, parent in names if parent is None] == [
+        "grey", "detect", "match+ransac", "stack"]
+    levels = [i for i, (n, _) in enumerate(names) if n == "orb.level"]
+    assert len(levels) == 8  # every level of the 288x512 pyramid runs
+    assert all(names[i][1] == "detect" for i in levels)
+    # one orb.topk inside each level, right after its start
+    tops = [i for i, (n, _) in enumerate(names) if n == "orb.topk"]
+    assert len(tops) == 8
+    assert all(names[i][1] == "orb.level" for i in tops)
+    assert all(lvl < top for lvl, top in zip(levels, tops))
+    kids = [n for n, parent in names if parent == "match+ransac"]
+    slabs = kids.count("ransac.loop")
+    assert kids == (["kp.match"] + ["ransac.loop", "ransac.check"] * slabs
+                    + ["ransac.refit"])
+    # the counter is the loop's slabs, each one _SLAB draws and one read
+    assert st.ransac_slabs == len(drawn) == slabs >= 1
+    assert set(drawn) == {ransac._SLAB}
+    assert set(st.phase_ms) == {"grey", "detect", "match+ransac", "stack"}
+    assert all(dev is None for _, _, _, dev in st.spans)
+
+
+def test_keypoint_nothing_recorded_without_stats(kp_frames, monkeypatch):
+    """No span, no range and no count without ``return_stats``; with
+    it, every range the keypoint path opens is one of its spans."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = P.keypoint_match_arrays(kp_frames, device="cpu")
+    assert len(out) == 2 and _program_ranges(prof) == []
+    with torch.profiler.profile(activities=acts) as prof:
+        st, _ = _kp_stats(kp_frames, monkeypatch)
+    assert sorted(_program_ranges(prof)) == sorted(
+        f"stage:{name}" for name, _, _, _ in st.spans)
