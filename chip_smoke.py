@@ -118,10 +118,15 @@ Phases (each prints one line; any failure exits non-zero):
     (``native/stacker_io.cpp`` where libjpeg, libpng and libtiff are
     there, else the port's zlib reader ``csrc/image_io.cpp``) and fails,
     with both compilers' reasons, where neither builds;
-23. sharpness at full width: ``sharpness_all`` on the grey of phase 5's
-    burst (100x2160x3840), ms a burst by CUDA events and peak memory,
-    held against the port's CPU path on its first 4 frames (rel 1e-5,
-    the same TENG ranking);
+23. sharpness at full width: the one-pass kernel (``csrc/sharpness.cu``,
+    ``ops/sharpness_cuda.sharpness_sums``) on the grey of phase 5's burst
+    (100x2160x3840 u8) and on its first 32 frames (the rank cell's
+    burst), ms by CUDA events beside its bound
+    (``stackbench/roofline/sharpness.py``) and the plain version's
+    time on the card, device ms by ``torch.profiler``, launches a
+    ``sharpness_all`` (2), peak memory, two runs bitwise equal, and its
+    sums and metrics against the port's CPU path on the first 4 frames
+    (equal: u8 at ksize 3 sums exactly; the same TENG ranking);
 24. the streams at full width: 24 frames of 2160x3840 (``make_burst``, a
     streak in frame 8) and phase 9's 20 textured frames written as PNGs
     under ``build/``, through ``ecc_match_stream`` (headline parameters,
@@ -235,7 +240,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe", "ecc_blur",
-           "ransac_refit")
+           "ransac_refit", "sharpness")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
 # B5, accumulate and frames forms (a SASS loop iteration; B5f's whole
 # body)
@@ -269,6 +274,7 @@ B9_INSTANCE = "warp3_kernel"
 B6_INSTANCE = "sr_kernelIhiLb1ELb0ELb0E"
 B6I_INSTANCE = "sr_kernelIhiLb1ELb0ELb1E"
 BLUR_INSTANCE = "blur_kernelILi2E"  # the pre-filter at ksize 5
+SHARP_INSTANCE = "sharpness_kernelIhLi3EE"  # u8 grey, TENG at ksize 3
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -459,8 +465,8 @@ def group_rel(got, want, p, with_hessian=True):
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
     from libstacker_tpu_torch.ops import (
-        ecc_cuda, fast_cuda, orb_cuda, ransac_cuda, sr_cuda, warp_accum_cuda,
-        warp_cuda,
+        ecc_cuda, fast_cuda, orb_cuda, ransac_cuda, sharpness_cuda, sr_cuda,
+        warp_accum_cuda, warp_cuda,
     )
 
     return {
@@ -483,6 +489,7 @@ def counters():
         "warp3": (warp_cuda, "warp3_launch_count"),
         "ransac_dlt": (ransac_cuda, "dlt_launch_count"),
         "ransac_refine": (ransac_cuda, "refine_launch_count"),
+        "sharpness": (sharpness_cuda, "launch_count"),
     }
 
 
@@ -2822,50 +2829,92 @@ def phase_files(dev):
 STREAM_N = 24
 STREAM_CHUNK = 8
 CLI_N = 6
-# phase 23: frames held against the CPU path, and its bar
+# phase 23: frames held against the CPU path, and its bar; the rank
+# cell's burst; the eager float32 chain before the kernel on 100 4K frames
 SHARP_CPU_FRAMES = 4
 SHARP_REL_BAR = 1e-5
+SHARP_CELL_FRAMES = 32
+SHARP_EAGER_MS = (225.7, 227.6)
 
 
 def phase_sharpness(dev, frames):
-    """Phase 23: ``sharpness_all`` on the grey of phase 5's burst, timed
-    by CUDA events, with its peak memory; held against the port's CPU
-    path on the first frames."""
+    """Phase 23: the one-pass sharpness kernel on the grey of phase 5's
+    burst and on its first 32 frames, timed by CUDA events and by
+    ``torch.profiler``, against its bound, the plain version on the card
+    and the port's CPU path on the first frames."""
     from libstacker_tpu_torch import sharpness_all
     from libstacker_tpu_torch.models import keypoint
-    from libstacker_tpu_torch.ops import sharpness
+    from libstacker_tpu_torch.ops import sharpness_cuda
+    # the benchmark's count of the kernel's bytes and operations
+    from stackbench.roofline import sharpness as roofline
 
     t_phase = time.perf_counter()
     grey = keypoint._grey(frames)
+    n, h, w = grey.shape
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     gpu = sharpness_all(grey)
     torch.cuda.synchronize()
+    launches = read_counts()["sharpness"]
     peak = torch.cuda.max_memory_allocated() - base
-    ms = time_ms(lambda: sharpness_all(grey), 3)
+    s1, m1 = sharpness_cuda.sharpness_sums(grey, 3)
+    s2, m2 = sharpness_cuda.sharpness_sums(grey, 3)
+    repeat = bool(torch.equal(s1, s2) and torch.equal(m1, m2))
     k = SHARP_CPU_FRAMES
     t0 = time.perf_counter()
+    cpu_s, cpu_m = sharpness_cuda.sharpness_sums(grey[:k].cpu(), 3)
     cpu = sharpness_all(grey[:k].cpu())
-    cpu_s = time.perf_counter() - t0
+    cpu_secs = time.perf_counter() - t0
+    equal = bool(torch.equal(s1[:k].cpu(), cpu_s)
+                 and torch.equal(m1[:, :k].cpu(), cpu_m))
     rel = max(float(((gpu[m][:k].cpu().double() - cpu[m].double())
                      / cpu[m].double()).abs().max()) for m in cpu)
     rank_gpu = np.argsort(gpu["teng"][:k].cpu().numpy(), kind="stable")
     rank_cpu = np.argsort(cpu["teng"].numpy(), kind="stable")
-    finite = all(bool(torch.isfinite(v).all()) and v.shape == (FULL_N,)
+    finite = all(bool(torch.isfinite(v).all()) and v.shape == (n,)
                  for v in gpu.values())
-    ok = rel <= SHARP_REL_BAR and np.array_equal(rank_gpu, rank_cpu) and finite
-    n, h, w = grey.shape
-    log(f"[23 sharpness] sharpness_all on the grey of phase 5's burst "
-        f"({n}x{h}x{w} u8, {sharpness._SCORE_CHUNK} frames a pass): "
-        f"{ms:.3f} ms a burst ({ms / n:.4f} ms a frame), peak memory "
-        f"{peak / 2**30:.3f} GiB above the burst | frames 0-{k - 1} vs the "
-        f"port's CPU path ({cpu_s:.1f} s on the CPU): max rel {rel:.3e} (bar "
-        f"{SHARP_REL_BAR}), TENG ranking equal "
-        f"{np.array_equal(rank_gpu, rank_cpu)} | phase "
+    ok = (rel <= SHARP_REL_BAR and np.array_equal(rank_gpu, rank_cpu)
+          and finite and equal and repeat and launches == 2)
+    del s1, s2, m1, m2
+    recs = {}
+    for lanes in (n, SHARP_CELL_FRAMES):
+        x = grey[:lanes].contiguous()
+        ms = time_ms(lambda: sharpness_cuda.sharpness_sums(x, 3), 20)
+        prof = device_profile(lambda: sharpness_all(x), "sharpness_")
+        b_s, b_by = roofline.bound_s(lanes, h, w)
+        b_ms = b_s * 1e3
+        recs[lanes] = dict(ms=ms, device_ms=prof[1], kernel_device_ms=prof[2],
+                           device_ops=prof[0], bound_ms=b_ms, bound_by=b_by)
+        log(f"    {lanes}x{h}x{w} u8: kernel {ms:.4f} ms by events, "
+            f"{prof[2]:.4f} ms of its two kernels' device time "
+            f"({prof[0]} device operations, {prof[1]:.4f} ms a "
+            f"sharpness_all); bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / ms:.3f} of it)")
+    plain_ms = time_ms(lambda: sharpness_cuda.sharpness_sums_reference(
+        grey, 3), 1)
+    rec = recs[n]
+    rec.update(plain_ms=plain_ms, cell_32=recs[SHARP_CELL_FRAMES],
+               bitwise_equal=equal, repeat_bitwise=repeat,
+               launches_a_call=launches, peak_gib=peak / 2**30,
+               **design_report("sharpness u8 ksize 3", "sharpness",
+                               SHARP_INSTANCE, rec["ms"], rec["bound_ms"]))
+    log(f"[23 sharpness] the one-pass kernel on the grey of phase 5's "
+        f"burst ({n}x{h}x{w} u8): {rec['ms']:.4f} ms (the eager chain "
+        f"before it: {SHARP_EAGER_MS[0]}-{SHARP_EAGER_MS[1]} ms), plain "
+        f"version on the card {plain_ms:.1f} ms; {launches} launches a "
+        f"sharpness_all; peak memory {peak / 2**30:.4f} GiB above the "
+        f"burst; two runs bitwise equal {repeat} | frames 0-{k - 1} vs "
+        f"the port's CPU path ({cpu_secs:.1f} s on the CPU): sums and "
+        f"metrics equal {equal}, max rel {rel:.3e} (bar {SHARP_REL_BAR}), "
+        f"TENG ranking equal {np.array_equal(rank_gpu, rank_cpu)} | phase "
         f"{time.perf_counter() - t_phase:.1f} s -> {'OK' if ok else 'FAILED'}")
     if not ok:
         fail("sharpness on the card disagrees with the CPU path")
+    del grey
+    torch.cuda.empty_cache()
+    return rec
 
 
 def write_pngs(d, frames, ext: str = "png") -> list:
@@ -3802,7 +3851,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     solvers = phase_solvers(dev, ecc_frames, ecc_clean)
     torch.cuda.empty_cache()
-    phase_sharpness(dev, ecc_frames)
+    sharp = phase_sharpness(dev, ecc_frames)
     del ecc_frames, ecc_clean
     torch.cuda.empty_cache()
     kp_var = phase_kp_variants(dev, frames, truth, kp_ref)
@@ -3940,6 +3989,13 @@ def main(argv=None) -> int:
                            "(libstacker_tpu/ops/ransac.py:109 "
                            "_gauss_newton_refine)",
              **counts("ransac_refine"), **refit["refine"]),
+        dict(name="sharpness", route="cuda",
+             source="libstacker_tpu_torch/csrc/sharpness.cu",
+             replaces=None,
+             replaces_note="no TPU kernel: the JAX package's XLA-level "
+                           "jnp metrics (libstacker_tpu/ops/sharpness.py"
+                           ":38-97)",
+             **counts("sharpness"), **sharp),
         dict(name="ecc_ic_moments", route="cuda",
              source="libstacker_tpu_torch/csrc/ecc_ic_moments.cu",
              replaces="libstacker_tpu/ops/ecc_pallas.py:460",

@@ -73,7 +73,12 @@ tests/test_torch_ransac_refit.py at its bars (float64 kernels: 1e-3 px
 at a 4K frame's corners from the plain versions in float64, 0.01 px
 from the float32 ones), the same bits on a second run; ORB detection
 and ``_match_and_estimate`` under ``set_sync_debug_mode("error")`` but
-for RANSAC's one read a slab.
+for RANSAC's one read a slab.  The one-pass sharpness kernel
+(``csrc/sharpness.cu``) on the host-shim cases of
+tests/test_torch_sharpness_kernel.py through the wrapper, against the
+plain version on the CPU: u8 sums at ksize 1 and 3 equal, the others
+within rel 1e-12, the metrics the plain finalisation of the kernel's
+sums bit for bit, two launches a call and two runs bitwise equal.
 """
 
 import numpy as np
@@ -85,12 +90,13 @@ pytest.importorskip("scipy")
 import test_torch_ecc_blur as blur_design  # noqa: E402
 import test_torch_orb_design as orb_design  # noqa: E402
 import test_torch_ransac_refit as refit_design  # noqa: E402
+import test_torch_sharpness_kernel as sharp_design  # noqa: E402
 import test_torch_warp_design as warp_design  # noqa: E402
 import test_torch_warp_frames_design as frames_design  # noqa: E402
 from _torch_parity import burst, rotation_inverse_map, smooth  # noqa: E402
 from libstacker_tpu_torch import EccMatchParameters, MotionType  # noqa: E402
 from libstacker_tpu_torch.ops import (  # noqa: E402
-    color, ecc, ecc_cuda, fast_cuda, filters, orb_cuda, warp,
+    color, ecc, ecc_cuda, fast_cuda, filters, orb_cuda, sharpness_cuda, warp,
     warp_accum_cuda, warp_cuda,
 )
 
@@ -1552,3 +1558,26 @@ def test_detect_and_match_wait_only_for_the_loop(dev, monkeypatch):
     assert bool(ok.all())
     assert (ransac_cuda.dlt_launch_count - launches[0],
             ransac_cuda.refine_launch_count - launches[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("case", sharp_design.CASES)
+def test_sharpness_kernel_design_cases(dev, case):
+    """``test_torch_sharpness_kernel.CASES`` through the wrapper, the
+    frames aligned or one element past their quads' alignment."""
+    dtype, k, n_, h, w, offset = case
+    x = torch.from_numpy(sharp_design.frames(dtype, n_, h, w,
+                                             seed=k * 100 + h + w + offset))
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+    buf[offset:].copy_(x.reshape(-1))
+    xd = buf[offset:].view(n_, h, w)
+    before = sharpness_cuda.launch_count
+    got_s, got_m = sharpness_cuda.sharpness_sums(xd, k)
+    again_s, again_m = sharpness_cuda.sharpness_sums(xd, k)
+    torch.cuda.synchronize()
+    assert sharpness_cuda.launch_count == before + 4
+    assert torch.equal(got_s, again_s) and torch.equal(got_m, again_m)
+    want_s, _ = sharpness_cuda.sharpness_sums_reference(x, k)
+    sharp_design.assert_sums_match(got_s.cpu().numpy(), want_s.numpy(),
+                                   sharp_design.exact(dtype, k))
+    fin = sharpness_cuda.metrics_from_sums(got_s.cpu(), h * w)
+    assert torch.equal(got_m.cpu().view(torch.int32), fin.view(torch.int32))

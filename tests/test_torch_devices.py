@@ -94,7 +94,7 @@ def test_every_kernel_wrapper_launches_through_launch():
                      if "current_stream(" in f.read_text())
     assert readers == ["utils/cuda_build.py", "utils/device.py"]
     wrappers = sorted((pkg / "ops").glob("*_cuda.py"))
-    assert len(wrappers) == 7
+    assert len(wrappers) == 8
     for f in wrappers:
         src = f.read_text()
         assert "cuda_build.launch(" in src and "cuda_build.check(" not in src
@@ -224,7 +224,7 @@ def test_smoke_counters_exist_and_reset():
     import importlib
 
     pairs = _smoke_counters()
-    assert len(pairs) == 19
+    assert len(pairs) == 20
     for name, (module, attr) in pairs.items():
         mod = importlib.import_module(f"libstacker_tpu_torch.ops.{module}")
         before = getattr(mod, attr)
