@@ -900,7 +900,7 @@ def headline_params():
 def phase_slice_parity(dev):
     """The slice's stages on CUDA and on the CPU from one u8 burst."""
     from libstacker_tpu_torch.ops import ecc as ecc_ops, phasecorr
-    from libstacker_tpu_torch.models import ecc as ecc_models
+    from libstacker_tpu_torch.ops import color, warp_batch
     from libstacker_tpu_torch.utils.synth import make_burst
 
     params = headline_params()
@@ -909,15 +909,15 @@ def phase_slice_parity(dev):
 
     def run(device):
         f = torch.from_numpy(frames_np).to(device)
-        grey = ecc_models._ecc_grey(f)
+        grey = color.burst_grey_u8(f).to(torch.float32)
         init = phasecorr.phase_init_warps(grey[1:], grey[0],
                                           params.motion_type)
         res = ecc_ops.find_transform_ecc_batched(
             grey[1:], grey[0], params.motion_type, 50, 1e-4, 5,
             coarse_levels=1, warp_init=init,
         )
-        stack = ecc_models._ecc_warp_accumulate(
-            f, res.warp_matrix, res.ok, params.motion_type) / SLICE_N
+        stack = warp_batch.warp_sum_burst(
+            f, res.warp_matrix, res.ok, perspective=True) / SLICE_N
         return (res.warp_matrix.cpu().numpy(), res.ok.cpu().numpy(),
                 stack.cpu().numpy())
 
@@ -991,11 +991,11 @@ def phase_blur(dev, frames):
     against the same solve with the plain pre-filter."""
     import torch.nn.functional as F
 
-    from libstacker_tpu_torch.models import ecc as ecc_model
+    from libstacker_tpu_torch.ops import color
     from libstacker_tpu_torch.ops import ecc as ecc_ops, ecc_cuda, filters
     from libstacker_tpu_torch.params import MotionType
 
-    grey = ecc_model._ecc_grey(frames)
+    grey = color.burst_grey_u8(frames).to(torch.float32)
     ksize, r = 5, 2
     taps = torch.tensor(filters.gaussian_kernel(ksize), dtype=torch.float32,
                         device=dev)
@@ -1087,12 +1087,12 @@ def phase_blur(dev, frames):
 def textured_grey(dev):
     """The keypoint bench's burst (``utils/synth.make_textured_burst``)
     and its uint8 grey, as the keypoint path computes it."""
-    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import color
     from libstacker_tpu_torch.utils.synth import make_textured_burst
 
     frames, truth = make_textured_burst(KP_N, FULL_H, FULL_W, seed=0,
                                         device=dev)
-    return frames, truth, keypoint._grey(frames)
+    return frames, truth, color.burst_grey_u8(frames)
 
 
 def phase_b8(dev, grey):
@@ -1376,7 +1376,7 @@ def phase_kp_parity(dev):
     """The keypoint slice's stages on CUDA and on the CPU from one burst."""
     from libstacker_tpu_torch import KeyPointMatchParameters
     from libstacker_tpu_torch.models import keypoint
-    from libstacker_tpu_torch.ops import orb
+    from libstacker_tpu_torch.ops import color, orb, warp_batch
     from libstacker_tpu_torch.utils.synth import make_textured_burst
 
     p = KeyPointMatchParameters()
@@ -1386,12 +1386,12 @@ def phase_kp_parity(dev):
 
     def run(device):
         f = torch.from_numpy(frames_np).to(device)
-        feats = orb.orb_detect_and_compute(keypoint._grey(f))
+        feats = orb.orb_detect_and_compute(color.burst_grey_u8(f))
         gen = torch.Generator(device=device).manual_seed(0)
         hs, oks, _, _ = keypoint._match_and_estimate(
             feats, gen, p.method, p.ransac_reproj_threshold,
             p.match_keep_ratio, p.match_ratio, p.max_iters, p.confidence)
-        stack = keypoint._warp_and_accumulate(f, hs, oks, [0.0] * 3)
+        stack = warp_batch.warp_sum_burst(f, hs, oks, border_value=0.0)
         kept = 1 + int(oks.sum())
         return hs.cpu().numpy(), oks.cpu().numpy(), (stack / kept).cpu().numpy()
 
@@ -1423,12 +1423,12 @@ def p99(a, b, margin=64):
 def kp_homographies(frames, params, scale_hw, mask=None):
     """The full-resolution homographies of one ``keypoint_match_arrays``
     run (seed 0), recomputed through the same stages."""
-    from libstacker_tpu_torch.models import ecc, keypoint
-    from libstacker_tpu_torch.ops import orb
+    from libstacker_tpu_torch.models import _entry, keypoint
+    from libstacker_tpu_torch.ops import color, orb, warp
 
-    det_mask = None if mask is None else ecc._ecc_mask(
+    det_mask = None if mask is None else _entry.grid_mask(
         mask, frames.shape[1:3], scale_hw, frames.device)
-    feats = orb.orb_detect_and_compute(keypoint._grey(frames, scale_hw),
+    feats = orb.orb_detect_and_compute(color.burst_grey_u8(frames, scale_hw),
                                        mask=det_mask)
     gen = torch.Generator(device=frames.device).manual_seed(0)
     hs, oks, _, _ = keypoint._match_and_estimate(
@@ -1436,7 +1436,7 @@ def kp_homographies(frames, params, scale_hw, mask=None):
         params.match_keep_ratio, params.match_ratio, params.max_iters,
         params.confidence)
     if scale_hw is not None:
-        hs = keypoint._adjust_h_for_scale(hs, scale_hw, frames.shape[1:3])
+        hs = warp.rescale_maps(hs, scale_hw, frames.shape[1:3])
     return hs[oks].cpu().numpy(), oks.cpu().numpy()
 
 
@@ -1515,10 +1515,10 @@ def refit_inputs(dev, frames):
     polish)``, taken from the calls themselves."""
     from libstacker_tpu_torch import KeyPointMatchParameters
     from libstacker_tpu_torch.models import keypoint
-    from libstacker_tpu_torch.ops import orb, ransac
+    from libstacker_tpu_torch.ops import color, orb, ransac
 
     params = KeyPointMatchParameters()
-    feats = orb.orb_detect_and_compute(keypoint._grey(frames))
+    feats = orb.orb_detect_and_compute(color.burst_grey_u8(frames))
     names = ("_points", "_dlt_least_squares", "_gauss_newton_refine")
     real = {name: getattr(ransac, name) for name in names}
     seen = {}
@@ -2843,13 +2843,13 @@ def phase_sharpness(dev, frames):
     ``torch.profiler``, against its bound, the plain version on the card
     and the port's CPU path on the first frames."""
     from libstacker_tpu_torch import sharpness_all
-    from libstacker_tpu_torch.models import keypoint
+    from libstacker_tpu_torch.ops import color
     from libstacker_tpu_torch.ops import sharpness_cuda
     # the benchmark's count of the kernel's bytes and operations
     from stackbench.roofline import sharpness as roofline
 
     t_phase = time.perf_counter()
-    grey = keypoint._grey(frames)
+    grey = color.burst_grey_u8(frames)
     n, h, w = grey.shape
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3330,9 +3330,9 @@ def phase_mesh(dev):
         KeyPointMatchParameters, MotionType, ecc_match, ecc_match_arrays,
         ecc_match_stream, keypoint_match_arrays, sharpness_tenengrad,
     )
-    from libstacker_tpu_torch.models import ecc as ecc_models
+    from libstacker_tpu_torch.models import _entry
     from libstacker_tpu_torch.ops import color, ecc as ecc_ops, phasecorr
-    from libstacker_tpu_torch.ops import warp, warp_cuda
+    from libstacker_tpu_torch.ops import warp, warp_batch, warp_cuda
     from libstacker_tpu_torch.parallel import mesh as pmesh
     from libstacker_tpu_torch.utils.synth import make_burst, make_textured_burst
 
@@ -3376,13 +3376,13 @@ def phase_mesh(dev):
                                   device_output=True, mesh=mesh3),
          ("ecc_moments", "warp_accum"), ecc_cmp)
     # are the sharded solves' warps the dense ones, bit for bit?
-    grey = ecc_models._ecc_grey(frames)
+    grey = color.burst_grey_u8(frames).to(torch.float32)
     solve = dict(motion_type=params.motion_type, num_iters=50, eps=1e-4,
                  gauss_filt_size=5, coarse_levels=1)
     init = phasecorr.phase_init_warps(grey[1:], grey[0], params.motion_type)
     dres = ecc_ops.find_transform_ecc_batched(
         grey[1:], grey[0], warp_init=init, **solve)
-    padded, _ = ecc_models._pad_burst(frames, 3)
+    padded, _ = _entry.pad_burst(frames, 3)
     mw = pmesh._ecc_solve_gathered(
         pmesh.shard_frames(padded, mesh3), grey[0], mesh3, phase_init=True,
         phase_init_rotation=False, scale_hw=None, input_mask=None,
@@ -3570,9 +3570,9 @@ def phase_mesh(dev):
     sdense = ecc_match_arrays(burst, tp, scale_down_width=min(MESH_SOLVE_HW),
                               device_output=True)
     tw = torch.from_numpy(truth[1:, :2].astype(np.float32)).to(dev)
-    tstack = ecc_models._ecc_warp_accumulate(
+    tstack = warp_batch.warp_sum_burst(
         burst, tw, torch.ones(MESH_SPATIAL_N - 1, dtype=torch.bool,
-                              device=dev), MotionType.Translation)
+                              device=dev), perspective=False)
     tstack = tstack / MESH_SPATIAL_N
     mg = 4
 

@@ -1,23 +1,23 @@
 """``keypoint_match`` pipeline — ORB/RANSAC-aligned burst stacking.
 
-Counterpart of ``libstacker_tpu/models/keypoint.py`` (``_adjust_h_for_scale``
-:39, ``_match_and_estimate`` :181, ``_warp_and_accumulate`` :295,
-``keypoint_match_arrays`` :466, ``keypoint_match`` :674,
-``keypoint_match_stream`` :697), itself the
-counterpart of the reference's ``keypoint_match`` (src/lib.rs:129-144,
-146-601).  Stages, all on one device:
+Counterpart of ``libstacker_tpu/models/keypoint.py``
+(``keypoint_match_arrays`` :466, ``keypoint_match`` :674,
+``keypoint_match_stream`` :697), itself the counterpart of the
+reference's ``keypoint_match`` (src/lib.rs:129-144, 146-601).  Stages,
+all on one device:
 
-1. grey (``ops/color``), INTER_AREA-scaled on the scaled path;
+1. grey (``ops/color.burst_grey_u8``), INTER_AREA-scaled on the scaled
+   path;
 2. ORB on every frame in one batched call per pyramid level
    (``ops/orb``, kernels B8 and B3), with an optional detection mask;
 3. Hamming 2-NN matching against frame 0, ratio / sort / keep filter and
-   RANSAC homographies (``ops/matcher``, ``ops/ransac``), all frames at
-   once;
+   RANSAC homographies (``ops/ransac.match_and_estimate``, called as this
+   module's ``_match_and_estimate``), all frames at once;
 4. frame 0 plus the masked sum of the aligned frames 1..N-1, divided by
-   the kept count: BORDER_CONSTANT and BORDER_TRANSPARENT through the
-   fused warp-and-sum (``ops/warp_batch``, kernel B2), the index-mapping
-   border modes through B5's accumulate form (``ops/warp_cuda.warp_frames``
-   with ``valid``); or, with ``stacking="sigma_clip"``, the kappa-sigma stack
+   the kept count (``ops/warp_batch.warp_sum_burst``): BORDER_CONSTANT and
+   BORDER_TRANSPARENT through the fused warp-and-sum (kernel B2), the
+   index-mapping border modes through B5's accumulate form; or, with
+   ``stacking="sigma_clip"``, the kappa-sigma stack
    (``ops/stack``, kernel B4); or, with ``output_scale > 1``, the
    super-resolution stack (``ops/stack.super_res_stack``, kernel B6).
 
@@ -30,7 +30,8 @@ TPU and have no counterpart.  ``keypoint_match_stream`` runs stages
 resumable from a checkpoint file.  ``mesh=`` runs every entry point
 over a device mesh (``parallel/mesh.py``): each shard detects, matches
 against frame 0's features and runs RANSAC from its own generator, and
-the sums are reduced across devices and processes.
+the sums are reduced across devices and processes.  The plumbing
+shared with ``models/ecc.py`` is ``models/_entry.py``.
 """
 
 from __future__ import annotations
@@ -41,123 +42,20 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..errors import InvalidParamsError, NotEnoughFilesError
+from ..errors import InvalidParamsError
 from ..params import KeyPointMatchParameters
-from ..ops import color, matcher, orb, ransac, resize, warp
+from ..ops import color, orb, ransac, warp
 from ..ops import stack as stack_ops
-from ..ops.warp_batch import warp_accumulate_rgb
-from ..ops.warp_cuda import warp_frames
+from ..ops.warp_batch import warp_sum_burst
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
 from ..utils import io
-from ..utils.device import resolve_device
-from ..utils.tracing import PhaseTimer, PipelineStats, phase_of, span_of
-from .ecc import (
-    _ecc_mask, _f32, _frame0_lanes, _mask_key, _numpy_device, _pad_burst,
-    _resolve_mesh,
-    _scale_hw, _sigma_resume, _single_frame_out, _stream_guards,
-    _stream_mesh, _stream_sigma_stack,
-)
+from ..utils.tracing import PhaseTimer, PipelineStats, phase_of
+from . import _entry
 
-# frames per chunk of the grey conversion (bounds its int32 transients)
-_GREY_CHUNK = 16
-
-
-def _adjust_h_for_scale(h: torch.Tensor, small_hw, full_hw) -> torch.Tensor:
-    """Rescale homographies estimated on scaled frames to full
-    resolution (ref src/utils.rs:218-248)."""
-    sx = _f32(full_hw[1] / small_hw[1])
-    sy = _f32(full_hw[0] / small_hw[0])
-    h = h.clone()
-    h[..., 0, 2] *= sx
-    h[..., 1, 2] *= sy
-    h[..., 2, 0] /= sx
-    h[..., 2, 1] /= sy
-    return h
-
-
-def _grey(frames: torch.Tensor, scale_hw=None) -> torch.Tensor:
-    """Stage 1: uint8 grey of every frame (uint16 bursts detect on their
-    high byte), INTER_AREA-scaled on the scaled path."""
-    out = []
-    for s in range(0, frames.shape[0], _GREY_CHUNK):
-        grey = color.rgb_to_gray_u8(frames[s : s + _GREY_CHUNK])
-        if scale_hw is not None:
-            grey = resize.resize(grey, scale_hw, constants.INTER_AREA)
-        out.append(grey)
-    return torch.cat(out)
-
-
-def _match_and_estimate(
-    feats: orb.OrbFeatures,
-    generator: torch.Generator,
-    method: int,
-    ransac_reproj_threshold: float,
-    match_keep_ratio: float,
-    match_ratio: float,
-    max_iters: int = 2000,
-    confidence: float = 0.995,
-    timer=None,
-):
-    """Stage 3: frames 1..N-1 matched against frame 0 and their
-    homographies (frame-i -> frame-0) estimated, all at once; the host
-    waits for the card only inside RANSAC's loop, once after each
-    slab.  ``timer`` records a ``kp.match`` span around the matching
-    and RANSAC's spans.
-
-    Returns (hs [N-1,3,3], oks [N-1], match_counts, inlier_counts)."""
-    with span_of(timer, "kp.match"):
-        knn = matcher.knn_match2(feats.descriptors[0], feats.descriptors[1:],
-                                 feats.valid[0], feats.valid[1:])
-        filt = matcher.ratio_filter_sort_keep(knn, match_ratio,
-                                              match_keep_ratio)
-        src = feats.xy[0][filt.query_idx]  # frame-0 points (match.query)
-        dst = torch.gather(feats.xy[1:], 1,
-                           filt.train_idx[..., None].expand(-1, -1, 2))
-        enough = filt.count >= 5  # ref src/lib.rs:240-242
-    # find_homography(dst_pts, src_pts): H maps frame-i -> frame-0
-    res = ransac.find_homography(
-        dst, src, filt.keep, generator, method=method,
-        reproj_threshold=ransac_reproj_threshold, max_iters=max_iters,
-        confidence=confidence, timer=timer,
-    )
-    det = torch.linalg.det(res.h)
-    ok = enough & res.ok & (torch.abs(det) >= 1e-6)  # ref src/lib.rs:279-287
-    return res.h, ok, filt.count, res.num_inliers
-
-
-def _warp_lanes(frames, hs, oks, border_value, scale_hw=None,
-                border_mode=constants.BORDER_CONSTANT):
-    """Stage 4 without frame 0: the masked sum of the aligned frames.
-    BORDER_CONSTANT (and BORDER_TRANSPARENT over the zero base, a zero
-    border) runs the fused warp-and-sum (kernel B2); the index-mapping
-    modes run B5's accumulate form on the raw frames, which skips the
-    dropped ones."""
-    h, w = frames.shape[1], frames.shape[2]
-    if scale_hw is not None:
-        hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
-    # dropped frames contribute nothing, but their (possibly wild or
-    # non-finite) matrices must not reach the warp: NaN * 0 == NaN
-    eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
-    hs = torch.where(oks[:, None, None], hs, eye)
-    border = constants.border_mode_name(border_mode)
-    if border in ("constant", "transparent"):
-        if border == "transparent":
-            border_value = [0.0] * 3
-        return warp_accumulate_rgb(
-            frames, hs, oks, perspective=True, border_value=border_value,
-        )
-    return warp_frames(
-        frames, warp.invert_3x3(hs), border_value=border_value,
-        border_mode=border, valid=oks,
-    )
-
-
-def _warp_and_accumulate(frames, hs, oks, border_value, scale_hw=None,
-                         border_mode=constants.BORDER_CONSTANT):
-    """Stage 4: frame 0 plus the masked sum of the aligned frames
-    1..N-1 (:func:`_warp_lanes`)."""
-    return color.to_unit_f32(frames[0]) + _warp_lanes(
-        frames[1:], hs, oks, border_value, scale_hw, border_mode)
+# stage 3, called through this module attribute: the benchmark
+# (stackbench) wraps it to record or move the homographies
+_match_and_estimate = ransac.match_and_estimate
 
 
 def _check_border(params: KeyPointMatchParameters) -> None:
@@ -173,17 +71,6 @@ def _check_border(params: KeyPointMatchParameters) -> None:
         )
 
 
-def _solve_args(params, seed, scale_hw, det_mask) -> dict:
-    """The keywords of ``parallel.mesh``'s sharded keypoint solve."""
-    return dict(
-        method=params.method,
-        ransac_reproj_threshold=params.ransac_reproj_threshold,
-        match_ratio=params.match_ratio,
-        match_keep_ratio=params.match_keep_ratio, max_iters=params.max_iters,
-        confidence=params.confidence, seed=seed, scale_hw=scale_hw,
-        det_mask=det_mask)
-
-
 def _keypoint_match_arrays_sharded(frames, params, scale_hw, seed,
                                    return_stats, mask, mesh, device_output):
     """``keypoint_match_arrays`` over a mesh
@@ -192,38 +79,30 @@ def _keypoint_match_arrays_sharded(frames, params, scale_hw, seed,
     lane of ``parallel.mesh``'s sharded step, the burst padded to the
     ``'data'`` axis with copies of frame 0.  Returns as the dense path
     does."""
-    from ..parallel import mesh as pmesh
-
     n, h, w = frames.shape[:3]
     dev0 = mesh.devices[0, 0]
-    f0 = frames[:1]
     with pmesh._on(dev0):
-        f0 = (f0 if isinstance(f0, torch.Tensor)
-              else torch.from_numpy(np.ascontiguousarray(f0))).to(dev0)
-        det_mask = None if mask is None else _ecc_mask(mask, (h, w),
-                                                       scale_hw, dev0)
-        feats0 = orb.orb_detect_and_compute(_grey(f0, scale_hw),
-                                            mask=det_mask)
+        f0 = _entry.to_device(frames[:1], dev0).to(dev0)
+        det_mask = None if mask is None else _entry.grid_mask(
+            mask, (h, w), scale_hw, dev0)
+        feats0 = orb.orb_detect_and_compute(
+            color.burst_grey_u8(f0, scale_hw), mask=det_mask)
     sigma = params.stacking == "sigma_clip"
     sr_factor = params.output_scale
     final = sigma or sr_factor > 1
-    frames_p, lane_valid = _pad_burst(frames, mesh.shape["data"])
-    exclude, identity = _frame0_lanes(len(lane_valid), sr_factor > 1, sigma)
+    frames_p, lane_valid, identity = _entry.mesh_lanes(
+        frames, mesh, sr_factor > 1, sigma)
     total, ok, mc, ic, clip_frac = pmesh._kp_step(
-        frames_p, feats0, mesh, stacking=params.stacking,
+        frames_p, feats0, mesh, seed=seed, scale_hw=scale_hw,
+        det_mask=det_mask, stacking=params.stacking,
         sigma_kappa=params.sigma_kappa, sigma_iters=params.sigma_iters,
         border_mode=params.border_mode, border_value=params.border_value,
-        lane_valid=lane_valid & ~exclude, output_scale=sr_factor,
-        identity=identity, **_solve_args(params, seed, scale_hw, det_mask),
+        lane_valid=lane_valid, output_scale=sr_factor, identity=identity,
+        **_entry.kp_match_args(params),
     )
-    ok = ok[:n].copy()
-    if not final:
-        ok[0] = True
-        total = color.to_unit_f32(f0[0]) + total
+    out, ok = _entry.mesh_result(total, ok, n, f0, final, device_output)
     kept = int(ok.sum())
     dropped = n - kept
-    fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
-    out = fetch(total) if final else fetch(total) / kept
     if return_stats:
         stats = PipelineStats(
             frames_total=n, frames_kept=kept, frames_dropped=dropped,
@@ -277,52 +156,33 @@ def keypoint_match_arrays(
     path's (the same drops, the stack within its statistical bars)."""
     params.validate()
     _check_border(params)
-    if isinstance(frames, torch.Tensor):
-        dev = resolve_device(frames.device)
-        dtype_ok = frames.dtype in (torch.uint8, torch.uint16)
-    else:
-        frames = np.asarray(frames)
-        dev = _numpy_device(device, mesh)
-        dtype_ok = frames.dtype in (np.uint8, np.uint16)
-    if frames.ndim != 4 or frames.shape[-1] != 3:
-        raise InvalidParamsError(
-            f"frames must be [N,H,W,3] uint8/uint16, got {tuple(frames.shape)}"
-        )
-    if not dtype_ok:
-        raise InvalidParamsError(
-            f"frames must be uint8 or uint16, got {frames.dtype}"
-        )
+    frames, dev = _entry.check_frames(frames, device, mesh)
     n, h, w = frames.shape[:3]
-    if n == 0:
-        raise NotEnoughFilesError()
-
     # the keypoint path has no minimum-width guard (src/lib.rs:377)
-    scale_hw = _scale_hw(h, w, scale_down_width, min_width=False)
+    scale_hw = _entry.solve_grid(h, w, scale_down_width, min_width=False)
 
     if n == 1:
         # the single-frame stack is frame 0 itself (src/lib.rs:306-343)
-        out = _single_frame_out(frames[0], params, dev, device_output)
+        out = _entry.single_frame_out(frames[0], params, dev, device_output)
         if return_stats:
             return 0, out, PipelineStats(frames_total=1, frames_kept=1,
                                          frames_dropped=0)
         return 0, out
 
-    mesh = _resolve_mesh(mesh, dev)
+    mesh = _entry.resolve_mesh(mesh, dev)
     if mesh is not None:
         return _keypoint_match_arrays_sharded(
             frames, params, scale_hw, seed, return_stats, mask, mesh,
             device_output,
         )
-    if isinstance(frames, torch.Tensor):
-        frames_t = frames.contiguous()
-    else:
-        frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+    frames_t = _entry.to_device(frames, dev)
     # the detection mask on the detection grid (libstacker_tpu/models/
     # keypoint.py _prepare_det_mask :341-357)
-    det_mask = None if mask is None else _ecc_mask(mask, (h, w), scale_hw, dev)
+    det_mask = None if mask is None else _entry.grid_mask(mask, (h, w),
+                                                          scale_hw, dev)
     timer = PhaseTimer(dev) if return_stats else None
     with phase_of(timer, "grey"):
-        grey = _grey(frames_t, scale_hw)
+        grey = color.burst_grey_u8(frames_t, scale_hw)
     with phase_of(timer, "detect"):
         feats = orb.orb_detect_and_compute(grey, mask=det_mask, timer=timer)
     del grey
@@ -330,12 +190,7 @@ def keypoint_match_arrays(
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         hs, oks, mcounts, icounts = _match_and_estimate(
-            feats, gen, method=params.method,
-            ransac_reproj_threshold=params.ransac_reproj_threshold,
-            match_keep_ratio=params.match_keep_ratio,
-            match_ratio=params.match_ratio,
-            max_iters=params.max_iters, confidence=params.confidence,
-            timer=timer,
+            feats, gen, timer=timer, **_entry.kp_match_args(params),
         )
     sigma = params.stacking == "sigma_clip"
     sr_factor = params.output_scale
@@ -344,7 +199,7 @@ def keypoint_match_arrays(
     with phase_of(timer, "stack"):
         hs_full = hs
         if final and scale_hw is not None:
-            hs_full = _adjust_h_for_scale(hs, scale_hw, (h, w))
+            hs_full = warp.rescale_maps(hs, scale_hw, (h, w))
         if sr_factor > 1:
             stacked = stack_ops.super_res_stack(
                 frames_t, hs_full, oks, factor=sr_factor, perspective=True,
@@ -355,17 +210,18 @@ def keypoint_match_arrays(
                 kappa=params.sigma_kappa, iters=params.sigma_iters,
             )
         else:
-            stacked = _warp_and_accumulate(
-                frames_t, hs, oks, list(params.border_value[:3]), scale_hw,
-                params.border_mode,
+            stacked = warp_sum_burst(
+                frames_t, hs, oks, border_value=list(params.border_value[:3]),
+                border_mode=params.border_mode, scale_hw=scale_hw,
             )
     ok = oks.cpu().numpy()
     kept = 1 + int(ok.sum())
     dropped = int((~ok).sum())
-    fetch = (lambda x: x) if device_output else (lambda x: x.cpu().numpy())
     # the sigma-clip and super-resolution images are final (per-pixel
     # divisors)
-    out = fetch(stacked) if final else fetch(stacked) / kept
+    out = _entry.fetch(stacked, device_output)
+    if not final:
+        out = out / kept
     if return_stats:
         stats = PipelineStats(
             frames_total=n,
@@ -414,9 +270,8 @@ def _kp_stream_chunks(chunks, mesh, feats0, params, seed, scale_hw,
     mesh's ``'data'`` axis (no pad on one device), sharded and matched
     per shard and the sums reduced; the pad lanes are left out and
     sliced off."""
-    from ..parallel import mesh as pmesh
-
-    solve = _solve_args(params, seed, scale_hw, det_mask)
+    solve = dict(seed=seed, scale_hw=scale_hw, det_mask=det_mask,
+                 **_entry.kp_match_args(params))
     staged = pmesh.ShardUploader(mesh).staged(chunks)
     for c, (sf, n_real, last) in enumerate(staged, chunk0):
         real = np.arange(sf.n_global) < n_real
@@ -426,12 +281,9 @@ def _kp_stream_chunks(chunks, mesh, feats0, params, seed, scale_hw,
             part = part[:n_real]
         else:
             part, ok, mc, ic, _ = pmesh._kp_step(
-                sf, feats0, mesh, stacking="mean",
-                sigma_kappa=params.sigma_kappa,
-                sigma_iters=params.sigma_iters,
-                border_mode=params.border_mode,
-                border_value=params.border_value, lane_valid=real,
-                output_scale=1, chunk=c, **solve)
+                sf, feats0, mesh, border_mode=params.border_mode,
+                border_value=params.border_value, lane_valid=real, chunk=c,
+                **solve)
         yield part, ok[:n_real], mc[:n_real], ic[:n_real], last
 
 
@@ -472,9 +324,7 @@ def keypoint_match_stream(
     ``'data'`` axis; each chunk is padded, sharded and matched per shard,
     and its sums (or sigma-clip moments) are reduced per chunk.  Without
     one the stream runs the same code on a one-device mesh."""
-    from ..parallel import mesh as pmesh
-
-    files = _stream_guards(params, files)
+    files = _entry.stream_guards(params, files)
     sigma = params.stacking == "sigma_clip"
     if sigma:
         border = constants.border_mode_name(params.border_mode)
@@ -484,12 +334,12 @@ def keypoint_match_stream(
                 "BORDER_TRANSPARENT (sample inclusion is defined by "
                 f"warp coverage), got border mode {border!r}"
             )
-    mesh, chunk_size = _stream_mesh(mesh, device, chunk_size)
+    mesh, chunk_size = _entry.stream_mesh(mesh, device, chunk_size)
     dev = mesh.devices[0, 0]
 
     ref = io.load_frames(files[:1], preserve_depth=preserve_depth)
     h, w = ref.shape[1:3]
-    scale_hw = _scale_hw(h, w, scale_down_width, min_width=False)
+    scale_hw = _entry.solve_grid(h, w, scale_down_width, min_width=False)
     if len(files) == 1:
         scale = 65535.0 if ref.dtype == np.uint16 else 255.0
         out = ref[0].astype(np.float32) / scale
@@ -500,10 +350,10 @@ def keypoint_match_stream(
 
     with pmesh._on(dev):
         ref_t = torch.from_numpy(ref).to(dev)
-        det_mask = None if mask is None else _ecc_mask(mask, (h, w),
-                                                       scale_hw, dev)
-        feats0 = orb.orb_detect_and_compute(_grey(ref_t, scale_hw),
-                                            mask=det_mask)
+        det_mask = None if mask is None else _entry.grid_mask(
+            mask, (h, w), scale_hw, dev)
+        feats0 = orb.orb_detect_and_compute(
+            color.burst_grey_u8(ref_t, scale_hw), mask=det_mask)
         acc = color.to_unit_f32(ref_t[0])
     all_ok, all_mc, all_ic, all_hs = [], [], [], []
     ckpt = None
@@ -513,12 +363,12 @@ def keypoint_match_stream(
         ckpt = ckpt_mod.StreamCheckpoint(
             checkpoint_path,
             ckpt_mod.burst_key(files, params, scale_down_width, chunk_size,
-                               extra=f"kp|{seed}", mask=_mask_key(mask)),
+                               extra=f"kp|{seed}", mask=_entry.mask_key(mask)),
         )
         chunks_done, state = ckpt.load()
         if state is not None and int(state.get("phase", 0)) == 1:
             # inside the sigma-clip sweeps: the align pass is done
-            sigma_resume = _sigma_resume(state, chunks_done)
+            sigma_resume = _entry.sigma_resume(state, chunks_done)
             all_hs.append(state["al_warps"].astype(np.float32))
             all_ok.append(state["al_ok"].astype(bool))
             all_mc.append(state["al_mc"])
@@ -571,7 +421,7 @@ def keypoint_match_stream(
     clip_frac = None
     if sigma:
         mats = np.concatenate(all_hs)
-        stacked, clip_frac = _stream_sigma_stack(
+        stacked, clip_frac = _entry.stream_sigma_stack(
             files, mats, ok, perspective=True, kappa=params.sigma_kappa,
             iters=params.sigma_iters, chunk_size=chunk_size, hw=(h, w),
             mesh=mesh, preserve_depth=preserve_depth, ckpt=ckpt,

@@ -3,7 +3,8 @@
 Counterpart of ``libstacker_tpu/ops/color.py`` (``rgb_to_gray_u8`` :26,
 ``rgb_to_gray_f32`` :40, ``u8_to_f32`` :50, ``depth_reduce_u8`` :56,
 ``to_unit_f32`` :70).  The
-grey is OpenCV's shift-15 fixed-point Rec.601 luma, bit-exact; the unit
+grey is OpenCV's shift-15 fixed-point Rec.601 luma, bit-exact
+(:func:`burst_grey_u8` is every pipeline's first stage); the unit
 scale multiplies by the float32 constant 1/255 (or 1/65535), which the
 warp-accumulate kernel repeats per tap so that its u8-source path equals
 feeding :func:`to_unit_f32` bitwise.
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import resize
 
 _R2Y = 9798
 _G2Y = 19235
@@ -24,6 +27,9 @@ _SHIFT = 15
 #: float32 or in double and rounds)
 U8_SCALE = float(np.float32(1.0 / 255.0))
 U16_SCALE = float(np.float32(1.0 / 65535.0))
+
+# frames per chunk of the burst grey (bounds its int32 transients)
+_GREY_CHUNK = 16
 
 
 def depth_reduce_u8(img: torch.Tensor) -> torch.Tensor:
@@ -42,6 +48,20 @@ def rgb_to_gray_u8(rgb: torch.Tensor) -> torch.Tensor:
     acc += rgb[..., 2].to(torch.int32) * _B2Y
     acc += 1 << (_SHIFT - 1)
     return (acc >> _SHIFT).to(torch.uint8)
+
+
+def burst_grey_u8(frames: torch.Tensor, scale_hw=None) -> torch.Tensor:
+    """``[N,H,W,3]`` uint8 (or uint16, greyed on its high byte) burst ->
+    ``[N,H,W]`` uint8 grey, INTER_AREA-scaled to ``scale_hw`` when given
+    (rounded back to u8, as the reference scales the grey Mat), in
+    chunks of ``_GREY_CHUNK`` frames."""
+    out = []
+    for s in range(0, frames.shape[0], _GREY_CHUNK):
+        grey = rgb_to_gray_u8(frames[s : s + _GREY_CHUNK])
+        if scale_hw is not None:
+            grey = resize.resize(grey, scale_hw)
+        out.append(grey)
+    return torch.cat(out)
 
 
 def rgb_to_gray_f32(rgb: torch.Tensor) -> torch.Tensor:

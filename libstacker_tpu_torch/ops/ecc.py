@@ -62,6 +62,10 @@ a failed 'lazy' octave lane hands the next level its pre-solve init
 ``input_mask`` (cv2's inputMask, ``_prepare_masked_input``) rides kernel
 B1 as a 4th source plane; with a mask 'ic' solves in forward mode
 (:1210-1213).
+
+:func:`align_lanes` is the ECC pipeline's align stage, on one device and
+on each shard of a mesh: the phase-correlation start
+(``ops/phasecorr``), then :func:`find_transform_ecc_batched`.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ import torch
 from ..params import MotionType
 from ..utils import cuda_build
 from ..utils.tracing import phase_of as _phase, span_of as _span
-from . import ecc_cuda, filters, resize, warp
+from . import ecc_cuda, filters, phasecorr, resize, warp
 
 # Iterations between host convergence checks (the reference's
 # while_loop chunk).
@@ -339,6 +343,42 @@ def find_transform_ecc_batched(
             gauss_filt_size, init, rho_seed, input_mask, mode,
             rescue=mode != "forward", timer=timer,
         )
+
+
+def align_lanes(
+    templates: torch.Tensor,
+    input_image: torch.Tensor,
+    *,
+    motion_type: MotionType,
+    num_iters: int,
+    eps: float,
+    gauss_filt_size: int,
+    phase_init: bool,
+    phase_init_rotation: bool,
+    coarse_levels: int,
+    input_mask,
+    mode: Optional[str],
+    timer=None,
+) -> EccResult:
+    """The align stage: the phase-correlation start of every lane
+    (translation, or rotation/scale first with ``phase_init_rotation``;
+    off with an ``input_mask``, whose masked content a whole-frame FFT
+    would see), then :func:`find_transform_ecc_batched` from it, as the
+    module attribute.  ``timer`` records the start as the ``phase init``
+    phase and the solve's phases."""
+    warp_init = None
+    if phase_init and input_mask is None:
+        with _phase(timer, "phase init"):
+            warp_init = phasecorr.phase_init_warps(
+                templates, input_image, motion_type=motion_type,
+                rotation=phase_init_rotation,
+            )
+    return find_transform_ecc_batched(
+        templates, input_image, motion_type=motion_type, num_iters=num_iters,
+        eps=eps, gauss_filt_size=gauss_filt_size,
+        coarse_levels=coarse_levels, warp_init=warp_init, mode=mode,
+        input_mask=input_mask, timer=timer,
+    )
 
 
 class _Carry(NamedTuple):

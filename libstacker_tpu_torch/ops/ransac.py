@@ -30,6 +30,11 @@ eigenvector and the whole Gauss-Newton polish, in float64; CPU tensors
 take the plain versions here (``torch.linalg.eigh`` and ``solve_ex`` in
 the points' dtype).  Nothing in :func:`find_homography` but the loop's
 one read a slab makes the host wait for the card.
+
+:func:`match_and_estimate` is the keypoint pipeline's align stage, on
+one device and on each shard of a mesh: 2-NN matching against frame 0
+(``ops/matcher``), then :func:`find_homography` (the JAX package's
+``models/keypoint.py _match_and_estimate`` :181).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 
 from .. import constants
 from ..utils.tracing import count_of, span_of
-from . import ransac_cuda
+from . import matcher, ransac_cuda
 
 _BIG = 1e18
 # hypotheses per adaptive-loop slab
@@ -442,3 +447,41 @@ def find_homography(
             num_inl >= 4)
     return HomographyResult(h=h_ref, inliers=final_inl,
                             num_inliers=final_inl.sum(-1), ok=ok)
+
+
+def match_and_estimate(
+    feats,
+    generator: torch.Generator,
+    method: int,
+    ransac_reproj_threshold: float,
+    match_keep_ratio: float,
+    match_ratio: float,
+    max_iters: int = 2000,
+    confidence: float = 0.995,
+    timer=None,
+):
+    """Frames 1..N-1 of ``feats`` (an ``ops.orb.OrbFeatures`` with frame
+    0 first) matched against frame 0 and their homographies (frame-i ->
+    frame-0) estimated, all at once; the host waits for the card only
+    inside RANSAC's loop, once after each slab.  ``timer`` records a
+    ``kp.match`` span around the matching and RANSAC's spans.
+
+    Returns (hs [N-1,3,3], oks [N-1], match_counts, inlier_counts)."""
+    with span_of(timer, "kp.match"):
+        knn = matcher.knn_match2(feats.descriptors[0], feats.descriptors[1:],
+                                 feats.valid[0], feats.valid[1:])
+        filt = matcher.ratio_filter_sort_keep(knn, match_ratio,
+                                              match_keep_ratio)
+        src = feats.xy[0][filt.query_idx]  # frame-0 points (match.query)
+        dst = torch.gather(feats.xy[1:], 1,
+                           filt.train_idx[..., None].expand(-1, -1, 2))
+        enough = filt.count >= 5  # ref src/lib.rs:240-242
+    # find_homography(dst_pts, src_pts): H maps frame-i -> frame-0
+    res = find_homography(
+        dst, src, filt.keep, generator, method=method,
+        reproj_threshold=ransac_reproj_threshold, max_iters=max_iters,
+        confidence=confidence, timer=timer,
+    )
+    det = torch.linalg.det(res.h)
+    ok = enough & res.ok & (torch.abs(det) >= 1e-6)  # ref src/lib.rs:279-287
+    return res.h, ok, filt.count, res.num_inliers

@@ -32,6 +32,11 @@ one call of ``ops/sr_cuda.sr_image`` over the burst (one launch of
 kernel B6 that writes only the image); on the CPU ``sr_deposit`` sums
 chunks of frames and ``sr_cuda.normalise`` divides, as the JAX package
 does.
+
+A mesh's shards (``parallel/mesh.py``) run the same sweeps on their
+lanes (:func:`moments_sweep`, :func:`deposit_sum`, the lane tables of
+:func:`sweep_lanes` without the frame-0 lane) and reduce them over
+``'data'`` before :func:`clip_stack`'s iteration or ``normalise``.
 """
 
 from __future__ import annotations
@@ -101,28 +106,39 @@ def _coverage(mats3: torch.Tensor, h: int, w: int,
     return torch.stack([coverage(m, (h, w), perspective) for m in minv])
 
 
-def _prepare_lanes(mats, oks, device):
+def _prepare_lanes(mats, oks, device, frame0: bool = True):
     """Prologue of the re-warping stackers: 2x3 affine -> 3x3, frame 0
-    prepended as the identity lane, failed lanes given the identity (a
-    NaN matrix must not reach the inverse).  -> (mats_all [N,3,3],
-    oks_all [N] bool)."""
+    prepended as the identity lane (``frame0``; a mesh shard's lanes
+    carry it themselves), failed lanes given the identity (a NaN matrix
+    must not reach the inverse).  -> (mats_all [N,3,3], oks_all [N]
+    bool)."""
     eye = torch.eye(3, dtype=torch.float32, device=device)
     mats3 = torch.as_tensor(mats, device=device).to(torch.float32)
     if mats3.shape[-2] == 2:
         mats3 = warp.affine_to_3x3(mats3)
-    mats_all = torch.cat([eye[None], mats3])
-    oks_all = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
-                         torch.as_tensor(oks, device=device).to(torch.bool)])
-    mats_all = torch.where(oks_all[:, None, None], mats_all, eye)
+    oks_all = torch.as_tensor(oks, device=device).to(torch.bool)
+    if frame0:
+        mats3 = torch.cat([eye[None], mats3])
+        oks_all = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                             oks_all])
+    mats_all = torch.where(oks_all[:, None, None], mats3, eye)
     return mats_all, oks_all
 
 
-def sweep_lanes(mats, oks, device):
-    """The lane tables of a sigma-clip sweep over the whole burst, frame
-    0 the identity lane: (inverse maps [N,3,3], oks [N] bool).  A stream
-    slices them per chunk of files."""
-    mats_all, oks_all = _prepare_lanes(mats, oks, device)
+def sweep_lanes(mats, oks, device, frame0: bool = True):
+    """The lane tables of a re-warping stack (:func:`_prepare_lanes`):
+    (inverse maps [N,3,3], oks [N] bool).  A stream slices them per
+    chunk of files."""
+    mats_all, oks_all = _prepare_lanes(mats, oks, device, frame0)
     return warp.invert_3x3(mats_all).contiguous(), oks_all
+
+
+def _chunk_step(frames, chunk: int) -> int:
+    """Frames per call: all of them on CUDA (one launch), ``chunk`` for
+    the plain CPU version (its sums add per chunk, as the JAX package's
+    do)."""
+    n = frames.shape[0]
+    return n if frames.device.type == "cuda" else max(1, min(chunk, n))
 
 
 def moments_chunk(frames, minv, oks, mu=None, tol=None, perspective=True):
@@ -133,6 +149,48 @@ def moments_chunk(frames, minv, oks, mu=None, tol=None, perspective=True):
     s0, s1, s2 = warp_moments_rgb(frames, minv, oks, mu, tol,
                                   quant_affine=not perspective)
     return (s0[..., 0], s1, s2) if mu is None else (s0, s1, s2)
+
+
+def moments_sweep(frames, minv, oks, mu=None, tol=None, perspective=True,
+                  chunk: int = 8):
+    """:func:`moments_chunk` summed over the burst (or a mesh shard),
+    ``chunk`` frames per plain CPU call, one launch on CUDA."""
+    step = _chunk_step(frames, chunk)
+    acc = None
+    for s in range(0, frames.shape[0], step):
+        part = moments_chunk(frames[s : s + step], minv[s : s + step],
+                             oks[s : s + step], mu, tol, perspective)
+        acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
+    return acc
+
+
+def clip_stack(sweep, kappa: float, iters: int) -> Tuple[torch.Tensor, float]:
+    """The kappa-sigma stack from its sweep: ``sweep(mu=None, tol=None)``
+    -> the moments over every lane (one device's, or a mesh's reduced
+    over ``'data'``); :func:`clip_iterate` on them -> (image, clipped
+    sample fraction)."""
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    s0, s1, s2 = sweep()
+    out, kept = clip_iterate(s0, s1, s2, kappa, iters, sweep)
+    tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
+    return out, max(0.0, 1.0 - tk / max(ts * 3.0, 1.0))
+
+
+def deposit_sum(frames, minv, oks, factor: int, kernel_sigma: float = 0.3,
+                perspective: bool = True, chunk: int = 4):
+    """B6's deposit form summed over the burst (or a mesh shard),
+    ``chunk`` frames per plain CPU call, one launch on CUDA ->
+    the deposit sums that ``sr_cuda.normalise`` divides (with the
+    bilinear fallback's below ``kernel_sigma`` 0.15)."""
+    step = _chunk_step(frames, chunk)
+    acc = None
+    for s in range(0, frames.shape[0], step):
+        part = sr_deposit(frames[s : s + step], minv[s : s + step],
+                          oks[s : s + step], factor, kernel_sigma,
+                          perspective, kernel_sigma < 0.15)
+        acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
+    return acc
 
 
 def kappa_sigma_stack(
@@ -148,30 +206,14 @@ def kappa_sigma_stack(
     fraction).
 
     Frame 0 takes part with the identity warp (fully covered), so every
-    pixel has a sample.  ``1 + iters`` sweeps over the burst, each one
-    call of ``warp_moments_rgb``.  ``chunk`` bounds the frames per call
-    of the plain CPU version (its sums add per chunk, as the JAX
-    package's do); CUDA sweeps all frames in one launch."""
-    if iters < 1:
-        raise ValueError(f"iters must be >= 1, got {iters}")
+    pixel has a sample.  ``1 + iters`` sweeps over the burst
+    (:func:`moments_sweep`); ``chunk`` bounds the frames per call of the
+    plain CPU version; CUDA sweeps all frames in one launch."""
     minv, oks_all = sweep_lanes(mats, oks, frames.device)
-    n = frames.shape[0]
-    step = n if frames.device.type == "cuda" else max(1, min(chunk, n))
-
-    def sweep(mu=None, tol=None):
-        acc = None
-        for s in range(0, n, step):
-            part = moments_chunk(frames[s : s + step], minv[s : s + step],
-                                 oks_all[s : s + step], mu, tol, perspective)
-            acc = part if acc is None else tuple(
-                a + p for a, p in zip(acc, part))
-        return acc
-
-    s0, s1, s2 = sweep()
-    out, kept = clip_iterate(s0, s1, s2, kappa, iters, sweep)
-    tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
-    kept_frac = tk / max(ts * 3.0, 1.0)
-    return out, max(0.0, 1.0 - kept_frac)
+    return clip_stack(
+        lambda mu=None, tol=None: moments_sweep(
+            frames, minv, oks_all, mu, tol, perspective, chunk),
+        kappa, iters)
 
 
 def super_res_stack(
@@ -193,24 +235,16 @@ def super_res_stack(
     with the identity, so for ``kernel_sigma >= 0.15`` every fine pixel
     has weight above 1e-6; below it the deposit also sums the bilinear
     samples, and pixels with no weight take their bilinear mean.
-    ``chunk`` bounds the frames per call of the plain CPU version (the
-    sums add per chunk, as the JAX package's do); CUDA deposits all
-    frames and normalises in one launch."""
+    ``chunk`` bounds the frames per call of the plain CPU version
+    (:func:`deposit_sum`); CUDA deposits all frames and normalises in
+    one launch."""
     if factor < 2 or factor > 4:
         raise ValueError(f"factor must be in 2..4, got {factor}")
     if not kernel_sigma > 0.0:
         raise ValueError(f"kernel_sigma must be > 0, got {kernel_sigma}")
     minv, oks_all = sweep_lanes(mats, oks, frames.device)
-    with_fallback = kernel_sigma < 0.15
     if frames.device.type == "cuda":
         return sr_image(frames, minv, oks_all, factor, kernel_sigma,
-                        perspective, with_fallback)
-    n = frames.shape[0]
-    step = max(1, min(chunk, n))
-    acc = None
-    for s in range(0, n, step):
-        part = sr_deposit(frames[s : s + step], minv[s : s + step],
-                          oks_all[s : s + step], factor, kernel_sigma,
-                          perspective, with_fallback)
-        acc = part if acc is None else tuple(a + p for a, p in zip(acc, part))
-    return normalise(acc)
+                        perspective, kernel_sigma < 0.15)
+    return normalise(deposit_sum(frames, minv, oks_all, factor, kernel_sigma,
+                                 perspective, chunk))

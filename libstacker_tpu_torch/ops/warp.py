@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import constants
@@ -42,6 +43,22 @@ def invert_3x3(m: torch.Tensor) -> torch.Tensor:
     ``linalg.inv``, without the check of ``info`` that makes the host
     wait for the card; a singular matrix gives non-finite entries)."""
     return torch.linalg.inv_ex(m.to(torch.float32))[0]
+
+
+def rescale_maps(maps: torch.Tensor, small_hw, full_hw) -> torch.Tensor:
+    """Forward maps (``[..., 2, 3]`` or ``[..., 3, 3]``) solved on the
+    ``small_hw`` grid -> ``full_hw``: the translation column scales by
+    full/small, a homography's perspective row divides, by float32
+    factors (ref src/lib.rs:941-958, src/utils.rs:218-248)."""
+    sx = float(np.float32(full_hw[1] / small_hw[1]))
+    sy = float(np.float32(full_hw[0] / small_hw[0]))
+    m = maps.clone()
+    m[..., 0, 2] *= sx
+    m[..., 1, 2] *= sy
+    if m.shape[-2] == 3:
+        m[..., 2, 0] /= sx
+        m[..., 2, 1] /= sy
+    return m
 
 
 def _dst_coords(

@@ -14,13 +14,19 @@ ladder, the source apron of the index-mapping border modes
 ``apron`` / ``pallas_tile_rows`` knobs have no counterpart: a thread
 samples any source pixel and B5 maps border indices itself, so every
 matrix runs through the kernels.
+
+:func:`warp_sum_lanes` is the mean stack of both pipelines, on one
+device and on each shard of a mesh (the JAX package's
+``models/ecc.py _ecc_warp_accumulate_jit`` :111 and
+``models/keypoint.py _warp_and_accumulate`` :295);
+:func:`warp_sum_burst` adds frame 0 as itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import warp
+from . import color, warp
 from .warp_accum_cuda import warp_accum_rgb
 from .warp_cuda import warp_frames
 
@@ -75,3 +81,44 @@ def warp_accumulate_rgb(
         frames, minv, oks, border_value=border_value,
         quant_affine=not perspective,
     )
+
+
+def warp_sum_lanes(
+    frames: torch.Tensor,  # [N,H,W,3] uint8 / uint16 — the lanes
+    maps: torch.Tensor,  # [N,3,3] (or [N,2,3]) FORWARD maps onto frame 0
+    oks: torch.Tensor,  # [N] bool — dropped lanes contribute 0
+    perspective: bool = True,
+    border_value=0.0,
+    border_mode="constant",
+    scale_hw=None,
+) -> torch.Tensor:
+    """The masked sum of the aligned lanes on frame 0's grid ->
+    ``[H,W,3]`` float32.  Maps solved on the ``scale_hw`` grid are
+    rescaled first; failed lanes get the identity (their possibly wild
+    or non-finite maps must not reach the warp: NaN * 0 is NaN).
+    BORDER_CONSTANT and BORDER_TRANSPARENT (over the zero base, a zero
+    border) run :func:`warp_accumulate_rgb` (kernel B2); the
+    index-mapping modes ([N,3,3] maps) run B5's accumulate form, which
+    skips the dropped lanes."""
+    if scale_hw is not None:
+        maps = warp.rescale_maps(maps, scale_hw, frames.shape[1:3])
+    eye = torch.eye(3, dtype=maps.dtype, device=maps.device)
+    maps = torch.where(oks[:, None, None], maps, eye[: maps.shape[1]])
+    border = warp._resolve_border(border_mode)
+    if border in ("constant", "transparent"):
+        if border == "transparent":
+            border_value = 0.0
+        return warp_accumulate_rgb(frames, maps, oks, perspective=perspective,
+                                   border_value=border_value)
+    return warp_frames(frames, warp.invert_3x3(maps),
+                       border_value=border_value, border_mode=border,
+                       valid=oks)
+
+
+def warp_sum_burst(frames: torch.Tensor, maps: torch.Tensor,
+                   oks: torch.Tensor, **kw) -> torch.Tensor:
+    """Frame 0 as itself plus :func:`warp_sum_lanes` of frames 1..N-1
+    (``maps`` / ``oks`` theirs) -> ``[H,W,3]`` float32, the mean
+    stack's sum."""
+    return color.to_unit_f32(frames[0]) + warp_sum_lanes(
+        frames[1:], maps, oks, **kw)

@@ -54,13 +54,18 @@ Counterpart of ``libstacker_tpu/parallel/mesh.py`` (``make_mesh`` :43,
   and every function returns the whole row on ``devices[0, 0]`` of every
   rank.
 
-Every shard runs the kernels of the dense path: the batched ECC solver
-(B1, its masked and Gram-less forms, B7 for ``mode="ic"``), the grey and
-phase start, B2 for the mean stack, B4 for sigma-clip, B6's deposit form
-for super-resolution (a shard cannot normalise before the reduction, so
-``sr_cuda.normalise`` runs once on the reduced sums), B8 / B3h / B3d and
-RANSAC on the keypoint path with B5's accumulate form for its
-index-mapping borders, B5's planar form for the row-band warp.
+Every shard runs the dense path's stages, the same functions of
+``ops/``: the burst grey (``color.burst_grey_u8``), the align stage
+(``ecc.align_lanes``: the phase start and the batched ECC solver, B1, its
+masked and Gram-less forms, B7 for ``mode="ic"``;
+``ransac.match_and_estimate`` after ORB's B8 / B3h / B3d on the keypoint
+path), the warp rescale (``warp.rescale_maps``), the mean stack
+(``warp_batch.warp_sum_lanes``: B2, or B5's accumulate form for the
+index-mapping borders), and the sweeps of the re-warping stackers
+(``stack.moments_sweep`` with B4, ``stack.deposit_sum`` with B6's
+deposit form; a shard cannot normalise before the reduction, so
+``sr_cuda.normalise`` runs once on the reduced sums).  B5's planar form
+warps the row bands.  This module imports nothing from ``models/``.
 
 Not ported, because it exists for the TPU: the slab programs and the
 watchdog bound, the k-escalation ladder and its XLA rescue (each lane of
@@ -82,22 +87,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models import ecc as ecc_models
-from ..models import keypoint as kp_models
 from .. import constants
-from ..ops import color, ecc as ecc_ops, filters, orb, phasecorr, resize, warp
+from ..ops import color, ecc as ecc_ops, filters, orb, ransac, resize, warp
 from ..ops import stack as stack_ops
-from ..ops.sr_cuda import normalise, sr_deposit
+from ..ops.sr_cuda import normalise
+from ..ops.warp_batch import warp_sum_lanes
 from ..ops.warp_cuda import warp_bilinear, warp_frames
 from ..params import MotionType
 from ..utils import io
 from ..utils.device import ChunkUploader, resolve_device
-
-# frames per plain-version call on the CPU (the dense stackers' chunks)
-_CPU_SIGMA_CHUNK = 8
-_CPU_SR_CHUNK = 4
-# the super-resolution stack's deposit width (ops/stack.super_res_stack)
-_SR_SIGMA = 0.3
 
 
 class Mesh:
@@ -538,67 +536,66 @@ def _lanes(x, sf: ShardedFrames, i: int, dev) -> Optional[torch.Tensor]:
     return _to(np.asarray(x)[lo : lo + sf.n_loc], dev)
 
 
-def _lane_minv(mats: torch.Tensor, oks: torch.Tensor) -> torch.Tensor:
-    """FORWARD maps of a shard -> inverse maps, failed lanes the identity
-    (a NaN matrix must not reach the inverse)."""
-    m3 = mats.to(torch.float32)
-    if m3.shape[-2] == 2:
-        m3 = warp.affine_to_3x3(m3)
-    eye = torch.eye(3, dtype=torch.float32, device=m3.device)
-    m3 = torch.where(oks[:, None, None], m3, eye)
-    return warp.invert_3x3(m3).contiguous()
-
-
-def _chunks(frames, minv, oks, step):
-    for s in range(0, frames.shape[0], step):
-        yield frames[s : s + step], minv[s : s + step], oks[s : s + step]
-
-
 def _sigma_stack(sf: ShardedFrames, minvs, okss, mesh: Mesh,
                  perspective: bool, kappa: float, iters: int):
-    """Distributed kappa-sigma clip: each shard's moments (B4) reduced
-    over ``'data'``, ``stack.clip_iterate`` on the reduced sums, each clip
-    pass's clipped moments reduced the same way -> (image, clipped
-    sample fraction)."""
+    """Distributed kappa-sigma clip: each shard's moments
+    (``stack.moments_sweep``, B4) reduced over ``'data'``, the clip
+    iteration of ``stack.clip_stack`` on the reduced sums -> (image,
+    clipped sample fraction)."""
 
     def sweep(mu=None, tol=None):
         def one(i, dev):
-            x = sf.shards[i]
-            step = x.shape[0] if dev.type == "cuda" else _CPU_SIGMA_CHUNK
-            m = None if mu is None else mu.to(dev)
-            t = None if tol is None else tol.to(dev)
-            acc = None
-            for fr, mi, ok in _chunks(x, minvs[i], okss[i], step):
-                part = stack_ops.moments_chunk(fr, mi, ok, m, t, perspective)
-                acc = part if acc is None else tuple(
-                    a + p for a, p in zip(acc, part))
-            return acc
+            return stack_ops.moments_sweep(
+                sf.shards[i], minvs[i], okss[i],
+                None if mu is None else mu.to(dev),
+                None if tol is None else tol.to(dev), perspective)
 
         return _psum_each(_map_shards(mesh, one), mesh)
 
-    s0, s1, s2 = sweep()
-    out, kept = stack_ops.clip_iterate(s0, s1, s2, kappa, iters, sweep)
-    tk, ts = torch.stack([kept.sum(), s0.sum()]).tolist()
-    return out, max(0.0, 1.0 - tk / max(ts * 3.0, 1.0))
+    return stack_ops.clip_stack(sweep, kappa, iters)
 
 
 def _sr_stack(sf: ShardedFrames, minvs, okss, mesh: Mesh, factor: int,
               perspective: bool) -> torch.Tensor:
-    """Distributed super-resolution: each shard's deposit (B6's deposit
-    form), ``acc_v`` / ``acc_w`` reduced over ``'data'``, then
-    ``sr_cuda.normalise`` once."""
+    """Distributed super-resolution: each shard's deposit
+    (``stack.deposit_sum``, B6's deposit form), ``acc_v`` / ``acc_w``
+    reduced over ``'data'``, then ``sr_cuda.normalise`` once."""
+    return normalise(_psum_each(_map_shards(
+        mesh, lambda i, dev: stack_ops.deposit_sum(
+            sf.shards[i], minvs[i], okss[i], factor,
+            perspective=perspective)), mesh))
 
-    def one(i, dev):
-        x = sf.shards[i]
-        step = x.shape[0] if dev.type == "cuda" else _CPU_SR_CHUNK
-        acc = None
-        for fr, mi, ok in _chunks(x, minvs[i], okss[i], step):
-            part = sr_deposit(fr, mi, ok, factor, _SR_SIGMA, perspective)
-            acc = part if acc is None else tuple(
-                a + p for a, p in zip(acc, part))
-        return acc
 
-    return normalise(_psum_each(_map_shards(mesh, one), mesh))
+def _stack_lanes(sf: ShardedFrames, mesh: Mesh, maps, oks, identity, *,
+                 perspective, stacking, sigma_kappa, sigma_iters,
+                 output_scale, scale_hw=None, **border) -> tuple:
+    """Each shard's solved lanes (``maps`` forward, ``oks``) stacked and
+    reduced over ``'data'`` -> ``(oks, total, clip_frac)``.  ``identity``
+    lanes are stacked with the exact identity and kept whatever their
+    solve gave; maps solved on the ``scale_hw`` grid are rescaled.  The
+    mean is ``warp_sum_lanes`` (``border`` its border keywords);
+    sigma-clip and super-resolution give the FINAL image."""
+    if identity is not None:
+        ident = [_lanes(np.asarray(identity, bool), sf, i, ok.device)
+                 for i, ok in enumerate(oks)]
+        oks = [ok | d for ok, d in zip(oks, ident)]
+        maps = [torch.where(d[:, None, None], torch.eye(
+            3, dtype=m.dtype, device=m.device)[: m.shape[1]], m)
+            for m, d in zip(maps, ident)]
+    if not (output_scale > 1 or stacking == "sigma_clip"):
+        total = _psum(_map_shards(mesh, lambda i, dev: warp_sum_lanes(
+            sf.shards[i], maps[i], oks[i], perspective=perspective,
+            scale_hw=scale_hw, **border)), mesh)
+        return oks, total, None
+    if scale_hw is not None:
+        maps = [warp.rescale_maps(m, scale_hw, sf.shape[1:3]) for m in maps]
+    minvs = [stack_ops.sweep_lanes(m, ok, ok.device, frame0=False)[0]
+             for m, ok in zip(maps, oks)]
+    if output_scale > 1:
+        return oks, _sr_stack(sf, minvs, oks, mesh, int(output_scale),
+                              perspective), None
+    return (oks,) + _sigma_stack(sf, minvs, oks, mesh, perspective,
+                                 float(sigma_kappa), int(sigma_iters))
 
 
 # --- ECC ------------------------------------------------------------------
@@ -655,101 +652,70 @@ def ecc_stack_step(
     ``phase_init_rotation`` (not in the JAX package's step) asks the
     phase start for rotation and scale too, as the dense path does."""
     total, ok, rho, iters, _ = _ecc_step(
-        frames_u8, reference_grey, mesh, motion_type=motion_type,
-        num_iters=num_iters, eps=eps, gauss_filt_size=gauss_filt_size,
-        phase_init=phase_init, phase_init_rotation=phase_init_rotation,
+        frames_u8, reference_grey, mesh, scale_hw=scale_hw,
         stacking=stacking, sigma_kappa=sigma_kappa, sigma_iters=sigma_iters,
-        scale_hw=scale_hw, coarse_levels=coarse_levels,
-        input_mask=input_mask, lane_valid=lane_valid,
-        output_scale=output_scale, mode=mode)
+        lane_valid=lane_valid, output_scale=output_scale,
+        motion_type=motion_type, num_iters=int(num_iters), eps=float(eps),
+        gauss_filt_size=int(gauss_filt_size), phase_init=bool(phase_init),
+        phase_init_rotation=bool(phase_init_rotation),
+        coarse_levels=int(coarse_levels), input_mask=input_mask, mode=mode)
     return (total, ok, rho, iters) if return_extras else (total, ok)
 
 
-def _ecc_solve(sf: ShardedFrames, reference_grey, mesh: Mesh, *,
-               motion_type, num_iters, eps, gauss_filt_size, phase_init,
-               phase_init_rotation, scale_hw, coarse_levels, input_mask,
-               mode) -> list:
-    """Each shard's ``EccResult`` (warps at the solve grid)."""
+def _ecc_solve(sf: ShardedFrames, reference_grey, mesh: Mesh, *, scale_hw,
+               input_mask, **solve) -> list:
+    """Each shard's ``EccResult`` (warps at the solve grid): the grey of
+    its frames, then the align stage (``ops/ecc.align_lanes``; ``solve``
+    its keywords)."""
     ref = torch.as_tensor(reference_grey).to(torch.float32)
     if input_mask is not None:
         input_mask = torch.as_tensor(input_mask)
-        phase_init = False  # a whole-frame FFT would see the masked content
 
     def one(i, dev):
-        grey = ecc_models._ecc_grey(sf.shards[i], scale_hw)
-        r = ref.to(dev)
-        init = None
-        if phase_init:
-            init = phasecorr.phase_init_warps(
-                grey, r, motion_type=motion_type,
-                rotation=phase_init_rotation)
-        return ecc_ops.find_transform_ecc_batched(
-            grey, r, motion_type=motion_type, num_iters=num_iters, eps=eps,
-            gauss_filt_size=gauss_filt_size, coarse_levels=coarse_levels,
-            warp_init=init, mode=mode,
-            input_mask=None if input_mask is None else input_mask.to(dev))
+        grey = color.burst_grey_u8(sf.shards[i], scale_hw).to(torch.float32)
+        return ecc_ops.align_lanes(
+            grey, ref.to(dev),
+            input_mask=None if input_mask is None else input_mask.to(dev),
+            **solve)
 
     return _map_shards(mesh, one)
 
 
-def _ecc_step(frames_u8, reference_grey, mesh, *, motion_type, num_iters,
-              eps, gauss_filt_size, phase_init, phase_init_rotation,
-              stacking, sigma_kappa, sigma_iters, scale_hw, coarse_levels,
-              input_mask, lane_valid, output_scale, mode, identity=None):
+def _typed_grid(scale_hw, reference_grey):
+    """``scale_hw`` as ints (None stays None), checked against the
+    reference grey, which must be at the solve grid."""
+    if scale_hw is None:
+        return None
+    scale_hw = (int(scale_hw[0]), int(scale_hw[1]))
+    if reference_grey is not None and tuple(reference_grey.shape) != scale_hw:
+        raise ValueError(
+            f"reference_grey must be at the solve grid {scale_hw}, "
+            f"got {tuple(reference_grey.shape)}")
+    return scale_hw
+
+
+def _ecc_step(frames_u8, reference_grey, mesh, *, scale_hw,
+              stacking="mean", sigma_kappa=2.5, sigma_iters=1,
+              lane_valid=None, output_scale=1, identity=None, **solve):
     """:func:`ecc_stack_step` -> ``(total, ok, rho, iters, clip_frac)``
-    (keywords only: the entry points and streams call it too).
+    (keywords only, ``solve`` those of ``ops/ecc.align_lanes``: the entry
+    points and streams call it with their parameters' bundle).
     ``identity`` ([N] bool) marks lanes stacked with the exact identity
     and kept whatever their solve gave (the entry points' frame 0 in the
     sigma-clip stack)."""
     _check_stacking(stacking, output_scale)
     sf = shard_frames(frames_u8, mesh)
-    h, w = sf.shape[1], sf.shape[2]
-    if scale_hw is not None:
-        scale_hw = (int(scale_hw[0]), int(scale_hw[1]))
-        if tuple(reference_grey.shape) != scale_hw:
-            raise ValueError(
-                f"reference_grey must be at the solve grid {scale_hw}, "
-                f"got {tuple(reference_grey.shape)}")
-    results = _ecc_solve(
-        sf, reference_grey, mesh, motion_type=motion_type,
-        num_iters=int(num_iters), eps=float(eps),
-        gauss_filt_size=int(gauss_filt_size), phase_init=bool(phase_init),
-        phase_init_rotation=bool(phase_init_rotation), scale_hw=scale_hw,
-        coarse_levels=int(coarse_levels), input_mask=input_mask, mode=mode)
-    oks, warps = [], []
-    for i, r in enumerate(results):
-        ok = r.ok
-        dev = ok.device
-        if lane_valid is not None:
-            ok = ok & _lanes(np.asarray(lane_valid, bool), sf, i, dev)
-        wm = r.warp_matrix
-        if identity is not None:
-            ident = _lanes(np.asarray(identity, bool), sf, i, dev)
-            ok = ok | ident
-            eye = ecc_ops.identity_warp(motion_type, dev)
-            wm = torch.where(ident[:, None, None], eye, wm)
-        oks.append(ok)
-        warps.append(wm)
-    motion = motion_type
-    perspective = motion == MotionType.Homography
-    clip_frac = None
-    if output_scale > 1 or stacking == "sigma_clip":
-        minvs = []
-        for wm, ok in zip(warps, oks):
-            if scale_hw is not None:
-                wm = ecc_models._adjust_warp_for_scale(wm, motion, scale_hw,
-                                                       (h, w))
-            minvs.append(_lane_minv(wm, ok))
-        if output_scale > 1:
-            total = _sr_stack(sf, minvs, oks, mesh, int(output_scale),
-                              perspective)
-        else:
-            total, clip_frac = _sigma_stack(sf, minvs, oks, mesh, perspective,
-                                            float(sigma_kappa),
-                                            int(sigma_iters))
-    else:
-        total = _psum(_map_shards(mesh, lambda i, dev: ecc_models._warp_lanes(
-            sf.shards[i], warps[i], oks[i], motion, scale_hw)), mesh)
+    scale_hw = _typed_grid(scale_hw, reference_grey)
+    results = _ecc_solve(sf, reference_grey, mesh, scale_hw=scale_hw,
+                         **solve)
+    oks = [r.ok if lane_valid is None else
+           r.ok & _lanes(np.asarray(lane_valid, bool), sf, i, r.ok.device)
+           for i, r in enumerate(results)]
+    oks, total, clip_frac = _stack_lanes(
+        sf, mesh, [r.warp_matrix for r in results], oks, identity,
+        perspective=solve["motion_type"] == MotionType.Homography,
+        stacking=stacking, sigma_kappa=sigma_kappa, sigma_iters=sigma_iters,
+        output_scale=output_scale, scale_hw=scale_hw)
     ok = _gather(oks, mesh)
     rho = _gather([r.rho for r in results], mesh)
     iters = _gather([r.num_iters for r in results], mesh)
@@ -784,36 +750,33 @@ def _ref_features(ref_feats) -> orb.OrbFeatures:
     return feats
 
 
-def _kp_solve(sf: ShardedFrames, ref_feats, mesh: Mesh, *, method,
-              ransac_reproj_threshold, match_ratio, match_keep_ratio,
-              max_iters, confidence, seed, scale_hw, det_mask, lane_valid,
-              chunk=None) -> list:
+def _kp_solve(sf: ShardedFrames, ref_feats, mesh: Mesh, *, seed, scale_hw,
+              det_mask, lane_valid, chunk=None, **match) -> list:
     """Each shard's ``(hs [n,3,3] full-res, failed lanes the identity;
     oks; match counts; inlier counts)``: ORB (B8, B3h, B3d) on its
-    frames, 2-NN against frame 0's features, RANSAC from its own
-    generator."""
+    frames, then the align stage (``ops/ransac.match_and_estimate``;
+    ``match`` its keywords) against frame 0's features, RANSAC from its
+    own generator."""
     ref = _ref_features(ref_feats)
     h, w = sf.shape[1], sf.shape[2]
+    scale_hw = _typed_grid(scale_hw, None)
     dmask = None if det_mask is None else torch.as_tensor(det_mask)
     shard0 = sf.offset // sf.n_loc
     several = mesh.shape["data"] > 1
 
     def one(i, dev):
-        grey = kp_models._grey(sf.shards[i], scale_hw)
+        grey = color.burst_grey_u8(sf.shards[i], scale_hw)
         feats = orb.orb_detect_and_compute(
             grey, mask=None if dmask is None else dmask.to(dev))
         both = orb.OrbFeatures(*(torch.cat([a.to(dev), b])
                                  for a, b in zip(ref, feats)))
-        hs, oks, mc, ic = kp_models._match_and_estimate(
+        hs, oks, mc, ic = ransac.match_and_estimate(
             both, _shard_generator(seed, shard0 + i if several else None,
-                                   dev, chunk),
-            method=method, ransac_reproj_threshold=ransac_reproj_threshold,
-            match_keep_ratio=match_keep_ratio, match_ratio=match_ratio,
-            max_iters=max_iters, confidence=confidence)
+                                   dev, chunk), **match)
         if lane_valid is not None:
             oks = oks & _lanes(np.asarray(lane_valid, bool), sf, i, dev)
         if scale_hw is not None:
-            hs = kp_models._adjust_h_for_scale(hs, scale_hw, (h, w))
+            hs = warp.rescale_maps(hs, scale_hw, (h, w))
         eye = torch.eye(3, dtype=hs.dtype, device=dev)
         return torch.where(oks[:, None, None], hs, eye), oks, mc, ic
 
@@ -874,68 +837,46 @@ def keypoint_stack_step(
     Returns ``(total, ok [N])``, plus ``(match_counts [N],
     inlier_counts [N])`` with ``return_extras``."""
     total, ok, mc, ic, _ = _kp_step(
-        frames_u8, ref_feats, mesh, method=method,
-        ransac_reproj_threshold=ransac_reproj_threshold,
-        match_ratio=match_ratio, match_keep_ratio=match_keep_ratio,
-        max_iters=max_iters, confidence=confidence, seed=seed,
-        stacking=stacking, sigma_kappa=sigma_kappa, sigma_iters=sigma_iters,
-        scale_hw=scale_hw, det_mask=det_mask, border_mode=border_mode,
+        frames_u8, ref_feats, mesh, seed=int(seed), scale_hw=scale_hw,
+        det_mask=det_mask, stacking=stacking, sigma_kappa=sigma_kappa,
+        sigma_iters=sigma_iters, border_mode=border_mode,
         border_value=border_value, lane_valid=lane_valid,
-        output_scale=output_scale)
+        output_scale=output_scale, **_typed_match(
+            method, ransac_reproj_threshold, match_ratio, match_keep_ratio,
+            max_iters, confidence))
     return (total, ok, mc, ic) if return_extras else (total, ok)
 
 
-def _kp_solve_args(method, ransac_reproj_threshold, match_ratio,
-                   match_keep_ratio, max_iters, confidence, seed,
-                   scale_hw) -> dict:
-    """The solve's keywords of :func:`_kp_solve`, typed."""
+def _typed_match(method, ransac_reproj_threshold, match_ratio,
+                 match_keep_ratio, max_iters, confidence) -> dict:
+    """The public steps' keywords of ``ops/ransac.match_and_estimate``,
+    typed."""
     return dict(
         method=int(method), ransac_reproj_threshold=float(
             ransac_reproj_threshold), match_ratio=float(match_ratio),
         match_keep_ratio=float(match_keep_ratio), max_iters=int(max_iters),
-        confidence=float(confidence), seed=int(seed),
-        scale_hw=None if scale_hw is None else (int(scale_hw[0]),
-                                                int(scale_hw[1])))
+        confidence=float(confidence))
 
 
-def _kp_step(frames_u8, ref_feats, mesh, *, method, ransac_reproj_threshold,
-             match_ratio, match_keep_ratio, max_iters, confidence, seed,
-             stacking, sigma_kappa, sigma_iters, scale_hw, det_mask,
-             border_mode, border_value, lane_valid, output_scale,
-             identity=None, chunk=None):
+def _kp_step(frames_u8, ref_feats, mesh, *, seed, scale_hw, det_mask,
+             stacking="mean", sigma_kappa=2.5, sigma_iters=1, border_mode=0,
+             border_value=(0.0, 0.0, 0.0, 0.0), lane_valid=None,
+             output_scale=1, identity=None, chunk=None, **match):
     """:func:`keypoint_stack_step` -> ``(total, ok, mc, ic, clip_frac)``
-    (keywords only: the entry points and streams call it too);
+    (keywords only, ``match`` those of ``ops/ransac.match_and_estimate``:
+    the entry points and streams call it with their parameters' bundle);
     ``identity`` as in :func:`_ecc_step`, ``chunk`` the stream chunk the
     generators are seeded with."""
     _kp_check(stacking, border_mode, output_scale)
     sf = shard_frames(frames_u8, mesh)
-    solved = _kp_solve(sf, ref_feats, mesh, det_mask=det_mask,
-                       lane_valid=lane_valid, chunk=chunk, **_kp_solve_args(
-                           method, ransac_reproj_threshold, match_ratio,
-                           match_keep_ratio, max_iters, confidence, seed,
-                           scale_hw))
-    hss, okss = [], []
-    for i, (hs, oks, _, _) in enumerate(solved):
-        if identity is not None:
-            ident = _lanes(np.asarray(identity, bool), sf, i, oks.device)
-            oks = oks | ident
-            eye = torch.eye(3, dtype=hs.dtype, device=hs.device)
-            hs = torch.where(ident[:, None, None], eye, hs)
-        hss.append(hs)
-        okss.append(oks)
-    bv = list(tuple(border_value)[:3])
-    clip_frac = None
-    if output_scale > 1 or stacking == "sigma_clip":
-        minvs = [_lane_minv(hs, oks) for hs, oks in zip(hss, okss)]
-        if output_scale > 1:
-            total = _sr_stack(sf, minvs, okss, mesh, int(output_scale), True)
-        else:
-            total, clip_frac = _sigma_stack(sf, minvs, okss, mesh, True,
-                                            float(sigma_kappa),
-                                            int(sigma_iters))
-    else:
-        total = _psum(_map_shards(mesh, lambda i, dev: kp_models._warp_lanes(
-            sf.shards[i], hss[i], okss[i], bv, None, border_mode)), mesh)
+    solved = _kp_solve(sf, ref_feats, mesh, seed=seed, scale_hw=scale_hw,
+                       det_mask=det_mask, lane_valid=lane_valid, chunk=chunk,
+                       **match)
+    okss, total, clip_frac = _stack_lanes(
+        sf, mesh, [s[0] for s in solved], [s[1] for s in solved], identity,
+        perspective=True, stacking=stacking, sigma_kappa=sigma_kappa,
+        sigma_iters=sigma_iters, output_scale=output_scale,
+        border_value=list(tuple(border_value)[:3]), border_mode=border_mode)
     ok = _gather(okss, mesh)
     mc = _gather([s[2] for s in solved], mesh)
     ic = _gather([s[3] for s in solved], mesh)
@@ -963,11 +904,11 @@ def keypoint_solve_step(
     match_counts [N], inlier_counts [N])`` as numpy.  ``chunk`` (not in
     the JAX package's step) seeds the generators as a stream chunk."""
     sf = shard_frames(frames_u8, mesh)
-    solved = _kp_solve(sf, ref_feats, mesh, det_mask=det_mask,
-                       lane_valid=lane_valid, chunk=chunk, **_kp_solve_args(
+    solved = _kp_solve(sf, ref_feats, mesh, seed=int(seed),
+                       scale_hw=scale_hw, det_mask=det_mask,
+                       lane_valid=lane_valid, chunk=chunk, **_typed_match(
                            method, ransac_reproj_threshold, match_ratio,
-                           match_keep_ratio, max_iters, confidence, seed,
-                           scale_hw))
+                           match_keep_ratio, max_iters, confidence))
     return tuple(_gather([s[k] for s in solved], mesh) for k in range(4))
 
 
@@ -980,9 +921,8 @@ def _ecc_solve_gathered(sf: ShardedFrames, reference_grey, mesh: Mesh, *,
     res = _ecc_solve(sf, reference_grey, mesh, **solve)
     warps = [r.warp_matrix for r in res]
     if full_hw is not None and solve["scale_hw"] is not None:
-        warps = [ecc_models._adjust_warp_for_scale(
-            w, solve["motion_type"], solve["scale_hw"], full_hw)
-            for w in warps]
+        warps = [warp.rescale_maps(w, solve["scale_hw"], full_hw)
+                 for w in warps]
     return (_gather(warps, mesh),) + tuple(
         _gather([getattr(r, k) for r in res], mesh)
         for k in ("rho", "num_iters", "ok"))
@@ -1402,16 +1342,12 @@ def ecc_stack_step_spatial(
         small = resize._resize_axis(rows, -1, ws, constants.INTER_AREA)
         small = torch.clamp(torch.floor(small + 0.5), 0.0, 255.0)
         small_ref, small_cur = small[0], small[1:]
-        init = None
-        if phase_init:
-            init = phasecorr.phase_init_warps(small_cur, small_ref,
-                                              motion_type=motion_type)
-        res = ecc_ops.find_transform_ecc_batched(
+        res = ecc_ops.align_lanes(
             small_cur, small_ref, motion_type=motion_type,
             num_iters=num_iters, eps=eps, gauss_filt_size=gauss_filt_size,
-            warp_init=init)
-        warps = ecc_models._adjust_warp_for_scale(
-            res.warp_matrix, motion_type, (hs, ws), (h, w))
+            phase_init=phase_init, phase_init_rotation=False,
+            coarse_levels=0, input_mask=None, mode=None)
+        warps = warp.rescale_maps(res.warp_matrix, (hs, ws), (h, w))
         m3 = warps if warps.shape[1] == 3 else warp.affine_to_3x3(warps)
         eye = torch.eye(3, dtype=torch.float32, device=dev)
         ok = res.ok

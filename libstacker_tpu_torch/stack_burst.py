@@ -42,10 +42,6 @@ import sys
 import numpy as np
 import torch
 
-# frames per grey conversion of the scoring pass (bounds its int32
-# transients)
-_GREY_CHUNK = 16
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -193,8 +189,7 @@ def main(argv=None) -> int:
             return 1
 
     with timer.phase("sharpness (all metrics, batched)"):
-        grey = torch.cat([color.rgb_to_gray_u8(frames_t[s : s + _GREY_CHUNK])
-                          for s in range(0, len(files), _GREY_CHUNK)])
+        grey = color.burst_grey_u8(frames_t)
         metrics = {k: v.cpu().numpy() for k, v in sharpness_all(grey).items()}
         del grey
 

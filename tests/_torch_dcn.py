@@ -8,7 +8,6 @@ file)."""
 import numpy as np
 import torch
 
-from libstacker_tpu_torch.models import keypoint as kp_models
 from libstacker_tpu_torch.ops import color, orb
 from libstacker_tpu_torch.params import MotionType
 from libstacker_tpu_torch.parallel import mesh as pmesh
@@ -20,7 +19,7 @@ def run_step(scenario: str, frames, base, mesh):
     ``base``: the reference frame (numpy)."""
     base_t = torch.from_numpy(np.ascontiguousarray(base))
     if scenario == "keypoint_drop":
-        feats0 = orb.orb_detect_and_compute(kp_models._grey(base_t[None]))
+        feats0 = orb.orb_detect_and_compute(color.burst_grey_u8(base_t[None]))
         stacked, ok = pmesh.keypoint_stack_step(frames, feats0, mesh, seed=1)
     else:
         grey = color.rgb_to_gray_u8(base_t).to(torch.float32)

@@ -101,7 +101,7 @@ def measure_keypoint_accuracy(n_frames=6, h=1080, w=1920, width=400.0) -> None:
     from libstacker_tpu.models import keypoint as jkp
     from libstacker_tpu_torch import KeyPointMatchParameters
     from libstacker_tpu_torch.models import keypoint as pkp
-    from libstacker_tpu_torch.ops import orb, resize
+    from libstacker_tpu_torch.ops import color, orb, resize, warp
     from libstacker_tpu_torch.utils.synth import make_textured_burst
 
     frames, truth = make_textured_burst(n_frames, h, w, seed=0)
@@ -118,13 +118,13 @@ def measure_keypoint_accuracy(n_frames=6, h=1080, w=1920, width=400.0) -> None:
 
     for sdw in (None, width):
         shw = resize.scale_image_size(h, w, sdw) if sdw else None
-        feats = orb.orb_detect_and_compute(pkp._grey(frames, shw))
+        feats = orb.orb_detect_and_compute(color.burst_grey_u8(frames, shw))
         hs = pkp._match_and_estimate(
             feats, torch.Generator().manual_seed(0), *args)[0]
         jfeats = jkp._grey_and_detect(jnp.asarray(frames.numpy()), shw)
         jhs = jkp._match_and_estimate(jfeats, jax.random.PRNGKey(0), *args)[0]
         if shw:
-            hs = pkp._adjust_h_for_scale(hs, shw, (h, w))
+            hs = warp.rescale_maps(hs, shw, (h, w))
             jhs = jkp._adjust_h_for_scale(jhs, shw, (h, w))
         print(f"{n_frames}x{h}x{w}, detection on {shw or (h, w)}: corners "
               f"within {err(hs):.3f} px of the truth (port), "

@@ -376,7 +376,7 @@ def test_keypoint_slice_cuda_matches_cpu(dev):
     p = KeyPointMatchParameters()
     hs = []
     for device in ("cpu", dev):
-        grey = keypoint._grey(torch.from_numpy(frames).to(device))
+        grey = color.burst_grey_u8(torch.from_numpy(frames).to(device))
         feats = orb.orb_detect_and_compute(grey)
         gen = torch.Generator(device=device).manual_seed(0)
         h, ok, _, _ = keypoint._match_and_estimate(
@@ -655,10 +655,9 @@ def test_orb_detect_builds_no_patch_tensor(dev):
     """On a CUDA level the detector runs B3h and B3d, not B3."""
     from libstacker_tpu_torch.ops import orb
     from libstacker_tpu_torch.utils.synth import make_textured_burst
-    from libstacker_tpu_torch.models import keypoint
 
     frames, _ = make_textured_burst(2, 270, 480, seed=2)
-    grey = keypoint._grey(frames.to(dev))
+    grey = color.burst_grey_u8(frames.to(dev))
     before = (orb_cuda.launch_count, orb_cuda.harris_launch_count,
               orb_cuda.describe_launch_count)
     gpu = orb.orb_detect_and_compute(grey)
@@ -1526,7 +1525,7 @@ def test_detect_and_match_wait_only_for_the_loop(dev, monkeypatch):
     frames, _ = make_textured_burst(6, 540, 960, seed=4, device=dev)
     p = KeyPointMatchParameters()
     gen = torch.Generator(device=dev).manual_seed(0)
-    grey = keypoint._grey(frames)
+    grey = color.burst_grey_u8(frames)
     orb.orb_detect_and_compute(grey)  # kernels loaded, constants copied
     keypoint._match_and_estimate(orb.orb_detect_and_compute(grey), gen,
                                  p.method, p.ransac_reproj_threshold,

@@ -39,8 +39,7 @@ from _torch_parity import n, t  # noqa: E402
 from libstacker_tpu.models import keypoint as jkp  # noqa: E402
 from libstacker_tpu.ops import orb as jorb  # noqa: E402
 from libstacker_tpu_torch import constants  # noqa: E402
-from libstacker_tpu_torch.models import keypoint as pkp  # noqa: E402
-from libstacker_tpu_torch.ops import orb  # noqa: E402
+from libstacker_tpu_torch.ops import orb, warp_batch  # noqa: E402
 from test_pipeline_keypoint import _textured_burst, _truth_stack  # noqa: E402
 from test_torch_orb import _textured_grey  # noqa: E402
 
@@ -134,8 +133,9 @@ def test_stack_stage_border_modes_match_jax(burst, mode):
     hs = np.asarray(hs, np.float32)
     oks = np.array([True, False, True])
     bv = (0.25, 0.5, 0.75, 0.0)
-    got = pkp._warp_and_accumulate(t(frames), t(hs), t(oks), list(bv[:3]),
-                                   border_mode=mode)
+    got = warp_batch.warp_sum_burst(t(frames), t(hs), t(oks),
+                                    border_value=list(bv[:3]),
+                                    border_mode=mode)
     want = jkp._warp_and_accumulate(
         jnp.asarray(frames), jnp.asarray(hs), jnp.asarray(oks),
         border_mode=mode, border_value=bv, allow_pallas=False)

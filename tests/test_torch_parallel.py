@@ -39,7 +39,6 @@ from libstacker_tpu.ops import sharpness as jsharp  # noqa: E402
 from libstacker_tpu.parallel import mesh as jmesh  # noqa: E402
 
 import libstacker_tpu_torch as P  # noqa: E402
-from libstacker_tpu_torch.models import keypoint as kp_models  # noqa: E402
 from libstacker_tpu_torch.ops import color, orb, sharpness, warp  # noqa: E402
 from libstacker_tpu_torch.ops import warp_cuda  # noqa: E402
 from libstacker_tpu_torch.parallel import mesh as pmesh  # noqa: E402
@@ -244,7 +243,7 @@ def _block_burst(seed=51, n=8):
 def test_keypoint_stack_step_sharded_equals_one_shard():
     frames = _block_burst()
     feats0 = orb.orb_detect_and_compute(
-        kp_models._grey(torch.from_numpy(frames[:1])))
+        color.burst_grey_u8(torch.from_numpy(frames[:1])))
     ref_feats = orb.OrbFeatures(*(t[0] for t in feats0))  # no leading axis
     m4 = pmesh.make_mesh(["cpu"] * 8, data=4, spatial=2)
     stacked, ok, mc, ic = pmesh.keypoint_stack_step(
