@@ -6,7 +6,7 @@
 Phases (each prints one line; any failure exits non-zero):
 
 1. device: card name and power limit (``nvidia-smi``), torch / CUDA
-   versions, and the ``nvcc`` build of the nine kernel sources of
+   versions, and the ``nvcc`` build of the kernel sources of
    ``csrc/`` (one ``nvcc`` per source, all started together);
 2. kernel B1 (``ecc_moments.cu``) against its plain PyTorch version at
    the main path's full-resolution shape (99 homography lanes of
@@ -199,7 +199,16 @@ Phases (each prints one line; any failure exits non-zero):
     frame's corners) and in float32 (0.01 px), the same bits on a second
     launch, and each kernel timed against its plain version on the card
     (the eager chain it replaced) and against its bound, with registers,
-    spills and shared memory.
+    spills and shared memory;
+30. the burst grey (``grey.cu``, ``ops/color_cuda.grey``, run after phase
+    5 on its burst): uint8 RGB to float32 (``grey_f32_kernel``, the ECC
+    path) and to uint8 (``grey_u8_kernel``) on 100 and on 31 frames of
+    2160x3840, bitwise against the plain version (``grey_reference``, the
+    int32 chain), each timed by CUDA events beside its bound (read once,
+    written once; ``stackbench/roofline/grey.py``), the plain version's
+    time and the eager route it replaced (the int32 chain in chunks of
+    16 frames, ``torch.cat``, then ``.to(float32)``), with registers,
+    spills and one launch a call.
 
 Phases 5, 9, 14-16, 19-22 and 24-27 drive the entry points with every
 launch counter set to 0 just before the run and read just after it, and
@@ -216,7 +225,8 @@ time of one PyTorch call computing the same function where one exists.
 Phases 2, 3, 6, 7, 10, 11, 13 and 17 also print the registers and
 spills that ptxas gave each instance of B1, B2, B8, B3 / B3h / B3d, B4,
 B5 and B7, the kernel's share of its bound; phases 12 and 18 print B9's
-and B6's too, phase 28 the pre-filter's, phase 29 the refit's.  Phase 3
+and B6's too, phase 28 the pre-filter's, phase 29 the refit's,
+phase 30 the grey's.  Phase 3
 also holds B2 and B4 (both passes) bitwise to their plain versions on 99
 u8 frames of 4000x6000 with affine maps, and times them.
 The last two lines are the kernel record and the device record (JSON).
@@ -240,7 +250,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 KERNELS = ("ecc_moments", "warp_accum", "fast", "orb_extract", "warp",
            "ecc_ic_moments", "sr_deposit", "orb_describe", "ecc_blur",
-           "ransac_refit", "sharpness")
+           "ransac_refit", "sharpness", "grey")
 # pixels a thread of warp_accum.cu's B2 and B4 and of warp.cu's planar
 # B5, accumulate and frames forms (a SASS loop iteration; B5f's whole
 # body)
@@ -275,6 +285,8 @@ B6_INSTANCE = "sr_kernelIhiLb1ELb0ELb0E"
 B6I_INSTANCE = "sr_kernelIhiLb1ELb0ELb1E"
 BLUR_INSTANCE = "blur_kernelILi2E"  # the pre-filter at ksize 5
 SHARP_INSTANCE = "sharpness_kernelIhLi3EE"  # u8 grey, TENG at ksize 3
+# the grey of u8 RGB: to float32 (the ECC path), to u8
+GREY_INSTANCES = {"f32": "grey_f32_kernelIhE", "u8": "grey_u8_kernelIhE"}
 
 # headline configuration (bench.py:181-290): 100 frames of 4K
 FULL_N, FULL_H, FULL_W = 100, 2160, 3840
@@ -465,8 +477,8 @@ def group_rel(got, want, p, with_hessian=True):
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
     from libstacker_tpu_torch.ops import (
-        ecc_cuda, fast_cuda, orb_cuda, ransac_cuda, sharpness_cuda, sr_cuda,
-        warp_accum_cuda, warp_cuda,
+        color_cuda, ecc_cuda, fast_cuda, orb_cuda, ransac_cuda, sharpness_cuda,
+        sr_cuda, warp_accum_cuda, warp_cuda,
     )
 
     return {
@@ -490,6 +502,7 @@ def counters():
         "ransac_dlt": (ransac_cuda, "dlt_launch_count"),
         "ransac_refine": (ransac_cuda, "refine_launch_count"),
         "sharpness": (sharpness_cuda, "launch_count"),
+        "grey": (color_cuda, "launch_count"),
     }
 
 
@@ -972,6 +985,7 @@ def phase_full(dev):
           and f0_diff < FRAME0_MEAN_BAR and finite
           and tuple(out.shape) == (FULL_H, FULL_W, 3)
           and launches["ecc_blur"] == 2 * 2  # 2 levels: templates, input
+          and launches["grey"] == 1
           and not missing(launches, ("ecc_moments", "warp_accum")))
     log(f"[5 full slice] {FULL_N}x{FULL_H}x{FULL_W} u8, homography, "
         f"coarse_levels=1: cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
@@ -1081,6 +1095,67 @@ def phase_blur(dev, frames):
     rec = recs[KERNEL_LANES]
     rec["lanes_31"] = recs[31]
     rec["solves_bitwise"] = solves
+    return rec
+
+
+def phase_grey(dev, frames):
+    """Phase 30: the burst grey kernel on phase 5's 100 4K frames and on
+    31 of them, both outputs, against the plain version, its bound and
+    the eager route it replaced."""
+    from libstacker_tpu_torch.ops import color_cuda
+    # the benchmark's count of the float32 kernel's bytes
+    from stackbench.roofline import grey as roofline
+
+    def eager_f32(x):
+        """The route before the kernel: the plain int32 chain a chunk of
+        16 frames, the chunks concatenated, then widened."""
+        return torch.cat([color_cuda.grey_reference(x[s : s + 16])
+                          for s in range(0, x.shape[0], 16)]
+                         ).to(torch.float32)
+
+    n, h, w = frames.shape[:3]
+    recs = {}
+    for lanes in (n, 31):
+        x = frames[:lanes].contiguous()
+        for out, dtype, out_bytes in (("f32", torch.float32, 4),
+                                      ("u8", torch.uint8, 1)):
+            reset_counts()
+            got = color_cuda.grey(x, dtype)
+            torch.cuda.synchronize()
+            launches = read_counts()["grey"]
+            want = color_cuda.grey_reference(x, dtype)
+            eq = bool(torch.equal(got, want))
+            del got, want
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: color_cuda.grey(x, dtype), 20)
+            plain_ms = time_ms(lambda: color_cuda.grey_reference(x, dtype), 3)
+            px = lanes * h * w
+            b_ms, b_by = bound(px * (roofline.IN_BYTES + out_bytes),
+                               px * roofline.OPS_PIXEL)
+            if out == "f32":
+                eager_ms = time_ms(lambda: eager_f32(x), 3)
+            rec = dict(bitwise_equal=eq, launches_a_call=launches, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       **design_report(f"grey {lanes} frames to {out}",
+                                       "grey", GREY_INSTANCES[out], ms,
+                                       b_ms))
+            line = (f"[30 grey] {lanes}x{h}x{w} u8 RGB to {out}: bitwise "
+                    f"equal to the plain version {eq}, {launches} launch; "
+                    f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                    f"{b_ms / ms:.3f} of it); plain version {plain_ms:.3f} "
+                    f"ms")
+            if out == "f32":
+                rec["eager_ms"] = eager_ms
+                line += f"; the eager route it replaced {eager_ms:.3f} ms"
+            log(line)
+            if not eq or launches != 1:
+                fail("the grey kernel disagrees with its plain version")
+            recs[(lanes, out)] = rec
+        del x
+        torch.cuda.empty_cache()
+    rec = dict(recs[(n, "f32")])
+    rec.update(u8=recs[(n, "u8")], frames_31=recs[(31, "f32")],
+               frames_31_u8=recs[(31, "u8")])
     return rec
 
 
@@ -3819,6 +3894,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     blur = phase_blur(dev, ecc_frames)
     torch.cuda.synchronize()
+    grey_rec = phase_grey(dev, ecc_frames)
+    torch.cuda.empty_cache()
     frames, truth, grey = textured_grey(dev)
     b8 = phase_b8(dev, grey)
     torch.cuda.empty_cache()
@@ -3996,6 +4073,12 @@ def main(argv=None) -> int:
                            "jnp metrics (libstacker_tpu/ops/sharpness.py"
                            ":38-97)",
              **counts("sharpness"), **sharp),
+        dict(name="grey", route="cuda",
+             source="libstacker_tpu_torch/csrc/grey.cu",
+             replaces=None,
+             replaces_note="no TPU kernel: the JAX package's XLA-level "
+                           "jnp grey (libstacker_tpu/ops/color.py:26)",
+             **counts("grey"), **grey_rec),
         dict(name="ecc_ic_moments", route="cuda",
              source="libstacker_tpu_torch/csrc/ecc_ic_moments.cu",
              replaces="libstacker_tpu/ops/ecc_pallas.py:460",

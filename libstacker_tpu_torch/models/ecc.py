@@ -10,8 +10,8 @@ raises ``ProcessingError`` — or is dropped with ``on_failure="drop"``.
 
 Stages, all on one device (or per shard of a mesh):
 
-1. fixed-point grey (``ops/color.burst_grey_u8``), INTER_AREA-scaled on
-   the scaled path;
+1. fixed-point grey as float32 (``ops/color.burst_grey_f32``: one pass
+   of ``csrc/grey.cu``, or INTER_AREA-scaled on the scaled path);
 2. phase-correlation start (``ops/phasecorr``; translation, or with
    ``phase_init_rotation`` rotation/scale first; off when a ``mask`` is
    given), then
@@ -66,7 +66,7 @@ def _ecc_match_arrays_sharded(frames, params, scale_hw, on_failure,
         input_mask = None
         if mask is not None:
             input_mask = _entry.grid_mask(mask, (h, w), scale_hw, dev0)
-        ref_grey = color.burst_grey_u8(f0, scale_hw).to(torch.float32)[0]
+        ref_grey = color.burst_grey_f32(f0, scale_hw)[0]
     sigma = params.stacking == "sigma_clip"
     sr_factor = params.output_scale
     final = sigma or sr_factor > 1
@@ -166,7 +166,7 @@ def ecc_match_arrays(
     if mask is not None:
         input_mask = _entry.grid_mask(mask, (h, w), scale_hw, dev)
     with ecc_ops._phase(timer, "grey"):
-        grey = color.burst_grey_u8(frames_t, scale_hw).to(torch.float32)
+        grey = color.burst_grey_f32(frames_t, scale_hw)
     result = ecc_ops.align_lanes(
         grey[1:], grey[0], timer=timer,
         **_entry.ecc_solve_args(params, input_mask),
@@ -329,7 +329,7 @@ def ecc_match_stream(
     scale_hw = _entry.solve_grid(h, w, scale_down_width)
     with pmesh._on(dev):
         ref_t = torch.from_numpy(ref).to(dev)
-        ref_grey = color.burst_grey_u8(ref_t, scale_hw).to(torch.float32)[0]
+        ref_grey = color.burst_grey_f32(ref_t, scale_hw)[0]
         input_mask = None
         if mask is not None:
             input_mask = _entry.grid_mask(mask, (h, w), scale_hw, dev)

@@ -55,9 +55,9 @@ Counterpart of ``libstacker_tpu/parallel/mesh.py`` (``make_mesh`` :43,
   rank.
 
 Every shard runs the dense path's stages, the same functions of
-``ops/``: the burst grey (``color.burst_grey_u8``), the align stage
-(``ecc.align_lanes``: the phase start and the batched ECC solver, B1, its
-masked and Gram-less forms, B7 for ``mode="ic"``;
+``ops/``: the burst grey (``color.burst_grey_f32`` / ``burst_grey_u8``),
+the align stage (``ecc.align_lanes``: the phase start and the batched ECC
+solver, B1, its masked and Gram-less forms, B7 for ``mode="ic"``;
 ``ransac.match_and_estimate`` after ORB's B8 / B3h / B3d on the keypoint
 path), the warp rescale (``warp.rescale_maps``), the mean stack
 (``warp_batch.warp_sum_lanes``: B2, or B5's accumulate form for the
@@ -672,7 +672,7 @@ def _ecc_solve(sf: ShardedFrames, reference_grey, mesh: Mesh, *, scale_hw,
         input_mask = torch.as_tensor(input_mask)
 
     def one(i, dev):
-        grey = color.burst_grey_u8(sf.shards[i], scale_hw).to(torch.float32)
+        grey = color.burst_grey_f32(sf.shards[i], scale_hw)
         return ecc_ops.align_lanes(
             grey, ref.to(dev),
             input_mask=None if input_mask is None else input_mask.to(dev),

@@ -28,10 +28,11 @@
 #define __host__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 struct float4 { float x, y, z, w; };
 struct char4 { signed char x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct host_dim3 { unsigned x, y, z; };
 struct dim3 {
